@@ -1,38 +1,57 @@
 #!/usr/bin/env python3
 """Chip smoke test of localai_tpu_torch, the PyTorch/CUDA port: drives the
-port's main path once on ONE NVIDIA GPU and checks it.
+port's serving paths once on ONE NVIDIA GPU and checks them.
 
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases, each raising on failure (no phase swallows an error):
 
   1. setup    require CUDA; print the card's name and power limit; build the
-              hand-written kernels (K1 paged decode, K2 ragged prefill) from
-              localai_tpu_torch/ops/kernels/csrc/ with nvcc, in parallel.
+              hand-written kernels from localai_tpu_torch/ops/kernels/csrc/
+              with nvcc, one process per source, started together:
+              paged_decode.cu (K1 paged decode, K3 the same over int8 pages),
+              ragged_prefill.cu (K2 ragged prefill, K2-int8 over int8 pages),
+              contig_decode.cu (K4 contiguous decode, K5 the same over the
+              stacked cache with a device layer index).
   2. parity   each kernel against its plain PyTorch version on the card at
               Llama-3.1-8B head shapes (KV 8, G 4, hd 128, page 64), in
-              float32 and bfloat16: ragged lengths incl. 0, partial pages, a
-              shuffled page pool, fresh / continued / pad segments, packs of
-              N = 128, 512, 1024 tokens. Tolerances: float32 atol 1e-4 (sum
-              order); bfloat16 atol 2e-2 and rtol 2e-2 (bf16 rounding of the
-              plain version's scores, probabilities and output, plus order).
+              float32 and bfloat16: decode lengths 0, 1, 63, 64, 65, 1000,
+              2500, 4095 over a shuffled page pool (K1, and K3 over int8
+              pages) or a contiguous 4096-row cache (K4; K5 at layer 2 of 4);
+              fresh / continued / pad segments in packs of N = 128, 512,
+              1024 tokens (K2, and K2-int8 over int8 pages). Tolerances:
+              float32 atol 1e-4 (sum order); bfloat16 atol 2e-2 and rtol
+              2e-2 (bf16 rounding of the plain version's scores,
+              probabilities and output, plus order); int8 cases compare
+              kernel and plain on the SAME int8 rows, so the same hold.
               Then a small model (hd 128, float32) on the card — kernels —
-              against the same model on the CPU — plain versions: prefill
-              and decode logits within 1e-3.
+              against the same model on the CPU — plain versions — in the
+              three configurations (paged float, paged int8, contiguous):
+              prefill and decode logits within 1e-3 (int8: 5e-3, since a
+              row may quantize one level apart where the card's and the
+              CPU's float32 projections differ in the last bits).
   3. serving  the port's HTTP server (stdlib) with a Llama-3.1-8B-shaped
-              config-only model dir: random bf16 weights from a seed, 8
-              slots, context 4096, prefill_chunk 512. Concurrently: three
-              chat requests (one streamed) and one /v1/completions request
-              with a ~1500-token prompt, which prefill_chunk splits into
-              continued packs. max_tokens 32 with ignore_eos: every
-              usage.completion_tokens must be 32. Launch counters are zeroed
-              just before and read just after.
-  4. kernels  one JSON line {"kernels": [...]}: launches during serving,
-              parity error, kernel / plain / library times at the main
-              path's shapes (CUDA events, L2 flushed before each launch),
-              and the bound from bytes and operations. Both counters must be
-              > 0, a continued pack must have run, the shape-fallback
-              counter must be 0.
+              config-only model dir, full width and depth: random bf16
+              weights from a seed, 8 slots, context 4096, prefill_chunk 512,
+              in three configurations, one after the other:
+                paged    bf16 KV, page 64 (the default path): K1 + K2;
+                int8     kv_cache_dtype int8, page 64: K3 + K2-int8 (and
+                         K2 for fresh packs), no K1;
+                contig   kv_layout contiguous, bf16 KV: K4 + K2.
+              Each: one short warm-up request (so no configuration's
+              numbers carry the process's first-use costs), then three chat
+              requests (one streamed) and one /v1/completions request with
+              a ~1500-token prompt, which prefill_chunk splits into
+              continued packs, concurrently. max_tokens 32 with ignore_eos:
+              every usage.completion_tokens must be 32. Launch counters are
+              zeroed just before each configuration's four requests and
+              read just after.
+  4. kernels  one JSON line {"kernels": [...]}: for each of the six kernels,
+              launches during its serving configuration (K5 has no serving
+              path: its launches are those of phases 2 and 4), parity
+              error, kernel / plain / library times at its configuration's
+              shapes (CUDA events, L2 flushed before each launch), and the
+              bound from bytes and operations.
 
 The last line of stdout is {"ok": true, "device": {...}}. Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -41,6 +60,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -67,6 +87,23 @@ LLAMA31_8B = {
     "tie_word_embeddings": False, "bos_token_id": 128000,
     "eos_token_id": 128001,
 }
+
+# the serving configurations: (name, load_model knobs, kernels that must
+# launch, kernels that must not)
+CONFIGS = [
+    ("paged", {},
+     ("paged_decode_attention", "ragged_prefill_attention"),
+     ("paged_decode_attention_quant", "ragged_prefill_attention_int8",
+      "decode_attention_append_contig")),
+    ("int8", {"kv_cache_dtype": "int8"},
+     ("paged_decode_attention_quant", "ragged_prefill_attention_int8",
+      "ragged_prefill_attention"),
+     ("paged_decode_attention", "decode_attention_append_contig")),
+    ("contig", {"kv_layout": "contiguous"},
+     ("decode_attention_append_contig", "ragged_prefill_attention"),
+     ("paged_decode_attention", "paged_decode_attention_quant",
+      "ragged_prefill_attention_int8")),
+]
 
 
 def log(msg: str):
@@ -101,8 +138,8 @@ def setup():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[setup] ptxas {name}: {line.strip()}")
-    build.library("paged_decode")
-    build.library("ragged_prefill")
+    for name in build.SIGNATURES:
+        build.library(name)
     return card
 
 
@@ -153,18 +190,29 @@ def check_close(name, got, ref, dtype, mask=None):
 
 
 KV, G, HD, PG, MP = 8, 4, 128, 64, 64           # 8B heads, 4096 context
+C_MAX = PG * MP
 S_SLOTS = 8
 N_PAGES = S_SLOTS * MP
+K5_LAYERS, K5_LAYER = 4, 2
 
 
 def paged_pool(gen, dtype):
+    """A K and V pool: float in ``dtype``, or (dtype "int8") int8 pages with
+    float32 scales quantized from unit normals; plus a page permutation."""
     import torch
 
+    from localai_tpu_torch.ops.kvcache import quantize
+
     shape = (N_PAGES, PG, KV, HD)
-    pk = torch.randn(shape, generator=gen, device=DEV).to(dtype)
-    pv = torch.randn(shape, generator=gen, device=DEV).to(dtype)
+    pk = torch.randn(shape, generator=gen, device=DEV)
+    pv = torch.randn(shape, generator=gen, device=DEV)
+    if dtype == torch.int8:
+        (qk, sk), (qv, sv) = quantize(pk), quantize(pv)
+        pools = (qk, sk, qv, sv)
+    else:
+        pools = (pk.to(dtype), pv.to(dtype))
     perm = torch.randperm(N_PAGES, generator=gen, device=DEV).to(torch.int32)
-    return pk, pv, perm
+    return pools, perm
 
 
 def page_table(perm, rows_per_slot):
@@ -180,27 +228,51 @@ def page_table(perm, rows_per_slot):
     return ptab
 
 
-def k1_inputs(lengths, dtype, seed):
+def decode_inputs(lengths, dtype, seed, cache_dtype=None):
+    """(q, nk, nv, *pools, ptab, lengths) for K1 (float pools) or K3
+    (cache_dtype int8: pages_k, scales_k, pages_v, scales_v)."""
     import torch
 
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    pk, pv, perm = paged_pool(gen, dtype)
+    pools, perm = paged_pool(gen, cache_dtype or dtype)
     ptab = page_table(perm, lengths)
     S = len(lengths)
     q = torch.randn((S, KV * G, HD), generator=gen, device=DEV).to(dtype)
     nk = torch.randn((S, KV, HD), generator=gen, device=DEV).to(dtype)
     nv = torch.randn((S, KV, HD), generator=gen, device=DEV).to(dtype)
     lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
-    return (q, nk, nv, pk, pv, ptab, lens)
+    return (q, nk, nv, *pools, ptab, lens)
 
 
-def k2_inputs(N, segs, dtype, seed):
-    """segs: [(slot, start, length)] packed in order; the rest of the pack
-    is pad tokens, unused table entries pad segments."""
+def contig_inputs(lengths, dtype, seed, layers=1):
+    """(q, nk, nv, cache_k, cache_v, lengths): caches [layers, S + 1, C, KV,
+    hd] (the port's stacked layout with its scratch slot, poisoned: no
+    kernel may read it)."""
     import torch
 
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    pk, pv, perm = paged_pool(gen, dtype)
+    S = len(lengths)
+    shape = (layers, S + 1, C_MAX, KV, HD)
+    ck = torch.randn(shape, generator=gen, device=DEV).to(dtype)
+    cv = torch.randn(shape, generator=gen, device=DEV).to(dtype)
+    ck[:, S] = 1e4
+    cv[:, S] = -1e4
+    q = torch.randn((S, KV * G, HD), generator=gen, device=DEV).to(dtype)
+    nk = torch.randn((S, KV, HD), generator=gen, device=DEV).to(dtype)
+    nv = torch.randn((S, KV, HD), generator=gen, device=DEV).to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    return q, nk, nv, ck, cv, lens
+
+
+def prefill_inputs(N, segs, dtype, seed, cache_dtype=None):
+    """segs: [(slot, start, length)] packed in order; the rest of the pack
+    is pad tokens, unused table entries pad segments. Returns (args, real):
+    args = (q, ck, cv, pages_k, pages_v, ptab, seg_slots, seg_start,
+    seg_off, seg_len) and, for cache_dtype int8, kwargs with the scales."""
+    import torch
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    pools, perm = paged_pool(gen, cache_dtype or dtype)
     rows = [0] * S_SLOTS
     for slot, start, ln in segs:
         rows[slot] = start + ln
@@ -220,7 +292,11 @@ def k2_inputs(N, segs, dtype, seed):
     ck = torch.randn((N, KV, HD), generator=gen, device=DEV).to(dtype)
     cv = torch.randn((N, KV, HD), generator=gen, device=DEV).to(dtype)
     tabs = [t.to(DEV) for t in (seg_slots, seg_start, seg_off, seg_len)]
-    return (q, ck, cv, pk, pv, ptab, *tabs), real.to(DEV)
+    if cache_dtype == torch.int8:
+        qk, sk, qv, sv = pools
+        return (q, ck, cv, qk, qv, ptab, *tabs), \
+            {"scales_k": sk, "scales_v": sv}, real.to(DEV)
+    return (q, ck, cv, *pools, ptab, *tabs), {}, real.to(DEV)
 
 
 K2_CASES = {
@@ -236,40 +312,74 @@ K1_LENGTHS = [0, 1, 63, 64, 65, 1000, 2500, 4095]
 def parity():
     import torch
 
+    from localai_tpu_torch.ops.decode_attention import (
+        contig_decode_plain, decode_attention_append_contig,
+        decode_attention_append_full, full_decode_plain)
     from localai_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_plain)
+        paged_decode_attention, paged_decode_attention_quant, paged_decode_plain,
+        paged_decode_quant_plain)
     from localai_tpu_torch.ops.ragged_prefill import (
         ragged_prefill_attention_paged, ragged_prefill_plain)
 
-    errs = {"paged_decode_attention": 0.0, "ragged_prefill_attention": 0.0}
+    errs = {}
+
+    def record(key, name, got, ref, dname, mask=None):
+        e = check_close(name, got, ref, dname, mask=mask)
+        errs[key] = max(errs.get(key, 0.0), e)
+        log(f"[parity] {name}: max_abs_err {e:.3e}")
+
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
-        args = k1_inputs(K1_LENGTHS, dt, SEED)
-        got = paged_decode_attention(*args, G)
-        ref = paged_decode_plain(*args, G)
-        torch.cuda.synchronize()
-        e = check_close(f"K1 {dname}", got, ref, dname)
-        errs["paged_decode_attention"] = max(errs["paged_decode_attention"], e)
-        log(f"[parity] K1 paged_decode {dname} lengths={K1_LENGTHS}: "
-            f"max_abs_err {e:.3e}")
+        args = decode_inputs(K1_LENGTHS, dt, SEED)
+        record("paged_decode_attention", f"K1 paged_decode {dname} lengths="
+               f"{K1_LENGTHS}", paged_decode_attention(*args, G),
+               paged_decode_plain(*args, G), dname)
+        args = decode_inputs(K1_LENGTHS, dt, SEED, cache_dtype=torch.int8)
+        record("paged_decode_attention_quant", f"K3 int8 paged_decode {dname} "
+               f"lengths={K1_LENGTHS}", paged_decode_attention_quant(*args, G),
+               paged_decode_quant_plain(*args, G), dname)
+        c_lengths = K1_LENGTHS[:-1] + [C_MAX]
+        q, nk, nv, ck, cv, lens = contig_inputs(c_lengths, dt, SEED,
+                                                layers=K5_LAYERS)
+        li = K5_LAYER
+        ref = contig_decode_plain(q, nk, nv, ck[li, :S_SLOTS], cv[li, :S_SLOTS],
+                                  lens, G)
+        record("decode_attention_append_contig", f"K4 contig_decode {dname} "
+               f"C={C_MAX} lengths={c_lengths}", decode_attention_append_contig(
+                   q, nk, nv, ck[li, :S_SLOTS], cv[li, :S_SLOTS], lens, G),
+               ref, dname)
+        layer = torch.tensor([li], dtype=torch.int32, device=DEV)
+        record("decode_attention_append_full", f"K5 contig_decode_full {dname} "
+               f"L={K5_LAYERS} layer={li}", decode_attention_append_full(
+                   q, nk, nv, ck, cv, lens, layer, G),
+               full_decode_plain(q, nk, nv, ck, cv, lens, layer, G), dname)
+        del ck, cv
         for N, segs in K2_CASES.items():
-            args, real = k2_inputs(N, segs, dt, SEED + N)
-            got = ragged_prefill_attention_paged(*args, G)
-            ref = ragged_prefill_plain(*args, G)
-            torch.cuda.synchronize()
-            e = check_close(f"K2 {dname} N={N}", got, ref, dname, mask=real)
-            errs["ragged_prefill_attention"] = max(
-                errs["ragged_prefill_attention"], e)
-            log(f"[parity] K2 ragged_prefill {dname} N={N} segs={segs}: "
-                f"max_abs_err {e:.3e}")
-    model_parity()
+            args, _kw, real = prefill_inputs(N, segs, dt, SEED + N)
+            record("ragged_prefill_attention", f"K2 ragged_prefill {dname} N={N} "
+                   f"segs={segs}", ragged_prefill_attention_paged(*args, G),
+                   ragged_prefill_plain(*args, G), dname, mask=real)
+            args, kw, real = prefill_inputs(N, segs, dt, SEED + N,
+                                            cache_dtype=torch.int8)
+            continued = any(start > 0 for _s, start, _n in segs)
+            key = ("ragged_prefill_attention_int8" if continued
+                   else "ragged_prefill_attention")
+            record(key, f"K2{'-int8' if continued else ' (fresh, int8 cache)'} "
+                   f"ragged_prefill {dname} N={N} segs={segs}",
+                   ragged_prefill_attention_paged(*args, G, **kw,
+                                                  continued=continued),
+                   ragged_prefill_plain(*args, G, **kw, continued=continued),
+                   dname, mask=real)
+        torch.cuda.synchronize()
+    for kind in ("paged", "int8", "contig"):
+        model_parity(kind)
     return errs
 
 
-def model_parity():
+def model_parity(kind: str):
     """A small hd-128 llama, float32: kernels on the card vs plain versions
     on the CPU, same weights; prefill (fresh then continued) and decode
-    logits within 1e-3."""
+    logits within 1e-3 (int8 cache: 5e-3, see the module doc)."""
     import torch
 
     from localai_tpu_torch.engine.weights import random_params
@@ -285,9 +395,14 @@ def model_parity():
     S, C, pg = 4, 256, 64
     out = []
     for dev, params in (("cpu", p_cpu), (DEV, p_gpu)):
-        ck, cv = llama.init_cache(cfg, S, C, pg, device=dev)
-        ptab = torch.arange(S * C // pg, dtype=torch.int32).flip(0).reshape(S, -1)
-        ck["ptab"] = cv["ptab"] = ptab.to(dev)
+        if kind == "contig":
+            ck, cv = llama.init_cache(cfg, S, C, 0, device=dev)
+        else:
+            ck, cv = llama.init_cache(
+                cfg, S, C, pg, dtype=torch.int8 if kind == "int8" else None,
+                device=dev)
+            ptab = torch.arange(S * C // pg, dtype=torch.int32).flip(0).reshape(S, -1)
+            ck["ptab"] = cv["ptab"] = ptab.to(dev)
         gen = torch.Generator().manual_seed(SEED)
         toks = torch.randint(0, 512, (S, 100), generator=gen)
         logs = []
@@ -309,7 +424,8 @@ def model_parity():
                 off += n
             lg = llama.ragged_prefill(
                 params, cfg, tokens.to(dev), positions.to(dev),
-                *(t.to(dev) for t in tab), seg_of.to(dev), ck, cv)
+                *(t.to(dev) for t in tab), seg_of.to(dev), ck, cv,
+                continued=any(start > 0 for _s, start, _n in segs))
             logs.append(lg[:len(segs)].cpu())
         for step in range(3):
             lg = llama.decode_step(params, cfg, toks[:, 90 + step].to(dev),
@@ -317,10 +433,12 @@ def model_parity():
             logs.append(lg.cpu())
         out.append(logs)
     err = max(max_err(a, b) for a, b in zip(*out))
-    if not all(bool(torch.isfinite(t).all()) for t in out[1]) or err > 1e-3:
-        raise AssertionError(f"model parity: card vs CPU logits max err {err:.3e}")
-    log(f"[parity] small model (hd 128, f32) card kernels vs CPU plain: "
-        f"logits max_abs_err {err:.3e} (tol 1e-3)")
+    tol = 5e-3 if kind == "int8" else 1e-3
+    if not all(bool(torch.isfinite(t).all()) for t in out[1]) or err > tol:
+        raise AssertionError(f"model parity ({kind}): card vs CPU logits max "
+                             f"err {err:.3e}")
+    log(f"[parity] small model (hd 128, f32, {kind} cache) card kernels vs CPU "
+        f"plain: logits max_abs_err {err:.3e} (tol {tol:g})")
 
 
 # ---------- phase 3 ----------
@@ -353,7 +471,9 @@ def http_stream(url: str, body: dict, timeout=600):
     return chunks, t_first, t_last
 
 
-def serve(card: str):
+def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
+    """One serving configuration over HTTP (see the module doc); returns
+    (launches, shapes)."""
     import torch
 
     from localai_tpu_torch.api.app import App, make_server
@@ -365,15 +485,20 @@ def serve(card: str):
     os.makedirs(model_dir, exist_ok=True)
     with open(os.path.join(model_dir, "config.json"), "w") as f:
         json.dump(LLAMA31_8B, f)
+    tag = f"[serve {config}]"
+    gib_before = torch.cuda.memory_allocated() / 2**30
     t0 = time.monotonic()
     lm = load_model(model_dir, "llama-3.1-8b", num_slots=S_SLOTS,
-                    context_size=4096, dtype="bfloat16", random_weights=SEED,
+                    context_size=C_MAX, dtype="bfloat16", random_weights=SEED,
                     device=DEV, prefill_chunk=512, kv_page_size=PG,
-                    decode_burst=16)
+                    decode_burst=16, **knobs)
     torch.cuda.synchronize()
-    log(f"[serve] Llama-3.1-8B shape, random bf16 weights (seed {SEED}), "
-        f"8 slots x 4096 context: loaded in {time.monotonic() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    gib = torch.cuda.memory_allocated() / 2**30
+    m = lm.engine.metrics()
+    log(f"{tag} Llama-3.1-8B shape, random bf16 weights (seed {SEED}), "
+        f"8 slots x 4096 context, KV {m['kv_layout']} {m['cache_dtype']}: "
+        f"loaded in {time.monotonic() - t0:.1f} s, {gib:.2f} GiB allocated "
+        f"({gib_before:.2f} GiB before the load)")
     app = App({lm.name: lm})
     server = make_server(app, "127.0.0.1", 0)
     th = threading.Thread(target=server.serve_forever, daemon=True)
@@ -411,8 +536,12 @@ def serve(card: str):
             "completion_long": lambda: http_json(
                 base + "/v1/completions", {**common, "prompt": long_prompt}),
         }
+        warm = http_json(base + "/v1/completions",
+                         {**common, "prompt": "Warm up.", "max_tokens": 4})
+        assert warm["usage"]["completion_tokens"] == 4, warm
         m0 = lm.engine.metrics()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t_start = time.monotonic()
         threads = [threading.Thread(target=run, args=kv) for kv in jobs.items()]
@@ -423,168 +552,279 @@ def serve(card: str):
         torch.cuda.synchronize()
         launches = dict(LAUNCHES)
         wall = time.monotonic() - t_start
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
         m1 = lm.engine.metrics()
         for key, (res, _t0, _t1) in results.items():
             if isinstance(res, Exception):
-                raise AssertionError(f"{key} failed: {res!r}")
+                raise AssertionError(f"{tag} {key} failed: {res!r}")
         if len(results) != len(jobs):
-            raise AssertionError(f"requests did not finish: {sorted(results)}")
+            raise AssertionError(f"{tag} requests did not finish: {sorted(results)}")
         for key in ("chat_1", "chat_2", "completion_long"):
             body = results[key][0]
             u = body["usage"]
-            assert u["completion_tokens"] == 32, (key, u)
-            assert body["choices"][0]["finish_reason"] == "length", (key, body)
+            assert u["completion_tokens"] == 32, (config, key, u)
+            assert body["choices"][0]["finish_reason"] == "length", (config, key, body)
         assert results["completion_long"][0]["usage"]["prompt_tokens"] == n_long
         chunks, t_first, t_last = results["chat_stream"][0]
         assert chunks[0]["choices"][0]["delta"].get("role") == "assistant"
         final = chunks[-1]
-        assert final["usage"]["completion_tokens"] == 32, final
-        assert final["choices"][0]["finish_reason"] == "length", final
+        assert final["usage"]["completion_tokens"] == 32, (config, final)
+        assert final["choices"][0]["finish_reason"] == "length", (config, final)
         ttft_ms = (t_first - results["chat_stream"][1]) * 1e3
         decode_tok_s = 31 / max(1e-9, t_last - t_first)
         pk = {k: m1["packed_prefill"][k] - m0["packed_prefill"][k]
               for k in m1["packed_prefill"]}
         dec = {k: m1["decode"][k] - m0["decode"][k] for k in m1["decode"]}
-        log(f"[serve] {card}: 4 concurrent requests in {wall:.2f} s; streamed "
+        step_ms = dec["seconds"] / max(1, dec["steps"]) * 1e3
+        pack_ms = pk["seconds"] / max(1, pk["dispatches"]) * 1e3
+        log(f"{tag} {card}: 4 concurrent requests in {wall:.2f} s; streamed "
             f"chat TTFT {ttft_ms:.1f} ms, its decode {decode_tok_s:.1f} tok/s "
             f"(31 tokens after the first, HTTP-observed); long completion "
             f"({n_long}-token prompt) e2e "
-            f"{(results['completion_long'][2] - results['completion_long'][1]):.2f} s")
-        log(f"[serve] packed prefill {json.dumps(pk)}; decode {json.dumps(dec)}; "
+            f"{(results['completion_long'][2] - results['completion_long'][1]):.2f} s; "
+            f"decode {step_ms:.2f} ms per step (host wall, sync included, "
+            f"{dec['steps']} steps); packed prefill {pack_ms:.2f} ms per pack "
+            f"({pk['dispatches']} packs, {pk['tokens']} tokens); "
+            f"{gib:.2f} GiB allocated after load, peak {peak_gib:.2f} GiB")
+        log(f"{tag} packed prefill {json.dumps(pk)}; decode {json.dumps(dec)}; "
             f"kernel launches {json.dumps(launches)}")
-        step_ms = dec["seconds"] / max(1, dec["steps"]) * 1e3
-        log(f"[serve] {card}: decode {step_ms:.2f} ms per step (host wall, "
-            f"sync included, {dec['steps']} steps); packed prefill "
-            f"{pk['seconds'] / max(1, pk['dispatches']) * 1e3:.2f} ms per pack "
-            f"({pk['dispatches']} packs, {pk['tokens']} tokens)")
-        if launches["paged_decode_attention"] <= 0 or \
-                launches["ragged_prefill_attention"] <= 0:
-            raise AssertionError(f"a kernel was not launched on the main path: "
+        missing = [k for k in must if launches[k] <= 0]
+        stray = [k for k in must_not if launches[k] != 0]
+        if missing or stray:
+            raise AssertionError(f"{tag} kernels not launched on this path: "
+                                 f"{missing}; launched off their path: {stray}; "
                                  f"{launches}")
         if pk["continued"] <= 0:
-            raise AssertionError("no continued pack (seg_start > 0) ran")
+            raise AssertionError(f"{tag} no continued pack (seg_start > 0) ran")
         if pk["kernel_fallback"] != 0:
-            raise AssertionError(f"K2 shape fallbacks: {pk['kernel_fallback']}")
+            raise AssertionError(f"{tag} K2 shape fallbacks: {pk['kernel_fallback']}")
         prompt_lens = [len(lm.tokenizer.encode(render_chat(c))) for c in chats]
         return launches, {"prompt_lens": prompt_lens, "n_long": n_long,
                           "ttft_ms": ttft_ms, "decode_tok_s": decode_tok_s,
-                          "step_ms": step_ms}
+                          "step_ms": step_ms, "pack_ms": pack_ms,
+                          "gib": gib, "peak_gib": peak_gib}
     finally:
         server.shutdown()
         server.server_close()
         app.shutdown()
-        del lm
+        del lm, app
+        gc.collect()
         torch.cuda.empty_cache()
 
 
 # ---------- phase 4 ----------
 
-def k1_cost(lengths, elt):
+def decode_cost(lengths, elt, cache_elt=None, scales=False, table=True):
+    """(bytes, flops) of one decode attention call: committed K and V rows
+    (plus their f32 scales), the new k/v, q and out, and the table or
+    lengths, each read or written once."""
+    cache_elt = cache_elt or elt
     rows = sum(lengths)
-    nbytes = (2 * rows * KV * HD * elt                       # committed K and V
-              + len(lengths) * (2 * KV * HD + 2 * KV * G * HD) * elt  # new k/v, q, out
-              + len(lengths) * (MP + 1) * 4)                 # table + lengths
-    flops = 4 * G * HD * KV * (rows + len(lengths))
+    S = len(lengths)
+    nbytes = (2 * rows * KV * (HD * cache_elt + (4 if scales else 0))
+              + S * (2 * KV * HD + 2 * KV * G * HD) * elt
+              + S * ((MP if table else 0) + 1) * 4)
+    flops = 4 * G * HD * KV * (rows + S)
     return nbytes, flops
 
 
-def k2_cost(N, segs, elt):
+def prefill_cost(N, segs, elt, cache_elt=None, scales=False):
+    cache_elt = cache_elt or elt
     committed = sum(start for _s, start, _n in segs)
-    nbytes = (2 * committed * KV * HD * elt + N * (2 * KV * G * HD + 2 * KV * HD) * elt
-              + S_SLOTS * (MP + 4) * 4)
+    nbytes = (2 * committed * KV * (HD * cache_elt + (4 if scales else 0))
+              + N * (2 * KV * G * HD + 2 * KV * HD) * elt + S_SLOTS * (MP + 4) * 4)
     visible = sum(n * start + n * (n + 1) // 2 for _s, start, n in segs)
     flops = 4 * HD * KV * G * visible
     return nbytes, flops
 
 
-def kernel_report(launches, errs, shapes, card):
+def bound(nbytes, flops, peak):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
+    return {"bound_ms": max(t_b, t_f) * 1e3,
+            "bound_by": "bytes" if t_b >= t_f else "operations"}
+
+
+def sdpa_decode_inputs(q, nk, nv, kf, vf, lens, lengths):
+    """SDPA operands of a decode step over dense rows kf/vf [S, >=L, KV, hd]:
+    the committed rows plus the current token, GQA heads repeated."""
+    import torch
+
+    S = q.shape[0]
+    slots = torch.arange(S, device=DEV)
+    Lmax = max(lengths) + 1
+    k_lib = kf[:, :Lmax].clone()
+    v_lib = vf[:, :Lmax].clone()
+    k_lib[slots, lens.long()] = nk.to(k_lib.dtype)
+    v_lib[slots, lens.long()] = nv.to(v_lib.dtype)
+    k_lib = k_lib.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)   # [S, H, L, hd]
+    v_lib = v_lib.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    idx = torch.arange(Lmax, device=DEV)
+    mask = (idx[None, :] <= lens[:, None])[:, None, None, :]
+    return q[:, :, None, :], k_lib, v_lib, mask
+
+
+def sdpa_prefill_inputs(q, ck, cv, kc, vc):
+    """SDPA operands of one continued segment: committed rows kc/vc then
+    the pack's keys, causal over the pack."""
+    import torch
+
+    start, N = kc.shape[0], q.shape[0]
+    k_all = torch.cat([kc, ck]).permute(1, 0, 2).repeat_interleave(G, dim=0)[None]
+    v_all = torch.cat([vc, cv]).permute(1, 0, 2).repeat_interleave(G, dim=0)[None]
+    kpos = torch.arange(start + N, device=DEV)
+    mask = kpos[None, :] <= (start + torch.arange(N, device=DEV))[:, None]
+    return q.permute(1, 0, 2)[None], k_all, v_all, mask
+
+
+def kernel_report(launches, k5_launches, errs, shapes, card):
     import torch
     import torch.nn.functional as F
 
     from localai_tpu_torch.ops import kvcache
+    from localai_tpu_torch.ops.decode_attention import (
+        contig_decode_plain, decode_attention_append_contig,
+        decode_attention_append_full, full_decode_plain)
     from localai_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_plain)
+        paged_decode_attention, paged_decode_attention_quant, paged_decode_plain,
+        paged_decode_quant_plain)
     from localai_tpu_torch.ops.ragged_prefill import (
         ragged_prefill_attention_paged, ragged_prefill_plain)
 
     dt, elt = torch.bfloat16, 2
     peak = PEAK_FLOPS["bfloat16"]
-    # K1 at the serving decode shape: the four requests mid-burst (prompt
-    # + 16 rows), the other four slots idle (attention length 0)
-    lengths = [n + 16 for n in shapes["prompt_lens"]] + [shapes["n_long"] + 16]
-    lengths += [0] * (S_SLOTS - len(lengths))
-    a1 = k1_inputs(lengths, dt, SEED)
-    q, nk, nv, pk, pv, ptab, lens = a1
-    slots = torch.arange(S_SLOTS, device=DEV)
-    kf = kvcache.gather_pool_rows(pk, ptab, slots)
-    vf = kvcache.gather_pool_rows(pv, ptab, slots)
-    Lmax = max(lengths) + 1
-    idx = torch.arange(Lmax, device=DEV)
-    k_lib = kf[:, :Lmax].clone()
-    v_lib = vf[:, :Lmax].clone()
-    k_lib[slots, lens.long()] = nk
-    v_lib[slots, lens.long()] = nv
-    k_lib = k_lib.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)   # [S, H, L, hd]
-    v_lib = v_lib.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
-    q_lib = q[:, :, None, :]                                        # [S, H, 1, hd]
-    mask = (idx[None, :] <= lens[:, None])[:, None, None, :]
-    errs["paged_decode_attention"] = max(errs["paged_decode_attention"], check_close(
-        "K1 bf16 at the serving shape", paged_decode_attention(*a1, G),
-        paged_decode_plain(*a1, G), "bfloat16"))
-    k1 = {"ms": timed_ms(lambda: paged_decode_attention(*a1, G)),
-          "plain_ms": timed_ms(lambda: paged_decode_plain(*a1, G)),
-          "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
-              q_lib, k_lib, v_lib, attn_mask=mask))}
-    b1, f1 = k1_cost(lengths, elt)
-    k1["bound_ms"] = max(b1 / HBM_BYTES_PER_S, f1 / peak) * 1e3
-    k1["bound_by"] = "bytes" if b1 / HBM_BYTES_PER_S >= f1 / peak else "operations"
+    rows = []
 
-    # K2 at the serving continued pack: the long prompt's 3rd chunk (512
-    # tokens over 1024 committed rows), one segment
-    segs = [(0, 1024, min(512, shapes["n_long"] - 1024))]
-    N = segs[0][2]
-    a2, _real = k2_inputs(N, segs, dt, SEED)
-    q2, ck2, cv2, pk2, pv2, ptab2 = a2[:6]
-    start = segs[0][1]
-    kc = kvcache.gather_pool_rows(pk2, ptab2, torch.zeros(1, device=DEV,
-                                                          dtype=torch.long))[0, :start]
-    vc = kvcache.gather_pool_rows(pv2, ptab2, torch.zeros(1, device=DEV,
-                                                          dtype=torch.long))[0, :start]
-    k_all = torch.cat([kc, ck2]).permute(1, 0, 2).repeat_interleave(G, dim=0)[None]
-    v_all = torch.cat([vc, cv2]).permute(1, 0, 2).repeat_interleave(G, dim=0)[None]
-    qn = q2.permute(1, 0, 2)[None]                                   # [1, H, N, hd]
-    kpos = torch.arange(start + N, device=DEV)
-    m2 = (kpos[None, :] <= (start + torch.arange(N, device=DEV))[:, None])
-    errs["ragged_prefill_attention"] = max(errs["ragged_prefill_attention"], check_close(
-        "K2 bf16 at the serving shape", ragged_prefill_attention_paged(*a2, G),
-        ragged_prefill_plain(*a2, G), "bfloat16"))
-    k2 = {"ms": timed_ms(lambda: ragged_prefill_attention_paged(*a2, G)),
-          "plain_ms": timed_ms(lambda: ragged_prefill_plain(*a2, G)),
-          "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
-              qn, k_all, v_all, attn_mask=m2))}
-    b2, f2 = k2_cost(N, segs, elt)
-    k2["bound_ms"] = max(b2 / HBM_BYTES_PER_S, f2 / peak) * 1e3
-    k2["bound_by"] = "bytes" if b2 / HBM_BYTES_PER_S >= f2 / peak else "operations"
-    rows = [
-        {"name": "paged_decode_attention", "route": "cuda",
-         "source": "localai_tpu_torch/ops/kernels/csrc/paged_decode.cu",
-         "replaces": "localai_tpu/ops/pallas/paged_attention.py:154",
-         "launches": launches["paged_decode_attention"],
-         "max_abs_err": errs["paged_decode_attention"], **k1,
-         "shape": f"bf16 S={S_SLOTS} KV={KV} G={G} hd={HD} pg={PG} "
-                  f"lengths={lengths}"},
-        {"name": "ragged_prefill_attention", "route": "cuda",
-         "source": "localai_tpu_torch/ops/kernels/csrc/ragged_prefill.cu",
-         "replaces": "localai_tpu/ops/pallas/ragged_prefill.py:251",
-         "launches": launches["ragged_prefill_attention"],
-         "max_abs_err": errs["ragged_prefill_attention"], **k2,
-         "shape": f"bf16 N={N} KV={KV} G={G} hd={HD} pg={PG} segs={segs}"},
-    ]
+    def decode_lengths(config):
+        # the four requests mid-burst (prompt + 16 rows), four idle slots
+        sh = shapes[config]
+        lengths = [n + 16 for n in sh["prompt_lens"]] + [sh["n_long"] + 16]
+        return lengths + [0] * (S_SLOTS - len(lengths))
+
+    def add(name, replaces, source, config, fn, plain, lib, cost, shape,
+            kernel_n=None, **extra):
+        errs[name] = max(errs.get(name, 0.0), check_close(
+            f"{name} at the serving shape", fn(), plain(), "bfloat16"))
+        r = {"name": name, "route": "cuda",
+             "source": f"localai_tpu_torch/ops/kernels/csrc/{source}",
+             "replaces": replaces,
+             "launches": launches[config][name] if kernel_n is None else kernel_n,
+             "max_abs_err": errs[name],
+             "ms": timed_ms(fn), "plain_ms": timed_ms(plain),
+             "library_ms": timed_ms(lib), **bound(*cost, peak),
+             "config": config, "shape": shape,
+             "launches_by_config": {c: launches[c][name] for c in launches},
+             **extra}
+        rows.append(r)
+
+    # K1 / K3 at the paged / int8 serving decode shapes
+    for config, quant in (("paged", False), ("int8", True)):
+        lengths = decode_lengths(config)
+        a = decode_inputs(lengths, dt, SEED, cache_dtype=torch.int8 if quant else None)
+        slots = torch.arange(S_SLOTS, device=DEV)
+        if quant:
+            q, nk, nv, qk, sk, qv, sv, ptab, lens = a
+            # the library call reads dequantized, pre-gathered bf16 rows
+            kf = (kvcache.gather_pool_rows(qk, ptab, slots).float()
+                  * kvcache.gather_pool_rows(sk, ptab, slots)[..., None]).to(dt)
+            vf = (kvcache.gather_pool_rows(qv, ptab, slots).float()
+                  * kvcache.gather_pool_rows(sv, ptab, slots)[..., None]).to(dt)
+            fn = lambda a=a: paged_decode_attention_quant(*a, G)      # noqa: E731
+            plain = lambda a=a: paged_decode_quant_plain(*a, G)     # noqa: E731
+            name, src, rep = ("paged_decode_attention_quant", "paged_decode.cu",
+                              "localai_tpu/ops/pallas/paged_attention.py:281")
+            cost = decode_cost(lengths, elt, cache_elt=1, scales=True)
+            lib_note = "SDPA on dequantized pre-gathered bf16 rows (2x K3's cache bytes)"
+        else:
+            q, nk, nv, pk, pv, ptab, lens = a
+            kf = kvcache.gather_pool_rows(pk, ptab, slots)
+            vf = kvcache.gather_pool_rows(pv, ptab, slots)
+            fn = lambda a=a: paged_decode_attention(*a, G)            # noqa: E731
+            plain = lambda a=a: paged_decode_plain(*a, G)           # noqa: E731
+            name, src, rep = ("paged_decode_attention", "paged_decode.cu",
+                              "localai_tpu/ops/pallas/paged_attention.py:154")
+            cost = decode_cost(lengths, elt)
+            lib_note = "SDPA on pre-gathered rows"
+        lib_args = sdpa_decode_inputs(q, nk, nv, kf, vf, lens, lengths)
+        add(name, rep, src, config, fn, plain,
+            lambda la=lib_args: F.scaled_dot_product_attention(
+                la[0], la[1], la[2], attn_mask=la[3]),
+            cost, f"bf16 S={S_SLOTS} KV={KV} G={G} hd={HD} pg={PG} "
+                  f"{'int8 pages ' if quant else ''}lengths={lengths}",
+            library=lib_note)
+
+    # K2 / K2-int8 at the serving continued pack: the long prompt's 3rd
+    # chunk (512 tokens over 1024 committed rows), one segment
+    for config, quant in (("paged", False), ("int8", True)):
+        segs = [(0, 1024, min(512, shapes[config]["n_long"] - 1024))]
+        N = segs[0][2]
+        a, kw, _real = prefill_inputs(N, segs, dt, SEED,
+                                      cache_dtype=torch.int8 if quant else None)
+        q2, ck2, cv2, pk2, pv2, ptab2 = a[:6]
+        start = segs[0][1]
+        zero = torch.zeros(1, device=DEV, dtype=torch.long)
+        kc = kvcache.gather_pool_rows(pk2, ptab2, zero)[0, :start]
+        vc = kvcache.gather_pool_rows(pv2, ptab2, zero)[0, :start]
+        if quant:
+            kc = (kc.float() * kvcache.gather_pool_rows(
+                kw["scales_k"], ptab2, zero)[0, :start, :, None]).to(dt)
+            vc = (vc.float() * kvcache.gather_pool_rows(
+                kw["scales_v"], ptab2, zero)[0, :start, :, None]).to(dt)
+        lib_args = sdpa_prefill_inputs(q2, ck2, cv2, kc, vc)
+        name = "ragged_prefill_attention_int8" if quant else "ragged_prefill_attention"
+        add(name, "localai_tpu/ops/pallas/ragged_prefill.py:251"
+            + (" (int8 pages: the jnp op localai_tpu/ops/ragged_prefill.py:96-124)"
+               if quant else ""),
+            "ragged_prefill.cu", config,
+            lambda a=a, kw=kw: ragged_prefill_attention_paged(*a, G, **kw,
+                                                              continued=True),
+            lambda a=a, kw=kw: ragged_prefill_plain(*a, G, **kw, continued=True),
+            lambda la=lib_args: F.scaled_dot_product_attention(
+                la[0], la[1], la[2], attn_mask=la[3]),
+            prefill_cost(N, segs, elt, cache_elt=1 if quant else None, scales=quant),
+            f"bf16 N={N} KV={KV} G={G} hd={HD} pg={PG} "
+            f"{'int8 pages ' if quant else ''}segs={segs}",
+            library="SDPA, causal mask over committed + pack keys"
+                    + (" (dequantized bf16 committed rows)" if quant else ""))
+
+    # K4 / K5 at the contiguous serving decode shape
+    lengths = decode_lengths("contig")
+    q, nk, nv, ck, cv, lens = contig_inputs(lengths, dt, SEED, layers=K5_LAYERS)
+    li = K5_LAYER
+    k4 = (q, nk, nv, ck[li, :S_SLOTS], cv[li, :S_SLOTS], lens)
+    lib_args = sdpa_decode_inputs(q, nk, nv, k4[3], k4[4], lens, lengths)
+    lib = lambda la=lib_args: F.scaled_dot_product_attention(     # noqa: E731
+        la[0], la[1], la[2], attn_mask=la[3])
+    shape = (f"bf16 S={S_SLOTS} KV={KV} G={G} hd={HD} C={C_MAX} "
+             f"lengths={lengths}")
+    cost = decode_cost(lengths, elt, table=False)
+    add("decode_attention_append_contig",
+        "localai_tpu/ops/pallas/decode_attention.py:157", "contig_decode.cu",
+        "contig", lambda: decode_attention_append_contig(*k4, G),
+        lambda: contig_decode_plain(*k4, G), lib, cost, shape,
+        library="SDPA on the contiguous rows")
+    from localai_tpu_torch.ops.kernels import LAUNCHES
+
+    layer = torch.tensor([li], dtype=torch.int32, device=DEV)
+    k5 = (q, nk, nv, ck, cv, lens, layer)
+    n0 = LAUNCHES["decode_attention_append_full"]
+    add("decode_attention_append_full",
+        "localai_tpu/ops/pallas/decode_attention.py:134", "contig_decode.cu",
+        "contig", lambda: decode_attention_append_full(*k5, G),
+        lambda: full_decode_plain(*k5, G), lib, cost,
+        shape + f" stacked L={K5_LAYERS} layer={li}",
+        kernel_n=0, library="SDPA on the layer's contiguous rows",
+        launches_from="phases 2 and 4: no serving path calls K5 (nor its TPU "
+                      "kernel in the JAX package)")
+    rows[-1]["launches"] = k5_launches + LAUNCHES["decode_attention_append_full"] - n0
+
     n_layers = LLAMA31_8B["num_hidden_layers"]
-    log(f"[kernels] {card}: K1 share of a decode step ~ "
-        f"{n_layers * k1['ms'] / shapes['step_ms'] * 100:.1f}% ({n_layers} "
-        f"layers x {k1['ms']:.4f} ms / {shapes['step_ms']:.2f} ms)")
     for r in rows:
+        sh = shapes[r["config"]]
+        if r["name"] in ("paged_decode_attention", "paged_decode_attention_quant",
+                         "decode_attention_append_contig"):
+            log(f"[kernels] {card}: {r['name']} share of a {r['config']} decode "
+                f"step ~ {n_layers * r['ms'] / sh['step_ms'] * 100:.1f}% "
+                f"({n_layers} layers x {r['ms']:.4f} ms / {sh['step_ms']:.2f} ms)")
         log(f"[kernels] {card}: {r['name']} {r['ms']:.4f} ms (plain "
             f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
             f"{r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")
@@ -593,9 +833,16 @@ def kernel_report(launches, errs, shapes, card):
 
 def main():
     card = setup()
+    from localai_tpu_torch.ops.kernels import LAUNCHES
+
+    k5_before = LAUNCHES["decode_attention_append_full"]
     errs = parity()
-    launches, shapes = serve(card)
-    rows = kernel_report(launches, errs, shapes, card)
+    k5_launches = LAUNCHES["decode_attention_append_full"] - k5_before
+    launches, shapes = {}, {}
+    for config, knobs, must, must_not in CONFIGS:
+        launches[config], shapes[config] = serve(card, config, knobs, must,
+                                                 must_not)
+    rows = kernel_report(launches, k5_launches, errs, shapes, card)
     import torch
 
     print(json.dumps({"kernels": rows}), flush=True)

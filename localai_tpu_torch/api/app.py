@@ -59,8 +59,12 @@ class App:
         return name, lm
 
     def shutdown(self):
+        """Stop every engine and drop the models: the per-server handler
+        class holds this App in a reference cycle, which only the cycle
+        collector frees, and the weights must not wait for it."""
         for lm in self.models.values():
             lm.engine.shutdown()
+        self.models.clear()
 
 
 def _handler(app: App):

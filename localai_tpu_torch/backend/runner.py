@@ -4,7 +4,8 @@ process split, which comes with a later slice).
 
 ``load_model`` turns a model dir (HF config.json + safetensors, or a
 config.json-only dir with explicit random weights) plus serving knobs
-into a started Engine. ``build_request`` maps OpenAI-style request
+into a started Engine; ``kv_cache_dtype`` and ``kv_layout`` take the JAX
+package's names and values. ``build_request`` maps OpenAI-style request
 overrides onto a GenRequest with the JAX package's defaults
 (temperature 0.8, top_k 40, top_p 0.95, max_tokens 256); sampling knobs
 this slice does not implement are refused, never silently ignored.
@@ -21,13 +22,22 @@ import torch
 
 from localai_tpu_torch import resolve_device
 from localai_tpu_torch.engine import weights
-from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest, StreamEvent
+from localai_tpu_torch.engine.engine import (
+    KV_LAYOUTS, Engine, EngineConfig, GenRequest, StreamEvent)
 from localai_tpu_torch.engine.sampling import SamplingParamsHost
 from localai_tpu_torch.engine.tokenizer import load_tokenizer
 from localai_tpu_torch.models.llama import LlamaConfig
 
 DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
           "float32": torch.float32, "f32": torch.float32}
+
+# Accepted kv_cache_dtype names: a copy of the JAX package's
+# config/model_config.py::KV_CACHE_DTYPES, mapped as its backend/runner.py
+# maps them; None = not ported yet (no kernel of the port takes fp16)
+KV_CACHE_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+                   "float16": None, "f16": None,
+                   "float32": torch.float32, "f32": torch.float32,
+                   "int8": torch.int8, "q8_0": torch.int8}
 
 # OpenAI / LocalAI sampling knobs not ported yet, with their neutral values
 _UNSUPPORTED = {"repeat_penalty": (0, 1.0), "presence_penalty": (0, 0.0),
@@ -44,18 +54,53 @@ class LoadedModel:
     engine: Engine
 
 
+def kv_cache_dtype_of(name: str, model_dtype: torch.dtype):
+    """The cache dtype for a ``kv_cache_dtype`` name ("" = the model dtype).
+    Unknown names raise ValueError; configurations the port's kernels do
+    not take (fp16, or a float cache in another dtype than the model's)
+    raise NotImplementedError."""
+    if not name:
+        return model_dtype
+    key = name.lower()
+    if key not in KV_CACHE_DTYPES:
+        raise ValueError(f"unknown kv_cache_dtype {name!r} "
+                         f"(one of {sorted(KV_CACHE_DTYPES)})")
+    dt = KV_CACHE_DTYPES[key]
+    if dt is None:
+        raise NotImplementedError(
+            f"kv_cache_dtype {name!r} is not ported: the port's kernels take "
+            f"float32, bfloat16 or int8 caches")
+    if dt != torch.int8 and dt != model_dtype:
+        raise NotImplementedError(
+            f"kv_cache_dtype {name!r} with model dtype {model_dtype}: the "
+            f"port's kernels take a float cache in the model's dtype")
+    return dt
+
+
 def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
                context_size: int = 2048, dtype: str = "bfloat16",
                random_weights: Optional[int] = None, device="cuda",
+               kv_cache_dtype: str = "", kv_layout: str = "auto",
                **engine_knobs) -> LoadedModel:
     """Load a model dir into a started Engine on ``device``.
 
     ``random_weights`` (a seed) serves random weights for a dir that holds
     only config.json; without it such a dir is an error, so an incomplete
-    checkpoint is never served as noise."""
+    checkpoint is never served as noise. ``kv_cache_dtype`` ("" = the
+    model dtype; int8 / q8_0 = int8 rows with scales) and ``kv_layout``
+    (auto | paged | contiguous) are checked before any weight is loaded;
+    int8 with the contiguous layout raises NotImplementedError."""
     dev = resolve_device(device)
     if dtype not in DTYPES:
         raise ValueError(f"dtype {dtype!r}: expected one of {sorted(DTYPES)}")
+    if kv_layout not in KV_LAYOUTS:
+        raise ValueError(f"kv_layout {kv_layout!r}: expected one of "
+                         f"{'|'.join(KV_LAYOUTS)}")
+    cache_dtype = kv_cache_dtype_of(kv_cache_dtype, DTYPES[dtype])
+    if cache_dtype == torch.int8 and kv_layout == "contiguous":
+        raise NotImplementedError(
+            "kv_cache_dtype int8 with kv_layout contiguous is not ported; "
+            "use kv_layout paged (or auto) for an int8 cache")
     with open(os.path.join(model_dir, "config.json")) as f:
         hf = json.load(f)
     cfg = LlamaConfig.from_hf_config(hf, dtype=DTYPES[dtype])
@@ -69,6 +114,7 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
             f"(CLI: --random-weights SEED) to serve random weights")
     tok = load_tokenizer(model_dir)
     ecfg = EngineConfig(num_slots=num_slots, max_context=context_size,
+                        cache_dtype=cache_dtype, kv_layout=kv_layout,
                         **engine_knobs)
     engine = Engine(cfg, params, tok, ecfg, device=dev).start()
     return LoadedModel(name or os.path.basename(os.path.normpath(model_dir)),

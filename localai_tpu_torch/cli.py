@@ -2,7 +2,9 @@
 
     python -m localai_tpu_torch run --model DIR --name NAME \\
         --address 127.0.0.1:8080 [--num-slots 8] [--context-size 2048] \\
-        [--dtype bfloat16] [--random-weights SEED] [--device cuda]
+        [--dtype bfloat16] [--kv-cache-dtype int8] [--kv-layout contiguous] \\
+        [--kv-page-size 64] [--prefill-chunk 512] [--decode-burst 16] \\
+        [--random-weights SEED] [--device cuda]
 
 serves one model over the OpenAI-compatible HTTP routes until
 interrupted.
@@ -26,6 +28,16 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--num-slots", type=int, default=8)
     r.add_argument("--context-size", type=int, default=2048)
     r.add_argument("--dtype", default="bfloat16")
+    r.add_argument("--kv-cache-dtype", default="",
+                   help="KV cache dtype (default: the model dtype); int8 / "
+                        "q8_0 = int8 rows with per-row scales")
+    r.add_argument("--kv-layout", default="auto",
+                   help="auto (= paged) | paged | contiguous")
+    r.add_argument("--kv-page-size", type=int, default=64)
+    r.add_argument("--prefill-chunk", type=int, default=512,
+                   help="max prompt tokens per slot per prefill tick")
+    r.add_argument("--decode-burst", type=int, default=16,
+                   help="decode steps per host sync")
     r.add_argument("--random-weights", type=int, default=None, metavar="SEED",
                    help="serve random weights from SEED for a config-only dir")
     r.add_argument("--device", default="cuda")
@@ -42,7 +54,11 @@ def main(argv=None) -> int:
     host, _, port = args.address.rpartition(":")
     lm = load_model(args.model, args.name, num_slots=args.num_slots,
                     context_size=args.context_size, dtype=args.dtype,
-                    random_weights=args.random_weights, device=args.device)
+                    random_weights=args.random_weights, device=args.device,
+                    kv_cache_dtype=args.kv_cache_dtype, kv_layout=args.kv_layout,
+                    kv_page_size=args.kv_page_size,
+                    prefill_chunk=args.prefill_chunk,
+                    decode_burst=args.decode_burst)
     app = App({lm.name: lm})
     server = make_server(app, host or "127.0.0.1", int(port))
     logging.getLogger(__name__).info("serving %s on http://%s:%d", lm.name,

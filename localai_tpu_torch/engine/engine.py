@@ -1,23 +1,27 @@
-"""The serving engine: continuous batching over paged KV (counterpart of
-localai_tpu/engine/engine.py, the default llama path).
+"""The serving engine: continuous batching over the KV cache (counterpart
+of localai_tpu/engine/engine.py, the llama path).
 
 What this slice keeps of the JAX engine, with the same knob names:
 
   * slots and a host engine thread that owns every CUDA tensor (HTTP
     handler threads only put requests on a queue and read their output
     queues);
-  * paged admission: pages allocated lazily per prefill chunk from a
-    host page allocator (engine/paging.py), returned on release;
+  * the KV layout (``kv_layout``): paged (the default, "auto"), with pages
+    allocated lazily per prefill chunk from a host page allocator
+    (engine/paging.py) and returned on release; or contiguous, one
+    [C]-row block per slot and no allocator. ``cache_dtype`` float (the
+    model dtype) or ``torch.int8`` (paged only: rows quantized as they are
+    written, kernel K3 for decode);
   * RAGGED PACKED PREFILL: each tick walks the prefill queue in order,
     takes each slot's pending prompt tail (at most ``prefill_chunk`` per
     slot) until ``prefill_token_budget`` fills, and runs ONE ragged
-    forward (models/llama.py::ragged_prefill, kernel K2). A prompt longer
-    than the chunk is split across ticks, so its later chunks are
-    continued segments over committed pages. Final segments sample their
-    first token in the same tick;
+    forward (models/llama.py::ragged_prefill, kernel K2 or K2-int8). A
+    prompt longer than the chunk is split across ticks, so its later
+    chunks are continued segments over committed rows. Final segments
+    sample their first token in the same tick;
   * DECODE BURSTS of up to ``decode_burst`` steps: tokens, lengths and
-    sampling stay on the device for the whole burst (kernel K1 in every
-    layer of every step) and the host syncs once, at its end;
+    sampling stay on the device for the whole burst (kernel K1, K3 or K4
+    in every layer of every step) and the host syncs once, at its end;
   * EOS / stop-sequence / max-tokens handling and slot release.
 
 Prefill and decode run as separate ticks (the JAX engine's
@@ -51,6 +55,8 @@ from localai_tpu_torch.ops.ragged_prefill import kernel_supports
 
 log = logging.getLogger(__name__)
 
+KV_LAYOUTS = ("auto", "paged", "contiguous")   # auto = paged
+
 
 @dataclasses.dataclass
 class EngineConfig:
@@ -64,7 +70,9 @@ class EngineConfig:
     # physical pages in the pool; 0 = num_slots * max_context / page_size
     kv_pool_pages: int = 0
     decode_burst: int = 16            # decode steps per host sync
-    cache_dtype: Any = None           # None = the model dtype
+    cache_dtype: Any = None           # None = the model dtype; torch.int8
+    # KV_LAYOUTS; "auto" is paged, as in the JAX engine without self-extend
+    kv_layout: str = "auto"
 
 
 @dataclasses.dataclass
@@ -140,13 +148,22 @@ class Engine:
         self.params = params
         self.tokenizer = tokenizer
         S, C = self.ecfg.num_slots, self.ecfg.max_context
-        pg = max(1, min(self.ecfg.kv_page_size, C))
-        while C % pg:             # the page size must divide the context
-            pg -= 1
-        self._pool = PagePool(S, C, pg, self.ecfg.kv_pool_pages)
+        if self.ecfg.kv_layout not in KV_LAYOUTS:
+            raise ValueError(f"kv_layout must be {'|'.join(KV_LAYOUTS)}, got "
+                             f"{self.ecfg.kv_layout!r}")
+        self.kv_layout = ("contiguous" if self.ecfg.kv_layout == "contiguous"
+                          else "paged")
+        self.cache_dtype = self.ecfg.cache_dtype or model_cfg.dtype
+        self._pool: Optional[PagePool] = None    # None: contiguous layout
+        pg = 0                                   # 0: contiguous (init_cache)
+        if self.kv_layout == "paged":
+            pg = max(1, min(self.ecfg.kv_page_size, C))
+            while C % pg:         # the page size must divide the context
+                pg -= 1
+            self._pool = PagePool(S, C, pg, self.ecfg.kv_pool_pages)
         self.ck, self.cv = llama.init_cache(
-            model_cfg, S, C, pg, self._pool.num_pages,
-            dtype=self.ecfg.cache_dtype or model_cfg.dtype, device=self.device)
+            model_cfg, S, C, pg, self._pool.num_pages if self._pool else 0,
+            dtype=self.cache_dtype, device=self.device)
         self.sampler = sampling.SlotSampler(S, self.device)
         eid = getattr(tokenizer, "eos_token_id", None)
         self.eos_ids = {int(eid)} if eid is not None else set()
@@ -225,13 +242,17 @@ class Engine:
         return sum(1 for s in self.slots if s is not None)
 
     def metrics(self) -> dict:
-        return {"num_slots": self.ecfg.num_slots,
-                "active_slots": self.num_active,
-                "queued": self._queue.qsize(),
-                "pages_in_use": self._pool.pages_in_use,
-                "pages_total": self._pool.num_pages,
-                "packed_prefill": dict(self._pack_stats),
-                "decode": dict(self._decode_stats)}
+        out = {"num_slots": self.ecfg.num_slots,
+               "active_slots": self.num_active,
+               "queued": self._queue.qsize(),
+               "kv_layout": self.kv_layout,
+               "cache_dtype": str(self.cache_dtype).replace("torch.", ""),
+               "packed_prefill": dict(self._pack_stats),
+               "decode": dict(self._decode_stats)}
+        if self._pool is not None:
+            out["pages_in_use"] = self._pool.pages_in_use
+            out["pages_total"] = self._pool.num_pages
+        return out
 
     # ---------- engine loop ----------
 
@@ -288,7 +309,7 @@ class Engine:
         self._prefill_queue.append(slot)
 
     def _commit_ptab(self):
-        if self._pool.dirty:
+        if self._pool is not None and self._pool.dirty:
             ptab = torch.from_numpy(self._pool.ptab.copy()).to(self.device)
             self.ck["ptab"] = ptab
             self.cv["ptab"] = ptab
@@ -316,8 +337,9 @@ class Engine:
             return False
         segs.sort(key=lambda t: not t[3])
         t0 = time.monotonic()
-        for slot, s, take, _f in segs:
-            self._pool.ensure(slot, s.written + take)
+        if self._pool is not None:
+            for slot, s, take, _f in segs:
+                self._pool.ensure(slot, s.written + take)
         self._commit_ptab()
 
         tokens = np.zeros((total,), np.int32)
@@ -340,7 +362,8 @@ class Engine:
         st["dispatches"] += 1
         st["tokens"] += total
         st["segments"] += len(segs)
-        st["continued"] += int(any(s.written > 0 for _sl, s, _t, _f in segs))
+        continued = any(s.written > 0 for _sl, s, _t, _f in segs)
+        st["continued"] += int(continued)
         st["kernel_fallback"] += int(not kernel_supports(
             cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim_))
 
@@ -349,7 +372,8 @@ class Engine:
         logits = llama.ragged_prefill(
             self.params, cfg, as_dev(tokens), as_dev(positions),
             as_dev(seg_slots), as_dev(seg_start), as_dev(seg_off),
-            as_dev(seg_len), as_dev(seg_of), self.ck, self.cv)
+            as_dev(seg_len), as_dev(seg_of), self.ck, self.cv,
+            continued=continued)
         finals = [(slot, s) for slot, s, _t, f in segs if f]
         ids_np = lps_np = None
         if finals:
@@ -403,8 +427,9 @@ class Engine:
             return False
         t0 = time.monotonic()
         n_steps = self._pick_burst(decoding)
-        for i in decoding:
-            self._pool.ensure(i, min(C, int(self.lengths[i]) + n_steps + 2))
+        if self._pool is not None:
+            for i in decoding:
+                self._pool.ensure(i, min(C, int(self.lengths[i]) + n_steps + 2))
         self._commit_ptab()
         active_np = np.zeros((S,), np.bool_)
         active_np[decoding] = True
@@ -526,7 +551,8 @@ class Engine:
         return delta, ""
 
     def _release_slot(self, slot: int):
-        self._pool.release(slot, 0)
+        if self._pool is not None:
+            self._pool.release(slot, 0)
         self.slots[slot] = None
         self.lengths[slot] = 0
         if slot in self._prefill_queue:

@@ -7,14 +7,21 @@ projection stored [in, out], so ``x @ w`` is the JAX einsum and the
 JAX parameter pytree maps over leaf for leaf (engine/weights.py::
 from_jax_params). The Python loop over layers replaces ``lax.scan``.
 Large projections are ``torch.matmul``, as XLA did them; logits are
-float32. Attention goes through the two kernel wrappers:
+float32. Attention goes through the kernel wrappers, by cache layout and
+dtype (the routing of the JAX package's ``_decode_attend_write``):
 
-  * ragged_prefill -> ops/ragged_prefill.py::ragged_prefill_attention_paged
-    (K2: fresh and continued packs)
-  * decode_step    -> ops/paged_attention.py::paged_decode_attention (K1)
+  * ragged_prefill -> ops/ragged_prefill.py::ragged_prefill_attention_paged:
+    K2 for fresh packs (any cache) and continued packs over float pages;
+    K2-int8 for continued packs over int8 pages; the contiguous layout is
+    K2 over pages of C rows with the identity table.
+  * decode_step    -> paged float: ops/paged_attention.py::
+    paged_decode_attention (K1); paged int8: ::paged_decode_attention_quant
+    (K3); contiguous: ops/decode_attention.py::
+    decode_attention_append_contig (K4) on the layer's rows.
 
-Both read the committed cache rows BEFORE this step's KV scatter, the
-same no-read-after-write rule as the JAX package.
+All read the committed cache rows BEFORE this step's KV scatter, the
+same no-read-after-write rule as the JAX package; int8 caches quantize
+the new rows as they are scattered (ops/kvcache.py).
 """
 
 from __future__ import annotations
@@ -25,8 +32,10 @@ from typing import Optional
 import torch
 
 from localai_tpu_torch.ops import kvcache
+from localai_tpu_torch.ops.decode_attention import decode_attention_append_contig
 from localai_tpu_torch.ops.norms import rms_norm
-from localai_tpu_torch.ops.paged_attention import paged_decode_attention
+from localai_tpu_torch.ops.paged_attention import (
+    paged_decode_attention, paged_decode_attention_quant)
 from localai_tpu_torch.ops.ragged_prefill import ragged_prefill_attention_paged
 from localai_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
@@ -137,11 +146,15 @@ def ragged_prefill(params: dict, cfg: LlamaConfig,
                    seg_off: torch.Tensor,     # [B] int32 pack offset
                    seg_len: torch.Tensor,     # [B] int32 tokens (pads: 0)
                    seg_of: torch.Tensor,      # [N] int segment per token (pads: B)
-                   cache_k: dict, cache_v: dict):
+                   cache_k: dict, cache_v: dict,
+                   continued: Optional[bool] = None):
     """RAGGED PACKED PREFILL: the prompt tails of up to B slots as one
     [N]-token batch. Writes every token's K/V row through its own slot's
     page table (in place) and returns logits [B, V] (float32) at each
-    segment's last packed token; pad segments give rows to ignore."""
+    segment's last packed token; pad segments give rows to ignore.
+    ``continued`` False promises no segment has committed rows (the JAX
+    package's static flag; the kernels then skip the cache), None reads
+    it off seg_start."""
     B = seg_slots.shape[0]
     sin, cos = rope_frequencies(cfg, positions[None])
     x = params["embed"][tokens.to(torch.int64)].to(cfg.dtype)        # [N, D]
@@ -153,9 +166,14 @@ def ragged_prefill(params: dict, cfg: LlamaConfig,
         lck, lcv = kvcache.layer(cache_k, li), kvcache.layer(cache_v, li)
 
         def attend(q, k, v, lck=lck, lcv=lcv):
+            quant = kvcache.is_quant(lck)
             out = ragged_prefill_attention_paged(
-                q, k, v, kvcache.pool(lck), kvcache.pool(lcv), lck["ptab"],
-                seg_slots, seg_start, seg_off, seg_len, cfg.q_per_kv)
+                q, k, v, kvcache.pool(lck), kvcache.pool(lcv),
+                kvcache.table(lck), seg_slots, seg_start, seg_off, seg_len,
+                cfg.q_per_kv,
+                scales_k=kvcache.scales_pool(lck) if quant else None,
+                scales_v=kvcache.scales_pool(lcv) if quant else None,
+                continued=continued)
             kvcache.write_rows(lck, target, k)
             kvcache.write_rows(lcv, target, v)
             return out
@@ -194,9 +212,7 @@ def decode_step(params: dict, cfg: LlamaConfig,
         lck, lcv = kvcache.layer(cache_k, li), kvcache.layer(cache_v, li)
 
         def attend(q, k, v, lck=lck, lcv=lcv):
-            out = paged_decode_attention(
-                q, k, v, kvcache.pool(lck), kvcache.pool(lcv), lck["ptab"],
-                attn_len, cfg.q_per_kv)
+            out = _decode_attend(q, k, v, lck, lcv, attn_len, cfg)
             kvcache.write_rows(lck, target, k)
             kvcache.write_rows(lcv, target, v)
             return out
@@ -206,10 +222,32 @@ def decode_step(params: dict, cfg: LlamaConfig,
     return _unembed(x, params, cfg)
 
 
+def _decode_attend(q, k, v, lck: dict, lcv: dict, lengths, cfg: LlamaConfig):
+    """Decode attention of one layer, routed by layout and dtype: K1 (paged
+    float), K3 (paged int8), K4 (contiguous)."""
+    if not kvcache.is_paged(lck):
+        return decode_attention_append_contig(
+            q, k, v, kvcache.pool(lck), kvcache.pool(lcv), lengths, cfg.q_per_kv)
+    if kvcache.is_quant(lck):
+        return paged_decode_attention_quant(
+            q, k, v, kvcache.pool(lck), kvcache.scales_pool(lck),
+            kvcache.pool(lcv), kvcache.scales_pool(lcv), lck["ptab"], lengths,
+            cfg.q_per_kv)
+    return paged_decode_attention(
+        q, k, v, kvcache.pool(lck), kvcache.pool(lcv), lck["ptab"], lengths,
+        cfg.q_per_kv)
+
+
 def init_cache(cfg: LlamaConfig, num_slots: int, max_len: int, page_size: int,
                num_pages: int = 0, dtype=None, device="cuda"):
-    """Paged KV caches (K, V) for the logical shape [L, S, C, KV, hd]."""
+    """KV caches (K, V) for the logical shape [L, S, C, KV, hd]:
+    ``page_size > 0`` the paged layout (num_pages physical pages, default
+    S * C / page_size), ``page_size == 0`` the contiguous one (as the JAX
+    package's init_cache). ``dtype=torch.int8`` selects int8 rows with
+    scales (paged only: contiguous int8 raises NotImplementedError)."""
     shape = (cfg.num_layers, num_slots, max_len, cfg.num_kv_heads, cfg.head_dim_)
     dtype = dtype or cfg.dtype
-    return (kvcache.init_paged(shape, dtype, page_size, num_pages, device),
-            kvcache.init_paged(shape, dtype, page_size, num_pages, device))
+    if page_size:
+        return (kvcache.init_paged(shape, dtype, page_size, num_pages, device),
+                kvcache.init_paged(shape, dtype, page_size, num_pages, device))
+    return kvcache.init(shape, dtype, device), kvcache.init(shape, dtype, device)

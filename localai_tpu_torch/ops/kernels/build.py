@@ -29,11 +29,21 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of the launchers (pointers and the stream as void*, ints as int)
+# C launchers of each library, {source name: {function: argtypes}}
+# (pointers and the stream as void*, ints as int)
 SIGNATURES = {
-    "paged_decode": ("paged_decode_attention_launch", [_P] * 8 + [_I] * 8 + [_P]),
-    "ragged_prefill": ("ragged_prefill_attention_launch",
-                       [_P] * 11 + [_I] * 10 + [_P]),
+    "paged_decode": {
+        "paged_decode_attention_launch": [_P] * 8 + [_I] * 8 + [_P],          # K1
+        "paged_decode_attention_quant_launch": [_P] * 10 + [_I] * 8 + [_P],   # K3
+    },
+    "ragged_prefill": {
+        "ragged_prefill_attention_launch": [_P] * 11 + [_I] * 10 + [_P],      # K2
+        "ragged_prefill_attention_quant_launch": [_P] * 13 + [_I] * 10 + [_P],  # K2-int8
+    },
+    "contig_decode": {
+        "contig_decode_attention_launch": [_P] * 7 + [_I] * 6 + [_P],         # K4
+        "contig_decode_attention_full_launch": [_P] * 8 + [_I] * 8 + [_P],    # K5
+    },
 }
 
 _lock = threading.Lock()
@@ -93,7 +103,7 @@ def build_all(names=None) -> dict:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library for kernel ``name`` (built on first use)."""
+    """The loaded library built from ``name``.cu (built on first use)."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
@@ -102,17 +112,19 @@ def library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(_lib_path(name))
-            fn_name, argtypes = SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
     return lib
 
 
-def launcher(name: str):
-    """The C launcher function of kernel ``name``."""
-    return getattr(library(name), SIGNATURES[name][0])
+def launcher(name: str, fn_name: str):
+    """The C launcher ``fn_name`` of the library built from ``name``.cu."""
+    if fn_name not in SIGNATURES[name]:
+        raise KeyError(f"{name}.cu has no launcher {fn_name}")
+    return getattr(library(name), fn_name)
 
 
 def check(err: int, what: str):

@@ -1,246 +1,133 @@
-// Paged decode attention with the current token appended (K1).
+// Paged decode attention with the current token appended: K1 (float pages)
+// and K3 (int8 pages with per-row scales).
 //
-// Replaces the TPU kernel localai_tpu/ops/pallas/paged_attention.py::
+// K1 replaces the TPU kernel localai_tpu/ops/pallas/paged_attention.py::
 // paged_decode_attention_append (body `_kernel`, pallas_call at :154).
-// Semantics match localai_tpu/ops/attention.py::decode_attention_append
-// over the slot's logical rows [0, lengths[s]) read through the page
-// table, plus the current token's own key/value (not yet in the pool).
+// K3 replaces paged_decode_attention_append_quant in the same file (body
+// `_kernel_quant` :163, pallas_call at :281): K1 over int8 pages with f32
+// scales [n_pages, pg, KV] folded into the scores (k) and the probabilities
+// (v); the current token's k/v stay float. Semantics match
+// localai_tpu/ops/attention.py::decode_attention_append over the slot's
+// logical rows [0, lengths[s]) read through the page table (int8 rows as
+// {"q","s"}), plus the current token's own key/value (not yet in the pool).
 //
 // Bound on an H100: memory. Per layer and step the work reads every
 // committed K and V row of every slot once (2 * sum(lengths) * KV * hd
-// elements) and does 2 * G flops per element read: 4 flop/byte in bf16
-// at G = 4, far below the ~295 flop/byte ridge, so the floor is
-// bytes / 3.35 TB/s.
+// elements, plus 2 * sum(lengths) * KV f32 scales for K3) and does 2 * G
+// flops per element read: 4 flop/byte in bf16 at G = 4, 8 in int8, far below
+// the ~295 flop/byte ridge, so the floor is bytes / 3.35 TB/s. K3 moves
+// (hd + 4) / (2 hd) of K1's bytes: about half.
 //
-// Design. One block per (slot, kv head), 128 threads. The TPU grid
-// (S, max_pages) carried m/l/acc across sequential grid steps in VMEM;
-// CUDA blocks share nothing, so the page walk is the block's inner loop:
-// tiles of 64 logical rows, each row's physical page read from the slot's
-// page-table row by the block itself. A tile's K and V rows are staged in
-// shared memory with 16-byte loads issued by every thread at once (many
-// loads in flight per SM, which is what the bytes floor needs), then the
-// G = H / KV query heads of the kv head — the GQA group — score and
-// accumulate from shared memory, so each K/V row leaves device memory
-// ONCE for all G heads. Rows past lengths[s] are never touched, so pages
-// past ceil(length / pg) cost nothing (the TPU kernel's index-map clamp).
-// Online softmax in f32; the appended token is logical row lengths[s] of
-// the walk, read from new_k/new_v, so lengths[s] == 0 attends to itself
-// alone. Split-K over pages (flash-decoding), to fill all 132 SMs when
-// few slots hold long contexts, is later work.
+// Design (decode_attention.cuh holds the block). One block per (slot, kv
+// head), 128 threads. The TPU grid (S, max_pages) carried m/l/acc across
+// sequential grid steps in VMEM; CUDA blocks share nothing, so the page
+// walk is the block's inner loop: tiles of 64 logical rows, each row's
+// physical page read from the slot's page-table row by the block itself.
+// A tile's K and V rows are staged in shared memory with 16-byte loads
+// issued by every thread at once (8 bf16 or 16 int8 elements per load:
+// many loads in flight per SM, which is what the bytes floor needs), then
+// the G = H / KV query heads of the kv head score and accumulate from
+// shared memory, so each K/V row leaves device memory ONCE for all G heads.
+// Rows past lengths[s] are never touched, so pages past ceil(length / pg)
+// cost nothing (the TPU kernel's index-map clamp). K1 walks the appended
+// token as logical row lengths[s]; K3's int8 tiles cannot hold it, so K3
+// folds it in after the walk. Split-K over pages (flash-decoding), to fill
+// all 132 SMs when few slots hold long contexts, is later work.
 
 #include <stdint.h>
 
-#include "common.cuh"
+#include "decode_attention.cuh"
 
 namespace {
 
 using namespace localai_kernels;
+using namespace localai_kernels::decode;
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;    // logical rows per online-softmax step
-constexpr int kMaxG = 8;     // query heads per kv head
-constexpr int kMaxHd = 256;
-
-template <typename T>
-size_t smem_bytes(int hd, int G) {
-  const size_t stride = static_cast<size_t>(hd + vec_elems<T>());  // padded row
-  return 2 * kTile * stride * sizeof(T) + static_cast<size_t>(G) * hd * sizeof(float);
-}
-
-template <typename T>
-__device__ __forceinline__ const T* decode_row(const T* pages, const T* cur, const int* tab,
-                                               int row, int length, int pg, int n_pages,
-                                               int kv, int h, int hd) {
-  if (row == length) return cur;  // the appended token
-  return page_row(pages, tab, row, pg, n_pages, kv, h, hd);
-}
-
-template <typename T>
+template <typename T, typename TC, bool kQuant>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q,         // [S, KV*G, hd]
                     const T* __restrict__ nk,        // [S, KV, hd]
                     const T* __restrict__ nv,        // [S, KV, hd]
-                    const T* __restrict__ pk,        // [n_pages, pg, KV, hd]
-                    const T* __restrict__ pv,        // [n_pages, pg, KV, hd]
+                    const TC* __restrict__ pk,       // [n_pages, pg, KV, hd]
+                    const TC* __restrict__ pv,       // [n_pages, pg, KV, hd]
+                    const float* __restrict__ sk,    // [n_pages, pg, KV] (K3 only)
+                    const float* __restrict__ sv,    // [n_pages, pg, KV] (K3 only)
                     const int* __restrict__ ptab,    // [S, mp]
                     const int* __restrict__ lengths, // [S]
                     T* __restrict__ out,             // [S, KV*G, hd]
                     int KV, int G, int hd, int n_pages, int pg, int mp) {
-  constexpr int kVec = vec_elems<T>();
-  const int stride = hd + kVec;
-  const int chunks = hd / kVec;      // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* k_s = reinterpret_cast<T*>(smem_raw);                    // [kTile][stride]
-  T* v_s = k_s + kTile * stride;                              // [kTile][stride]
-  float* q_s = reinterpret_cast<float*>(v_s + kTile * stride);  // [G][hd]
-  __shared__ const T* s_krow[kTile];
-  __shared__ const T* s_vrow[kTile];
-  __shared__ float s_p[kMaxG][kTile];
-  __shared__ float s_m[kMaxG];
-  __shared__ float s_l[kMaxG];
-  __shared__ float s_alpha[kMaxG];
-
   const int s = blockIdx.x;
   const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   int length = lengths[s];
   length = length < 0 ? 0 : (length > mp * pg ? mp * pg : length);
-  const int total = length + 1;
-  const int* tab = ptab + static_cast<size_t>(s) * mp;
-  const T* cur_k = nk + (static_cast<size_t>(s) * KV + h) * hd;
-  const T* cur_v = nv + (static_cast<size_t>(s) * KV + h) * hd;
   const size_t H = static_cast<size_t>(KV) * G;
-  const float scale = rsqrtf(static_cast<float>(hd));
-
-  for (int e = tid; e < G * hd; e += kThreads)
-    q_s[e] = to_f(q[(static_cast<size_t>(s) * H + static_cast<size_t>(h) * G) * hd + e]) * scale;
-  if (tid < kMaxG) {
-    s_m[tid] = kNegInf;
-    s_l[tid] = 0.f;
-  }
-  // output accumulators: this thread owns dims tid and tid + kThreads
-  float acc[kMaxG][2];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) acc[g][0] = acc[g][1] = 0.f;
-
-  for (int base = 0; base < total; base += kTile) {
-    const int n_rows = min(kTile, total - base);
-    // 0. physical row pointers of this tile (nullptr: unallocated page)
-    if (tid < n_rows) {
-      s_krow[tid] = decode_row(pk, cur_k, tab, base + tid, length, pg, n_pages, KV, h, hd);
-      s_vrow[tid] = decode_row(pv, cur_v, tab, base + tid, length, pg, n_pages, KV, h, hd);
-    }
-    __syncthreads();
-    // 1. stage K and V rows, 16 bytes per thread per step (zeros on
-    //    unallocated pages, like the plain version's zero-fill gather)
-    for (int c = tid; c < n_rows * chunks; c += kThreads) {
-      const int r = c / chunks, j = c - r * chunks;
-      const T* kr = s_krow[r];
-      const T* vr = s_vrow[r];
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (kr != nullptr) {
-        kv4 = *reinterpret_cast<const uint4*>(kr + j * kVec);
-        vv4 = *reinterpret_cast<const uint4*>(vr + j * kVec);
-      }
-      *reinterpret_cast<uint4*>(k_s + r * stride + j * kVec) = kv4;
-      *reinterpret_cast<uint4*>(v_s + r * stride + j * kVec) = vv4;
-    }
-    __syncthreads();
-    // 2. scores: thread = (row, a strided subset of the G heads)
-    {
-      const int r = tid % kTile;
-      if (r < n_rows) {
-        const T* krow = k_s + r * stride;
-        for (int g = tid / kTile; g < G; g += kThreads / kTile) {
-          const float* qg = q_s + g * hd;
-          float sum = 0.f;
-          for (int j = 0; j < chunks; ++j) {
-            float kf[kVec];
-            unpack16(krow + j * kVec, kf);
-#pragma unroll
-            for (int i = 0; i < kVec; ++i) sum += qg[j * kVec + i] * kf[i];
-          }
-          s_p[g][r] = sum;
-        }
-      }
-    }
-    __syncthreads();
-    // 3. online-softmax update: one warp per query head
-    for (int g = warp; g < G; g += kWarps) {
-      float mx = kNegInf;
-      for (int r = lane; r < n_rows; r += 32) mx = fmaxf(mx, s_p[g][r]);
-      mx = warp_max(mx);
-      const float m_prev = s_m[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int r = lane; r < n_rows; r += 32) {
-        const float p = expf(s_p[g][r] - m_new);
-        s_p[g][r] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float a = expf(m_prev - m_new);
-        s_alpha[g] = a;
-        s_l[g] = s_l[g] * a + sum;
-        s_m[g] = m_new;
-      }
-    }
-    __syncthreads();
-    // 4. acc = acc * alpha + P V, threads along head_dim (conflict-free)
-#pragma unroll
-    for (int jd = 0; jd < 2; ++jd) {
-      const int d = tid + jd * kThreads;
-      if (d < hd) {
-#pragma unroll
-        for (int g = 0; g < kMaxG; ++g)
-          if (g < G) acc[g][jd] *= s_alpha[g];
-        for (int r = 0; r < n_rows; ++r) {
-          const float v = to_f(v_s[r * stride + d]);
-#pragma unroll
-          for (int g = 0; g < kMaxG; ++g)
-            if (g < G) acc[g][jd] += s_p[g][r] * v;
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int jd = 0; jd < 2; ++jd) {
-    const int d = tid + jd * kThreads;
-    if (d < hd) {
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          const size_t o = (static_cast<size_t>(s) * H + static_cast<size_t>(h) * G + g) * hd + d;
-          store_f(out + o, acc[g][jd] / s_l[g]);
-        }
-      }
-    }
-  }
+  const size_t qo = (static_cast<size_t>(s) * H + static_cast<size_t>(h) * G) * hd;
+  const size_t ko = (static_cast<size_t>(s) * KV + h) * hd;
+  append_block<T, TC, kQuant>(q + qo, nk + ko, nv + ko, pk, pv, sk, sv,
+                              PagedRows{ptab + static_cast<size_t>(s) * mp, pg, n_pages}, length,
+                              out + qo, KV, h, G, hd);
 }
 
-template <typename T>
+template <typename T, typename TC, bool kQuant>
 int launch(const void* q, const void* nk, const void* nv, const void* pk, const void* pv,
-           const void* ptab, const void* lengths, void* out, int S, int KV, int G, int hd,
-           int n_pages, int pg, int mp, cudaStream_t st) {
-  const size_t bytes = smem_bytes<T>(hd, G);
-  cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<T>,
+           const void* sk, const void* sv, const void* ptab, const void* lengths, void* out,
+           int S, int KV, int G, int hd, int n_pages, int pg, int mp, cudaStream_t st) {
+  const size_t bytes = smem_bytes<TC>(hd, G);
+  cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<T, TC, kQuant>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(S, KV);
-  paged_decode_kernel<T><<<grid, kThreads, bytes, st>>>(
+  paged_decode_kernel<T, TC, kQuant><<<grid, kThreads, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(nk), static_cast<const T*>(nv),
-      static_cast<const T*>(pk), static_cast<const T*>(pv), static_cast<const int*>(ptab),
+      static_cast<const TC*>(pk), static_cast<const TC*>(pv), static_cast<const float*>(sk),
+      static_cast<const float*>(sv), static_cast<const int*>(ptab),
       static_cast<const int*>(lengths), static_cast<T*>(out), KV, G, hd, n_pages, pg, mp);
   return static_cast<int>(cudaGetLastError());
 }
 
+bool bad_pages(int n_pages, int pg, int mp) { return pg <= 0 || mp <= 0 || n_pages <= 0; }
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = success); shapes the kernel does not take return
-// cudaErrorInvalidValue without launching. Float operands must be
-// 16-byte aligned (the wrapper checks).
+// K1. dtype: 0 = float32, 1 = bfloat16 (q, new k/v, pages, out alike).
+// Returns cudaGetLastError() after the launch (0 = success); shapes the
+// kernel does not take return cudaErrorInvalidValue without launching.
+// Float operands must be 16-byte aligned (the wrapper checks).
 extern "C" int paged_decode_attention_launch(const void* q, const void* nk, const void* nv,
                                              const void* pk, const void* pv, const void* ptab,
                                              const void* lengths, void* out, int S, int KV, int G,
                                              int hd, int n_pages, int pg, int mp, int dtype,
                                              void* stream) {
-  if (S <= 0 || KV <= 0 || G < 1 || G > kMaxG || hd % 32 != 0 || hd > kMaxHd || pg <= 0 ||
-      mp <= 0 || n_pages <= 0)
+  if (bad_shape(S, KV, G, hd) || bad_pages(n_pages, pg, mp))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, nk, nv, pk, pv, ptab, lengths, out, S, KV, G, hd, n_pages, pg, mp,
-                         st);
+    return launch<float, float, false>(q, nk, nv, pk, pv, nullptr, nullptr, ptab, lengths, out,
+                                       S, KV, G, hd, n_pages, pg, mp, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, nk, nv, pk, pv, ptab, lengths, out, S, KV, G, hd, n_pages,
-                                 pg, mp, st);
+    return launch<__nv_bfloat16, __nv_bfloat16, false>(q, nk, nv, pk, pv, nullptr, nullptr, ptab,
+                                                       lengths, out, S, KV, G, hd, n_pages, pg,
+                                                       mp, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K3. dtype of q, new k/v and out: 0 = float32, 1 = bfloat16; pages are
+// int8, scales float32. Same return convention as K1.
+extern "C" int paged_decode_attention_quant_launch(const void* q, const void* nk, const void* nv,
+                                                   const void* pk, const void* sk, const void* pv,
+                                                   const void* sv, const void* ptab,
+                                                   const void* lengths, void* out, int S, int KV,
+                                                   int G, int hd, int n_pages, int pg, int mp,
+                                                   int dtype, void* stream) {
+  if (bad_shape(S, KV, G, hd) || bad_pages(n_pages, pg, mp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, int8_t, true>(q, nk, nv, pk, pv, sk, sv, ptab, lengths, out, S, KV, G,
+                                       hd, n_pages, pg, mp, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, int8_t, true>(q, nk, nv, pk, pv, sk, sv, ptab, lengths, out, S,
+                                               KV, G, hd, n_pages, pg, mp, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

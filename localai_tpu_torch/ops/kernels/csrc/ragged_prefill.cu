@@ -1,6 +1,7 @@
-// Ragged packed-prefill attention over a paged cache (K2).
+// Ragged packed-prefill attention over a paged cache: K2 (float pages) and
+// K2-int8 (int8 pages with per-row scales).
 //
-// Replaces the TPU kernel localai_tpu/ops/pallas/ragged_prefill.py::
+// K2 replaces the TPU kernel localai_tpu/ops/pallas/ragged_prefill.py::
 // ragged_prefill_attention_pallas (body `_kernel`, pallas_call at :251).
 // Semantics match localai_tpu/ops/ragged_prefill.py::
 // ragged_prefill_attention: an N-token pack holds up to B segments; the
@@ -8,16 +9,26 @@
 // seg_len[b])) attends its slot's committed rows [0, seg_start[b]) through
 // ptab[seg_slots[b]] plus the pack's own keys m <= n of the same segment.
 // Rows of pad tokens (in no segment) come out as zeros; callers ignore
-// them. Fresh packs (every seg_start == 0) take the same kernel: on the
-// card no plain op sits on the main path.
+// them. Fresh packs take the same kernel (launched with mp = 0: no
+// committed rows, the pool is never read): on the card no plain op sits on
+// the main path.
+//
+// K2-int8 is K2 over int8 committed pages with f32 scales [n_pages, pg, KV]:
+// the key scale multiplies the score, the value scale multiplies the
+// probability before the value product (the fold of the jnp int8 route,
+// localai_tpu/ops/ragged_prefill.py:96-124, which the JAX package runs for
+// int8 packs: its Pallas kernel takes float pages only). The pack's own
+// keys stay float. A tile may straddle the committed rows and the pack, so
+// int8 and float rows are staged in 8-element units into one f32 tile.
 //
 // Bound on an H100: operations. The work is 4 * hd flops per (query
 // head, visible key) pair. At Llama-3.1-8B head shapes a 512-token chunk
 // continuing 1024 committed rows is ~10.7 GFLOP per layer against ~14 MB
 // of q/k/v/out bytes: 10.8 us at the 989 TFLOP/s bf16 tensor-core peak
-// versus 4.2 us at 3.35 TB/s, so operations set the floor. This first
-// kernel computes in f32 on the CUDA cores (no wgmma, no TMA yet) and
-// sits far above that floor; making it fast is later work.
+// versus 4.2 us at 3.35 TB/s, so operations set the floor (int8 pages
+// halve the committed bytes, not the flops). This first kernel computes in
+// f32 on the CUDA cores (no wgmma, no TMA yet) and sits far above that
+// floor; making it fast is later work.
 //
 // Design. The TPU grid swept every (q-block, segment, kv-step) and
 // predicated non-overlapping pairs off. Here one block owns (query tile,
@@ -33,6 +44,8 @@
 // registers, reading shared memory four floats at a time.
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -55,13 +68,16 @@ size_t smem_bytes(int hd) {
                           + 3 * kMaxRows);                          // m, l, alpha
 }
 
-template <typename T>
+// T: q / pack keys / out; TC: committed pages (T, or int8 with scales)
+template <typename T, typename TC>
 __global__ void __launch_bounds__(kThreads)
 ragged_prefill_kernel(const T* __restrict__ q,           // [N, KV*G, hd]
                       const T* __restrict__ ck,          // [N, KV, hd] pack keys
                       const T* __restrict__ cv,          // [N, KV, hd]
-                      const T* __restrict__ pk,          // [n_pages, pg, KV, hd]
-                      const T* __restrict__ pv,
+                      const TC* __restrict__ pk,         // [n_pages, pg, KV, hd]
+                      const TC* __restrict__ pv,
+                      const float* __restrict__ sk,      // [n_pages, pg, KV] (int8 only)
+                      const float* __restrict__ sv,
                       const int* __restrict__ ptab,      // [S, mp]
                       const int* __restrict__ seg_slots, // [B]
                       const int* __restrict__ seg_start, // [B]
@@ -69,10 +85,14 @@ ragged_prefill_kernel(const T* __restrict__ q,           // [N, KV*G, hd]
                       const int* __restrict__ seg_len,   // [B]
                       T* __restrict__ out,               // [N, KV*G, hd]
                       int N, int KV, int G, int hd, int n_pages, int pg, int mp, int S, int B) {
+  constexpr bool kQuant = std::is_same<TC, int8_t>::value;
   constexpr int kVec = vec_elems<T>();
   extern __shared__ __align__(16) float smem[];
-  __shared__ const T* s_krow[kKeys];
-  __shared__ const T* s_vrow[kKeys];
+  __shared__ const void* s_krow[kKeys];
+  __shared__ const void* s_vrow[kKeys];
+  __shared__ bool s_kq[kKeys];     // int8: the row is a committed (int8) row
+  __shared__ float s_ks[kKeys];    // int8: key / value scale of each key row
+  __shared__ float s_vs[kKeys];
   const int qt = kMaxRows / G;        // pack tokens per block
   const int R = qt * G;               // query rows per block
   const int kstride = hd + 4;         // padded: float4 reads across rows are conflict-free
@@ -131,7 +151,7 @@ ragged_prefill_kernel(const T* __restrict__ q,           // [N, KV*G, hd]
     if (lo >= hi) continue;                     // tile does not overlap segment b
     const int slot = seg_slots[b];
     int start = seg_start[b];
-    start = start < 0 ? 0 : (start > mp * pg ? mp * pg : start);
+    start = start < 0 ? 0 : (start > mp * pg ? mp * pg : start);   // mp = 0: fresh pack
     const bool slot_ok = slot >= 0 && slot < S;
     if (!slot_ok) start = 0;
     const int* tab = ptab + static_cast<size_t>(slot_ok ? slot : 0) * mp;
@@ -141,11 +161,20 @@ ragged_prefill_kernel(const T* __restrict__ q,           // [N, KV*G, hd]
       // 0. row addresses of this key tile (nullptr: zeros)
       if (tid < kKeys) {
         const int kk = kb + tid;
-        const T* kr = nullptr;
-        const T* vr = nullptr;
+        const void* kr = nullptr;
+        const void* vr = nullptr;
+        bool committed = false;
+        float ks = 1.f, vs = 1.f;
         if (kk < start) {
-          kr = page_row(pk, tab, kk, pg, n_pages, KV, h, hd);
-          vr = page_row(pv, tab, kk, pg, n_pages, KV, h, hd);
+          const long long row = page_row_index(tab, kk, pg, n_pages);
+          kr = row_ptr(pk, row, KV, h, hd);
+          vr = row_ptr(pv, row, KV, h, hd);
+          committed = true;
+          if constexpr (kQuant) {
+            const size_t si = static_cast<size_t>(row < 0 ? 0 : row) * KV + h;
+            ks = row < 0 ? 0.f : sk[si];
+            vs = row < 0 ? 0.f : sv[si];
+          }
         } else if (kk < n_keys) {
           const size_t m = static_cast<size_t>(off + (kk - start));
           kr = ck + (m * KV + h) * hd;
@@ -153,27 +182,57 @@ ragged_prefill_kernel(const T* __restrict__ q,           // [N, KV*G, hd]
         }
         s_krow[tid] = kr;
         s_vrow[tid] = vr;
+        s_kq[tid] = committed;
+        s_ks[tid] = ks;
+        s_vs[tid] = vs;
       }
       __syncthreads();
-      // 1. stage the key/value tile, 16 bytes per thread per step
-      for (int c = tid; c < kKeys * chunks; c += kThreads) {
-        const int k = c / chunks, j = c - k * chunks;
-        const T* kr = s_krow[k];
-        const T* vr = s_vrow[k];
-        float kf[kVec], vf[kVec];
-        if (kr != nullptr) {
-          unpack16(kr + j * kVec, kf);
-          unpack16(vr + j * kVec, vf);
-        } else {
+      // 1. stage the key/value tile as f32, 16 bytes per thread per load
+      if constexpr (!kQuant) {
+        for (int c = tid; c < kKeys * chunks; c += kThreads) {
+          const int k = c / chunks, j = c - k * chunks;
+          const T* kr = static_cast<const T*>(s_krow[k]);
+          const T* vr = static_cast<const T*>(s_vrow[k]);
+          float kf[kVec], vf[kVec];
+          if (kr != nullptr) {
+            unpack16(kr + j * kVec, kf);
+            unpack16(vr + j * kVec, vf);
+          } else {
 #pragma unroll
-          for (int i = 0; i < kVec; ++i) kf[i] = vf[i] = 0.f;
+            for (int i = 0; i < kVec; ++i) kf[i] = vf[i] = 0.f;
+          }
+#pragma unroll
+          for (int i = 0; i < kVec; i += 4) {
+            *reinterpret_cast<float4*>(k_s + k * kstride + j * kVec + i) =
+                make_float4(kf[i], kf[i + 1], kf[i + 2], kf[i + 3]);
+            *reinterpret_cast<float4*>(v_s + k * hd + j * kVec + i) =
+                make_float4(vf[i], vf[i + 1], vf[i + 2], vf[i + 3]);
+          }
         }
+      } else {
+        // int8 committed rows and float pack rows share the tile: 8 elements
+        // per step (8 bytes of int8, 16 of bf16, 32 of f32)
+        const int units = hd / 8;
+        for (int c = tid; c < kKeys * units; c += kThreads) {
+          const int k = c / units, j = c - k * units;
+          float kf[8], vf[8];
+          if (s_krow[k] == nullptr) {
 #pragma unroll
-        for (int i = 0; i < kVec; i += 4) {
-          *reinterpret_cast<float4*>(k_s + k * kstride + j * kVec + i) =
-              make_float4(kf[i], kf[i + 1], kf[i + 2], kf[i + 3]);
-          *reinterpret_cast<float4*>(v_s + k * hd + j * kVec + i) =
-              make_float4(vf[i], vf[i + 1], vf[i + 2], vf[i + 3]);
+            for (int i = 0; i < 8; ++i) kf[i] = vf[i] = 0.f;
+          } else if (s_kq[k]) {
+            load8(static_cast<const int8_t*>(s_krow[k]) + j * 8, kf);
+            load8(static_cast<const int8_t*>(s_vrow[k]) + j * 8, vf);
+          } else {
+            load8(static_cast<const T*>(s_krow[k]) + j * 8, kf);
+            load8(static_cast<const T*>(s_vrow[k]) + j * 8, vf);
+          }
+#pragma unroll
+          for (int i = 0; i < 8; i += 4) {
+            *reinterpret_cast<float4*>(k_s + k * kstride + j * 8 + i) =
+                make_float4(kf[i], kf[i + 1], kf[i + 2], kf[i + 3]);
+            *reinterpret_cast<float4*>(v_s + k * hd + j * 8 + i) =
+                make_float4(vf[i], vf[i + 1], vf[i + 2], vf[i + 3]);
+          }
         }
       }
       __syncthreads();
@@ -195,6 +254,8 @@ ragged_prefill_kernel(const T* __restrict__ q,           // [N, KV*G, hd]
             }
           }
         }
+        float key_scale = 1.f;
+        if constexpr (kQuant) key_scale = s_ks[lane];   // key scale fold
 #pragma unroll
         for (int i = 0; i < kRowsPerWarp; ++i) {
           const int r = warp + i * kWarps;
@@ -202,6 +263,7 @@ ragged_prefill_kernel(const T* __restrict__ q,           // [N, KV*G, hd]
             const int n = n0 + r / G;
             bool ok = kk < n_keys && n >= lo && n < hi;
             if (ok && kk >= start) ok = off + (kk - start) <= n;  // causal in the pack
+            if constexpr (kQuant) sc[i] *= key_scale;
             p_s[r * kKeys + lane] = ok ? sc[i] : kNegInf;
           }
         }
@@ -218,7 +280,10 @@ ragged_prefill_kernel(const T* __restrict__ q,           // [N, KV*G, hd]
         const float m_new = fmaxf(m_prev, mx);
         const float p = ok ? expf(s - m_new) : 0.f;
         const float sum = warp_sum(p);
-        p_s[r * kKeys + lane] = p;
+        // value scale fold: into the probability the V product reads, not
+        // into the denominator
+        if constexpr (kQuant) p_s[r * kKeys + lane] = p * s_vs[lane];
+        else p_s[r * kKeys + lane] = p;
         if (lane == 0) {
           const float a = expf(m_prev - m_new);
           a_s[r] = a;
@@ -259,31 +324,39 @@ ragged_prefill_kernel(const T* __restrict__ q,           // [N, KV*G, hd]
   }
 }
 
-template <typename T>
+template <typename T, typename TC>
 int launch(const void* q, const void* ck, const void* cv, const void* pk, const void* pv,
-           const void* ptab, const void* slots, const void* start, const void* off,
-           const void* len, void* out, int N, int KV, int G, int hd, int n_pages, int pg, int mp,
-           int S, int B, cudaStream_t st) {
+           const void* sk, const void* sv, const void* ptab, const void* slots, const void* start,
+           const void* off, const void* len, void* out, int N, int KV, int G, int hd, int n_pages,
+           int pg, int mp, int S, int B, cudaStream_t st) {
   const size_t bytes = smem_bytes(hd);
-  cudaError_t err = cudaFuncSetAttribute(ragged_prefill_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(ragged_prefill_kernel<T, TC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int qt = kMaxRows / G;
   const dim3 grid((N + qt - 1) / qt, KV);
-  ragged_prefill_kernel<T><<<grid, kThreads, bytes, st>>>(
+  ragged_prefill_kernel<T, TC><<<grid, kThreads, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(ck), static_cast<const T*>(cv),
-      static_cast<const T*>(pk), static_cast<const T*>(pv), static_cast<const int*>(ptab),
+      static_cast<const TC*>(pk), static_cast<const TC*>(pv), static_cast<const float*>(sk),
+      static_cast<const float*>(sv), static_cast<const int*>(ptab),
       static_cast<const int*>(slots), static_cast<const int*>(start),
       static_cast<const int*>(off), static_cast<const int*>(len), static_cast<T*>(out), N, KV, G,
       hd, n_pages, pg, mp, S, B);
   return static_cast<int>(cudaGetLastError());
 }
 
+bool bad_shape(int N, int KV, int G, int hd, int S, int B) {
+  return N < 0 || KV <= 0 || G < 1 || G > kMaxRows || hd < 32 || hd > kThreads ||
+         kThreads % hd != 0 || (kMaxRows / G) * G * hd / kThreads > kMaxAcc || S <= 0 || B <= 0;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = success); shapes the kernel does not take return
+// K2. dtype: 0 = float32, 1 = bfloat16 (q, pack k/v, pages, out alike).
+// mp = 0 launches a FRESH pack: no committed rows, pk / pv / ptab are
+// never read (may be null). Returns cudaGetLastError() after the launch
+// (0 = success); shapes the kernel does not take return
 // cudaErrorInvalidValue without launching.
 extern "C" int ragged_prefill_attention_launch(const void* q, const void* ck, const void* cv,
                                                const void* pk, const void* pv, const void* ptab,
@@ -292,17 +365,37 @@ extern "C" int ragged_prefill_attention_launch(const void* q, const void* ck, co
                                                void* out, int N, int KV, int G, int hd,
                                                int n_pages, int pg, int mp, int S, int B,
                                                int dtype, void* stream) {
-  if (N < 0 || KV <= 0 || G < 1 || G > kMaxRows || hd < 32 || hd > kThreads ||
-      kThreads % hd != 0 || (kMaxRows / G) * G * hd / kThreads > kMaxAcc || pg <= 0 ||
-      mp <= 0 || n_pages <= 0 || S <= 0 || B <= 0)
+  if (bad_shape(N, KV, G, hd, S, B) || mp < 0 || (mp > 0 && (pg <= 0 || n_pages <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, ck, cv, pk, pv, ptab, seg_slots, seg_start, seg_off, seg_len, out,
-                         N, KV, G, hd, n_pages, pg, mp, S, B, st);
+    return launch<float, float>(q, ck, cv, pk, pv, nullptr, nullptr, ptab, seg_slots, seg_start,
+                                seg_off, seg_len, out, N, KV, G, hd, n_pages, pg, mp, S, B, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, ck, cv, pk, pv, ptab, seg_slots, seg_start, seg_off,
+    return launch<__nv_bfloat16, __nv_bfloat16>(q, ck, cv, pk, pv, nullptr, nullptr, ptab,
+                                                 seg_slots, seg_start, seg_off, seg_len, out, N,
+                                                 KV, G, hd, n_pages, pg, mp, S, B, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K2-int8: pages int8, scales float32 [n_pages, pg, KV]; dtype of q, pack
+// k/v and out: 0 = float32, 1 = bfloat16. Same return convention as K2.
+extern "C" int ragged_prefill_attention_quant_launch(
+    const void* q, const void* ck, const void* cv, const void* pk, const void* sk,
+    const void* pv, const void* sv, const void* ptab, const void* seg_slots,
+    const void* seg_start, const void* seg_off, const void* seg_len, void* out, int N, int KV,
+    int G, int hd, int n_pages, int pg, int mp, int S, int B, int dtype, void* stream) {
+  if (bad_shape(N, KV, G, hd, S, B) || hd % 8 != 0 || pg <= 0 || mp <= 0 || n_pages <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, int8_t>(q, ck, cv, pk, pv, sk, sv, ptab, seg_slots, seg_start, seg_off,
                                  seg_len, out, N, KV, G, hd, n_pages, pg, mp, S, B, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, int8_t>(q, ck, cv, pk, pv, sk, sv, ptab, seg_slots, seg_start,
+                                         seg_off, seg_len, out, N, KV, G, hd, n_pages, pg, mp, S,
+                                         B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

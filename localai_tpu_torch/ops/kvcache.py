@@ -1,28 +1,48 @@
-"""Paged KV cache, plain-float subset (counterpart of
-localai_tpu/ops/kvcache.py).
+"""KV cache layouts (counterpart of localai_tpu/ops/kvcache.py): the
+paged page pool in float or int8, and the contiguous layout.
 
-Layout, per K and per V:
+PAGED, per K and per V:
 
-    {"pages": [L, n_pages + 1, page_size, KV, hd],
-     "ptab":  int32 [S, max_pages]}
+    {"pages":  [L, n_pages + 1, page_size, KV, hd]   float or int8,
+     "scales": [L, n_pages + 1, page_size, KV]       float32, int8 only,
+     "ptab":   int32 [S, max_pages]}
 
 Logical row c of slot s lives at page ``ptab[s, c // page_size]``, row
 ``c % page_size``. Unallocated table entries hold the sentinel
 ``n_pages``, exactly as in the JAX package.
 
+INT8 (``kv_cache_dtype: int8``): symmetric int8 with one float32 scale
+per (row, kv head), quantized over head_dim (``quantize``, the JAX
+package's rounding: ``torch.round`` is half-to-even like ``jnp.round``).
+Rows are quantized as they are scattered; readers never form a
+dequantized row: attention folds the key scale into the scores and the
+value scale into the probabilities (ops/attention.py).
+
+CONTIGUOUS (``kv_layout: contiguous``), per K and per V:
+
+    {"rows": [L, S + 1, C, KV, hd], "itab": int32 [S, 1] = arange(S)}
+
+Slot s's logical rows are ``rows[:, s]``. This is the paged layout with
+one page of C rows per slot and the identity table ``itab``, so the
+scatter targets, the dense gathers and the prefill kernel (K2 over pages
+of C rows) are the paged ones; the decode kernels K4/K5 read ``rows``
+directly. Int8 with the contiguous layout is not ported
+(``NotImplementedError``).
+
 Dropped writes. The JAX package writes with ``.at[...].set(mode="drop")``:
 rows addressed through a sentinel (position C for inactive slots and pad
 tokens, page ``n_pages`` for unallocated table entries) vanish.
 ``torch.index_put_`` has no drop mode: an out-of-range index raises on
-the CPU and corrupts or faults on CUDA. So the pool carries ONE scratch
+the CPU and corrupts or faults on CUDA. So each store carries ONE scratch
 page past its end (physical index ``n_pages``, which is also the
-sentinel): every write whose slot, position or table entry is a sentinel
-is redirected there before the scatter. The scratch page is never read —
-readers see only ``pages[:n_pages]`` (``pool``) and gathers zero-fill
-sentinel rows — so the redirect is the drop, without a host sync to
-filter the rows.
+sentinel; for the contiguous layout the scratch SLOT ``S``), and the
+scales leaf its scratch page too: every write whose slot, position or
+table entry is a sentinel is redirected there before the scatter. The
+scratch is never read — readers see only ``pages[:n_pages]`` (``pool``)
+and gathers zero-fill sentinel rows — so the redirect is the drop,
+without a host sync to filter the rows.
 
-Unlike JAX's functional updates, the scatters here write into the pages
+Unlike JAX's functional updates, the scatters here write into the store
 in place; the pool is the largest buffer on the card and is never copied.
 """
 
@@ -30,40 +50,87 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
+
+_EPS = 1e-8
 
 
 def init_paged(shape: Tuple[int, ...], dtype, page_size: int,
                num_pages: int = 0, device="cuda") -> dict:
     """Zeroed page pool for the logical shape [L, S, C, KV, hd]. C must be
-    a multiple of page_size; num_pages defaults to S * C / page_size."""
+    a multiple of page_size; num_pages defaults to S * C / page_size.
+    ``dtype=torch.int8`` selects the int8 pages with their scales."""
     L, S, C, KV, hd = shape
     if C % page_size:
         raise ValueError(f"max_context {C} not a multiple of page_size "
                          f"{page_size}")
     mp = C // page_size
     n = num_pages or S * mp
-    return {"pages": torch.zeros((L, n + 1, page_size, KV, hd), dtype=dtype,
-                                 device=device),
-            "ptab": torch.full((S, mp), n, dtype=torch.int32, device=device)}
+    out = {"pages": torch.zeros((L, n + 1, page_size, KV, hd), dtype=dtype,
+                                device=device),
+           "ptab": torch.full((S, mp), n, dtype=torch.int32, device=device)}
+    if dtype == torch.int8:
+        out["scales"] = torch.zeros((L, n + 1, page_size, KV),
+                                    dtype=torch.float32, device=device)
+    return out
+
+
+def init(shape: Tuple[int, ...], dtype, device="cuda") -> dict:
+    """Zeroed contiguous cache for the logical shape [L, S, C, KV, hd]
+    (plus the scratch slot S)."""
+    L, S, C, KV, hd = shape
+    if dtype == torch.int8:
+        raise NotImplementedError(
+            "int8 KV with the contiguous layout is not ported; use "
+            "kv_layout=paged with kv_cache_dtype=int8")
+    return {"rows": torch.zeros((L, S + 1, C, KV, hd), dtype=dtype,
+                                device=device),
+            "itab": torch.arange(S, dtype=torch.int32,
+                                 device=device).reshape(S, 1)}
+
+
+def is_paged(cache: dict) -> bool:
+    """True for the page-pool layout (full cache or single-layer view)."""
+    return "ptab" in cache
+
+
+def is_quant(cache: dict) -> bool:
+    """True when rows are stored int8 with scales."""
+    return "scales" in cache
+
+
+def _store(cache: dict) -> torch.Tensor:
+    return cache["pages"] if is_paged(cache) else cache["rows"]
+
+
+def table(cache: dict) -> torch.Tensor:
+    """The page table: ``ptab``, or the contiguous layout's identity."""
+    return cache["ptab"] if is_paged(cache) else cache["itab"]
 
 
 def shape(cache: dict) -> Tuple[int, ...]:
     """Logical shape [L, S, C, KV, hd]."""
-    pg = cache["pages"]
-    s, mp = cache["ptab"].shape
-    return (pg.shape[0], s, mp * pg.shape[-3]) + tuple(pg.shape[-2:])
+    st = _store(cache)
+    s, mp = table(cache).shape
+    return (st.shape[0], s, mp * st.shape[-3]) + tuple(st.shape[-2:])
 
 
 def layer(cache: dict, li: int) -> dict:
-    """Single-layer view [n_pages + 1, pg, KV, hd] sharing storage."""
-    return {"pages": cache["pages"][li], "ptab": cache["ptab"]}
+    """Single-layer view (the stores indexed at li, sharing storage)."""
+    return {k: (v if k in ("ptab", "itab") else v[li]) for k, v in cache.items()}
 
 
 def pool(lcache: dict) -> torch.Tensor:
-    """The readable pool [n_pages, pg, KV, hd] of a single-layer view
+    """The readable store of a single-layer view, without its scratch page:
+    [n_pages, pg, KV, hd] pages, or [S, C, KV, hd] contiguous rows
     (contiguous: a leading-dimension slice)."""
-    return lcache["pages"][:-1]
+    return _store(lcache)[:-1]
+
+
+def scales_pool(lcache: dict) -> torch.Tensor:
+    """The readable scales [n_pages, pg, KV] of an int8 single-layer view."""
+    return lcache["scales"][:-1]
 
 
 def _page_of(ptab_rows: torch.Tensor, cols: torch.Tensor, pg: int,
@@ -82,25 +149,46 @@ def _page_of(ptab_rows: torch.Tensor, cols: torch.Tensor, pg: int,
 
 def gather_pool_rows(pages: torch.Tensor, ptab: torch.Tensor,
                      slot_ids: torch.Tensor) -> torch.Tensor:
-    """Dense logical rows [B, C, KV, hd] of the given slots from a pool
-    [n_pages, pg, KV, hd]; rows on unallocated pages read as zeros (JAX's
-    mode="fill"), out-of-range slot ids clamp (JAX's gather clamp)."""
+    """Dense logical rows [B, C, ...] of the given slots from a pool
+    [n_pages, pg, ...] (pages [.., KV, hd] or scales [.., KV]); rows on
+    unallocated pages read as zeros (JAX's mode="fill"), out-of-range slot
+    ids clamp (JAX's gather clamp)."""
     n, pg = pages.shape[0], pages.shape[1]
     S = ptab.shape[0]
     slot_ids = slot_ids.to(torch.int64).clamp(0, S - 1)
     tab = ptab[slot_ids].to(torch.int64)                         # [B, MP]
     valid = (tab >= 0) & (tab < n)
-    rows = pages[tab.clamp(0, n - 1)]                            # [B, MP, pg, KV, hd]
-    rows = rows * valid[:, :, None, None, None].to(rows.dtype)
+    rows = pages[tab.clamp(0, n - 1)]                            # [B, MP, pg, ...]
+    rows = rows * valid.reshape(valid.shape + (1,) * (pages.dim() - 1)).to(rows.dtype)
     B, mp = tab.shape
     return rows.reshape(B, mp * pg, *pages.shape[2:])
 
 
-def gather_all_rows(lcache: dict) -> torch.Tensor:
-    """Dense [S, C, KV, hd] rows for every slot of a single-layer view."""
-    s = lcache["ptab"].shape[0]
-    return gather_pool_rows(pool(lcache), lcache["ptab"],
-                            torch.arange(s, device=lcache["ptab"].device))
+def gather_layer_rows(lcache: dict, slot_ids: torch.Tensor):
+    """Dense [B, C, KV, hd] rows of the given slots of a single-layer view;
+    int8 caches give {"q": int8 rows, "s": [B, C, KV] scales}, the form
+    ops/attention.py folds."""
+    rows = gather_pool_rows(pool(lcache), table(lcache), slot_ids)
+    if is_quant(lcache):
+        return {"q": rows, "s": gather_pool_rows(scales_pool(lcache),
+                                                 table(lcache), slot_ids)}
+    return rows
+
+
+def gather_all_rows(lcache: dict):
+    """Dense [S, C, KV, hd] rows (int8: {"q","s"}) of every slot of a
+    single-layer view."""
+    tab = table(lcache)
+    return gather_layer_rows(lcache, torch.arange(tab.shape[0], device=tab.device))
+
+
+def quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the trailing (head_dim) axis, the JAX package's
+    rounding: x [..., hd] -> (q int8 [..., hd], s float32 [...])."""
+    x32 = x.to(torch.float32)
+    s = torch.clamp_min(x32.abs().amax(dim=-1) / 127.0, _EPS)
+    q = torch.clamp(torch.round(x32 / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
 
 
 def scatter_index(lcache: dict, slot_idx: torch.Tensor, cols: torch.Tensor
@@ -109,17 +197,24 @@ def scatter_index(lcache: dict, slot_idx: torch.Tensor, cols: torch.Tensor
     ``slot_idx``; rows at a sentinel position or on an unallocated page
     are redirected to the scratch page (dropped). The table and positions
     are the same for every layer, so callers compute this once per step."""
-    pages = lcache["pages"]
-    n, pg = pages.shape[0] - 1, pages.shape[1]
-    S = lcache["ptab"].shape[0]
-    slot_idx = slot_idx.to(torch.int64).clamp(0, S - 1)
-    return _page_of(lcache["ptab"][slot_idx], cols, pg, n)
+    st = _store(lcache)
+    n, pg = st.shape[0] - 1, st.shape[1]
+    tab = table(lcache)
+    slot_idx = slot_idx.to(torch.int64).clamp(0, tab.shape[0] - 1)
+    return _page_of(tab[slot_idx], cols, pg, n)
 
 
 def write_rows(lcache: dict, target: Tuple[torch.Tensor, torch.Tensor],
                new_kv: torch.Tensor) -> dict:
-    """Write rows [R, KV, hd] at the ``scatter_index`` targets, in place."""
-    lcache["pages"].index_put_(target, new_kv.to(lcache["pages"].dtype))
+    """Write rows [R, KV, hd] at the ``scatter_index`` targets, in place;
+    int8 caches quantize them on the way (pages and scales)."""
+    st = _store(lcache)
+    if is_quant(lcache):
+        q, s = quantize(new_kv)
+        st.index_put_(target, q)
+        lcache["scales"].index_put_(target, s)
+    else:
+        st.index_put_(target, new_kv.to(st.dtype))
     return lcache
 
 
@@ -139,3 +234,28 @@ def scatter_ragged(lcache: dict, slot_of: torch.Tensor, cols: torch.Tensor,
     sentinel C and are dropped; out-of-range slot ids (pad segments)
     clamp, their column sentinel still drops the write."""
     return write_rows(lcache, scatter_index(lcache, slot_of, cols), new_kv)
+
+
+def from_jax(jcache, device="cpu") -> dict:
+    """A JAX package cache as numpy leaves (paged {"pages", "ptab"[,
+    "scales"]} or a contiguous [L, S, C, KV, hd] array) -> this layout,
+    with the zeroed scratch page / slot appended. For tests that hand the
+    same cache to both packages."""
+    def t(a, **kw):
+        return torch.from_numpy(np.array(a, **kw)).to(device)
+
+    if isinstance(jcache, dict) and "ptab" in jcache:
+        out = {"ptab": t(jcache["ptab"], dtype=np.int32)}
+        for k in ("pages", "scales"):
+            if k in jcache:
+                a = np.asarray(jcache[k])
+                pad = np.zeros((a.shape[0], 1) + a.shape[2:], a.dtype)
+                out[k] = t(np.concatenate([a, pad], axis=1))
+        return out
+    if isinstance(jcache, dict):
+        raise NotImplementedError("int8 contiguous caches are not ported")
+    a = np.asarray(jcache)
+    pad = np.zeros((a.shape[0], 1) + a.shape[2:], a.dtype)
+    S = a.shape[1]
+    return {"rows": t(np.concatenate([a, pad], axis=1)),
+            "itab": t(np.arange(S).reshape(S, 1), dtype=np.int32)}

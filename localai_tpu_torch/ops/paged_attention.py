@@ -1,11 +1,12 @@
-"""Paged decode attention: the K1 wrapper (counterpart of
-localai_tpu/ops/pallas/paged_attention.py::paged_decode_attention_append).
+"""Paged decode attention: the K1 and K3 wrappers (counterparts of
+localai_tpu/ops/pallas/paged_attention.py::paged_decode_attention_append
+and ::paged_decode_attention_append_quant).
 
-On CUDA tensors it launches the hand-written kernel
-ops/kernels/csrc/paged_decode.cu, or raises. On CPU tensors it runs the
+On CUDA tensors they launch the hand-written kernels in
+ops/kernels/csrc/paged_decode.cu, or raise. On CPU tensors they run the
 plain version (ops/attention.py::decode_attention_append over the
-dense-gathered pages) — the only reason it ever does is that it was
-handed CPU tensors.
+dense-gathered pages, and for K3 their scales) — the only reason they
+ever do is that they were handed CPU tensors.
 """
 
 from __future__ import annotations
@@ -19,30 +20,69 @@ from localai_tpu_torch.ops.kernels import LAUNCHES, build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def check_kernel_args(name: str, floats: dict, ints: dict):
-    """Device / dtype / contiguity checks shared by the kernel wrappers:
-    every tensor on one CUDA device, contiguous; float operands share one
-    supported dtype; index operands are int32. Returns the dtype code."""
+def check_kernel_args(name: str, floats: dict, ints: dict,
+                      pages: dict = None, scales: dict = None):
+    """Device / dtype / contiguity / alignment checks shared by the kernel
+    wrappers: every tensor on one CUDA device, contiguous; ``floats`` share
+    one supported dtype; ``ints`` are int32; ``pages`` (int8 caches) are
+    int8 and ``scales`` float32. The kernels load floats and pages 16 bytes
+    at a time, so those must be 16-byte aligned. Returns the float dtype's
+    code."""
+    pages, scales = pages or {}, scales or {}
     dev = next(iter(floats.values())).device
     dtype = next(iter(floats.values())).dtype
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {dtype} not supported "
                         f"(float32 or bfloat16)")
-    for k, t in {**floats, **ints}.items():
+    for k, t in {**floats, **ints, **pages, **scales}.items():
         if t.device != dev:
             raise ValueError(f"{name}: {k} on {t.device}, expected {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
-    for k, t in floats.items():
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {k} is {t.dtype}, expected {dtype}")
+    for group, want in ((floats, dtype), (ints, torch.int32),
+                        (pages, torch.int8), (scales, torch.float32)):
+        for k, t in group.items():
+            if t.dtype != want:
+                raise TypeError(f"{name}: {k} is {t.dtype}, expected {want}")
+    for k, t in {**floats, **pages}.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {k} must be 16-byte aligned "
                              f"(the kernel loads 16 bytes at a time)")
-    for k, t in ints.items():
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: {k} must be int32, got {t.dtype}")
     return _DTYPE_CODE[dtype]
+
+
+def check_decode_shapes(name: str, q, new_k, new_v, hd_cache: int,
+                        q_per_kv: int):
+    """Shape rules the decode kernels (K1, K3, K4, K5) share."""
+    S, H, hd = q.shape
+    KV = new_k.shape[1] if new_k.dim() == 3 else -1
+    if (H != KV * q_per_kv or tuple(new_k.shape) != (S, KV, hd)
+            or tuple(new_v.shape) != (S, KV, hd) or hd_cache != hd):
+        raise ValueError(f"{name}: inconsistent shapes q{tuple(q.shape)} "
+                         f"k{tuple(new_k.shape)} v{tuple(new_v.shape)} "
+                         f"cache hd {hd_cache}")
+    if hd % 32 or hd > 256 or q_per_kv > 8:
+        raise ValueError(f"{name}: head_dim {hd} / group {q_per_kv} not "
+                         f"supported (hd % 32 == 0, hd <= 256, G <= 8)")
+
+
+def _check_pool(name, pages_k, pages_v, ptab, lengths, S, KV):
+    n_pages, pg = pages_k.shape[0], pages_k.shape[1]
+    if (pages_k.dim() != 4 or tuple(pages_v.shape) != tuple(pages_k.shape)
+            or pages_k.shape[2] != KV or ptab.dim() != 2 or ptab.shape[0] != S
+            or tuple(lengths.shape) != (S,)):
+        raise ValueError(f"{name}: inconsistent shapes pages"
+                         f"{tuple(pages_k.shape)} ptab{tuple(ptab.shape)} "
+                         f"lengths{tuple(lengths.shape)}")
+    return n_pages, pg, ptab.shape[1]
+
+
+def cuda_stream(name, q):
+    """The current CUDA stream of q's device (raises for any other
+    non-CPU device)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    return torch.cuda.current_stream(q.device).cuda_stream
 
 
 def paged_decode_plain(q, new_k, new_v, pages_k, pages_v, ptab, lengths,
@@ -56,41 +96,79 @@ def paged_decode_plain(q, new_k, new_v, pages_k, pages_v, ptab, lengths,
 
 def paged_decode_attention(q, new_k, new_v, pages_k, pages_v, ptab, lengths,
                            q_per_kv: int):
-    """q: [S, H, hd]; new_k/new_v: [S, KV, hd]; pages_k/v: [n_pages,
+    """K1. q: [S, H, hd]; new_k/new_v: [S, KV, hd]; pages_k/v: [n_pages,
     page_size, KV, hd] single-layer pool; ptab: [S, max_pages] int32
     (sentinel n_pages = unallocated); lengths: [S] int32.
     Returns [S, H, hd] in q.dtype."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, new_k, new_v, pages_k, pages_v, ptab,
                                   lengths, q_per_kv)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
-    S, H, hd = q.shape
-    n_pages, pg, KV, _ = pages_k.shape
-    mp = ptab.shape[1]
+    name = "paged_decode_attention"
+    stream = cuda_stream(name, q)
+    S = q.shape[0]
     code = check_kernel_args(
-        "paged_decode_attention",
-        {"q": q, "new_k": new_k, "new_v": new_v, "pages_k": pages_k,
-         "pages_v": pages_v},
+        name, {"q": q, "new_k": new_k, "new_v": new_v, "pages_k": pages_k,
+               "pages_v": pages_v},
         {"ptab": ptab, "lengths": lengths})
-    if (H != KV * q_per_kv or tuple(new_k.shape) != (S, KV, hd)
-            or tuple(new_v.shape) != (S, KV, hd)
-            or tuple(pages_v.shape) != tuple(pages_k.shape)
-            or pages_k.shape[3] != hd or tuple(ptab.shape) != (S, mp)
-            or tuple(lengths.shape) != (S,)):
-        raise ValueError("paged_decode_attention: inconsistent shapes "
-                         f"q{tuple(q.shape)} k{tuple(new_k.shape)} "
-                         f"pages{tuple(pages_k.shape)} ptab{tuple(ptab.shape)}")
-    if hd % 32 or hd > 256 or q_per_kv > 8:
-        raise ValueError(f"paged_decode_attention: head_dim {hd} / group "
-                         f"{q_per_kv} not supported (hd % 32 == 0, hd <= 256,"
-                         f" G <= 8)")
+    check_decode_shapes(name, q, new_k, new_v, pages_k.shape[-1], q_per_kv)
+    KV = new_k.shape[1]
+    n_pages, pg, mp = _check_pool(name, pages_k, pages_v, ptab, lengths, S, KV)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = build.launcher("paged_decode")(
+    err = build.launcher("paged_decode", "paged_decode_attention_launch")(
         q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), pages_k.data_ptr(),
         pages_v.data_ptr(), ptab.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), S, KV, q_per_kv, hd, n_pages, pg, mp, code, stream)
-    build.check(err, "paged_decode_attention")
-    LAUNCHES["paged_decode_attention"] += 1
+        out.data_ptr(), S, KV, q_per_kv, q.shape[2], n_pages, pg, mp, code,
+        stream)
+    build.check(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def paged_decode_quant_plain(q, new_k, new_v, pages_k, scales_k, pages_v,
+                             scales_v, ptab, lengths, q_per_kv: int):
+    """The plain PyTorch version of K3 (any device): decode_attention_append
+    over the gathered int8 rows and their scales."""
+    slots = torch.arange(ptab.shape[0], device=ptab.device)
+
+    def rows(pages, scales):
+        return {"q": kvcache.gather_pool_rows(pages, ptab, slots),
+                "s": kvcache.gather_pool_rows(scales, ptab, slots)}
+
+    return decode_attention_append(q, new_k, new_v, rows(pages_k, scales_k),
+                                   rows(pages_v, scales_v), lengths, q_per_kv)
+
+
+def paged_decode_attention_quant(q, new_k, new_v, pages_k, scales_k, pages_v,
+                                 scales_v, ptab, lengths, q_per_kv: int):
+    """K3: K1 over int8 pages. pages_k/v: int8 [n_pages, page_size, KV, hd];
+    scales_k/v: float32 [n_pages, page_size, KV]; q / new_k / new_v stay
+    float (float32 or bfloat16); the rest as K1. Returns [S, H, hd] in
+    q.dtype."""
+    if q.device.type == "cpu":
+        return paged_decode_quant_plain(q, new_k, new_v, pages_k, scales_k,
+                                        pages_v, scales_v, ptab, lengths,
+                                        q_per_kv)
+    name = "paged_decode_attention_quant"
+    stream = cuda_stream(name, q)
+    S = q.shape[0]
+    code = check_kernel_args(
+        name, {"q": q, "new_k": new_k, "new_v": new_v},
+        {"ptab": ptab, "lengths": lengths},
+        pages={"pages_k": pages_k, "pages_v": pages_v},
+        scales={"scales_k": scales_k, "scales_v": scales_v})
+    check_decode_shapes(name, q, new_k, new_v, pages_k.shape[-1], q_per_kv)
+    KV = new_k.shape[1]
+    n_pages, pg, mp = _check_pool(name, pages_k, pages_v, ptab, lengths, S, KV)
+    if (tuple(scales_k.shape) != tuple(pages_k.shape[:3])
+            or tuple(scales_v.shape) != tuple(pages_k.shape[:3])):
+        raise ValueError(f"{name}: scales {tuple(scales_k.shape)} do not "
+                         f"match pages {tuple(pages_k.shape)}")
+    out = torch.empty_like(q)
+    err = build.launcher("paged_decode", "paged_decode_attention_quant_launch")(
+        q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), pages_k.data_ptr(),
+        scales_k.data_ptr(), pages_v.data_ptr(), scales_v.data_ptr(),
+        ptab.data_ptr(), lengths.data_ptr(), out.data_ptr(), S, KV, q_per_kv,
+        q.shape[2], n_pages, pg, mp, code, stream)
+    build.check(err, name)
+    LAUNCHES[name] += 1
     return out

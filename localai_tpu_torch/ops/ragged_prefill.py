@@ -8,10 +8,22 @@ slot seg_slots[b]. Each query attends its slot's committed rows
 [0, seg_start[b]) plus the pack's own keys m <= n of the same segment.
 
 ``ragged_prefill_attention`` is the plain version (K2's reference, the
-JAX jnp op ported line for line); ``ragged_prefill_attention_paged`` is
-the wrapper the model calls: on CUDA tensors it launches the hand-written
-kernel ops/kernels/csrc/ragged_prefill.cu — for fresh and continued packs
-alike — or raises; on CPU tensors it runs the plain version.
+JAX jnp op ported line for line, int8 committed rows included: their key
+scale folds into the scores, their value scale into the probabilities);
+``ragged_prefill_attention_paged`` is the wrapper the model calls: on
+CUDA tensors it launches a hand-written kernel of
+ops/kernels/csrc/ragged_prefill.cu, or raises; on CPU tensors it runs the
+plain version. Which kernel:
+
+  * a fresh pack (``continued=False``: no committed rows) -> K2 without
+    reading the cache, whatever the cache's dtype or layout;
+  * a continued pack over float pages -> K2;
+  * a continued pack over int8 pages (``scales_k``/``scales_v`` given) ->
+    K2-int8. (The JAX package sends int8 packs to its jnp op; here that
+    op's counterpart is the plain version, which serves no card path.)
+
+The contiguous layout is K2 over pages of C rows with the identity table
+(ops/kvcache.py).
 
 Pad conventions (the engine packer's): pad tokens carry seg_of == B (the
 sentinel), pad segments seg_len == 0 and a sentinel slot id.
@@ -25,7 +37,7 @@ import torch
 
 from localai_tpu_torch.ops import kvcache
 from localai_tpu_torch.ops.kernels import LAUNCHES, build
-from localai_tpu_torch.ops.paged_attention import check_kernel_args
+from localai_tpu_torch.ops.paged_attention import check_kernel_args, cuda_stream
 
 _NEG_INF = -1e30
 
@@ -52,10 +64,12 @@ def seg_of_from_tables(N: int, seg_off: torch.Tensor, seg_len: torch.Tensor
 
 def ragged_prefill_attention(q, chunk_k, chunk_v, seg_of, seg_slots,
                              seg_start, pages_k, pages_v, ptab,
-                             q_per_kv: int, continued: bool = False):
+                             q_per_kv: int, continued: bool = False,
+                             scales_k=None, scales_v=None):
     """The plain version. q: [N, H, hd]; chunk_k/chunk_v: [N, KV, hd] (this
     pack's keys, not yet scattered); seg_of: [N] int; seg_slots/seg_start:
-    [B] int; pages_k/v: [n_pages, pg, KV, hd]; ptab: [S, MP] int32.
+    [B] int; pages_k/v: [n_pages, pg, KV, hd]; ptab: [S, MP] int32;
+    scales_k/v: [n_pages, pg, KV] float32 when the pages are int8.
     ``continued`` False skips the committed-row term (fresh packs).
     Returns [N, H, hd] in q.dtype."""
     dtype = q.dtype
@@ -82,11 +96,17 @@ def ragged_prefill_attention(q, chunk_k, chunk_v, seg_of, seg_slots,
     a_c = torch.zeros((KV, G, N, hd), dtype=torch.float32, device=q.device)
     k_all = kvcache.gather_pool_rows(pages_k, ptab, seg_slots)     # [B, C, KV, hd]
     v_all = kvcache.gather_pool_rows(pages_v, ptab, seg_slots)
+    quant = scales_k is not None
+    if quant:
+        sk_all = kvcache.gather_pool_rows(scales_k, ptab, seg_slots)  # [B, C, KV]
+        sv_all = kvcache.gather_pool_rows(scales_v, ptab, seg_slots)
     C = k_all.shape[1]
     cols = torch.arange(C, device=q.device)
     for b in range(B):
         sc = torch.einsum("nkgd,ckd->kgnc", qg,
                           k_all[b].to(dtype)).to(torch.float32) * scale
+        if quant:
+            sc = sc * sk_all[b].T[:, None, None, :]                       # [KV,1,1,C]
         mask = (seg_of == b)[:, None] & (cols[None, :] < seg_start[b])   # [N, C]
         sc = torch.where(mask[None, None], sc, torch.full_like(sc, _NEG_INF))
         m_b = sc.max(dim=-1).values                                       # [KV, G, N]
@@ -95,6 +115,8 @@ def ragged_prefill_attention(q, chunk_k, chunk_v, seg_of, seg_slots,
         p = torch.where(mask[None, None], torch.exp(sc - m_b[..., None]),
                         torch.zeros_like(sc))
         l_b = p.sum(dim=-1)
+        if quant:
+            p = p * sv_all[b].T[:, None, None, :]
         a_b = torch.einsum("kgnc,ckd->kgnd", p, v_all[b].to(torch.float32))
         sel = (seg_of == b)[None, None, :]
         m_c = torch.where(sel, m_b, m_c)
@@ -115,57 +137,93 @@ def ragged_prefill_attention(q, chunk_k, chunk_v, seg_of, seg_slots,
 
 
 def ragged_prefill_plain(q, chunk_k, chunk_v, pages_k, pages_v, ptab,
-                         seg_slots, seg_start, seg_off, seg_len, q_per_kv: int):
-    """The plain version behind the kernel's interface (any device)."""
+                         seg_slots, seg_start, seg_off, seg_len, q_per_kv: int,
+                         scales_k=None, scales_v=None, continued=None):
+    """The plain version behind the kernels' interface (any device);
+    ``continued`` None reads it off seg_start."""
     seg_of = seg_of_from_tables(q.shape[0], seg_off, seg_len)
-    continued = bool((seg_start > 0).any())
+    if continued is None:
+        continued = bool((seg_start > 0).any())
     return ragged_prefill_attention(q, chunk_k, chunk_v, seg_of, seg_slots,
                                     seg_start, pages_k, pages_v, ptab,
-                                    q_per_kv, continued=continued)
+                                    q_per_kv, continued=continued,
+                                    scales_k=scales_k, scales_v=scales_v)
 
 
 def ragged_prefill_attention_paged(q, chunk_k, chunk_v, pages_k, pages_v,
                                    ptab, seg_slots, seg_start, seg_off,
-                                   seg_len, q_per_kv: int):
-    """K2 wrapper. q: [N, H, hd]; chunk_k/v: [N, KV, hd]; pages_k/v:
-    [n_pages, pg, KV, hd]; ptab: [S, MP] int32; seg_*: [B] int32.
-    Returns [N, H, hd] in q.dtype (rows of pad tokens: zeros on the card,
-    unspecified on the CPU — callers ignore them)."""
+                                   seg_len, q_per_kv: int, scales_k=None,
+                                   scales_v=None, continued=None):
+    """K2 / K2-int8 wrapper. q: [N, H, hd]; chunk_k/v: [N, KV, hd];
+    pages_k/v: [n_pages, pg, KV, hd] (float like q, or int8 with scales_k/v
+    [n_pages, pg, KV] float32); ptab: [S, MP] int32; seg_*: [B] int32.
+    ``continued`` False promises every seg_start is 0 (a fresh pack: the
+    cache is not read, K2 runs whatever its dtype); None or True reads the
+    committed rows seg_start says. Returns [N, H, hd] in q.dtype (rows of
+    pad tokens: zeros on the card, unspecified on the CPU — callers ignore
+    them)."""
     if q.device.type == "cpu":
         return ragged_prefill_plain(q, chunk_k, chunk_v, pages_k, pages_v,
                                     ptab, seg_slots, seg_start, seg_off,
-                                    seg_len, q_per_kv)
-    if q.device.type != "cuda":
-        raise ValueError(f"ragged_prefill_attention: unsupported device {q.device}")
+                                    seg_len, q_per_kv, scales_k=scales_k,
+                                    scales_v=scales_v, continued=continued)
+    quant = scales_k is not None and continued is not False
+    name = "ragged_prefill_attention_int8" if quant else "ragged_prefill_attention"
+    stream = cuda_stream(name, q)
     N, H, hd = q.shape
-    n_pages, pg, KV, _ = pages_k.shape
-    S, mp = ptab.shape
+    KV = chunk_k.shape[1]
     B = seg_slots.shape[0]
-    code = check_kernel_args(
-        "ragged_prefill_attention",
-        {"q": q, "chunk_k": chunk_k, "chunk_v": chunk_v, "pages_k": pages_k,
-         "pages_v": pages_v},
-        {"ptab": ptab, "seg_slots": seg_slots, "seg_start": seg_start,
-         "seg_off": seg_off, "seg_len": seg_len})
+    S = ptab.shape[0]
+    floats = {"q": q, "chunk_k": chunk_k, "chunk_v": chunk_v}
+    ints = {"seg_slots": seg_slots, "seg_start": seg_start,
+            "seg_off": seg_off, "seg_len": seg_len}
+    if continued is not False:
+        ints["ptab"] = ptab
+        if quant:
+            code = check_kernel_args(
+                name, floats, ints, pages={"pages_k": pages_k, "pages_v": pages_v},
+                scales={"scales_k": scales_k, "scales_v": scales_v})
+        else:
+            code = check_kernel_args(
+                name, {**floats, "pages_k": pages_k, "pages_v": pages_v}, ints)
+        n_pages, pg, _kv, _hd = pages_k.shape
+        mp = ptab.shape[1]
+        if (tuple(pages_v.shape) != tuple(pages_k.shape) or pages_k.shape[2] != KV
+                or pages_k.shape[3] != hd or (quant and (
+                    tuple(scales_k.shape) != (n_pages, pg, KV)
+                    or tuple(scales_v.shape) != (n_pages, pg, KV)))):
+            raise ValueError(f"{name}: pages {tuple(pages_k.shape)} do not "
+                             f"match q{tuple(q.shape)} k{tuple(chunk_k.shape)}")
+    else:   # fresh: K2 never reads the cache (mp = 0)
+        code = check_kernel_args(name, floats, ints)
+        n_pages = pg = mp = 0
     if (H != KV * q_per_kv or tuple(chunk_k.shape) != (N, KV, hd)
             or tuple(chunk_v.shape) != (N, KV, hd)
-            or tuple(pages_v.shape) != tuple(pages_k.shape)
-            or pages_k.shape[3] != hd
             or any(tuple(t.shape) != (B,) for t in (seg_start, seg_off, seg_len))):
-        raise ValueError("ragged_prefill_attention: inconsistent shapes "
-                         f"q{tuple(q.shape)} k{tuple(chunk_k.shape)} "
-                         f"pages{tuple(pages_k.shape)} B={B}")
+        raise ValueError(f"{name}: inconsistent shapes q{tuple(q.shape)} "
+                         f"k{tuple(chunk_k.shape)} B={B}")
     if not kernel_supports(KV, q_per_kv, hd):
-        raise ValueError(f"ragged_prefill_attention: head shapes KV={KV} "
-                         f"G={q_per_kv} hd={hd} not supported by the kernel")
+        raise ValueError(f"{name}: head shapes KV={KV} G={q_per_kv} hd={hd} "
+                         f"not supported by the kernel")
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = build.launcher("ragged_prefill")(
-        q.data_ptr(), chunk_k.data_ptr(), chunk_v.data_ptr(),
-        pages_k.data_ptr(), pages_v.data_ptr(), ptab.data_ptr(),
-        seg_slots.data_ptr(), seg_start.data_ptr(), seg_off.data_ptr(),
-        seg_len.data_ptr(), out.data_ptr(), N, KV, q_per_kv, hd, n_pages, pg,
-        mp, S, B, code, stream)
-    build.check(err, "ragged_prefill_attention")
-    LAUNCHES["ragged_prefill_attention"] += 1
+    if quant:
+        err = build.launcher("ragged_prefill", "ragged_prefill_attention_quant_launch")(
+            q.data_ptr(), chunk_k.data_ptr(), chunk_v.data_ptr(),
+            pages_k.data_ptr(), scales_k.data_ptr(), pages_v.data_ptr(),
+            scales_v.data_ptr(), ptab.data_ptr(), seg_slots.data_ptr(),
+            seg_start.data_ptr(), seg_off.data_ptr(), seg_len.data_ptr(),
+            out.data_ptr(), N, KV, q_per_kv, hd, n_pages, pg, mp, S, B, code,
+            stream)
+    else:
+        fresh = continued is False
+        err = build.launcher("ragged_prefill", "ragged_prefill_attention_launch")(
+            q.data_ptr(), chunk_k.data_ptr(), chunk_v.data_ptr(),
+            None if fresh else pages_k.data_ptr(),
+            None if fresh else pages_v.data_ptr(),
+            None if fresh else ptab.data_ptr(), seg_slots.data_ptr(),
+            seg_start.data_ptr(), seg_off.data_ptr(), seg_len.data_ptr(),
+            out.data_ptr(), N, KV, q_per_kv, hd, n_pages, pg, mp, S, B, code,
+            stream)
+    build.check(err, name)
+    LAUNCHES[name] += 1
     return out

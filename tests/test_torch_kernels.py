@@ -8,12 +8,16 @@ repository's conftest (which sets JAX up):
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
-Cases at Llama-3.1-8B head shapes (KV 8, G 4, hd 128, page 64): K1 with
-decode lengths 0, 1, 63, 64, 65 and long, on a shuffled page pool; K2
-with fresh, continued (mid-page) and pad segments and pad tokens.
-Tolerances: float32 1e-4 absolute (summation order); bfloat16 2e-2
-absolute and relative (bf16 rounding of the plain version's scores,
-probabilities and output, plus order).
+Cases at Llama-3.1-8B head shapes (KV 8, G 4, hd 128, page 64): K1 and
+K3 (int8 pages) with decode lengths 0, 1, 63, 64, 65, long and C - 1, on a
+shuffled page pool; K2 and K2-int8 with fresh, continued (mid-page) and
+pad segments and pad tokens; K4 (contiguous) and K5 (stacked cache,
+layer index on the device, a poisoned scratch slot past S) with the same
+lengths up to C. Tolerances: float32 1e-4 absolute (summation order);
+bfloat16 2e-2 absolute and relative (bf16 rounding of the plain version's
+scores, probabilities and output, plus order). Int8 cases compare the
+kernel and the plain version on the SAME int8 rows, so the same
+tolerances hold.
 """
 
 from __future__ import annotations
@@ -36,6 +40,16 @@ def _pool(gen, dtype):
     pv = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     perm = torch.randperm(N_PAGES, generator=gen, device="cuda").to(torch.int32)
     return pk, pv, perm
+
+
+def _quant_pool(gen):
+    """int8 pages and float32 scales (K and V) from unit normals."""
+    from localai_tpu_torch.ops.kvcache import quantize
+
+    shape = (N_PAGES, PG, KV, HD)
+    qk, sk = quantize(torch.randn(shape, generator=gen, device="cuda"))
+    qv, sv = quantize(torch.randn(shape, generator=gen, device="cuda"))
+    return qk, sk, qv, sv
 
 
 def _ptab(perm, rows):
@@ -74,6 +88,117 @@ def test_k1_paged_decode_matches_plain(card, dtype):
     assert LAUNCHES["paged_decode_attention"] == before + 1
     ref = paged_decode_plain(q, nk, nv, pk, pv, ptab, lens, G)
     torch.testing.assert_close(got.float(), ref.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_int8_paged_decode_matches_plain(card, dtype):
+    from localai_tpu_torch.ops.kernels import LAUNCHES
+    from localai_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_quant, paged_decode_quant_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    lengths = [0, 1, 63, 64, 65, 300, 777, MP * PG - 1]
+    qk, sk, qv, sv = _quant_pool(gen)
+    perm = torch.randperm(N_PAGES, generator=gen, device="cuda").to(torch.int32)
+    ptab = _ptab(perm, lengths)
+    q = torch.randn((S, KV * G, HD), generator=gen, device="cuda").to(dtype)
+    nk = torch.randn((S, KV, HD), generator=gen, device="cuda").to(dtype)
+    nv = torch.randn((S, KV, HD), generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    args = (q, nk, nv, qk, sk, qv, sv, ptab, lens, G)
+    before = LAUNCHES["paged_decode_attention_quant"]
+    got = paged_decode_attention_quant(*args)
+    assert LAUNCHES["paged_decode_attention_quant"] == before + 1
+    ref = paged_decode_quant_plain(*args)
+    torch.testing.assert_close(got.float(), ref.float(), **_tol(dtype))
+
+
+def _k2_args(kind, dtype, seed):
+    segs = {"fresh": [(0, 0, 50), (1, 0, 40), (2, 0, 38)],
+            "continued": [(3, 512, 60), (4, 70, 50), (5, 0, 18)],
+            "pad": [(6, 130, 40), (7, 0, 50)]}[kind]
+    N = 128
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = [0] * S
+    for slot, start, n in segs:
+        rows[slot] = start + n
+    perm = torch.randperm(N_PAGES, generator=gen, device="cuda").to(torch.int32)
+    ptab = _ptab(perm, rows)
+    tabs = torch.zeros((4, S), dtype=torch.int32)
+    tabs[0] = S                                   # pad segments: sentinel slot
+    real = torch.zeros(N, dtype=torch.bool)
+    off = 0
+    for b, (slot, start, n) in enumerate(segs):
+        tabs[:, b] = torch.tensor([slot, start, off, n])
+        real[off:off + n] = True
+        off += n
+    q = torch.randn((N, KV * G, HD), generator=gen, device="cuda").to(dtype)
+    ck = torch.randn((N, KV, HD), generator=gen, device="cuda").to(dtype)
+    cv = torch.randn((N, KV, HD), generator=gen, device="cuda").to(dtype)
+    return gen, q, ck, cv, ptab, [t.cuda() for t in tabs], real.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["fresh", "continued", "pad"])
+def test_k2_int8_ragged_prefill_matches_plain(card, dtype, kind):
+    """K2-int8 (continued packs over int8 pages); a fresh pack over the same
+    int8 cache runs K2 without reading it."""
+    from localai_tpu_torch.ops.kernels import LAUNCHES
+    from localai_tpu_torch.ops.ragged_prefill import (
+        ragged_prefill_attention_paged, ragged_prefill_plain)
+
+    gen, q, ck, cv, ptab, tabs, real = _k2_args(kind, dtype, 3)
+    qk, sk, qv, sv = _quant_pool(gen)
+    continued = kind != "fresh"
+    name = "ragged_prefill_attention_int8" if continued else "ragged_prefill_attention"
+    before = LAUNCHES[name]
+    got = ragged_prefill_attention_paged(q, ck, cv, qk, qv, ptab, *tabs, G,
+                                         scales_k=sk, scales_v=sv,
+                                         continued=continued)
+    assert LAUNCHES[name] == before + 1
+    ref = ragged_prefill_plain(q, ck, cv, qk, qv, ptab, *tabs, G,
+                               scales_k=sk, scales_v=sv, continued=continued)
+    torch.testing.assert_close(got.float()[real], ref.float()[real],
+                               **_tol(dtype))
+    assert (got[~real] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_k5_contiguous_decode_match_plain(card, dtype):
+    from localai_tpu_torch.ops.decode_attention import (
+        contig_decode_plain, decode_attention_append_contig,
+        decode_attention_append_full, full_decode_plain)
+    from localai_tpu_torch.ops.kernels import LAUNCHES
+
+    C, L, li = MP * PG, 3, 2
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    lengths = [0, 1, 63, 64, 65, 300, 777, C]
+    ck = torch.randn((L, S + 1, C, KV, HD), generator=gen, device="cuda").to(dtype)
+    cv = torch.randn((L, S + 1, C, KV, HD), generator=gen, device="cuda").to(dtype)
+    ck[:, S] = 1e4                                # the scratch slot is never read
+    cv[:, S] = -1e4
+    q = torch.randn((S, KV * G, HD), generator=gen, device="cuda").to(dtype)
+    nk = torch.randn((S, KV, HD), generator=gen, device="cuda").to(dtype)
+    nv = torch.randn((S, KV, HD), generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = dict(LAUNCHES)
+    got4 = decode_attention_append_contig(q, nk, nv, ck[li, :S], cv[li, :S],
+                                          lens, G)
+    layer = torch.tensor([li], dtype=torch.int32, device="cuda")
+    got5 = decode_attention_append_full(q, nk, nv, ck, cv, lens, layer, G)
+    assert LAUNCHES["decode_attention_append_contig"] == \
+        before["decode_attention_append_contig"] + 1
+    assert LAUNCHES["decode_attention_append_full"] == \
+        before["decode_attention_append_full"] + 1
+    ref = contig_decode_plain(q, nk, nv, ck[li, :S], cv[li, :S], lens, G)
+    torch.testing.assert_close(got4.float(), ref.float(), **_tol(dtype))
+    torch.testing.assert_close(got5.float(), ref.float(), **_tol(dtype))
+    torch.testing.assert_close(
+        full_decode_plain(q, nk, nv, ck, cv, lens, layer, G).float(),
+        ref.float(), atol=0, rtol=0)
 
 
 @pytest.mark.cuda

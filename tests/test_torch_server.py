@@ -167,3 +167,40 @@ def test_unsupported_knob_and_bad_request_are_400(served):
                           else "/v1/completions"), body)
         assert ei.value.code in (400, 404)
         assert "error" in json.loads(ei.value.read())
+
+
+def test_app_shutdown_frees_the_model_without_the_cycle_collector(tmp_path):
+    """The per-server handler class keeps the App in a reference cycle;
+    App.shutdown drops the models, so a server that is shut down releases
+    its weights at once (a process serving one configuration after another
+    must not hold two models' weights on the card)."""
+    import gc
+    import weakref
+
+    from localai_tpu_torch.api.app import App, make_server
+    from localai_tpu_torch.backend.runner import load_model
+
+    (tmp_path / "config.json").write_text(json.dumps({
+        "vocab_size": 300, "hidden_size": 32, "intermediate_size": 64,
+        "num_hidden_layers": 1, "num_attention_heads": 2,
+        "num_key_value_heads": 1}))
+    gc.disable()
+    try:
+        lm = load_model(str(tmp_path), "t", num_slots=2, context_size=64,
+                        dtype="float32", random_weights=0, device="cpu")
+        weights = weakref.ref(lm.engine.params["embed"])
+        app = App({"t": lm})
+        server = make_server(app, "127.0.0.1", 0)
+        th = threading.Thread(target=server.serve_forever, daemon=True)
+        th.start()
+        status, _body = _post(f"http://127.0.0.1:{server.server_address[1]}"
+                              "/v1/completions",
+                              {"model": "t", "prompt": "hi", "max_tokens": 2})
+        assert status == 200
+        server.shutdown()
+        server.server_close()
+        app.shutdown()
+        del lm, app, server, th
+        assert weights() is None
+    finally:
+        gc.enable()
