@@ -51,7 +51,9 @@ Phases, each raising on failure (no phase swallows an error):
               path: its launches are those of phases 2 and 4), parity
               error, kernel / plain / library times at its configuration's
               shapes (CUDA events, L2 flushed before each launch), and the
-              bound from bytes and operations.
+              bound from bytes and operations. K2's row also carries, under
+              "fresh", the same numbers on a fresh 512-token pack (mp = 0),
+              the shape most of its serving launches take.
 
 The last line of stdout is {"ok": true, "device": {...}}. Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -752,6 +754,28 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
                   f"{'int8 pages ' if quant else ''}lengths={lengths}",
             library=lib_note)
 
+    def fresh_prefill_row(errs):
+        """K2 on a fresh 512-token pack (mp = 0: the cache is not read),
+        the shape most of its serving launches take."""
+        segs = [(0, 0, 512)]
+        a, _kw, _real = prefill_inputs(512, segs, dt, SEED)
+        fn = lambda: ragged_prefill_attention_paged(*a, G, continued=False)  # noqa: E731
+        plain = lambda: ragged_prefill_plain(*a, G, continued=False)        # noqa: E731
+        name = "ragged_prefill_attention"
+        errs[name] = max(errs[name], check_close(
+            f"{name} at a fresh 512-token pack", fn(), plain(), "bfloat16"))
+        kpos = torch.arange(a[0].shape[0], device=DEV)
+        la = (a[0].permute(1, 0, 2)[None],
+              a[1].permute(1, 0, 2).repeat_interleave(G, dim=0)[None],
+              a[2].permute(1, 0, 2).repeat_interleave(G, dim=0)[None],
+              kpos[None, :] <= kpos[:, None])
+        return {"ms": timed_ms(fn), "plain_ms": timed_ms(plain),
+                "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
+                    la[0], la[1], la[2], attn_mask=la[3])),
+                **bound(*prefill_cost(512, segs, elt), peak),
+                "shape": f"bf16 N=512 KV={KV} G={G} hd={HD} fresh segs={segs}",
+                "library": "SDPA, causal mask over the pack"}
+
     # K2 / K2-int8 at the serving continued pack: the long prompt's 3rd
     # chunk (512 tokens over 1024 committed rows), one segment
     for config, quant in (("paged", False), ("int8", True)):
@@ -785,6 +809,8 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
             f"{'int8 pages ' if quant else ''}segs={segs}",
             library="SDPA, causal mask over committed + pack keys"
                     + (" (dequantized bf16 committed rows)" if quant else ""))
+        if not quant:
+            rows[-1]["fresh"] = fresh_prefill_row(errs)
 
     # K4 / K5 at the contiguous serving decode shape
     lengths = decode_lengths("contig")
@@ -825,9 +851,11 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
             log(f"[kernels] {card}: {r['name']} share of a {r['config']} decode "
                 f"step ~ {n_layers * r['ms'] / sh['step_ms'] * 100:.1f}% "
                 f"({n_layers} layers x {r['ms']:.4f} ms / {sh['step_ms']:.2f} ms)")
-        log(f"[kernels] {card}: {r['name']} {r['ms']:.4f} ms (plain "
-            f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
-            f"{r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")
+        for x in (r, r.get("fresh")):
+            if x:
+                log(f"[kernels] {card}: {r['name']} {x['ms']:.4f} ms (plain "
+                    f"{x['plain_ms']:.4f}, library {x['library_ms']:.4f}, bound "
+                    f"{x['bound_ms']:.4f} by {x['bound_by']}) at {x['shape']}")
     return rows
 
 

@@ -54,13 +54,12 @@ __device__ __forceinline__ void unpack16(const int8_t* p, float* f) {
   for (int i = 0; i < 16; ++i) f[i] = static_cast<float>(b[i]);
 }
 
-// 8 elements of T as floats (two 16-byte loads of float, one of bf16, one
-// 8-byte load of int8): the common unit when float and int8 rows share a tile
+// 8 elements as floats (two 16-byte loads of float, one 8-byte load of
+// int8): the common unit when float and int8 rows share a tile
 __device__ __forceinline__ void load8(const float* p, float* f) {
   unpack16(p, f);
   unpack16(p + 4, f + 4);
 }
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) { unpack16(p, f); }
 __device__ __forceinline__ void load8(const int8_t* p, float* f) {
   const uint2 v = *reinterpret_cast<const uint2*>(p);
   const int8_t* b = reinterpret_cast<const int8_t*>(&v);

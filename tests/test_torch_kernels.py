@@ -236,3 +236,97 @@ def test_k2_ragged_prefill_matches_plain(card, dtype, kind):
     torch.testing.assert_close(got.float()[real], ref.float()[real],
                                **_tol(dtype))
     assert (got[~real] == 0).all()              # pad tokens: zeros on the card
+
+
+# The tensor-core body of K2 / K2-int8 (bfloat16) and the CUDA-core body
+# (float32) over the head shapes kernel_supports admits: G 1, 4, 7 and 64
+# (7 leaves a masked pad row in every 64-row tile), hd 32, 64, 128 and 256
+# (32-key tiles), committed lengths 1, 63, 64 and 65 around the 64-row key
+# tile, a fresh segment, pad tokens and a pack whose length is no multiple
+# of any query tile; KV 2 keeps the pools small.
+GRID_SEGS = [(0, 1, 37), (1, 63, 20), (2, 64, 1), (3, 65, 70), (4, 0, 9)]
+GRID_N = 141
+
+
+def _grid_args(G_, hd, dtype, seed, segs, quant=False, kv=2, pg=PG, mp=MP,
+               n_pages=N_PAGES, ptab=None):
+    """(args, kwargs, real) for the K2 wrapper: q [GRID_N, kv*G_, hd], pack
+    k/v, a shuffled float or int8 pool (or ``ptab``'s), the table and the
+    segment tables of ``segs`` [(slot, start, length)]."""
+    from localai_tpu_torch.ops.kvcache import quantize
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (n_pages, pg, kv, hd)
+    pk = torch.randn(shape, generator=gen, device="cuda")
+    pv = torch.randn(shape, generator=gen, device="cuda")
+    kw = {}
+    if quant:
+        (pk, sk), (pv, sv) = quantize(pk), quantize(pv)
+        kw = {"scales_k": sk, "scales_v": sv}
+    else:
+        pk, pv = pk.to(dtype), pv.to(dtype)
+    if ptab is None:
+        perm = torch.randperm(n_pages, generator=gen, device="cuda").to(torch.int32)
+        ptab = torch.full((S, mp), n_pages, dtype=torch.int32, device="cuda")
+        nxt = 0
+        for slot, start, n in segs:
+            k = -(-(start + n) // pg)
+            ptab[slot, :k] = perm[nxt:nxt + k]
+            nxt += k
+    tabs = torch.zeros((4, S), dtype=torch.int32)
+    tabs[0] = S
+    real = torch.zeros(GRID_N, dtype=torch.bool)
+    off = 0
+    for b, (slot, start, n) in enumerate(segs):
+        tabs[:, b] = torch.tensor([slot, start, off, n])
+        real[off:off + n] = True
+        off += n
+    q = torch.randn((GRID_N, kv * G_, hd), generator=gen, device="cuda").to(dtype)
+    ck = torch.randn((GRID_N, kv, hd), generator=gen, device="cuda").to(dtype)
+    cv = torch.randn((GRID_N, kv, hd), generator=gen, device="cuda").to(dtype)
+    args = (q, ck, cv, pk, pv, ptab, *(t.cuda() for t in tabs))
+    return args, kw, real.cuda()
+
+
+def _check_k2(args, kw, real, G_, dtype, continued):
+    from localai_tpu_torch.ops.kernels import LAUNCHES
+    from localai_tpu_torch.ops.ragged_prefill import (
+        ragged_prefill_attention_paged, ragged_prefill_plain)
+
+    name = ("ragged_prefill_attention_int8" if kw and continued
+            else "ragged_prefill_attention")
+    before = LAUNCHES[name]
+    got = ragged_prefill_attention_paged(*args, G_, **kw, continued=continued)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 1
+    ref = ragged_prefill_plain(*args, G_, **kw, continued=continued)
+    torch.testing.assert_close(got.float()[real], ref.float()[real],
+                               **_tol(dtype))
+    assert (got[~real] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("G_", [1, 4, 7, 64])
+@pytest.mark.parametrize("kind", ["fresh", "continued"])
+@pytest.mark.parametrize("quant", [False, True])
+def test_k2_head_shape_grid_matches_plain(card, dtype, hd, G_, kind, quant):
+    segs = GRID_SEGS if kind == "continued" else [
+        (s, 0, n) for s, _start, n in GRID_SEGS]
+    args, kw, real = _grid_args(G_, hd, dtype, 10 + hd + G_, segs, quant=quant)
+    _check_k2(args, kw, real, G_, dtype, kind == "continued")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_k2_contiguous_identity_table_matches_plain(card, dtype, hd):
+    """The contiguous layout's K2: one page of C = 4096 rows per slot over
+    the identity table, committed lengths up to 4000."""
+    C = 4096
+    itab = torch.arange(S, dtype=torch.int32, device="cuda")[:, None]
+    segs = [(0, 1, 37), (1, 4000, 20), (2, 64, 1), (3, 2049, 70), (4, 0, 9)]
+    args, kw, real = _grid_args(4, hd, dtype, 5, segs, pg=C, mp=1, n_pages=S,
+                                ptab=itab)
+    _check_k2(args, kw, real, 4, dtype, True)
