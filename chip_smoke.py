@@ -15,9 +15,11 @@ Phases, each raising on failure (no phase swallows an error):
               stacked cache with a device layer index).
   2. parity   each kernel against its plain PyTorch version on the card at
               Llama-3.1-8B head shapes (KV 8, G 4, hd 128, page 64), in
-              float32 and bfloat16: decode lengths 0, 1, 63, 64, 65, 1000,
-              2500, 4095 over a shuffled page pool (K1, and K3 over int8
-              pages) or a contiguous 4096-row cache (K4; K5 at layer 2 of 4);
+              float32 and bfloat16: decode lengths 0, 1, around the decode
+              kernels' split size (SPLIT_ROWS - 1, SPLIT_ROWS, SPLIT_ROWS +
+              1: 63, 64, 65), 1000, 2500, 4095 over a shuffled page pool (K1,
+              and K3 over int8 pages) or a contiguous 4096-row cache (K4; K5
+              at layer 2 of 4);
               fresh / continued / pad segments in packs of N = 128, 512,
               1024 tokens (K2, and K2-int8 over int8 pages). Tolerances:
               float32 atol 1e-4 (sum order); bfloat16 atol 2e-2 and rtol
@@ -50,10 +52,14 @@ Phases, each raising on failure (no phase swallows an error):
               launches during its serving configuration (K5 has no serving
               path: its launches are those of phases 2 and 4), parity
               error, kernel / plain / library times at its configuration's
-              shapes (CUDA events, L2 flushed before each launch), and the
-              bound from bytes and operations. K2's row also carries, under
-              "fresh", the same numbers on a fresh 512-token pack (mp = 0),
-              the shape most of its serving launches take.
+              shapes (median of 20 calls, CUDA events, L2 flushed and a GPU
+              sleep before each call, see timed_ms), the bound from bytes
+              and operations, and the CUDA kernels one wrapper call runs,
+              counted by torch.profiler in this run (the split-K decode
+              kernels enqueue two: split and combine). K2's row also
+              carries, under "fresh", the same numbers on a fresh
+              512-token pack (mp = 0), the shape most of its serving
+              launches take.
 
 The last line of stdout is {"ok": true, "device": {...}}. Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -138,7 +144,7 @@ def setup():
         f"(per source: {json.dumps({k: round(v, 1) for k, v in built.items()})})")
     for name, info in build.BUILD_INFO.items():
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"[setup] ptxas {name}: {line.strip()}")
     for name in build.SIGNATURES:
         build.library(name)
@@ -147,25 +153,63 @@ def setup():
 
 # ---------- shared helpers ----------
 
+# GPU sleep before each timed call: ~0.5 ms at the H100's clocks, longer
+# than the host takes to queue any call timed here (a plain version queues
+# dozens of ops)
+SLEEP_CYCLES = 1_000_000
+
+
 def timed_ms(fn, iters: int = 20) -> float:
-    """Mean device time of fn() with CUDA events, L2 (50 MB) flushed
-    before each launch, after a warm-up."""
+    """Median device time of fn() over ``iters`` calls with CUDA events,
+    L2 (50 MB) flushed before each call, after a warm-up. A GPU sleep
+    (SLEEP_CYCLES) sits between the flush and the start event, so the host
+    has queued the whole call (the wrapper's checks included) before the
+    start event fires, and the garbage collector is off meanwhile: the
+    reading is the call's device time, not the host's. A stall of the
+    host that outlasts the sleep can only lengthen a call, so the median
+    leaves it out."""
+    import statistics
+
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
     for _ in range(3):
         fn()
-    total = 0.0
-    for _ in range(iters):
-        flush.zero_()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+    times = []
+    gc.collect()
+    gc.disable()
+    try:
+        for _ in range(iters):
+            flush.zero_()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+    finally:
+        gc.enable()
+    return statistics.median(times)
+
+
+def kernels_per_call(fn):
+    """The CUDA kernels one call of fn() runs, as torch.profiler (CUPTI)
+    records them around that call after a warm-up: (count, names), or
+    (None, []) when the profiler recorded no device activity at all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
-        b.record()
-        b.synchronize()
-        total += a.elapsed_time(b)
-    return total / iters
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names = [e.name for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    return (len(names) if dev else None), names
 
 
 def max_err(a, b, mask=None) -> float:
@@ -306,7 +350,6 @@ K2_CASES = {
     512: [(3, 512, 300), (4, 70, 150), (5, 0, 50)],                  # continued, mid-page
     1024: [(6, 1024, 512), (7, 2000, 500)],                          # long continued
 }
-K1_LENGTHS = [0, 1, 63, 64, 65, 1000, 2500, 4095]
 
 
 # ---------- phase 2 ----------
@@ -318,12 +361,14 @@ def parity():
         contig_decode_plain, decode_attention_append_contig,
         decode_attention_append_full, full_decode_plain)
     from localai_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_attention_quant, paged_decode_plain,
-        paged_decode_quant_plain)
+        SPLIT_ROWS, paged_decode_attention, paged_decode_attention_quant,
+        paged_decode_plain, paged_decode_quant_plain)
     from localai_tpu_torch.ops.ragged_prefill import (
         ragged_prefill_attention_paged, ragged_prefill_plain)
 
     errs = {}
+    # 0, 1, around the decode kernels' split size (64 = the page), long, C - 1
+    k1_lengths = [0, 1, SPLIT_ROWS - 1, SPLIT_ROWS, SPLIT_ROWS + 1, 1000, 2500, C_MAX - 1]
 
     def record(key, name, got, ref, dname, mask=None):
         e = check_close(name, got, ref, dname, mask=mask)
@@ -332,15 +377,15 @@ def parity():
 
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
-        args = decode_inputs(K1_LENGTHS, dt, SEED)
+        args = decode_inputs(k1_lengths, dt, SEED)
         record("paged_decode_attention", f"K1 paged_decode {dname} lengths="
-               f"{K1_LENGTHS}", paged_decode_attention(*args, G),
+               f"{k1_lengths}", paged_decode_attention(*args, G),
                paged_decode_plain(*args, G), dname)
-        args = decode_inputs(K1_LENGTHS, dt, SEED, cache_dtype=torch.int8)
+        args = decode_inputs(k1_lengths, dt, SEED, cache_dtype=torch.int8)
         record("paged_decode_attention_quant", f"K3 int8 paged_decode {dname} "
-               f"lengths={K1_LENGTHS}", paged_decode_attention_quant(*args, G),
+               f"lengths={k1_lengths}", paged_decode_attention_quant(*args, G),
                paged_decode_quant_plain(*args, G), dname)
-        c_lengths = K1_LENGTHS[:-1] + [C_MAX]
+        c_lengths = k1_lengths[:-1] + [C_MAX]
         q, nk, nv, ck, cv, lens = contig_inputs(c_lengths, dt, SEED,
                                                 layers=K5_LAYERS)
         li = K5_LAYER
@@ -687,14 +732,14 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
         contig_decode_plain, decode_attention_append_contig,
         decode_attention_append_full, full_decode_plain)
     from localai_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_attention_quant, paged_decode_plain,
-        paged_decode_quant_plain)
+        SPLIT_ROWS, paged_decode_attention, paged_decode_attention_quant,
+        paged_decode_plain, paged_decode_quant_plain)
     from localai_tpu_torch.ops.ragged_prefill import (
         ragged_prefill_attention_paged, ragged_prefill_plain)
 
     dt, elt = torch.bfloat16, 2
     peak = PEAK_FLOPS["bfloat16"]
-    rows = []
+    rows, profiled = [], []
 
     def decode_lengths(config):
         # the four requests mid-burst (prompt + 16 rows), four idle slots
@@ -703,9 +748,10 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
         return lengths + [0] * (S_SLOTS - len(lengths))
 
     def add(name, replaces, source, config, fn, plain, lib, cost, shape,
-            kernel_n=None, **extra):
+            kernel_n=None, split_k=True, **extra):
         errs[name] = max(errs.get(name, 0.0), check_close(
             f"{name} at the serving shape", fn(), plain(), "bfloat16"))
+        profiled.append((name, fn, split_k))
         r = {"name": name, "route": "cuda",
              "source": f"localai_tpu_torch/ops/kernels/csrc/{source}",
              "replaces": replaces,
@@ -716,6 +762,8 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
              "config": config, "shape": shape,
              "launches_by_config": {c: launches[c][name] for c in launches},
              **extra}
+        if split_k:                     # the split-K decode kernels
+            r["split_rows"] = SPLIT_ROWS
         rows.append(r)
 
     # K1 / K3 at the paged / int8 serving decode shapes
@@ -806,7 +854,7 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
                 la[0], la[1], la[2], attn_mask=la[3]),
             prefill_cost(N, segs, elt, cache_elt=1 if quant else None, scales=quant),
             f"bf16 N={N} KV={KV} G={G} hd={HD} pg={PG} "
-            f"{'int8 pages ' if quant else ''}segs={segs}",
+            f"{'int8 pages ' if quant else ''}segs={segs}", split_k=False,
             library="SDPA, causal mask over committed + pack keys"
                     + (" (dequantized bf16 committed rows)" if quant else ""))
         if not quant:
@@ -842,6 +890,19 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
         launches_from="phases 2 and 4: no serving path calls K5 (nor its TPU "
                       "kernel in the JAX package)")
     rows[-1]["launches"] = k5_launches + LAUNCHES["decode_attention_append_full"] - n0
+
+    # the CUDA kernels of one wrapper call, after every timing above (the
+    # profiler's tracing stays out of the timed calls)
+    for r, (name, fn, split_k) in zip(rows, profiled):
+        per_call, kernel_names = kernels_per_call(fn)
+        log(f"[kernels] {name}: one wrapper call ran {per_call} CUDA kernels "
+            f"(torch.profiler): {kernel_names}")
+        if split_k and per_call is not None and (
+                per_call != 2 or not any("split_kernel" in n for n in kernel_names)
+                or not any("combine_kernel" in n for n in kernel_names)):
+            raise RuntimeError(f"{name}: expected one split and one combine "
+                               f"kernel per call, the profiler saw {kernel_names}")
+        r["cuda_kernels_per_call"] = per_call
 
     n_layers = LLAMA31_8B["num_hidden_layers"]
     for r in rows:

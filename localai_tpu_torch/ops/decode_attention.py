@@ -12,7 +12,8 @@ decode_attention_append_pallas and ::decode_attention_append_pallas_full).
     scratch slot) are never read. Nothing on the serving path calls it,
     as nothing in the JAX package calls its TPU counterpart.
 
-On CUDA tensors they launch ops/kernels/csrc/contig_decode.cu, or raise;
+On CUDA tensors they launch ops/kernels/csrc/contig_decode.cu (K1's
+split-K walk and combine, ops/paged_attention.py::SPLIT_ROWS), or raise;
 on CPU tensors they run the plain version, ops/attention.py::
 decode_attention_append over the layer's rows.
 """
@@ -24,7 +25,8 @@ import torch
 from localai_tpu_torch.ops.attention import decode_attention_append
 from localai_tpu_torch.ops.kernels import LAUNCHES, build
 from localai_tpu_torch.ops.paged_attention import (
-    check_decode_shapes, check_kernel_args, cuda_stream)
+    SPLIT_ROWS, check_decode_shapes, check_kernel_args, cuda_stream,
+    decode_workspace)
 
 
 def contig_decode_plain(q, new_k, new_v, cache_k, cache_v, lengths,
@@ -73,11 +75,13 @@ def decode_attention_append_contig(q, new_k, new_v, cache_k, cache_v, lengths,
         raise ValueError(f"{name}: cache {tuple(cache_k.shape)} is not "
                          f"[S={S}, C, KV, hd]")
     _check_cache(name, cache_k, cache_v, lengths, S, KV, hd, S)
+    C = cache_k.shape[1]
     out = torch.empty_like(q)
+    ws = decode_workspace(q, KV, q_per_kv, C)
     err = build.launcher("contig_decode", "contig_decode_attention_launch")(
         q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), cache_k.data_ptr(),
-        cache_v.data_ptr(), lengths.data_ptr(), out.data_ptr(), S, KV,
-        q_per_kv, hd, cache_k.shape[1], code, stream)
+        cache_v.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        S, KV, q_per_kv, hd, C, SPLIT_ROWS, code, stream)
     build.check(err, name)
     LAUNCHES[name] += 1
     return out
@@ -106,10 +110,12 @@ def decode_attention_append_full(q, new_k, new_v, cache_k, cache_v, lengths,
     _check_cache(name, cache_k, cache_v, lengths, S, KV, hd, S)
     L, s_alloc, C = cache_k.shape[:3]
     out = torch.empty_like(q)
+    ws = decode_workspace(q, KV, q_per_kv, C)
     err = build.launcher("contig_decode", "contig_decode_attention_full_launch")(
         q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), cache_k.data_ptr(),
         cache_v.data_ptr(), lengths.data_ptr(), layer_idx.data_ptr(),
-        out.data_ptr(), S, KV, q_per_kv, hd, C, s_alloc, L, code, stream)
+        out.data_ptr(), ws.data_ptr(), S, KV, q_per_kv, hd, C, s_alloc, L,
+        SPLIT_ROWS, code, stream)
     build.check(err, name)
     LAUNCHES[name] += 1
     return out

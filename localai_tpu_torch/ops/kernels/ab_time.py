@@ -1,24 +1,40 @@
-"""A/B device time of the K1, K2 and K2-int8 kernels: this checkout's
-sources against another checkout's, in one process on one card.
+"""A/B device time of the decode kernels K1, K3, K4, K5 and the prefill
+kernels K2, K2-int8: this checkout's sources against another checkout's,
+in one process on one card.
 
     python -m localai_tpu_torch.ops.kernels.ab_time --other DIR \\
-        [--rounds 10] [--iters 50]
+        [--rounds 10] [--iters 50] [--split-rows 64[,128,256]] [--only K1,K4]
 
 DIR is the root of another checkout (e.g. the parent commit unpacked with
-``git archive``) whose csrc/ exports the same C launchers
-``paged_decode_attention_launch`` (K1), ``ragged_prefill_attention_launch``
-(K2) and ``ragged_prefill_attention_quant_launch`` (K2-int8). Both
-libraries are built with this checkout's nvcc flags and called on the SAME
-inputs at chip_smoke.py's serving shapes (bf16, Llama-3.1-8B heads: K1 over
-8 slots with lengths 48/48/48/1516 and four idle slots; K2 and K2-int8 on a
-476-token chunk over 1024 committed rows, bf16 or int8 pages; "K2 fresh"
-on a fresh 512-token pack, mp = 0, the shape most of K2's serving launches
-take). Each round times A, B, B,
-A (mean of ``--iters`` launches each, L2 flushed before every launch,
-CUDA events), so drift in clocks or power hits both sides alike. Prints
-every round, then one JSON line with the medians and the spread
-(interquartile range) per side, the number of rounds A won, and the
-card's name and power limit.
+``git archive``) whose csrc/ exports the same C launchers. Its decode
+launchers may predate the split-K workspace: when its paged_decode.cu
+takes no ``split_rows``, they are bound with ``PARENT_SIGNATURES`` (no
+workspace, no split size). Both sides' libraries are built with this
+checkout's nvcc flags and called on the SAME inputs (bf16, Llama-3.1-8B
+heads: KV 8, G 4, hd 128, page 64, 8 slots of 4096 rows):
+
+  * every decode kernel at six shapes: "serving", chip_smoke.py's decode
+    (lengths 48/48/48/1516 and four idle slots); "long", one slot of 4095
+    rows and seven idle; "full", 8 x 4095 rows (134 MB read per call);
+    two short contexts: "short", one chat of 100 rows and seven idle
+    slots, and "early", eight chats of 128 rows each; "idle", every slot
+    at length 0 (the fixed cost of a call: no split works and the combine
+    returns the current token's v).
+    K1 reads a shuffled page pool, K3 its int8 quantization, K4 the same
+    bytes as a contiguous [8, 4096] cache, K5 that cache as a one-layer
+    stacked cache with the layer index on the device;
+  * K2 and K2-int8 on a 476-token chunk over 1024 committed rows (bf16 or
+    int8 pages); "K2 fresh" on a fresh 512-token pack (mp = 0).
+
+With several ``--split-rows`` values this checkout's decode kernels run
+once per value (sides "A@64", "A@128", ...), which is how SPLIT_ROWS was
+chosen. Each round times the sides in order and then in reverse (A, B, B,
+A for two sides), each the mean of ``--iters`` launches with the L2
+flushed and ~0.5 ms of GPU sleep before every launch (so the host has
+queued the launch before the start event fires), CUDA events around it.
+Prints every round, then one JSON line with the medians and the spread
+(interquartile range) per side, the number of rounds each A side won
+against B, and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -34,20 +50,52 @@ import subprocess
 import torch
 
 from localai_tpu_torch.ops.kernels import build
+from localai_tpu_torch.ops.paged_attention import SPLIT_ROWS, n_splits
 
 KV, G, HD, PG, MP, S = 8, 4, 128, 64, 64, 8
 N_PAGES = S * MP
-DECODE_LENGTHS = [48, 48, 48, 1516, 0, 0, 0, 0]
+C = MP * PG
+DECODE_SHAPES = {"serving": [48, 48, 48, 1516, 0, 0, 0, 0],
+                 "long": [C - 1] + [0] * (S - 1),
+                 "full": [C - 1] * S,
+                 "short": [100] + [0] * (S - 1),
+                 "early": [128] * S,
+                 "idle": [0] * S}
 PREFILL_SEG = (0, 1024, 476)        # slot, committed rows, chunk tokens
 FRESH_N = 512                        # a fresh pack: one 512-token segment
+SLEEP_CYCLES = 1_000_000             # ~0.5 ms at the H100's clocks
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the decode launchers of a checkout from before the split-K workspace
+PARENT_SIGNATURES = {
+    "paged_decode": {
+        "paged_decode_attention_launch": [_P] * 8 + [_I] * 8 + [_P],
+        "paged_decode_attention_quant_launch": [_P] * 10 + [_I] * 8 + [_P],
+    },
+    "contig_decode": {
+        "contig_decode_attention_launch": [_P] * 7 + [_I] * 6 + [_P],
+        "contig_decode_attention_full_launch": [_P] * 8 + [_I] * 8 + [_P],
+    },
+}
+NAMES = ("paged_decode", "ragged_prefill", "contig_decode")
 
 
-def bind(path: str, name: str) -> dict:
-    """{launcher name: bound C function} of the library at ``path``, built
-    from a ``name``.cu."""
+def _src(root: str, name: str) -> str:
+    return os.path.join(root, "localai_tpu_torch", "ops", "kernels", "csrc",
+                        f"{name}.cu")
+
+
+def splits_decode(root: str) -> bool:
+    """Whether ``root``'s decode launchers take the split-K workspace."""
+    with open(_src(root, "paged_decode")) as f:
+        return "split_rows" in f.read()
+
+
+def bind(path: str, signatures: dict) -> dict:
+    """{launcher name: bound C function} of the library at ``path``."""
     lib = ctypes.CDLL(path)
     fns = {}
-    for fn_name, argtypes in build.SIGNATURES[name].items():
+    for fn_name, argtypes in signatures.items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -55,17 +103,16 @@ def bind(path: str, name: str) -> dict:
     return fns
 
 
-def _build(root: str, name: str, tag: str) -> dict:
+def _build(root: str, name: str, tag: str, split: bool) -> dict:
     """The launchers of ``root``'s ``name``.cu, built with this checkout's
     flags."""
-    src = os.path.join(root, "localai_tpu_torch", "ops", "kernels", "csrc",
-                       f"{name}.cu")
     out_dir = os.path.join(build.BUILD_DIR, "ab", tag)
     os.makedirs(out_dir, exist_ok=True)
     out = os.path.join(out_dir, f"lib{name}.so")
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, src],
-                   check=True, capture_output=True, text=True)
-    return bind(out, name)
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", out,
+                    _src(root, name)], check=True, capture_output=True, text=True)
+    sigs = build.SIGNATURES if split else PARENT_SIGNATURES
+    return bind(out, sigs.get(name, build.SIGNATURES[name]))
 
 
 def make_inputs(gen):
@@ -89,9 +136,10 @@ def make_inputs(gen):
 
     pk, pv = randn(N_PAGES, PG, KV, HD), randn(N_PAGES, PG, KV, HD)
     (qk, sk), (qv, sv) = quantize(pk.float()), quantize(pv.float())
-    dec = dict(q=randn(S, KV * G, HD), nk=randn(S, KV, HD), nv=randn(S, KV, HD),
-               ptab=table(DECODE_LENGTHS),
-               lens=torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda"))
+    dec = {shape: dict(ptab=table(lengths), lens=torch.tensor(
+        lengths, dtype=torch.int32, device="cuda"))
+        for shape, lengths in DECODE_SHAPES.items()}
+    dec_qkv = dict(q=randn(S, KV * G, HD), nk=randn(S, KV, HD), nv=randn(S, KV, HD))
     slot, start, n = PREFILL_SEG
     rows = [0] * S
     rows[slot] = start + n
@@ -99,73 +147,96 @@ def make_inputs(gen):
     tabs[0] = S
     tabs[:, 0] = torch.tensor([slot, start, 0, n])
     pre = dict(q=randn(n, KV * G, HD), ck=randn(n, KV, HD), cv=randn(n, KV, HD),
-               ptab=table(rows), tabs=[t.cuda() for t in tabs],
-               int8=(qk, sk, qv, sv))
+               ptab=table(rows), tabs=[t.cuda() for t in tabs])
     ftabs = torch.zeros((4, S), dtype=torch.int32)
     ftabs[0] = S
     ftabs[:, 0] = torch.tensor([0, 0, 0, FRESH_N])
     fresh = dict(q=randn(FRESH_N, KV * G, HD), ck=randn(FRESH_N, KV, HD),
                  cv=randn(FRESH_N, KV, HD), tabs=[t.cuda() for t in ftabs])
-    return pk, pv, dec, pre, fresh
+    return dict(pools=(pk, pv), int8=(qk, sk, qv, sv), dec=dec, qkv=dec_qkv,
+                pre=pre, fresh=fresh)
 
 
-def make_calls(fns, pk, pv, dec, pre, fresh):
-    """{kernel: {side: zero-argument launch}} for K1, K2, K2-int8 and K2
-    on a fresh pack."""
+def decode_calls(fns, split, inp, shape):
+    """{kernel: zero-argument launch} of K1, K3, K4 and K5 at ``shape``
+    for one side: ``fns`` its launchers, ``split`` its split size (None:
+    the launchers take no workspace)."""
     stream = torch.cuda.current_stream().cuda_stream
-    out1 = torch.empty_like(dec["q"])
+    pk, pv = inp["pools"]
+    qk, sk, qv, sv = inp["int8"]
+    t = inp["qkv"]
+    d = inp["dec"][shape]
+    out = torch.empty_like(t["q"])
+    ck, cv = pk.view(S, C, KV, HD), pv.view(S, C, KV, HD)   # the same bytes, contiguous
+    layer = torch.zeros(1, dtype=torch.int32, device="cuda")
+    head = [t["q"].data_ptr(), t["nk"].data_ptr(), t["nv"].data_ptr()]
+    if split is not None:
+        ws = torch.empty(S * KV * n_splits(C, split) * G * (HD + 2),
+                         dtype=torch.float32, device="cuda")
+
+    def call(fn, ptrs, ints, label):
+        if split is None:
+            args = head + ptrs + [out.data_ptr()] + ints + [1, stream]
+        else:
+            args = (head + ptrs + [out.data_ptr(), ws.data_ptr()] + ints
+                    + [split, 1, stream])
+        return lambda: build.check(fn(*args), label)
+
+    pd, cd = fns["paged_decode"], fns["contig_decode"]
+    geo = [S, KV, G, HD]
+    return {
+        "K1": call(pd["paged_decode_attention_launch"],
+                   [pk.data_ptr(), pv.data_ptr(), d["ptab"].data_ptr(),
+                    d["lens"].data_ptr()], geo + [N_PAGES, PG, MP], "K1"),
+        "K3": call(pd["paged_decode_attention_quant_launch"],
+                   [qk.data_ptr(), sk.data_ptr(), qv.data_ptr(), sv.data_ptr(),
+                    d["ptab"].data_ptr(), d["lens"].data_ptr()],
+                   geo + [N_PAGES, PG, MP], "K3"),
+        "K4": call(cd["contig_decode_attention_launch"],
+                   [ck.data_ptr(), cv.data_ptr(), d["lens"].data_ptr()],
+                   geo + [C], "K4"),
+        "K5": call(cd["contig_decode_attention_full_launch"],
+                   [ck.data_ptr(), cv.data_ptr(), d["lens"].data_ptr(),
+                    layer.data_ptr()], geo + [C, S, 1], "K5"),
+    }
+
+
+def prefill_calls(fns, inp):
+    """{kernel: zero-argument launch} of K2, K2-int8 and K2 on a fresh
+    pack for one side."""
+    stream = torch.cuda.current_stream().cuda_stream
+    pk, pv = inp["pools"]
+    qk, sk, qv, sv = inp["int8"]
+    pre, fresh = inp["pre"], inp["fresh"]
     out2 = torch.empty_like(pre["q"])
     out3 = torch.empty_like(fresh["q"])
     n = pre["q"].shape[0]
-
-    def k1(fn):
-        return lambda: build.check(fn(
-            dec["q"].data_ptr(), dec["nk"].data_ptr(), dec["nv"].data_ptr(),
-            pk.data_ptr(), pv.data_ptr(), dec["ptab"].data_ptr(),
-            dec["lens"].data_ptr(), out1.data_ptr(), S, KV, G, HD, N_PAGES, PG,
-            MP, 1, stream), "K1")
-
-    def k2(fn):
-        t = pre["tabs"]
-        return lambda: build.check(fn(
-            pre["q"].data_ptr(), pre["ck"].data_ptr(), pre["cv"].data_ptr(),
-            pk.data_ptr(), pv.data_ptr(), pre["ptab"].data_ptr(), t[0].data_ptr(),
-            t[1].data_ptr(), t[2].data_ptr(), t[3].data_ptr(), out2.data_ptr(),
-            n, KV, G, HD, N_PAGES, PG, MP, S, S, 1, stream), "K2")
-
-    def k2_int8(fn):
-        t = pre["tabs"]
-        qk, sk, qv, sv = pre["int8"]
-        return lambda: build.check(fn(
-            pre["q"].data_ptr(), pre["ck"].data_ptr(), pre["cv"].data_ptr(),
-            qk.data_ptr(), sk.data_ptr(), qv.data_ptr(), sv.data_ptr(),
-            pre["ptab"].data_ptr(), t[0].data_ptr(), t[1].data_ptr(),
-            t[2].data_ptr(), t[3].data_ptr(), out2.data_ptr(),
-            n, KV, G, HD, N_PAGES, PG, MP, S, S, 1, stream), "K2-int8")
-
-    def k2_fresh(fn):      # mp = 0: the pool and the table are not read
-        t = fresh["tabs"]
-        return lambda: build.check(fn(
-            fresh["q"].data_ptr(), fresh["ck"].data_ptr(), fresh["cv"].data_ptr(),
-            None, None, None, t[0].data_ptr(), t[1].data_ptr(), t[2].data_ptr(),
-            t[3].data_ptr(), out3.data_ptr(), FRESH_N, KV, G, HD, 0, 0, 0, S, S, 1,
-            stream), "K2 fresh")
-
-    rp = "ragged_prefill"
-    return {"K1": {side: k1(f["paged_decode"]["paged_decode_attention_launch"])
-                   for side, f in fns.items()},
-            "K2": {side: k2(f[rp]["ragged_prefill_attention_launch"])
-                   for side, f in fns.items()},
-            "K2-int8": {side: k2_int8(f[rp]["ragged_prefill_attention_quant_launch"])
-                        for side, f in fns.items()},
-            "K2 fresh": {side: k2_fresh(f[rp]["ragged_prefill_attention_launch"])
-                         for side, f in fns.items()}}
+    t, ft = pre["tabs"], fresh["tabs"]
+    rp = fns["ragged_prefill"]
+    k2, k2q = (rp["ragged_prefill_attention_launch"],
+               rp["ragged_prefill_attention_quant_launch"])
+    head = [pre["q"].data_ptr(), pre["ck"].data_ptr(), pre["cv"].data_ptr()]
+    tabs = [pre["ptab"].data_ptr()] + [x.data_ptr() for x in t] + [out2.data_ptr()]
+    ints = [n, KV, G, HD, N_PAGES, PG, MP, S, S, 1, stream]
+    fresh_args = ([fresh["q"].data_ptr(), fresh["ck"].data_ptr(),
+                   fresh["cv"].data_ptr(), None, None, None]
+                  + [x.data_ptr() for x in ft]
+                  + [out3.data_ptr(), FRESH_N, KV, G, HD, 0, 0, 0, S, S, 1, stream])
+    return {
+        "K2": lambda: build.check(k2(*head, pk.data_ptr(), pv.data_ptr(), *tabs,
+                                     *ints), "K2"),
+        "K2-int8": lambda: build.check(k2q(*head, qk.data_ptr(), sk.data_ptr(),
+                                           qv.data_ptr(), sv.data_ptr(), *tabs,
+                                           *ints), "K2-int8"),
+        "K2 fresh": lambda: build.check(k2(*fresh_args), "K2 fresh"),
+    }
 
 
 def mean_ms(call, iters: int, flush) -> float:
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -186,6 +257,12 @@ def main(argv=None) -> int:
     p.add_argument("--other", required=True, help="root of the B checkout")
     p.add_argument("--rounds", type=int, default=10)
     p.add_argument("--iters", type=int, default=50)
+    p.add_argument("--split-rows", default=str(SPLIT_ROWS),
+                   help="comma-separated split sizes for this checkout's "
+                        "decode kernels (default: SPLIT_ROWS)")
+    p.add_argument("--only", default="",
+                   help="comma-separated kernel-name prefixes to time "
+                        "(e.g. K1,K4; default: all)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ab_time: needs a CUDA device")
@@ -195,38 +272,55 @@ def main(argv=None) -> int:
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
     roots = {"A": here, "B": os.path.abspath(args.other)}
-    names = ("paged_decode", "ragged_prefill")
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:   # one nvcc each
-        futs = {(side, name): pool.submit(_build, root, name, side)
-                for side, root in roots.items() for name in names}
-        fns = {side: {name: futs[side, name].result() for name in names}
+    split_new = {side: splits_decode(root) for side, root in roots.items()}
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:   # one nvcc each
+        futs = {(side, name): pool.submit(_build, root, name, side, split_new[side])
+                for side, root in roots.items() for name in NAMES}
+        fns = {side: {name: futs[side, name].result() for name in NAMES}
                for side in roots}
-    gen = torch.Generator(device="cuda").manual_seed(1234)
-    calls = make_calls(fns, *make_inputs(gen))
+    splits = [int(x) for x in args.split_rows.split(",")]
+    a_sides = {("A" if len(splits) == 1 else f"A@{n}"): n for n in splits}
+    inp = make_inputs(torch.Generator(device="cuda").manual_seed(1234))
+    calls = {}
+    for shape in DECODE_SHAPES:
+        sides = {side: decode_calls(fns["A"], n, inp, shape)
+                 for side, n in a_sides.items()}
+        sides["B"] = decode_calls(fns["B"], SPLIT_ROWS if split_new["B"] else None,
+                                  inp, shape)
+        for k in ("K1", "K3", "K4", "K5"):
+            calls[f"{k} {shape}"] = {side: c[k] for side, c in sides.items()}
+    pre = {side: prefill_calls(fns[side], inp) for side in roots}
+    for k in ("K2", "K2-int8", "K2 fresh"):
+        calls[k] = {side: c[k] for side, c in pre.items()}
+    only = [x for x in args.only.split(",") if x]
+    calls = {k: v for k, v in calls.items()
+             if not only or any(k.startswith(x) for x in only)}
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    times = {k: {"A": [], "B": []} for k in calls}
-    a_faster = {k: 0 for k in calls}       # rounds whose two A runs beat the two B runs
+    times = {k: {side: [] for side in v} for k, v in calls.items()}
+    won = {k: {side: 0 for side in v if side != "B"} for k, v in calls.items()}
     for kernel, sides in calls.items():
         for call in sides.values():          # warm-up
             for _ in range(3):
                 call()
         torch.cuda.synchronize()
+        order = list(sides) + list(reversed(sides))
         for r in range(args.rounds):
             row = {}
-            for side in ("A", "B", "B", "A"):
+            for side in order:
                 ms = mean_ms(sides[side], args.iters, flush)
                 times[kernel][side].append(ms)
                 row.setdefault(side, []).append(ms)
-            a_faster[kernel] += sum(row["A"]) < sum(row["B"])
-            print(f"{card}: {kernel} round {r}: A {row['A']} B {row['B']}",
-                  flush=True)
+            for side in won[kernel]:           # its two runs beat B's two runs
+                won[kernel][side] += sum(row[side]) < sum(row["B"])
+            print(f"{card}: {kernel} round {r}: " + " ".join(
+                f"{side} {v}" for side, v in row.items()), flush=True)
     summary = {k: {**{side: {"median_ms": statistics.median(v), "iqr_ms": _iqr(v),
                              "n": len(v)} for side, v in t.items()},
-                   "rounds_a_faster": a_faster[k]}
+                   "rounds_won_against_B": won[k]}
                for k, t in times.items()}
     print(json.dumps({"card": card, "A": here, "B": os.path.abspath(args.other),
-                      "rounds": args.rounds, "iters": args.iters,
-                      "kernels": summary}), flush=True)
+                      "split_rows": a_sides, "rounds": args.rounds,
+                      "iters": args.iters, "kernels": summary}), flush=True)
     return 0
 
 

@@ -33,16 +33,16 @@ _I = ctypes.c_int
 # (pointers and the stream as void*, ints as int)
 SIGNATURES = {
     "paged_decode": {
-        "paged_decode_attention_launch": [_P] * 8 + [_I] * 8 + [_P],          # K1
-        "paged_decode_attention_quant_launch": [_P] * 10 + [_I] * 8 + [_P],   # K3
+        "paged_decode_attention_launch": [_P] * 9 + [_I] * 9 + [_P],          # K1
+        "paged_decode_attention_quant_launch": [_P] * 11 + [_I] * 9 + [_P],   # K3
     },
     "ragged_prefill": {
         "ragged_prefill_attention_launch": [_P] * 11 + [_I] * 10 + [_P],      # K2
         "ragged_prefill_attention_quant_launch": [_P] * 13 + [_I] * 10 + [_P],  # K2-int8
     },
     "contig_decode": {
-        "contig_decode_attention_launch": [_P] * 7 + [_I] * 6 + [_P],         # K4
-        "contig_decode_attention_full_launch": [_P] * 8 + [_I] * 8 + [_P],    # K5
+        "contig_decode_attention_launch": [_P] * 8 + [_I] * 7 + [_P],         # K4
+        "contig_decode_attention_full_launch": [_P] * 9 + [_I] * 9 + [_P],    # K5
     },
 }
 

@@ -28,6 +28,40 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared; `bytes` 0 writes zeros
+// without reading `src`
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+// 4-byte asynchronous copy (a scale); `bytes` 0 writes zeros
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+// all but this thread's newest committed group have landed
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+// all but this thread's newest N committed groups have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// Programmatic dependent launch (sm_90): a primary grid lets its dependent
+// grid be scheduled early; the dependent waits for the primary's completion
+// and memory before reading what it wrote. Both are no-ops when the grid
+// was not launched as a programmatic dependent.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // Elements of T in one 16-byte vector load
 template <typename T>
 __host__ __device__ constexpr int vec_elems() { return 16 / static_cast<int>(sizeof(T)); }
@@ -52,6 +86,23 @@ __device__ __forceinline__ void unpack16(const int8_t* p, float* f) {
   const int8_t* b = reinterpret_cast<const int8_t*>(&v);
 #pragma unroll
   for (int i = 0; i < 16; ++i) f[i] = static_cast<float>(b[i]);
+}
+
+// 2 consecutive elements as floats (one 8-, 4- or 2-byte load)
+__device__ __forceinline__ void load2(const float* p, float& a, float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float& a, float& b) {
+  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void load2(const int8_t* p, float& a, float& b) {
+  const char2 v = *reinterpret_cast<const char2*>(p);
+  a = static_cast<float>(v.x);
+  b = static_cast<float>(v.y);
 }
 
 // 8 elements as floats (two 16-byte loads of float, one 8-byte load of
@@ -83,13 +134,6 @@ template <typename T>
 __device__ __forceinline__ const T* row_ptr(const T* base, long long row, int kv, int h, int hd) {
   if (row < 0) return nullptr;
   return base + (static_cast<size_t>(row) * kv + h) * hd;
-}
-
-// Physical row of logical row `c`, or nullptr when unallocated
-template <typename T>
-__device__ __forceinline__ const T* page_row(const T* pages, const int* tab, int c, int pg,
-                                             int n_pages, int kv, int h, int hd) {
-  return row_ptr(pages, page_row_index(tab, c, pg, n_pages), kv, h, hd);
 }
 
 }  // namespace localai_kernels

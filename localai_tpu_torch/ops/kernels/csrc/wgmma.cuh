@@ -1,5 +1,6 @@
-// Hopper warpgroup matrix-multiply (wgmma) and cp.async helpers for the
-// port's tensor-core kernels (sm_90a only: wgmma does not exist on sm_90).
+// Hopper warpgroup matrix-multiply (wgmma) helpers for the port's
+// tensor-core kernels (sm_90a only: wgmma does not exist on sm_90); the
+// cp.async helpers they use are in common.cuh.
 //
 // Operand layout: every shared-memory tile is stored in blocks of 64 bf16
 // columns (128 bytes per row), rows packed at 128 bytes, 16-byte chunks
@@ -11,6 +12,8 @@
 #pragma once
 
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace localai_kernels {
 
@@ -30,26 +33,6 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead, uint
          (static_cast<uint64_t>((lead >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((stride >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy global -> shared; `bytes` 0 writes zeros
-// without reading `src`
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
-               : "memory");
-}
-// 4-byte asynchronous copy (a scale); `bytes` 0 writes zeros
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-// all but this thread's newest committed group have landed
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
 
 // Make this thread's generic-proxy shared-memory writes (st.shared,
 // cp.async) visible to the async proxy that wgmma reads through; a

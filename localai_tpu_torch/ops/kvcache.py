@@ -236,7 +236,7 @@ def scatter_ragged(lcache: dict, slot_of: torch.Tensor, cols: torch.Tensor,
     return write_rows(lcache, scatter_index(lcache, slot_of, cols), new_kv)
 
 
-def from_jax(jcache, device="cpu") -> dict:
+def from_jax(jcache, device="cuda") -> dict:
     """A JAX package cache as numpy leaves (paged {"pages", "ptab"[,
     "scales"]} or a contiguous [L, S, C, KV, hd] array) -> this layout,
     with the zeroed scratch page / slot appended. For tests that hand the

@@ -3,7 +3,9 @@ localai_tpu/ops/pallas/paged_attention.py::paged_decode_attention_append
 and ::paged_decode_attention_append_quant).
 
 On CUDA tensors they launch the hand-written kernels in
-ops/kernels/csrc/paged_decode.cu, or raise. On CPU tensors they run the
+ops/kernels/csrc/paged_decode.cu, or raise: one launcher call enqueues
+the split-K kernel over SPLIT_ROWS-row splits and its combine, into a
+workspace from ``decode_workspace``. On CPU tensors they run the
 plain version (ops/attention.py::decode_attention_append over the
 dense-gathered pages, and for K3 their scales) — the only reason they
 ever do is that they were handed CPU tensors.
@@ -18,6 +20,30 @@ from localai_tpu_torch.ops.attention import decode_attention_append
 from localai_tpu_torch.ops.kernels import LAUNCHES, build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# Committed rows per split-K block of the decode kernels K1, K3, K4 and K5
+# (csrc/decode_attention.cuh): a multiple of their 32-row tile and of the
+# 64-row serving page. The launchers take it as an argument and cut a
+# slot's row capacity into n_splits() pieces.
+SPLIT_ROWS = 64
+
+
+def n_splits(rows_cap: int, split_rows: int = SPLIT_ROWS) -> int:
+    """Splits per (slot, kv head) of a decode call over ``rows_cap`` rows
+    (max_pages * page_size, or C): the launchers cut their grid the same
+    way, from these shapes alone."""
+    return -(-rows_cap // split_rows)
+
+
+def decode_workspace(q, kv_heads: int, q_per_kv: int, rows_cap: int,
+                     split_rows: int = SPLIT_ROWS):
+    """The f32 workspace a decode launch's split kernel fills and its
+    combine kernel reads: S * KV * n_split * G * (hd + 2) floats from the
+    caching allocator (no sync, safe under graph capture). The combine
+    reads only what the same call wrote, so it needs no clearing."""
+    S, _H, hd = q.shape
+    n = S * kv_heads * n_splits(rows_cap, split_rows) * q_per_kv * (hd + 2)
+    return torch.empty(n, dtype=torch.float32, device=q.device)
 
 
 def check_kernel_args(name: str, floats: dict, ints: dict,
@@ -114,11 +140,12 @@ def paged_decode_attention(q, new_k, new_v, pages_k, pages_v, ptab, lengths,
     KV = new_k.shape[1]
     n_pages, pg, mp = _check_pool(name, pages_k, pages_v, ptab, lengths, S, KV)
     out = torch.empty_like(q)
+    ws = decode_workspace(q, KV, q_per_kv, mp * pg)
     err = build.launcher("paged_decode", "paged_decode_attention_launch")(
         q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), pages_k.data_ptr(),
         pages_v.data_ptr(), ptab.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), S, KV, q_per_kv, q.shape[2], n_pages, pg, mp, code,
-        stream)
+        out.data_ptr(), ws.data_ptr(), S, KV, q_per_kv, q.shape[2], n_pages,
+        pg, mp, SPLIT_ROWS, code, stream)
     build.check(err, name)
     LAUNCHES[name] += 1
     return out
@@ -164,11 +191,12 @@ def paged_decode_attention_quant(q, new_k, new_v, pages_k, scales_k, pages_v,
         raise ValueError(f"{name}: scales {tuple(scales_k.shape)} do not "
                          f"match pages {tuple(pages_k.shape)}")
     out = torch.empty_like(q)
+    ws = decode_workspace(q, KV, q_per_kv, mp * pg)
     err = build.launcher("paged_decode", "paged_decode_attention_quant_launch")(
         q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), pages_k.data_ptr(),
         scales_k.data_ptr(), pages_v.data_ptr(), scales_v.data_ptr(),
-        ptab.data_ptr(), lengths.data_ptr(), out.data_ptr(), S, KV, q_per_kv,
-        q.shape[2], n_pages, pg, mp, code, stream)
+        ptab.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), S,
+        KV, q_per_kv, q.shape[2], n_pages, pg, mp, SPLIT_ROWS, code, stream)
     build.check(err, name)
     LAUNCHES[name] += 1
     return out

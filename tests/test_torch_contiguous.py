@@ -64,7 +64,7 @@ def test_contiguous_scatter_drops_sentinels_like_jax():
     S, C, KV, hd = 3, 16, 2, 8
     base = rng.normal(size=(1, S, C, KV, hd)).astype(np.float32)
     jc = jnp.asarray(base)
-    tc = tkv.from_jax(base)
+    tc = tkv.from_jax(base, device="cpu")
     assert not tkv.is_paged(tc) and tkv.shape(tc) == (1, S, C, KV, hd)
     assert tc["rows"].shape[1] == S + 1                      # scratch slot
     jl, tl = jkv.layer(jc, 0), tkv.layer(tc, 0)
@@ -136,8 +136,8 @@ def test_k5_plain_matches_jax(reference):
 
     c = _decode_case(seed=6)
     li = 2
-    tck = tkv.from_jax(c["ck"])["rows"]              # [L, S + 1, C, KV, hd]
-    tcv = tkv.from_jax(c["cv"])["rows"]
+    tck = tkv.from_jax(c["ck"], device="cpu")["rows"]  # [L, S + 1, C, KV, hd]
+    tcv = tkv.from_jax(c["cv"], device="cpu")["rows"]
     tck[:, -1] = 1e4                                 # a poisoned scratch slot
     tcv[:, -1] = -1e4
     before = dict(LAUNCHES)
@@ -184,8 +184,8 @@ def test_contiguous_prefill_through_identity_table_matches_jax(kind):
     q = rng.normal(size=(N, KV * G, hd)).astype(np.float32)
     nk = rng.normal(size=(N, KV, hd)).astype(np.float32)
     nv = rng.normal(size=(N, KV, hd)).astype(np.float32)
-    lk = tkv.layer(tkv.from_jax(ck), 0)
-    lv = tkv.layer(tkv.from_jax(cv), 0)
+    lk = tkv.layer(tkv.from_jax(ck, device="cpu"), 0)
+    lv = tkv.layer(tkv.from_jax(cv, device="cpu"), 0)
     assert tuple(tkv.table(lk).flatten().tolist()) == tuple(range(S))
     out = ragged_prefill_attention_paged(
         _t(q), _t(nk), _t(nv), tkv.pool(lk), tkv.pool(lv), tkv.table(lk),

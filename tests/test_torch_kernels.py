@@ -13,7 +13,13 @@ K3 (int8 pages) with decode lengths 0, 1, 63, 64, 65, long and C - 1, on a
 shuffled page pool; K2 and K2-int8 with fresh, continued (mid-page) and
 pad segments and pad tokens; K4 (contiguous) and K5 (stacked cache,
 layer index on the device, a poisoned scratch slot past S) with the same
-lengths up to C. Tolerances: float32 1e-4 absolute (summation order);
+lengths up to C. The split-K decode kernels (K1, K3, K4, K5) also at the
+split edges of ops/paged_attention.py::SPLIT_ROWS, on an all-idle batch,
+over a head-shape grid (G 1/2/4/8 x hd 32/64/128/256), and across calls
+that reuse one workspace from the caching allocator (once NaN-poisoned),
+captured in a CUDA graph and replayed (again after the lengths changed
+on the device), and at 8192 rows per slot.
+Tolerances: float32 1e-4 absolute (summation order);
 bfloat16 2e-2 absolute and relative (bf16 rounding of the plain version's
 scores, probabilities and output, plus order). Int8 cases compare the
 kernel and the plain version on the SAME int8 rows, so the same
@@ -330,3 +336,183 @@ def test_k2_contiguous_identity_table_matches_plain(card, dtype, hd):
     args, kw, real = _grid_args(4, hd, dtype, 5, segs, pg=C, mp=1, n_pages=S,
                                 ptab=itab)
     _check_k2(args, kw, real, 4, dtype, True)
+
+
+# ---------- the split-K decode kernels K1, K3, K4, K5 ----------
+
+_DECODE_NAME = {"K1": "paged_decode_attention",
+                "K3": "paged_decode_attention_quant",
+                "K4": "decode_attention_append_contig",
+                "K5": "decode_attention_append_full"}
+
+
+def _decode_calls(kernel, G_, hd, dtype, lengths, seed, kv=KV, C=MP * PG, lens=None):
+    """(kernel call, plain call) of one decode kernel on seeded inputs
+    over ``lengths``: a shuffled page pool with C rows of table per slot
+    (K1; K3 over int8 pages), a contiguous [S, C] cache (K4), or the
+    stacked [2, S + 1, C] cache at layer 1 with a poisoned scratch slot
+    (K5). ``lens``: a device int32 tensor the calls read the lengths from
+    (filled with ``lengths``), so a caller can change them between calls."""
+    from localai_tpu_torch.ops.decode_attention import (
+        contig_decode_plain, decode_attention_append_contig,
+        decode_attention_append_full, full_decode_plain)
+    from localai_tpu_torch.ops.kvcache import quantize
+    from localai_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_quant, paged_decode_plain,
+        paged_decode_quant_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = len(lengths)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q, nk, nv = (randn(n, kv * G_, hd).to(dtype), randn(n, kv, hd).to(dtype),
+                 randn(n, kv, hd).to(dtype))
+    if lens is None:
+        lens = torch.empty(n, dtype=torch.int32, device="cuda")
+    lens.copy_(torch.tensor(lengths, dtype=torch.int32))
+    if kernel in ("K1", "K3"):
+        mp = -(-C // PG)
+        n_pages = n * mp
+        pk, pv = randn(n_pages, PG, kv, hd), randn(n_pages, PG, kv, hd)
+        perm = torch.randperm(n_pages, generator=gen, device="cuda").to(torch.int32)
+        ptab = torch.full((n, mp), n_pages, dtype=torch.int32, device="cuda")
+        nxt = 0
+        for s, r in enumerate(lengths):
+            k = -(-r // PG)
+            ptab[s, :k] = perm[nxt:nxt + k]
+            nxt += k
+        if kernel == "K1":
+            a = (q, nk, nv, pk.to(dtype), pv.to(dtype), ptab, lens, G_)
+            return (lambda: paged_decode_attention(*a)), (lambda: paged_decode_plain(*a))
+        (qk, sk), (qv, sv) = quantize(pk), quantize(pv)
+        a = (q, nk, nv, qk, sk, qv, sv, ptab, lens, G_)
+        return ((lambda: paged_decode_attention_quant(*a)),
+                (lambda: paged_decode_quant_plain(*a)))
+    if kernel == "K4":
+        a = (q, nk, nv, randn(n, C, kv, hd).to(dtype), randn(n, C, kv, hd).to(dtype),
+             lens, G_)
+        return ((lambda: decode_attention_append_contig(*a)),
+                (lambda: contig_decode_plain(*a)))
+    ck, cv = randn(2, n + 1, C, kv, hd).to(dtype), randn(2, n + 1, C, kv, hd).to(dtype)
+    ck[:, n] = 1e4                                # the scratch slot is never read
+    cv[:, n] = -1e4
+    layer = torch.tensor([1], dtype=torch.int32, device="cuda")
+    a = (q, nk, nv, ck, cv, lens, layer, G_)
+    return (lambda: decode_attention_append_full(*a)), (lambda: full_decode_plain(*a))
+
+
+def _check_decode(kernel, calls, dtype):
+    """One launch of the kernel (counted once), held to its plain version;
+    returns the kernel's output."""
+    from localai_tpu_torch.ops.kernels import LAUNCHES
+
+    fn, plain = calls
+    name = _DECODE_NAME[kernel]
+    before = LAUNCHES[name]
+    got = fn()
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 1
+    assert bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got.float(), plain().float(), **_tol(dtype))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["K1", "K3", "K4", "K5"])
+def test_decode_split_edges_match_plain(card, kernel, dtype):
+    """Lengths at the split edges (0, SPLIT_ROWS - 1, SPLIT_ROWS,
+    SPLIT_ROWS + 1, a multiple of it minus one), C - 1 and C, at
+    Llama-3.1-8B heads."""
+    from localai_tpu_torch.ops.paged_attention import SPLIT_ROWS as SR
+
+    C = MP * PG
+    lengths = [0, 1, SR - 1, SR, SR + 1, 3 * SR - 1, C - 1, C]
+    _check_decode(kernel, _decode_calls(kernel, G, HD, dtype, lengths, 21), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["K1", "K3", "K4", "K5"])
+def test_decode_all_idle_batch_returns_current_value(card, kernel, dtype):
+    """Every slot idle (length 0): no split works, and the combine returns
+    each head's current-token v exactly, as the plain version does."""
+    calls = _decode_calls(kernel, G, HD, dtype, [0] * S, 22)
+    got = _check_decode(kernel, calls, dtype)
+    torch.testing.assert_close(got, calls[1](), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("G_", [1, 2, 4, 8])
+@pytest.mark.parametrize("kernel", ["K1", "K3", "K4", "K5"])
+def test_decode_head_shape_grid_matches_plain(card, kernel, G_, hd, dtype):
+    from localai_tpu_torch.ops.paged_attention import SPLIT_ROWS as SR
+
+    C = 512
+    lengths = [0, 1, SR - 1, SR + 1, 300, C - 1]
+    _check_decode(kernel, _decode_calls(kernel, G_, hd, dtype, lengths,
+                                        30 + G_ + hd, kv=2, C=C), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K3", "K4", "K5"])
+def test_decode_workspace_reuse_reads_no_stale_partial(card, kernel):
+    """Calls with shorter lengths after a long one get the same size of
+    workspace from the caching allocator, once after a NaN-filled block of
+    that size was freed: the combine reads only its own call's splits."""
+    from localai_tpu_torch.ops.paged_attention import SPLIT_ROWS as SR
+    from localai_tpu_torch.ops.paged_attention import decode_workspace
+
+    C, dt = MP * PG, torch.float32
+    _check_decode(kernel, _decode_calls(kernel, G, HD, dt, [C - 1] * S, 40), dt)
+    short = [SR + 1, 1, 0, SR, 2 * SR - 1, 0, 5, SR - 1]
+    calls = _decode_calls(kernel, G, HD, dt, short, 41)
+    _check_decode(kernel, calls, dt)
+    q = torch.empty((S, KV * G, HD), device="cuda")
+    poison = decode_workspace(q, KV, G, C).fill_(float("nan"))
+    del poison
+    _check_decode(kernel, calls, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K3", "K4", "K5"])
+def test_decode_call_replays_in_a_cuda_graph(card, kernel):
+    """One wrapper call captured in a CUDA graph (workspace from the graph's
+    pool, the combine a programmatic dependent of the split kernel) and
+    replayed gives the plain version's output; replayed again after the
+    lengths changed on the device (the split grid comes from shapes alone,
+    the working splits from the lengths the kernel reads), it gives the
+    plain version's output at the new lengths."""
+    from localai_tpu_torch.ops.paged_attention import SPLIT_ROWS as SR
+
+    dt = torch.bfloat16
+    lens = torch.empty(S, dtype=torch.int32, device="cuda")
+    fn, plain = _decode_calls(kernel, G, HD, dt, [0, 1, SR + 1, 300, 0, 700, 5, 3 * SR],
+                              50, lens=lens)
+    fn()                                          # build, load, set attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), plain().float(), **_tol(dt))
+    lens.copy_(torch.tensor([0, 0, SR, 299, 0, 1, 0, 2 * SR + 3], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), plain().float(), **_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["K1", "K3", "K4", "K5"])
+def test_decode_long_context_matches_plain(card, kernel, dtype):
+    """8192 rows per slot at Llama-3.1-8B heads: 128 splits per slot, a
+    z extent of the split grid twice the serving one."""
+    C = 8192
+    lengths = [C - 1, 4100, 0, 65, C, 1, 6000, 64]
+    _check_decode(kernel, _decode_calls(kernel, G, HD, dtype, lengths, 60, C=C), dtype)

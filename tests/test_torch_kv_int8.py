@@ -94,7 +94,7 @@ def test_int8_paged_scatter_drops_sentinels_like_jax():
     rng = np.random.default_rng(2)
     jc = jkv.init_paged((1, S, C, KV, HD), jnp.int8, PG)
     jc = jkv.with_page_table(jc, jnp.asarray(_ptab()))
-    tc = tkv.from_jax(jax.tree.map(np.asarray, jc))
+    tc = tkv.from_jax(jax.tree.map(np.asarray, jc), device="cpu")
     assert tc["pages"].shape[1] == jc["pages"].shape[1] + 1    # scratch page
     assert tc["scales"].shape[1] == jc["scales"].shape[1] + 1
     jl, tl = jkv.layer(jc, 0), tkv.layer(tc, 0)
