@@ -12,7 +12,8 @@ Phases, each raising on failure (no phase swallows an error):
               paged_decode.cu (K1 paged decode, K3 the same over int8 pages),
               ragged_prefill.cu (K2 ragged prefill, K2-int8 over int8 pages),
               contig_decode.cu (K4 contiguous decode, K5 the same over the
-              stacked cache with a device layer index).
+              stacked cache with a device layer index), quant_matmul.cu
+              (W8 / W4, the weight-only int8 / int4 products).
   2. parity   each kernel against its plain PyTorch version on the card at
               Llama-3.1-8B head shapes (KV 8, G 4, hd 128, page 64), in
               float32 and bfloat16: decode lengths 0, 1, around the decode
@@ -26,20 +27,37 @@ Phases, each raising on failure (no phase swallows an error):
               2e-2 (bf16 rounding of the plain version's scores,
               probabilities and output, plus order); int8 cases compare
               kernel and plain on the SAME int8 rows, so the same hold.
+              W8 and W4 at every Llama-3.1-8B projection shape (K, N) =
+              (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+              (4096, 128256) (W4: the layer shapes, g 128) and at (11008,
+              4096) with the g pick_int4_group gives at tp 8 (86), M = 1,
+              8, 16 (the skinny kernel), 17, 512 (dequantize + matmul),
+              and a tied int8 table [128256, 4096] used transposed; same
+              tolerances (float32: sum order; bfloat16: the plain version
+              rounds each dequantized weight to bf16, the kernel does not).
               Then a small model (hd 128, float32) on the card — kernels —
               against the same model on the CPU — plain versions — in the
-              three configurations (paged float, paged int8, contiguous):
-              prefill and decode logits within 1e-3 (int8: 5e-3, since a
-              row may quantize one level apart where the card's and the
-              CPU's float32 projections differ in the last bits).
+              five configurations (paged float, paged int8, contiguous,
+              int8 weights + int8 KV, int4 weights): prefill and decode
+              logits within 1e-3 (int8 KV: 5e-3, since a row may quantize
+              one level apart where the card's and the CPU's float32
+              projections differ in the last bits).
   3. serving  the port's HTTP server (stdlib) with a Llama-3.1-8B-shaped
               config-only model dir, full width and depth: random bf16
               weights from a seed, 8 slots, context 4096, prefill_chunk 512,
-              in three configurations, one after the other:
+              in five configurations, one after the other:
                 paged    bf16 KV, page 64 (the default path): K1 + K2;
                 int8     kv_cache_dtype int8, page 64: K3 + K2-int8 (and
                          K2 for fresh packs), no K1;
-                contig   kv_layout contiguous, bf16 KV: K4 + K2.
+                contig   kv_layout contiguous, bf16 KV: K4 + K2;
+                w8kv8    quantization int8 + kv_cache_dtype int8 (the
+                         README's YAML): W8 + K3 + K2-int8 + K2, no W4;
+                w4       quantization int4 (lm_head and embed int8), bf16
+                         KV: W4 + W8 + K1 + K2.
+              The first three keep bf16 weights and launch no W8 / W4; the
+              quantized ones are quantized from the seed's float32 draws
+              as they are drawn. Each prints the card memory and the
+              weights' bytes after load.
               Each: one short warm-up request (so no configuration's
               numbers carry the process's first-use costs), then three chat
               requests (one streamed) and one /v1/completions request with
@@ -48,7 +66,7 @@ Phases, each raising on failure (no phase swallows an error):
               every usage.completion_tokens must be 32. Launch counters are
               zeroed just before each configuration's four requests and
               read just after.
-  4. kernels  one JSON line {"kernels": [...]}: for each of the six kernels,
+  4. kernels  one JSON line {"kernels": [...]}: for each of the eight kernels,
               launches during its serving configuration (K5 has no serving
               path: its launches are those of phases 2 and 4), parity
               error, kernel / plain / library times at its configuration's
@@ -59,7 +77,12 @@ Phases, each raising on failure (no phase swallows an error):
               kernels enqueue two: split and combine). K2's row also
               carries, under "fresh", the same numbers on a fresh
               512-token pack (mp = 0), the shape most of its serving
-              launches take.
+              launches take. W8's and W4's rows time w_gate at decode M =
+              8, and carry lm_head at M = 8 and w_gate at M = 512 (the
+              wide path) under "lm_head" and "wide", their library call
+              the product with a dense bf16 weight of the same shape
+              (what the bf16 model runs), and under "per_step" every
+              projection shape at M = 8 summed over a decode step.
 
 The last line of stdout is {"ok": true, "device": {...}}. Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -98,20 +121,36 @@ LLAMA31_8B = {
 
 # the serving configurations: (name, load_model knobs, kernels that must
 # launch, kernels that must not)
+W8, W4 = "quant_matmul_int8", "quant_matmul_int4"
 CONFIGS = [
     ("paged", {},
      ("paged_decode_attention", "ragged_prefill_attention"),
      ("paged_decode_attention_quant", "ragged_prefill_attention_int8",
-      "decode_attention_append_contig")),
+      "decode_attention_append_contig", W8, W4)),
     ("int8", {"kv_cache_dtype": "int8"},
      ("paged_decode_attention_quant", "ragged_prefill_attention_int8",
       "ragged_prefill_attention"),
-     ("paged_decode_attention", "decode_attention_append_contig")),
+     ("paged_decode_attention", "decode_attention_append_contig", W8, W4)),
     ("contig", {"kv_layout": "contiguous"},
      ("decode_attention_append_contig", "ragged_prefill_attention"),
      ("paged_decode_attention", "paged_decode_attention_quant",
-      "ragged_prefill_attention_int8")),
+      "ragged_prefill_attention_int8", W8, W4)),
+    ("w8kv8", {"quantization": "int8", "kv_cache_dtype": "int8"},
+     (W8, "paged_decode_attention_quant", "ragged_prefill_attention_int8",
+      "ragged_prefill_attention"),
+     ("paged_decode_attention", "decode_attention_append_contig", W4)),
+    ("w4", {"quantization": "int4"},
+     (W4, W8, "paged_decode_attention", "ragged_prefill_attention"),
+     ("paged_decode_attention_quant", "decode_attention_append_contig")),
 ]
+
+# the distinct (K, N) of Llama-3.1-8B's projections, and how many of each
+# a layer runs (lm_head: once per step)
+QUANT_SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024),
+                "w_gate_up": (4096, 14336), "w_down": (14336, 4096),
+                "lm_head": (4096, 128256)}
+PER_LAYER = {"wq_wo": 2, "wk_wv": 2, "w_gate_up": 2, "w_down": 1}
+QUANT_M = (1, 8, 16, 17, 512)
 
 
 def log(msg: str):
@@ -418,9 +457,64 @@ def parity():
                    ragged_prefill_plain(*args, G, **kw, continued=continued),
                    dname, mask=real)
         torch.cuda.synchronize()
-    for kind in ("paged", "int8", "contig"):
+    quant_parity(record)
+    for kind in ("paged", "int8", "contig", "w8kv8", "w4"):
         model_parity(kind)
     return errs
+
+
+def quant_weight(K, N, bits, seed, group=128, tp=1):
+    """A {q, s} leaf quantized on the card from normal / sqrt(K) weights
+    (the model's init), int8 or int4 (group pick_int4_group(K, group, tp))."""
+    import torch
+
+    from localai_tpu_torch.ops.quant import (pick_int4_group, quantize_weight,
+                                             quantize_weight_int4)
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    w = torch.randn((K, N), generator=gen, device=DEV).div_(K ** 0.5)
+    if bits == 8:
+        return quantize_weight(w)
+    g = pick_int4_group(K, group, tp)
+    return quantize_weight_int4(w, group=g)
+
+
+def quant_parity(record):
+    """W8 / W4 against their plain version (x @ mat(w)) at every 8B
+    projection shape, both regimes, float32 and bfloat16 (module doc)."""
+    import torch
+
+    from localai_tpu_torch.ops.quant import quant_matmul, quant_matmul_plain
+
+    cases = [(W8, name, K, N, 128, 1, QUANT_M)
+             for name, (K, N) in QUANT_SHAPES.items()]
+    cases += [(W4, name, K, N, 128, 1, QUANT_M)
+              for name, (K, N) in QUANT_SHAPES.items() if name != "lm_head"]
+    cases += [(W4, "llama-2 w_down, tp 8", 11008, 4096, 128, 8, (1, 8, 17))]
+    for key, name, K, N, group, tp, ms in cases:
+        leaf = quant_weight(K, N, 8 if key == W8 else 4, SEED + K + N, group, tp)
+        g = K // leaf["s"].shape[0] if key == W4 else None
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            gen = torch.Generator(device=DEV).manual_seed(SEED)
+            x_all = torch.randn((max(ms), K), generator=gen, device=DEV).to(dt)
+            for M in ms:
+                x = x_all[:M]
+                record(key, f"{'W8' if key == W8 else 'W4'} {name} {dname} K={K} "
+                       f"N={N}{f' g={g}' if g else ''} M={M}",
+                       quant_matmul(x, leaf), quant_matmul_plain(x, leaf), dname)
+        del leaf
+    K, V = QUANT_SHAPES["lm_head"]
+    table = quant_weight(V, K, 8, SEED)                   # [V, D], scale along D
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        gen = torch.Generator(device=DEV).manual_seed(SEED)
+        for M in (1, 8, 512):
+            x = torch.randn((M, K), generator=gen, device=DEV).to(dt)
+            record(W8, f"W8 tied table [{V}, {K}] transposed {dname} M={M}",
+                   quant_matmul(x, table, transposed=True),
+                   quant_matmul_plain(x, table, transposed=True), dname)
+    torch.cuda.synchronize()
 
 
 def model_parity(kind: str):
@@ -431,22 +525,31 @@ def model_parity(kind: str):
 
     from localai_tpu_torch.engine.weights import random_params
     from localai_tpu_torch.models import llama
+    from localai_tpu_torch.ops.kernels import LAUNCHES
 
     cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256,
                             intermediate_size=512, num_layers=2, num_heads=4,
                             num_kv_heads=1, head_dim=128, rope_theta=500000.0,
                             dtype=torch.float32)
-    p_cpu = random_params(cfg, SEED, device="cpu")
-    p_gpu = {k: ({lk: lv.to(DEV) for lk, lv in v.items()} if k == "layers"
-                 else v.to(DEV)) for k, v in p_cpu.items()}
+    quantize = {"w8kv8": "int8", "w4": "int4"}.get(kind, "")
+    int8_kv = kind in ("int8", "w8kv8")
+    p_cpu = random_params(cfg, SEED, device="cpu", quantize=quantize)
+
+    def to_dev(v):
+        if isinstance(v, dict):
+            return {k: to_dev(x) for k, x in v.items()}
+        return v.to(DEV)
+
+    p_gpu = to_dev(p_cpu)
     S, C, pg = 4, 256, 64
     out = []
+    before = (LAUNCHES[W8], LAUNCHES[W4])
     for dev, params in (("cpu", p_cpu), (DEV, p_gpu)):
         if kind == "contig":
             ck, cv = llama.init_cache(cfg, S, C, 0, device=dev)
         else:
             ck, cv = llama.init_cache(
-                cfg, S, C, pg, dtype=torch.int8 if kind == "int8" else None,
+                cfg, S, C, pg, dtype=torch.int8 if int8_kv else None,
                 device=dev)
             ptab = torch.arange(S * C // pg, dtype=torch.int32).flip(0).reshape(S, -1)
             ck["ptab"] = cv["ptab"] = ptab.to(dev)
@@ -480,15 +583,26 @@ def model_parity(kind: str):
             logs.append(lg.cpu())
         out.append(logs)
     err = max(max_err(a, b) for a, b in zip(*out))
-    tol = 5e-3 if kind == "int8" else 1e-3
+    tol = 5e-3 if int8_kv else 1e-3
     if not all(bool(torch.isfinite(t).all()) for t in out[1]) or err > tol:
         raise AssertionError(f"model parity ({kind}): card vs CPU logits max "
                              f"err {err:.3e}")
-    log(f"[parity] small model (hd 128, f32, {kind} cache) card kernels vs CPU "
-        f"plain: logits max_abs_err {err:.3e} (tol {tol:g})")
+    w8, w4 = LAUNCHES[W8] - before[0], LAUNCHES[W4] - before[1]
+    if (w8 > 0) != bool(quantize) or (w4 > 0) != (quantize == "int4"):
+        raise AssertionError(f"model parity ({kind}): W8 / W4 launches {w8} / {w4}")
+    log(f"[parity] small model (hd 128, f32, {kind}) card kernels vs CPU "
+        f"plain: logits max_abs_err {err:.3e} (tol {tol:g}; W8 / W4 "
+        f"launches {w8} / {w4})")
 
 
 # ---------- phase 3 ----------
+
+def param_bytes(params) -> int:
+    """Bytes of a parameter dict's tensors ({q, s} leaves included)."""
+    if isinstance(params, dict):
+        return sum(param_bytes(v) for v in params.values())
+    return params.numel() * params.element_size()
+
 
 def http_json(url: str, body=None, timeout=600):
     data = None if body is None else json.dumps(body).encode()
@@ -533,19 +647,21 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
     with open(os.path.join(model_dir, "config.json"), "w") as f:
         json.dump(LLAMA31_8B, f)
     tag = f"[serve {config}]"
-    gib_before = torch.cuda.memory_allocated() / 2**30
+    gb_before = torch.cuda.memory_allocated() / 1e9
     t0 = time.monotonic()
     lm = load_model(model_dir, "llama-3.1-8b", num_slots=S_SLOTS,
                     context_size=C_MAX, dtype="bfloat16", random_weights=SEED,
                     device=DEV, prefill_chunk=512, kv_page_size=PG,
                     decode_burst=16, **knobs)
     torch.cuda.synchronize()
-    gib = torch.cuda.memory_allocated() / 2**30
+    gb = torch.cuda.memory_allocated() / 1e9
     m = lm.engine.metrics()
-    log(f"{tag} Llama-3.1-8B shape, random bf16 weights (seed {SEED}), "
-        f"8 slots x 4096 context, KV {m['kv_layout']} {m['cache_dtype']}: "
-        f"loaded in {time.monotonic() - t0:.1f} s, {gib:.2f} GiB allocated "
-        f"({gib_before:.2f} GiB before the load)")
+    weight_gb = param_bytes(lm.engine.params) / 1e9
+    log(f"{tag} Llama-3.1-8B shape, random {lm.quantization or 'bf16'} weights "
+        f"(seed {SEED}), 8 slots x 4096 context, KV {m['kv_layout']} "
+        f"{m['cache_dtype']}: loaded in {time.monotonic() - t0:.1f} s; weights "
+        f"{weight_gb:.3f} GB (10^9 bytes); memory_allocated after load "
+        f"{gb:.3f} GB ({gb_before:.3f} GB before the load)")
     app = App({lm.name: lm})
     server = make_server(app, "127.0.0.1", 0)
     th = threading.Thread(target=server.serve_forever, daemon=True)
@@ -599,7 +715,7 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
         torch.cuda.synchronize()
         launches = dict(LAUNCHES)
         wall = time.monotonic() - t_start
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         m1 = lm.engine.metrics()
         for key, (res, _t0, _t1) in results.items():
             if isinstance(res, Exception):
@@ -632,7 +748,7 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
             f"decode {step_ms:.2f} ms per step (host wall, sync included, "
             f"{dec['steps']} steps); packed prefill {pack_ms:.2f} ms per pack "
             f"({pk['dispatches']} packs, {pk['tokens']} tokens); "
-            f"{gib:.2f} GiB allocated after load, peak {peak_gib:.2f} GiB")
+            f"{gb:.3f} GB allocated after load, peak {peak_gb:.3f} GB")
         log(f"{tag} packed prefill {json.dumps(pk)}; decode {json.dumps(dec)}; "
             f"kernel launches {json.dumps(launches)}")
         missing = [k for k in must if launches[k] <= 0]
@@ -649,7 +765,7 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
         return launches, {"prompt_lens": prompt_lens, "n_long": n_long,
                           "ttft_ms": ttft_ms, "decode_tok_s": decode_tok_s,
                           "step_ms": step_ms, "pack_ms": pack_ms,
-                          "gib": gib, "peak_gib": peak_gib}
+                          "gb": gb, "peak_gb": peak_gb, "weight_gb": weight_gb}
     finally:
         server.shutdown()
         server.server_close()
@@ -762,7 +878,7 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
              "config": config, "shape": shape,
              "launches_by_config": {c: launches[c][name] for c in launches},
              **extra}
-        if split_k:                     # the split-K decode kernels
+        if split_k is True:             # the split-K decode kernels
             r["split_rows"] = SPLIT_ROWS
         rows.append(r)
 
@@ -890,6 +1006,7 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
         launches_from="phases 2 and 4: no serving path calls K5 (nor its TPU "
                       "kernel in the JAX package)")
     rows[-1]["launches"] = k5_launches + LAUNCHES["decode_attention_append_full"] - n0
+    quant_rows(rows, profiled, add, errs, shapes, dt, elt, peak)
 
     # the CUDA kernels of one wrapper call, after every timing above (the
     # profiler's tracing stays out of the timed calls)
@@ -897,12 +1014,19 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
         per_call, kernel_names = kernels_per_call(fn)
         log(f"[kernels] {name}: one wrapper call ran {per_call} CUDA kernels "
             f"(torch.profiler): {kernel_names}")
-        if split_k and per_call is not None and (
-                per_call != 2 or not any("split_kernel" in n for n in kernel_names)
+        want = {True: "split_kernel", "skinny": "skinny_kernel"}.get(split_k)
+        if want and per_call is not None and (
+                per_call != 2 or not any(want in n for n in kernel_names)
                 or not any("combine_kernel" in n for n in kernel_names)):
-            raise RuntimeError(f"{name}: expected one split and one combine "
+            raise RuntimeError(f"{name}: expected one {want} and one combine "
                                f"kernel per call, the profiler saw {kernel_names}")
         r["cuda_kernels_per_call"] = per_call
+        for sub in ("lm_head", "wide"):
+            if sub in r:
+                n, names = kernels_per_call(r[sub].pop("fn"))
+                log(f"[kernels] {name} {sub}: one wrapper call ran {n} CUDA "
+                    f"kernels (torch.profiler): {names}")
+                r[sub]["cuda_kernels_per_call"] = n
 
     n_layers = LLAMA31_8B["num_hidden_layers"]
     for r in rows:
@@ -912,12 +1036,77 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
             log(f"[kernels] {card}: {r['name']} share of a {r['config']} decode "
                 f"step ~ {n_layers * r['ms'] / sh['step_ms'] * 100:.1f}% "
                 f"({n_layers} layers x {r['ms']:.4f} ms / {sh['step_ms']:.2f} ms)")
-        for x in (r, r.get("fresh")):
+        for x in (r, r.get("fresh"), r.get("lm_head"), r.get("wide")):
             if x:
                 log(f"[kernels] {card}: {r['name']} {x['ms']:.4f} ms (plain "
                     f"{x['plain_ms']:.4f}, library {x['library_ms']:.4f}, bound "
                     f"{x['bound_ms']:.4f} by {x['bound_by']}) at {x['shape']}")
     return rows
+
+
+def quant_rows(rows, profiled, add, errs, shapes, dt, elt, peak):
+    """W8's and W4's rows (module doc): w_gate at decode M = 8 through
+    ``add``; lm_head at M = 8 and w_gate at M = 512 (the wide path) under
+    "lm_head" and "wide"; under "per_step" every projection shape at M = 8
+    summed over a decode step (32 layers + lm_head), kernel against the
+    dense bf16 product."""
+    import torch
+
+    from localai_tpu_torch.ops.quant import mat, quant_matmul, quant_matmul_plain
+
+    S = S_SLOTS
+
+    def case(K, N, M, bits):
+        leaf = quant_weight(K, N, bits, SEED + K + N)
+        gen = torch.Generator(device=DEV).manual_seed(SEED)
+        x = torch.randn((M, K), generator=gen, device=DEV).to(dt)
+        dense = mat(leaf, dt)            # the bf16 model's weight of this shape
+        wbytes = leaf["q"].numel() + leaf["s"].numel() * 4
+        return (lambda: quant_matmul(x, leaf), lambda: quant_matmul_plain(x, leaf),
+                lambda: torch.matmul(x, dense),
+                (wbytes + (M * K + M * N) * elt, 2 * M * K * N))
+
+    def measure(name, K, N, M, bits):
+        fn, plain, lib, cost = case(K, N, M, bits)
+        errs[name] = max(errs[name], check_close(
+            f"{name} K={K} N={N} M={M}", fn(), plain(), "bfloat16"))
+        return {"ms": timed_ms(fn), "plain_ms": timed_ms(plain),
+                "library_ms": timed_ms(lib), **bound(*cost, peak), "fn": fn,
+                "shape": f"bf16 x [{M}, {K}] @ int{bits} [{K}, {N}]"}
+
+    lib_note = ("torch.matmul with the dense bf16 weight of the same shape "
+                "(the bf16 model's product; the port never calls it for a "
+                "quantized weight)")
+    n_layers = LLAMA31_8B["num_hidden_layers"]
+    for name, config, bits in ((W8, "w8kv8", 8), (W4, "w4", 4)):
+        K, N = QUANT_SHAPES["w_gate_up"]
+        fn, plain, lib, cost = case(K, N, S, bits)
+        add(name, "no pallas_call: XLA's fusion of localai_tpu/ops/quant.py:95 "
+            "(mat) into the einsums of localai_tpu/models/llama.py:229-248, "
+            ":326, :608", "quant_matmul.cu", config, fn, plain, lib, cost,
+            f"bf16 x [{S}, {K}] @ int{bits} w_gate [{K}, {N}]"
+            + (" g=128" if bits == 4 else ""), split_k="skinny", library=lib_note)
+        r = rows[-1]
+        r["lm_head"] = measure(name, *QUANT_SHAPES["lm_head"], S, bits)
+        r["wide"] = measure(name, K, N, 512, bits)
+        # a decode step's products: each shape once at M = 8 (the int4
+        # configuration's lm_head is W8)
+        per = {}
+        for shape, (k, n) in QUANT_SHAPES.items():
+            b = 8 if shape == "lm_head" else bits
+            f, _p, lb, _c = case(k, n, S, b)
+            per[shape] = {"ms": timed_ms(f), "library_ms": timed_ms(lb), "bits": b}
+        step = lambda key: (n_layers * sum(PER_LAYER[k] * per[k][key] for k in PER_LAYER)
+                            + per["lm_head"][key])
+        r["per_step"] = {"shapes": per, "ms": step("ms"), "library_ms": step("library_ms"),
+                         "decode_step_ms": shapes[config]["step_ms"]}
+        log(f"[kernels] {name}: a {config} decode step's weight products "
+            f"(M = {S}, {n_layers} layers + lm_head) take {step('ms'):.3f} ms of "
+            f"kernel time; the same products on dense bf16 weights "
+            f"{step('library_ms'):.3f} ms; the step {shapes[config]['step_ms']:.2f} "
+            f"ms (host wall)")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
 
 def main():

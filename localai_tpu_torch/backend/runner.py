@@ -4,9 +4,10 @@ process split, which comes with a later slice).
 
 ``load_model`` turns a model dir (HF config.json + safetensors, or a
 config.json-only dir with explicit random weights) plus serving knobs
-into a started Engine; ``kv_cache_dtype`` and ``kv_layout`` take the JAX
-package's names and values. ``build_request`` maps OpenAI-style request
-overrides onto a GenRequest with the JAX package's defaults
+into a started Engine; ``quantization``, ``kv_cache_dtype`` and
+``kv_layout`` take the JAX package's names and values. ``build_request``
+maps OpenAI-style request overrides onto a GenRequest with the JAX
+package's defaults
 (temperature 0.8, top_k 40, top_p 0.95, max_tokens 256); sampling knobs
 this slice does not implement are refused, never silently ignored.
 """
@@ -52,6 +53,7 @@ class LoadedModel:
     cfg: LlamaConfig
     tokenizer: object
     engine: Engine
+    quantization: str = ""
 
 
 def kv_cache_dtype_of(name: str, model_dtype: torch.dtype):
@@ -81,16 +83,25 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
                context_size: int = 2048, dtype: str = "bfloat16",
                random_weights: Optional[int] = None, device="cuda",
                kv_cache_dtype: str = "", kv_layout: str = "auto",
-               **engine_knobs) -> LoadedModel:
+               quantization: str = "", **engine_knobs) -> LoadedModel:
     """Load a model dir into a started Engine on ``device``.
 
     ``random_weights`` (a seed) serves random weights for a dir that holds
     only config.json; without it such a dir is an error, so an incomplete
-    checkpoint is never served as noise. ``kv_cache_dtype`` ("" = the
-    model dtype; int8 / q8_0 = int8 rows with scales) and ``kv_layout``
-    (auto | paged | contiguous) are checked before any weight is loaded;
-    int8 with the contiguous layout raises NotImplementedError."""
+    checkpoint is never served as noise. ``quantization`` ("" | int8 |
+    int4: weight-only matmul weights, ops/quant.py; ``dtype="int8"`` is
+    the JAX package's alias for int8 weights with bfloat16 compute),
+    ``kv_cache_dtype`` ("" = the model dtype; int8 / q8_0 = int8 rows with
+    scales) and ``kv_layout`` (auto | paged | contiguous) are checked
+    before any weight is loaded: an unknown quantization raises
+    ValueError (serving dense weights instead would fake the memory
+    saving); int8 KV with the contiguous layout raises
+    NotImplementedError. A GPTQ / AWQ dir with no quantization loads as
+    int8."""
     dev = resolve_device(device)
+    if dtype == "int8":
+        dtype, quantization = "bfloat16", quantization or "int8"
+    weights.check_quantize(quantization)
     if dtype not in DTYPES:
         raise ValueError(f"dtype {dtype!r}: expected one of {sorted(DTYPES)}")
     if kv_layout not in KV_LAYOUTS:
@@ -105,9 +116,11 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
         hf = json.load(f)
     cfg = LlamaConfig.from_hf_config(hf, dtype=DTYPES[dtype])
     if weights.has_weights(model_dir):
-        params = weights.load_llama_params(model_dir, cfg, device=dev)
+        params = weights.load_llama_params(model_dir, cfg, device=dev,
+                                           quantize=quantization)
     elif random_weights is not None:
-        params = weights.random_params(cfg, int(random_weights), device=dev)
+        params = weights.random_params(cfg, int(random_weights), device=dev,
+                                       quantize=quantization)
     else:
         raise FileNotFoundError(
             f"no .safetensors in {model_dir}; pass random_weights=SEED "
@@ -117,8 +130,10 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
                         cache_dtype=cache_dtype, kv_layout=kv_layout,
                         **engine_knobs)
     engine = Engine(cfg, params, tok, ecfg, device=dev).start()
+    quantized = isinstance(params.get("embed"), dict)
     return LoadedModel(name or os.path.basename(os.path.normpath(model_dir)),
-                       model_dir, cfg, tok, engine)
+                       model_dir, cfg, tok, engine,
+                       quantization=(quantization or "int8") if quantized else "")
 
 
 def build_request(lm: LoadedModel, prompt: str, overrides: dict,

@@ -2,7 +2,8 @@
 
     python -m localai_tpu_torch run --model DIR --name NAME \\
         --address 127.0.0.1:8080 [--num-slots 8] [--context-size 2048] \\
-        [--dtype bfloat16] [--kv-cache-dtype int8] [--kv-layout contiguous] \\
+        [--dtype bfloat16] [--quantization int8|int4] \\
+        [--kv-cache-dtype int8] [--kv-layout contiguous] \\
         [--kv-page-size 64] [--prefill-chunk 512] [--decode-burst 16] \\
         [--random-weights SEED] [--device cuda]
 
@@ -28,6 +29,10 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--num-slots", type=int, default=8)
     r.add_argument("--context-size", type=int, default=2048)
     r.add_argument("--dtype", default="bfloat16")
+    r.add_argument("--quantization", default="",
+                   help="weight-only matmul weights: int8 (per output "
+                        "channel) | int4 (groups of up to 128 rows; embed "
+                        "and lm_head stay int8); default: dense")
     r.add_argument("--kv-cache-dtype", default="",
                    help="KV cache dtype (default: the model dtype); int8 / "
                         "q8_0 = int8 rows with per-row scales")
@@ -55,6 +60,7 @@ def main(argv=None) -> int:
     lm = load_model(args.model, args.name, num_slots=args.num_slots,
                     context_size=args.context_size, dtype=args.dtype,
                     random_weights=args.random_weights, device=args.device,
+                    quantization=args.quantization,
                     kv_cache_dtype=args.kv_cache_dtype, kv_layout=args.kv_layout,
                     kv_page_size=args.kv_page_size,
                     prefill_chunk=args.prefill_chunk,

@@ -13,6 +13,16 @@ projections [in, out]):
     config.json-only dir, and only when the caller asks for it.
   * ``from_jax_params``: the JAX package's parameter pytree (leaves as
     numpy arrays) — how the tests feed both packages the same weights.
+
+``quantize`` ("" | "int8" | "int4") stores the matmul weights as
+weight-only {q, s} leaves (ops/quant.py), with the semantics of the JAX
+package's ``_make_put``: int8 for every matmul weight, int4 for the
+layer matmuls only (embed / lm_head stay int8), norms untouched. A
+stacked leaf is quantized one layer slice at a time, in float32, on the
+device: the scale reduces only the contraction axis (and its groups), so
+the slices give the stacked result's bytes and no stacked float32 copy
+exists. A GPTQ / AWQ checkpoint (engine/gptq.py) is dequantized on the
+host as it is read and, with no explicit ``quantize``, loads as int8.
 """
 
 from __future__ import annotations
@@ -27,6 +37,12 @@ import numpy as np
 import torch
 
 from localai_tpu_torch import resolve_device
+from localai_tpu_torch.engine import gptq
+from localai_tpu_torch.models.llama import QUANT_NAMES
+from localai_tpu_torch.ops.quant import (pack_int4, quantize_weight,
+                                         quantize_weight_int4)
+
+QUANTIZATIONS = ("", "int8", "int4")
 
 _ST_DTYPES = {"F32": np.float32, "F16": np.float16, "BF16": np.uint16,
               "I32": np.int32, "I64": np.int64}
@@ -82,20 +98,25 @@ def has_weights(model_dir: str) -> bool:
     return bool(glob.glob(os.path.join(model_dir, "*.safetensors")))
 
 
-def _host_leaves(tensors: dict, cfg):
+def _host_leaves(tensors: dict, cfg, qmeta=None):
     """(spec_path, CPU tensor) per leaf, HF names -> the stacked layout
-    (the mapping of the JAX package's _host_leaf_source)."""
+    (the mapping of the JAX package's _host_leaf_source); GPTQ / AWQ
+    packed linears (``qmeta``) are dequantized to float32 [in, out]."""
     L = cfg.num_layers
 
     def get(name):
         return tensors[name].get(name)
 
+    def linear_t(name: str):
+        base = name[:-len(".weight")]
+        if qmeta is not None and base + ".qweight" in tensors:
+            return torch.from_numpy(gptq.dequant_linear(
+                lambda n: get(n).numpy(), base, qmeta))
+        return get(name).T
+
     def stack(fmt: str, transpose: bool = False):
-        mats = []
-        for i in range(L):
-            t = get(fmt.format(i=i))
-            mats.append(t.T if transpose else t)
-        return torch.stack(mats)
+        return torch.stack([linear_t(fmt.format(i=i)) if transpose
+                            else get(fmt.format(i=i)) for i in range(L)])
 
     p = "model.layers.{i}."
     yield ("embed",), get("model.embed_tokens.weight")
@@ -110,30 +131,86 @@ def _host_leaves(tensors: dict, cfg):
     yield ("layers", "w_down"), stack(p + "mlp.down_proj.weight", True)
     yield ("final_norm",), get("model.norm.weight")
     if not cfg.tie_word_embeddings:
-        yield ("lm_head",), get("lm_head.weight").T
+        yield ("lm_head",), linear_t("lm_head.weight")
 
 
-def _assemble(leaves, device, dtype) -> dict:
+def check_quantize(quantize: str):
+    if quantize not in QUANTIZATIONS:
+        raise ValueError(f"quantization {quantize!r}: expected one of "
+                         f"{'|'.join(q or '(none)' for q in QUANTIZATIONS)}")
+
+
+def _quantizer(path: tuple, quantize: str):
+    """The JAX package's _make_put rule: int4 on ("layers", ...) leaves
+    only, int8 elsewhere; None for a leaf that stays dense."""
+    if not quantize or path[-1] not in QUANT_NAMES:
+        return None
+    if quantize == "int4" and path[0] == "layers":
+        return quantize_weight_int4
+    return quantize_weight
+
+
+def _quantize_slices(slices, n: int, fn) -> dict:
+    """Quantize ``n`` float32 layer slices one at a time into a stacked
+    {q, s} leaf (the slices' leaf shapes agree)."""
+    out = None
+    for i, w in enumerate(slices):
+        leaf = fn(w)
+        if out is None:
+            out = {k: torch.empty((n, *v.shape), dtype=v.dtype, device=v.device)
+                   for k, v in leaf.items()}
+        for k, v in leaf.items():
+            out[k][i].copy_(v)
+    return out
+
+
+def _place(t, path: tuple, device, dtype, quantize: str):
+    """One host leaf -> its device leaf: {q, s} leaves as they are, matmul
+    weights quantized when asked (stacked ones slice by slice, in float32
+    on the device), the rest cast to ``dtype``."""
+    if isinstance(t, dict):
+        return {k: v.to(device).contiguous() for k, v in t.items()}
+    fn = _quantizer(path, quantize)
+    if fn is None:
+        return t.to(device=device, dtype=dtype).contiguous()
+    if path[0] == "layers":
+        return _quantize_slices((t[i].to(device=device, dtype=torch.float32)
+                                 for i in range(t.shape[0])), t.shape[0], fn)
+    return fn(t.to(device=device, dtype=torch.float32))
+
+
+def _assemble(leaves, device, dtype, quantize: str = "") -> dict:
     params: dict = {"layers": {}}
     for path, t in leaves:
         node = params
         for k in path[:-1]:
             node = node[k]
-        node[path[-1]] = t.to(device=device, dtype=dtype).contiguous()
+        node[path[-1]] = _place(t, path, device, dtype, quantize)
     return params
 
 
-def load_llama_params(model_dir: str, cfg, device="cuda", dtype=None) -> dict:
-    """HF llama/mistral safetensors -> parameter dict on ``device``."""
-    return _assemble(_host_leaves(open_checkpoint(model_dir), cfg),
-                     resolve_device(device), dtype or cfg.dtype)
+def load_llama_params(model_dir: str, cfg, device="cuda", dtype=None,
+                      quantize: str = "") -> dict:
+    """HF llama/mistral safetensors -> parameter dict on ``device``; a
+    GPTQ / AWQ dir with no explicit ``quantize`` loads as int8, as in the
+    JAX package (its memory intent survives the load)."""
+    check_quantize(quantize)
+    qmeta = gptq.detect(model_dir)
+    if qmeta is not None and not quantize:
+        quantize = "int8"
+    return _assemble(_host_leaves(open_checkpoint(model_dir), cfg, qmeta),
+                     resolve_device(device), dtype or cfg.dtype, quantize)
 
 
-def random_params(cfg, seed: int, device="cuda", dtype=None) -> dict:
+def random_params(cfg, seed: int, device="cuda", dtype=None,
+                  quantize: str = "") -> dict:
     """Random weights from ``seed``, generated on ``device``: normal /
     sqrt(fan_in) per projection (the JAX package's init), ones for the
     norms. Each layer slice is drawn in float32 and cast into the stacked
-    leaf, so peak extra memory is one layer's largest projection."""
+    leaf, or quantized from that float32 draw (``quantize``), so peak
+    extra memory is one layer's largest projection and a quantized 8B is
+    never dense on the card; the draws do not depend on ``quantize``."""
+    check_quantize(quantize)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     gen = torch.Generator(device=dev)
@@ -142,35 +219,47 @@ def random_params(cfg, seed: int, device="cuda", dtype=None) -> dict:
     L, D, F = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     H, KV, V = cfg.num_heads, cfg.num_kv_heads, cfg.vocab_size
 
-    def mk(shape, fan_in):
-        out = torch.empty(shape, dtype=dtype, device=dev)
+    def draw(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).mul_(scale)
+
+    def mk(path, shape, fan_in):
         scale = 1.0 / math.sqrt(fan_in)
+        fn = _quantizer(path, quantize)
+        if fn is not None:
+            if len(shape) == 3:
+                return _quantize_slices((draw(shape[1:], scale)
+                                         for _ in range(shape[0])), shape[0], fn)
+            return fn(draw(shape, scale))
+        out = torch.empty(shape, dtype=dtype, device=dev)
         views = out if len(shape) == 3 else out[None]
         for v in views:
-            v.copy_(torch.randn(v.shape, generator=gen, device=dev,
-                                dtype=torch.float32).mul_(scale))
+            v.copy_(draw(v.shape, scale))
         return out
 
     def ones(shape):
         return torch.ones(shape, dtype=dtype, device=dev)
 
+    def layer(name, shape, fan_in):
+        return mk(("layers", name), (L, *shape), fan_in)
+
     params = {
-        "embed": mk((V, D), D),
+        "embed": mk(("embed",), (V, D), D),
         "layers": {
             "attn_norm": ones((L, D)),
-            "wq": mk((L, D, H * hd), D),
-            "wk": mk((L, D, KV * hd), D),
-            "wv": mk((L, D, KV * hd), D),
-            "wo": mk((L, H * hd, D), H * hd),
+            "wq": layer("wq", (D, H * hd), D),
+            "wk": layer("wk", (D, KV * hd), D),
+            "wv": layer("wv", (D, KV * hd), D),
+            "wo": layer("wo", (H * hd, D), H * hd),
             "mlp_norm": ones((L, D)),
-            "w_gate": mk((L, D, F), D),
-            "w_up": mk((L, D, F), D),
-            "w_down": mk((L, F, D), F),
+            "w_gate": layer("w_gate", (D, F), D),
+            "w_up": layer("w_up", (D, F), D),
+            "w_down": layer("w_down", (F, D), F),
         },
         "final_norm": ones((D,)),
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = mk((D, V), D)
+        params["lm_head"] = mk(("lm_head",), (D, V), D)
     return params
 
 
@@ -178,14 +267,22 @@ def from_jax_params(np_params: dict, cfg, device="cuda", dtype=None) -> dict:
     """The JAX parameter pytree (numpy leaves, layers stacked on axis 0,
     projections [in, out]; localai_tpu/models/llama.py::init_params) ->
     the port's parameter dict. The layouts are identical, so this is a
-    per-leaf copy and cast."""
+    per-leaf copy and cast; {q, s} leaves (quantize_params) pass through,
+    an int4 ``q`` (given as int8 values: the card's machine has no
+    ml_dtypes) packed two per byte."""
+    def conv(v):
+        if not isinstance(v, dict):
+            return torch.from_numpy(np.array(v, dtype=np.float32))
+        q = torch.from_numpy(np.asarray(v["q"]).astype(np.int8))
+        s = torch.from_numpy(np.array(v["s"], dtype=np.float32))
+        return {"q": pack_int4(q) if s.dim() == q.dim() + 1 else q, "s": s}
+
     def leaves():
         for k, v in np_params.items():
             if k == "layers":
                 for lk, lv in v.items():
-                    yield ("layers", lk), torch.from_numpy(
-                        np.array(lv, dtype=np.float32))
+                    yield ("layers", lk), conv(lv)
             else:
-                yield (k,), torch.from_numpy(np.array(v, dtype=np.float32))
+                yield (k,), conv(v)
 
     return _assemble(leaves(), resolve_device(device), dtype or cfg.dtype)

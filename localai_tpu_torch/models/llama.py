@@ -22,6 +22,11 @@ dtype (the routing of the JAX package's ``_decode_attend_write``):
 All read the committed cache rows BEFORE this step's KV scatter, the
 same no-read-after-write rule as the JAX package; int8 caches quantize
 the new rows as they are scattered (ops/kvcache.py).
+
+Weights may be weight-only int8 / int4 {q, s} leaves (ops/quant.py,
+``quantize_params``): every projection goes through
+ops/quant.py::quant_matmul (W8 / W4 on the card), an int8 embedding
+table is gathered first and scaled after (``_embed_rows``).
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ from localai_tpu_torch.ops.decode_attention import decode_attention_append_conti
 from localai_tpu_torch.ops.norms import rms_norm
 from localai_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_attention_quant)
+from localai_tpu_torch.ops.quant import (
+    mat, quant_matmul, quantize_weight, quantize_weight_int4)
 from localai_tpu_torch.ops.ragged_prefill import ragged_prefill_attention_paged
 from localai_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
@@ -99,30 +106,87 @@ class LlamaConfig:
         )
 
 
+# the matmul weights quantize_params quantizes (norms stay as they are)
+QUANT_NAMES = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo",
+                         "w_gate", "w_up", "w_down"})
+
+
+def _embed_rows(embed, tokens, dtype):
+    """Token-embedding lookup; an int8 table is gathered first and scaled
+    after (its scale [1, D] lies along D)."""
+    idx = tokens.to(torch.int64)
+    if isinstance(embed, dict):
+        return (embed["q"][idx].to(torch.float32) * embed["s"]).to(dtype)
+    return embed[idx].to(dtype)
+
+
+def quantize_params(params: dict, bits: int = 8, group: int = 128) -> dict:
+    """Weight-only quantization of every matmul weight (norms stay as they
+    are), as the JAX package's quantize_params: bits=8 per-out-channel
+    int8 everywhere; bits=4 group-``group`` int4 for the LAYER matmuls
+    while embed / lm_head stay int8 (the embedding gather dequantizes
+    row-wise, and the unembed is the quality-critical product)."""
+    def q(leaf, layer: bool):
+        if bits == 4 and layer:
+            return quantize_weight_int4(leaf, group=group)
+        return quantize_weight(leaf)
+
+    out = {}
+    for name, leaf in params.items():
+        if name == "layers":
+            out[name] = {k: (q(v, True) if k in QUANT_NAMES else v)
+                         for k, v in leaf.items()}
+        else:
+            out[name] = q(leaf, False) if name in QUANT_NAMES else leaf
+    return out
+
+
+def dequantize_params(params: dict, dtype=torch.bfloat16) -> dict:
+    """Inverse of quantize_params: {q, s} leaves back to dense ``dtype``."""
+    def dq(leaf):
+        if isinstance(leaf, dict) and set(leaf) == {"q", "s"}:
+            return mat(leaf, dtype)
+        return leaf
+
+    out = {}
+    for name, leaf in params.items():
+        if name == "layers":
+            out[name] = {k: dq(v) for k, v in leaf.items()}
+        else:
+            out[name] = dq(leaf)
+    return out
+
+
 def _project_qkv(x, lw, cfg: LlamaConfig):
     """x: [T, D] -> q [T, H, hd], k/v [T, KV, hd]."""
     T = x.shape[0]
     hd = cfg.head_dim_
-    q = (x @ lw["wq"]).reshape(T, cfg.num_heads, hd)
-    k = (x @ lw["wk"]).reshape(T, cfg.num_kv_heads, hd)
-    v = (x @ lw["wv"]).reshape(T, cfg.num_kv_heads, hd)
+    q = quant_matmul(x, lw["wq"]).reshape(T, cfg.num_heads, hd)
+    k = quant_matmul(x, lw["wk"]).reshape(T, cfg.num_kv_heads, hd)
+    v = quant_matmul(x, lw["wv"]).reshape(T, cfg.num_kv_heads, hd)
     return q, k, v
 
 
 def _mlp(x, lw):
-    gate = x @ lw["w_gate"]
-    up = x @ lw["w_up"]
-    return (torch.nn.functional.silu(gate) * up) @ lw["w_down"]
+    gate = quant_matmul(x, lw["w_gate"])
+    up = quant_matmul(x, lw["w_up"])
+    return quant_matmul(torch.nn.functional.silu(gate) * up, lw["w_down"])
 
 
 def _unembed(x, params, cfg: LlamaConfig):
-    w = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
-    return (x @ w).to(torch.float32)
+    """Logits in float32. A tied table [V, D] is used transposed: its int8
+    scale lies along D, the contraction axis, so it is never applied
+    along V."""
+    if cfg.tie_word_embeddings:
+        return quant_matmul(x, params["embed"], transposed=True).to(torch.float32)
+    return quant_matmul(x, params["lm_head"]).to(torch.float32)
 
 
 def _layer(params, li: int) -> dict:
-    """Layer li's weights (views into the stacked leaves)."""
-    return {k: v[li] for k, v in params["layers"].items()}
+    """Layer li's weights (views into the stacked leaves, {q, s} ones
+    included)."""
+    return {k: ({"q": v["q"][li], "s": v["s"][li]} if isinstance(v, dict)
+                else v[li]) for k, v in params["layers"].items()}
 
 
 def _block(x, attn_fn, lw, cfg: LlamaConfig, sin, cos):
@@ -133,7 +197,7 @@ def _block(x, attn_fn, lw, cfg: LlamaConfig, sin, cos):
     q = apply_rope(q[None], sin, cos)[0]
     k = apply_rope(k[None], sin, cos)[0]
     attn = attn_fn(q, k, v)
-    x = x + attn.reshape(x.shape[0], -1) @ lw["wo"]
+    x = x + quant_matmul(attn.reshape(x.shape[0], -1), lw["wo"])
     h = rms_norm(x, lw["mlp_norm"], cfg.rms_norm_eps)
     return x + _mlp(h, lw)
 
@@ -157,7 +221,7 @@ def ragged_prefill(params: dict, cfg: LlamaConfig,
     it off seg_start."""
     B = seg_slots.shape[0]
     sin, cos = rope_frequencies(cfg, positions[None])
-    x = params["embed"][tokens.to(torch.int64)].to(cfg.dtype)        # [N, D]
+    x = _embed_rows(params["embed"], tokens, cfg.dtype)              # [N, D]
     # per-token slot for the scatter (pads ride a clamped lookup; their
     # position sentinel drops the write)
     slot_of = seg_slots.to(torch.int64)[seg_of.to(torch.int64).clamp(0, B - 1)]
@@ -205,7 +269,7 @@ def decode_step(params: dict, cfg: LlamaConfig,
     # rope expects [B, T, ...]: decode tokens are S sequences of length 1;
     # _block works on [T, D] rows, so fold the [S, 1] grid to [1, S]
     sin, cos = sin.reshape(1, S, -1), cos.reshape(1, S, -1)
-    x = params["embed"][tokens.to(torch.int64)].to(cfg.dtype)        # [S, D]
+    x = _embed_rows(params["embed"], tokens, cfg.dtype)              # [S, D]
     target = kvcache.scatter_index(kvcache.layer(cache_k, 0),
                                    torch.arange(S, device=tokens.device), write_pos)
     for li in range(cfg.num_layers):

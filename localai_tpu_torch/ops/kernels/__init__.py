@@ -13,10 +13,13 @@
                           K5, replaces ops/pallas/decode_attention.py::
                           decode_attention_append_pallas_full
   csrc/decode_attention.cuh  the decode block K1, K3, K4 and K5 share
+  csrc/quant_matmul.cu    W8 / W4, the weight-only int8 / int4 products
+                          (no TPU kernel: XLA fused the JAX package's
+                          ops/quant.py::mat into its einsums)
 
 build.py compiles them at first use; the wrappers live in
-ops/paged_attention.py (K1, K3), ops/ragged_prefill.py (K2, K2-int8) and
-ops/decode_attention.py (K4, K5). ``LAUNCHES`` counts kernel launches per
+ops/paged_attention.py (K1, K3), ops/ragged_prefill.py (K2, K2-int8),
+ops/decode_attention.py (K4, K5) and ops/quant.py (W8, W4). ``LAUNCHES`` counts kernel launches per
 wrapper: each wrapper adds one where it launches its kernel, and nowhere
 else, so a run can show its main path went through the kernels.
 """
@@ -28,7 +31,9 @@ LAUNCHES = {"paged_decode_attention": 0,          # K1
             "ragged_prefill_attention_int8": 0,   # K2-int8
             "paged_decode_attention_quant": 0,    # K3
             "decode_attention_append_contig": 0,  # K4
-            "decode_attention_append_full": 0}    # K5
+            "decode_attention_append_full": 0,    # K5
+            "quant_matmul_int8": 0,               # W8
+            "quant_matmul_int4": 0}               # W4
 
 
 def reset_launches():

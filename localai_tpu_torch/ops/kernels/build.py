@@ -44,6 +44,10 @@ SIGNATURES = {
         "contig_decode_attention_launch": [_P] * 8 + [_I] * 7 + [_P],         # K4
         "contig_decode_attention_full_launch": [_P] * 9 + [_I] * 9 + [_P],    # K5
     },
+    "quant_matmul": {
+        "quant_matmul_skinny_launch": [_P] * 5 + [_I] * 7 + [_P],             # W8 / W4
+        "quant_dequant_launch": [_P] * 3 + [_I] * 5 + [_P],                   # W8 / W4 wide
+    },
 }
 
 _lock = threading.Lock()

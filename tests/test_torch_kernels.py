@@ -18,7 +18,9 @@ split edges of ops/paged_attention.py::SPLIT_ROWS, on an all-idle batch,
 over a head-shape grid (G 1/2/4/8 x hd 32/64/128/256), and across calls
 that reuse one workspace from the caching allocator (once NaN-poisoned),
 captured in a CUDA graph and replayed (again after the lengths changed
-on the device), and at 8192 rows per slot.
+on the device), and at 8192 rows per slot. W8 / W4 (weight-only int8 /
+int4 products) in both regimes (M <= 16 and above), at int4 groups 128
+and 86, a tied table used transposed, and run twice for equal bits.
 Tolerances: float32 1e-4 absolute (summation order);
 bfloat16 2e-2 absolute and relative (bf16 rounding of the plain version's
 scores, probabilities and output, plus order). Int8 cases compare the
@@ -516,3 +518,89 @@ def test_decode_long_context_matches_plain(card, kernel, dtype):
     C = 8192
     lengths = [C - 1, 4100, 0, 65, C, 1, 6000, 64]
     _check_decode(kernel, _decode_calls(kernel, G, HD, dtype, lengths, 60, C=C), dtype)
+
+
+# ---------- W8 / W4: weight-only int8 / int4 products ----------
+
+def _quant_operands(M, K, N, bits, dtype, seed, group=128):
+    """x [M, K] unit normals and a {q, s} leaf quantized from normal /
+    sqrt(K) weights (the model's init), on the card."""
+    from localai_tpu_torch.ops.quant import quantize_weight, quantize_weight_int4
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5
+    leaf = (quantize_weight_int4(w, group=group) if bits == 4
+            else quantize_weight(w))
+    x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    return x, leaf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [1, 3, 8, 16, 17, 64])
+@pytest.mark.parametrize("K,N,group", [(4096, 1024, 128), (1024, 4096, 128),
+                                       (11008, 1024, 86), (256, 2064, 64)])
+def test_quant_matmul_matches_plain(card, dtype, bits, M, K, N, group):
+    """Both regimes (skinny M <= 16 split-K, wide M > 16 dequantize +
+    matmul), int8 and int4 at g 128 and at the g pick_int4_group gives
+    11008 rows at tp 8 (86), a last column tile of 16 columns (2064)."""
+    from localai_tpu_torch.ops.kernels import LAUNCHES
+    from localai_tpu_torch.ops.quant import is_grouped, quant_matmul, quant_matmul_plain
+
+    x, leaf = _quant_operands(M, K, N, bits, dtype, seed=M + K + N, group=group)
+    assert is_grouped(leaf) == (bits == 4)
+    name = "quant_matmul_int4" if bits == 4 else "quant_matmul_int8"
+    n0 = LAUNCHES[name]
+    got = quant_matmul(x, leaf)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == n0 + 1
+    assert got.dtype == dtype and tuple(got.shape) == (M, N)
+    torch.testing.assert_close(got.float(), quant_matmul_plain(x, leaf).float(),
+                               **(dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32
+                                  else dict(atol=2e-2, rtol=2e-2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_skinny_is_deterministic(card, bits):
+    """The split-K partials are summed in a fixed order (no atomics): two
+    calls give the same bits."""
+    from localai_tpu_torch.ops.quant import quant_matmul
+
+    x, leaf = _quant_operands(8, 14336, 4096, bits, torch.bfloat16, seed=5)
+    a = quant_matmul(x, leaf)
+    b = quant_matmul(x, leaf)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 8, 40])
+def test_quant_matmul_tied_table_matches_plain(card, dtype, M):
+    """A tied int8 embedding table [V, D] used transposed (its scale along
+    D, the contraction axis)."""
+    from localai_tpu_torch.ops.quant import quant_matmul, quant_matmul_plain
+
+    x, table = _quant_operands(M, 2048, 512, 8, dtype, seed=M)   # [V, D]
+    x = x[:, :512].contiguous()
+    got = quant_matmul(x, table, transposed=True)
+    torch.testing.assert_close(
+        got.float(), quant_matmul_plain(x, table, transposed=True).float(),
+        **(dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32
+           else dict(atol=2e-2, rtol=2e-2)))
+
+
+@pytest.mark.cuda
+def test_quant_matmul_refuses_what_the_kernels_do_not_take(card):
+    from localai_tpu_torch.ops.quant import quant_matmul, quantize_weight
+
+    x = torch.randn(4, 64, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        quant_matmul(x, quantize_weight(torch.randn(64, 40, device="cuda")))
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_matmul(x.t().contiguous().t(), quantize_weight(
+            torch.randn(64, 32, device="cuda")))
+    with pytest.raises(TypeError, match="dtype"):
+        quant_matmul(x.half(), quantize_weight(torch.randn(64, 32, device="cuda")))
