@@ -30,11 +30,18 @@ Phases, each raising on failure (no phase swallows an error):
               W8 and W4 at every Llama-3.1-8B projection shape (K, N) =
               (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
               (4096, 128256) (W4: the layer shapes, g 128) and at (11008,
-              4096) with the g pick_int4_group gives at tp 8 (86), M = 1,
-              8, 16 (the skinny kernel), 17, 512 (dequantize + matmul),
-              and a tied int8 table [128256, 4096] used transposed; same
-              tolerances (float32: sum order; bfloat16: the plain version
-              rounds each dequantized weight to bf16, the kernel does not).
+              4096) with the g pick_int4_group gives at tp 8 (86): bfloat16
+              on the tensor-core kernel at M = 1, 8, 9, 15, 16, 17, 64, 65,
+              256, 476, 512 (every token tile 8 / 16 / 64 / 128 / 256 and
+              its edges, and the long prompt's third chunk), float32 at M =
+              1, 8, 16 (the CUDA-core skinny kernel), 17, 512 (dequantize +
+              matmul; the tp-8 case at 1, 8, 17), and a tied int8 table
+              [128256, 4096] used transposed (dequantize + matmul); same
+              tolerances (float32: sum order; bfloat16: the kernel widens
+              each weight to the plain version's bf16(q * s), so only the
+              sum order and the output's bf16 rounding differ). The
+              dequantize route's scratch is freed afterwards: the bf16
+              serving path below allocates none.
               Then a small model (hd 128, float32) on the card — kernels —
               against the same model on the CPU — plain versions — in the
               five configurations (paged float, paged int8, contiguous,
@@ -74,7 +81,11 @@ Phases, each raising on failure (no phase swallows an error):
               sleep before each call, see timed_ms), the bound from bytes
               and operations, and the CUDA kernels one wrapper call runs,
               counted by torch.profiler in this run (the split-K decode
-              kernels enqueue two: split and combine). K2's row also
+              kernels enqueue two: split and combine; bf16 W8 / W4 one
+              wgmma_kernel, plus a combine where ops/quant.py::tc_plan
+              splits K, and nothing else: no library GEMM, no dense
+              scratch; their rows carry the plan under "tc_plan" and the
+              route under "cuda_route"). K2's row also
               carries, under "fresh", the same numbers on a fresh
               512-token pack (mp = 0), the shape most of its serving
               launches take. W8's and W4's rows time w_gate at decode M =
@@ -151,6 +162,9 @@ QUANT_SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024),
                 "lm_head": (4096, 128256)}
 PER_LAYER = {"wq_wo": 2, "wk_wv": 2, "w_gate_up": 2, "w_down": 1}
 QUANT_M = (1, 8, 16, 17, 512)
+# bfloat16 (the tensor-core kernel) adds every token-tile edge (8, 16, 64,
+# 128, 256) and the long prompt's third chunk (476 tokens)
+QUANT_M_BF16 = (1, 8, 9, 15, 16, 17, 64, 65, 256, 476, 512)
 
 
 def log(msg: str):
@@ -484,6 +498,7 @@ def quant_parity(record):
     projection shape, both regimes, float32 and bfloat16 (module doc)."""
     import torch
 
+    from localai_tpu_torch.ops import quant
     from localai_tpu_torch.ops.quant import quant_matmul, quant_matmul_plain
 
     cases = [(W8, name, K, N, 128, 1, QUANT_M)
@@ -491,11 +506,12 @@ def quant_parity(record):
     cases += [(W4, name, K, N, 128, 1, QUANT_M)
               for name, (K, N) in QUANT_SHAPES.items() if name != "lm_head"]
     cases += [(W4, "llama-2 w_down, tp 8", 11008, 4096, 128, 8, (1, 8, 17))]
-    for key, name, K, N, group, tp, ms in cases:
+    for key, name, K, N, group, tp, ms_f32 in cases:
         leaf = quant_weight(K, N, 8 if key == W8 else 4, SEED + K + N, group, tp)
         g = K // leaf["s"].shape[0] if key == W4 else None
         for dname in ("float32", "bfloat16"):
             dt = getattr(torch, dname)
+            ms = QUANT_M_BF16 if dname == "bfloat16" else ms_f32
             gen = torch.Generator(device=DEV).manual_seed(SEED)
             x_all = torch.randn((max(ms), K), generator=gen, device=DEV).to(dt)
             for M in ms:
@@ -515,6 +531,10 @@ def quant_parity(record):
                    quant_matmul(x, table, transposed=True),
                    quant_matmul_plain(x, table, transposed=True), dname)
     torch.cuda.synchronize()
+    # the dequantize route's scratch (float32 x, the tied table) is not part
+    # of the bf16 serving path: free it, so phase 3's memory reads that path
+    quant._SCRATCH.clear()
+    torch.cuda.empty_cache()
 
 
 def model_parity(kind: str):
@@ -1014,18 +1034,20 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
         per_call, kernel_names = kernels_per_call(fn)
         log(f"[kernels] {name}: one wrapper call ran {per_call} CUDA kernels "
             f"(torch.profiler): {kernel_names}")
-        want = {True: "split_kernel", "skinny": "skinny_kernel"}.get(split_k)
-        if want and per_call is not None and (
-                per_call != 2 or not any(want in n for n in kernel_names)
+        if split_k is True and per_call is not None and (
+                per_call != 2 or not any("split_kernel" in n for n in kernel_names)
                 or not any("combine_kernel" in n for n in kernel_names)):
-            raise RuntimeError(f"{name}: expected one {want} and one combine "
+            raise RuntimeError(f"{name}: expected one split_kernel and one combine "
                                f"kernel per call, the profiler saw {kernel_names}")
+        if split_k == "wgmma":
+            check_wgmma_call(name, r["tc_plan"], per_call, kernel_names)
         r["cuda_kernels_per_call"] = per_call
         for sub in ("lm_head", "wide"):
             if sub in r:
                 n, names = kernels_per_call(r[sub].pop("fn"))
                 log(f"[kernels] {name} {sub}: one wrapper call ran {n} CUDA "
                     f"kernels (torch.profiler): {names}")
+                check_wgmma_call(f"{name} {sub}", r[sub]["tc_plan"], n, names)
                 r[sub]["cuda_kernels_per_call"] = n
 
     n_layers = LLAMA31_8B["num_hidden_layers"]
@@ -1044,6 +1066,21 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
     return rows
 
 
+def check_wgmma_call(name, plan, per_call, kernel_names):
+    """A bf16 W8 / W4 call runs the tensor-core kernel once, plus the
+    combine when its plan splits K, and nothing else: no library GEMM, no
+    dequantize into a dense scratch."""
+    if per_call is None:
+        return
+    want = 1 + (plan["n_split"] > 1)
+    n_tc = sum("wgmma_kernel" in n for n in kernel_names)
+    n_comb = sum("combine_kernel" in n for n in kernel_names)
+    if per_call != want or n_tc != 1 or n_tc + n_comb != per_call:
+        raise RuntimeError(f"{name}: expected one wgmma_kernel"
+                           f"{' and one combine_kernel' if want == 2 else ''} per "
+                           f"call (plan {plan}), the profiler saw {kernel_names}")
+
+
 def quant_rows(rows, profiled, add, errs, shapes, dt, elt, peak):
     """W8's and W4's rows (module doc): w_gate at decode M = 8 through
     ``add``; lm_head at M = 8 and w_gate at M = 512 (the wide path) under
@@ -1052,9 +1089,15 @@ def quant_rows(rows, profiled, add, errs, shapes, dt, elt, peak):
     dense bf16 product."""
     import torch
 
-    from localai_tpu_torch.ops.quant import mat, quant_matmul, quant_matmul_plain
+    from localai_tpu_torch.ops.quant import (_sm_count, mat, quant_matmul,
+                                             quant_matmul_plain, tc_plan)
 
     S = S_SLOTS
+    sms = _sm_count(torch.device(DEV))
+
+    def plan_of(K, N, M):
+        tile, chunk, n_split = tc_plan(M, K, N, sms)
+        return {"token_tile": tile, "k_chunk": chunk, "n_split": n_split}
 
     def case(K, N, M, bits):
         leaf = quant_weight(K, N, bits, SEED + K + N)
@@ -1072,7 +1115,8 @@ def quant_rows(rows, profiled, add, errs, shapes, dt, elt, peak):
             f"{name} K={K} N={N} M={M}", fn(), plain(), "bfloat16"))
         return {"ms": timed_ms(fn), "plain_ms": timed_ms(plain),
                 "library_ms": timed_ms(lib), **bound(*cost, peak), "fn": fn,
-                "shape": f"bf16 x [{M}, {K}] @ int{bits} [{K}, {N}]"}
+                "shape": f"bf16 x [{M}, {K}] @ int{bits} [{K}, {N}]",
+                "tc_plan": plan_of(K, N, M)}
 
     lib_note = ("torch.matmul with the dense bf16 weight of the same shape "
                 "(the bf16 model's product; the port never calls it for a "
@@ -1085,7 +1129,10 @@ def quant_rows(rows, profiled, add, errs, shapes, dt, elt, peak):
             "(mat) into the einsums of localai_tpu/models/llama.py:229-248, "
             ":326, :608", "quant_matmul.cu", config, fn, plain, lib, cost,
             f"bf16 x [{S}, {K}] @ int{bits} w_gate [{K}, {N}]"
-            + (" g=128" if bits == 4 else ""), split_k="skinny", library=lib_note)
+            + (" g=128" if bits == 4 else ""), split_k="wgmma", library=lib_note,
+            cuda_route="wgmma: the tensor-core kernel (bf16 x), int8 / int4 "
+                       "tiles widened in shared memory",
+            tc_plan=plan_of(K, N, S))
         r = rows[-1]
         r["lm_head"] = measure(name, *QUANT_SHAPES["lm_head"], S, bits)
         r["wide"] = measure(name, K, N, 512, bits)

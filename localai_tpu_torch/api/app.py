@@ -91,28 +91,42 @@ def _handler(app: App):
             self.end_headers()
             self.wfile.write(data)
 
+        def _write_event(self, obj):
+            self.wfile.write(b"data: " + json.dumps(obj).encode() + b"\n\n")
+            self.wfile.flush()
+
         def _send_stream(self, chunks: Iterator):
             # peek the first chunk so a request refused before its first
             # token still gets a real error status, not a 200 stream
             first = next(chunks, None)
-            self.send_response(200)
-            self.send_header("Content-Type", "text/event-stream")
-            self.send_header("Cache-Control", "no-cache")
-            self.send_header("Connection", "close")
-            self.end_headers()
-            self.close_connection = True
             try:
+                self.send_response(200)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.send_header("Connection", "close")
+                self.end_headers()
+                self.close_connection = True
                 if first is not None:
-                    self.wfile.write(b"data: " + json.dumps(first).encode() + b"\n\n")
-                for c in chunks:
-                    self.wfile.write(b"data: " + json.dumps(c).encode() + b"\n\n")
-                    self.wfile.flush()
-            except Exception as e:     # headers are out: report in-stream
-                log.exception("stream failed")
-                self.wfile.write(b"data: " + json.dumps(
-                    error_body(str(e), 500, "server_error")).encode() + b"\n\n")
-            self.wfile.write(b"data: [DONE]\n\n")
-            self.wfile.flush()
+                    self._write_event(first)
+                while True:
+                    try:
+                        c = next(chunks)
+                    except StopIteration:
+                        break
+                    except Exception as e:   # headers are out: report in-stream
+                        log.exception("stream failed")
+                        self._write_event(error_body(str(e), 500, "server_error"))
+                        break
+                    self._write_event(c)
+                self.wfile.write(b"data: [DONE]\n\n")
+                self.wfile.flush()
+            except OSError as e:
+                # the client went away (a failed write): closing the chunks
+                # cancels its request; nothing more goes into the socket
+                chunks.close()
+                self.close_connection = True
+                log.info("stream client disconnected (%s: %s); request "
+                         "cancelled", type(e).__name__, e)
 
         def _dispatch(self, table: dict, body: Optional[dict]):
             path = self.path.split("?", 1)[0]

@@ -10,6 +10,7 @@ YAML templates and jinja come with a later slice.
 
 from __future__ import annotations
 
+import contextlib
 import secrets
 import threading
 import time
@@ -66,10 +67,11 @@ def render_chat(messages: list) -> str:
 def _collect(lm, req) -> dict:
     """Run one request to completion: text, usage counts, finish reason."""
     texts, pt, ct, finish = [], len(req.prompt_ids), 0, "stop"
-    for ev in runner.stream(lm, req):
-        texts.append(ev.text)
-        pt, ct = ev.prompt_tokens, ev.completion_tokens
-        finish = ev.finish_reason or finish
+    with contextlib.closing(runner.stream(lm, req)) as events:
+        for ev in events:
+            texts.append(ev.text)
+            pt, ct = ev.prompt_tokens, ev.completion_tokens
+            finish = ev.finish_reason or finish
     return {"text": "".join(texts), "prompt_tokens": pt,
             "completion_tokens": ct, "finish_reason": finish}
 
@@ -130,23 +132,24 @@ def chat_completions(app: App, body: dict) -> Response:
             usage = [len(req.prompt_ids), 0]
             finish = "stop"
             sent_role = False
-            for ev in runner.stream(lm, req):
-                if not sent_role:
-                    yield {"id": cmpl_id, "object": "chat.completion.chunk",
-                           "created": created, "model": model,
-                           "choices": [{"index": 0,
-                                        "delta": {"role": "assistant",
-                                                  "content": ""},
-                                        "finish_reason": None}]}
-                    sent_role = True
-                usage = [ev.prompt_tokens, ev.completion_tokens]
-                finish = ev.finish_reason or finish
-                if ev.text:
-                    yield {"id": cmpl_id, "object": "chat.completion.chunk",
-                           "created": created, "model": model,
-                           "choices": [{"index": 0,
-                                        "delta": {"content": ev.text},
-                                        "finish_reason": None}]}
+            with contextlib.closing(runner.stream(lm, req)) as events:
+                for ev in events:
+                    if not sent_role:
+                        yield {"id": cmpl_id, "object": "chat.completion.chunk",
+                               "created": created, "model": model,
+                               "choices": [{"index": 0,
+                                            "delta": {"role": "assistant",
+                                                      "content": ""},
+                                            "finish_reason": None}]}
+                        sent_role = True
+                    usage = [ev.prompt_tokens, ev.completion_tokens]
+                    finish = ev.finish_reason or finish
+                    if ev.text:
+                        yield {"id": cmpl_id, "object": "chat.completion.chunk",
+                               "created": created, "model": model,
+                               "choices": [{"index": 0,
+                                            "delta": {"content": ev.text},
+                                            "finish_reason": None}]}
             yield {"id": cmpl_id, "object": "chat.completion.chunk",
                    "created": created, "model": model,
                    "choices": [{"index": 0, "delta": {},
@@ -190,14 +193,15 @@ def completions(app: App, body: dict) -> Response:
         def gen():
             usage = [len(req.prompt_ids), 0]
             finish = "stop"
-            for ev in runner.stream(lm, req):
-                usage = [ev.prompt_tokens, ev.completion_tokens]
-                finish = ev.finish_reason or finish
-                if ev.text:
-                    yield {"id": cmpl_id, "object": "text_completion",
-                           "created": created, "model": model,
-                           "choices": [{"index": 0, "text": ev.text,
-                                        "finish_reason": None}]}
+            with contextlib.closing(runner.stream(lm, req)) as events:
+                for ev in events:
+                    usage = [ev.prompt_tokens, ev.completion_tokens]
+                    finish = ev.finish_reason or finish
+                    if ev.text:
+                        yield {"id": cmpl_id, "object": "text_completion",
+                               "created": created, "model": model,
+                               "choices": [{"index": 0, "text": ev.text,
+                                            "finish_reason": None}]}
             yield {"id": cmpl_id, "object": "text_completion",
                    "created": created, "model": model,
                    "choices": [{"index": 0, "text": "",

@@ -161,8 +161,18 @@ def build_request(lm: LoadedModel, prompt: str, overrides: dict,
 
 
 def stream(lm: LoadedModel, req: GenRequest) -> Iterator[StreamEvent]:
-    """Events of one request; an engine-side error raises RuntimeError."""
-    for ev in lm.engine.generate(req):
-        if ev.error:
-            raise RuntimeError(ev.error)
-        yield ev
+    """Events of one request; an engine-side error raises RuntimeError.
+    Closed before the engine ended the request (its consumer went away),
+    it cancels the request, so the slot does not decode on to max_tokens
+    (the JAX backend's PredictStream cancels the same way)."""
+    ended = False
+    try:
+        for ev in lm.engine.generate(req):
+            ended = bool(ev.error or ev.finish_reason)
+            if ev.error:
+                raise RuntimeError(ev.error)
+            yield ev
+        ended = True
+    finally:
+        if not ended:
+            lm.engine.cancel(req.request_id)

@@ -22,7 +22,10 @@ What this slice keeps of the JAX engine, with the same knob names:
   * DECODE BURSTS of up to ``decode_burst`` steps: tokens, lengths and
     sampling stay on the device for the whole burst (kernel K1, K3 or K4
     in every layer of every step) and the host syncs once, at its end;
-  * EOS / stop-sequence / max-tokens handling and slot release.
+  * EOS / stop-sequence / max-tokens handling and slot release;
+  * ``cancel(request_id)`` (the JAX engine's): a running request is
+    released at the next step or burst boundary, a queued one is dropped
+    unadmitted; the HTTP layer cancels a stream whose client went away.
 
 Prefill and decode run as separate ticks (the JAX engine's
 ``prefill_packed_fuse="0"``); greedy output does not depend on that.
@@ -175,6 +178,9 @@ class Engine:
         self._queue: "queue.Queue[GenRequest]" = queue.Queue()
         self._wake = threading.Event()
         self._stop = False
+        # request ids cancel() noted, reaped by the engine thread
+        self._cancelled: set = set()
+        self._cancel_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self._chunk = min(self.ecfg.prefill_chunk, C)
         budget = self.ecfg.prefill_token_budget or 2 * self._chunk
@@ -219,6 +225,17 @@ class Engine:
             req.out.put(err)
             req.out.put(None)
 
+    def cancel(self, request_id: str):
+        """Cancel a queued or running request (the JAX engine's
+        ``cancel``). Thread-safe: it notes the id and wakes the loop. At the
+        next step or burst boundary a running slot with that id is released
+        and its output queue gets the None sentinel; a queued request with
+        that id is dropped unadmitted (its queue gets only the sentinel). A
+        burst already on the device finishes first."""
+        with self._cancel_lock:
+            self._cancelled.add(request_id)
+        self._wake.set()
+
     def submit(self, req: GenRequest) -> "queue.Queue":
         req.t_submit = time.monotonic()
         self._queue.put(req)
@@ -259,6 +276,7 @@ class Engine:
     def _run(self):
         while not self._stop:
             try:
+                self._reap_cancelled()
                 admitted = self._admit()
                 prefilled = self._prefill_step()
                 decoded = self._decode_burst()
@@ -278,6 +296,23 @@ class Engine:
                 s.req.out.put(None)
                 self._release_slot(i)
 
+    def _reap_cancelled(self):
+        """Release the running slots cancel() named. An id that names no
+        slot and no queued request belongs to a request that already ended,
+        and is forgotten."""
+        with self._cancel_lock:
+            if not self._cancelled:
+                return
+            ids = set(self._cancelled)
+        for i, s in enumerate(self.slots):
+            if s is not None and s.req.request_id in ids:
+                self._release_slot(i)
+                s.req.out.put(None)
+        with self._queue.mutex:
+            queued = {r.request_id for r in self._queue.queue}
+        with self._cancel_lock:
+            self._cancelled -= ids - queued
+
     def _admit(self) -> bool:
         admitted = False
         while None in self.slots:
@@ -285,6 +320,12 @@ class Engine:
                 req = self._queue.get_nowait()
             except queue.Empty:
                 break
+            with self._cancel_lock:
+                cancelled = req.request_id in self._cancelled
+                self._cancelled.discard(req.request_id)
+            if cancelled:                   # cancelled while queued
+                req.out.put(None)
+                continue
             self._start_request(req)
             admitted = True
         return admitted

@@ -1,9 +1,9 @@
-"""A/B device time of the decode kernels K1, K3, K4, K5 and the prefill
-kernels K2, K2-int8: this checkout's sources against another checkout's,
-in one process on one card.
+"""A/B device time of the decode kernels K1, K3, K4, K5, the prefill
+kernels K2, K2-int8 and the weight-only products W8, W4: this checkout's
+sources against another checkout's, in one process on one card.
 
     python -m localai_tpu_torch.ops.kernels.ab_time --other DIR \\
-        [--rounds 10] [--iters 50] [--split-rows 64[,128,256]] [--only K1,K4]
+        [--rounds 10] [--iters 50] [--split-rows 64[,128,256]] [--only K1,W8]
 
 DIR is the root of another checkout (e.g. the parent commit unpacked with
 ``git archive``) whose csrc/ exports the same C launchers. Its decode
@@ -24,7 +24,14 @@ heads: KV 8, G 4, hd 128, page 64, 8 slots of 4096 rows):
     bytes as a contiguous [8, 4096] cache, K5 that cache as a one-layer
     stacked cache with the layer index on the device;
   * K2 and K2-int8 on a 476-token chunk over 1024 committed rows (bf16 or
-    int8 pages); "K2 fresh" on a fresh 512-token pack (mp = 0).
+    int8 pages); "K2 fresh" on a fresh 512-token pack (mp = 0);
+  * W8 (int8) and W4 (int4, g 128) on bf16 x at Llama-3.1-8B widths:
+    w_gate [4096, 14336], wk [4096, 1024] and (W8) lm_head [4096, 128256]
+    at decode M = 8, w_gate at a 512-token pack. A side whose
+    quant_matmul.cu has the tensor-core launcher runs it with this
+    checkout's ``tc_plan``; an older side runs what its wrapper ran for
+    bf16 x: the CUDA-core skinny kernel (M <= 16, ``skinny_k_chunk``) or
+    its dequantize kernel into a scratch + torch.matmul (M > 16).
 
 With several ``--split-rows`` values this checkout's decode kernels run
 once per value (sides "A@64", "A@128", ...), which is how SPLIT_ROWS was
@@ -66,7 +73,17 @@ FRESH_N = 512                        # a fresh pack: one 512-token segment
 SLEEP_CYCLES = 1_000_000             # ~0.5 ms at the H100's clocks
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the decode launchers of a checkout from before the split-K workspace
+# W8 / W4 cases: (label, bits, (K, N), M)
+QUANT_CASES = [(f"W{b} {name} M={m}", b, shape, m)
+               for b in (8, 4)
+               for name, shape, m in (("w_gate", (4096, 14336), 8),
+                                      ("wk", (4096, 1024), 8),
+                                      ("lm_head", (4096, 128256), 8),
+                                      ("w_gate", (4096, 14336), 512))
+               if not (b == 4 and name == "lm_head")]
+
+# the decode launchers of a checkout from before the split-K workspace,
+# and the W8 / W4 launchers of one from before the tensor-core kernel
 PARENT_SIGNATURES = {
     "paged_decode": {
         "paged_decode_attention_launch": [_P] * 8 + [_I] * 8 + [_P],
@@ -76,8 +93,12 @@ PARENT_SIGNATURES = {
         "contig_decode_attention_launch": [_P] * 7 + [_I] * 6 + [_P],
         "contig_decode_attention_full_launch": [_P] * 8 + [_I] * 8 + [_P],
     },
+    "quant_matmul": {
+        "quant_matmul_skinny_launch": [_P] * 5 + [_I] * 7 + [_P],
+        "quant_dequant_launch": [_P] * 3 + [_I] * 5 + [_P],
+    },
 }
-NAMES = ("paged_decode", "ragged_prefill", "contig_decode")
+NAMES = ("paged_decode", "ragged_prefill", "contig_decode", "quant_matmul")
 
 
 def _src(root: str, name: str) -> str:
@@ -89,6 +110,12 @@ def splits_decode(root: str) -> bool:
     """Whether ``root``'s decode launchers take the split-K workspace."""
     with open(_src(root, "paged_decode")) as f:
         return "split_rows" in f.read()
+
+
+def has_tc_quant(root: str) -> bool:
+    """Whether ``root``'s quant_matmul.cu has the tensor-core launcher."""
+    with open(_src(root, "quant_matmul")) as f:
+        return "quant_matmul_tc_launch" in f.read()
 
 
 def bind(path: str, signatures: dict) -> dict:
@@ -111,7 +138,8 @@ def _build(root: str, name: str, tag: str, split: bool) -> dict:
     out = os.path.join(out_dir, f"lib{name}.so")
     subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", out,
                     _src(root, name)], check=True, capture_output=True, text=True)
-    sigs = build.SIGNATURES if split else PARENT_SIGNATURES
+    new = has_tc_quant(root) if name == "quant_matmul" else split
+    sigs = build.SIGNATURES if new else PARENT_SIGNATURES
     return bind(out, sigs.get(name, build.SIGNATURES[name]))
 
 
@@ -232,6 +260,66 @@ def prefill_calls(fns, inp):
     }
 
 
+def quant_inputs(gen):
+    """bf16 x per (shape, M) and a {q, s} leaf per (bits, shape), quantized
+    from normal / sqrt(K) weights (the model's init)."""
+    from localai_tpu_torch.ops.quant import quantize_weight, quantize_weight_int4
+
+    leaves, xs = {}, {}
+    for _label, bits, (K, N), M in QUANT_CASES:
+        if (bits, K, N) not in leaves:
+            w = torch.randn((K, N), generator=gen, device="cuda").div_(K ** 0.5)
+            leaves[bits, K, N] = (quantize_weight(w) if bits == 8
+                                  else quantize_weight_int4(w, group=128))
+            del w
+        if (K, M) not in xs:
+            xs[K, M] = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    return leaves, xs
+
+
+def quant_calls(fns, tc: bool, inp):
+    """{case: zero-argument launch} of W8 / W4 for one side (``tc``: its
+    library has the tensor-core launcher)."""
+    from localai_tpu_torch.ops.quant import (SKINNY_M, _sm_count, skinny_k_chunk,
+                                             tc_plan)
+
+    leaves, xs = inp
+    qm = fns["quant_matmul"]
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = _sm_count(torch.device("cuda"))
+    calls = {}
+    for label, bits, (K, N), M in QUANT_CASES:
+        leaf, x = leaves[bits, K, N], xs[K, M]
+        q, s = leaf["q"], leaf["s"]
+        group = K // s.shape[0] if bits == 4 else 0
+        out = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
+        head = [x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr()]
+        if tc or M <= SKINNY_M:
+            if tc:
+                tile, chunk, n_split = tc_plan(M, K, N, sms)
+                fn, tail = qm["quant_matmul_tc_launch"], [tile, chunk]
+            else:
+                chunk = skinny_k_chunk(K, N, sms)
+                n_split = -(-K // chunk)
+                fn, tail = qm["quant_matmul_skinny_launch"], [chunk, 1]
+            ws = torch.empty(n_split * M * N if n_split > 1 else 1,
+                             dtype=torch.float32, device="cuda")
+            args = head + [ws.data_ptr(), M, K, N, group, bits] + tail + [stream]
+            calls[label] = (lambda fn=fn, args=args, label=label, keep=ws:
+                            build.check(fn(*args), label))
+        else:
+            wd = torch.empty((K, N), dtype=torch.bfloat16, device="cuda")
+            deq = qm["quant_dequant_launch"]
+            args = [q.data_ptr(), s.data_ptr(), wd.data_ptr(), K, N, group, bits,
+                    1, stream]
+
+            def call(deq=deq, args=args, label=label, x=x, wd=wd, out=out):
+                build.check(deq(*args), label)
+                torch.matmul(x, wd, out=out)
+            calls[label] = call
+    return calls
+
+
 def mean_ms(call, iters: int, flush) -> float:
     total = 0.0
     for _ in range(iters):
@@ -292,6 +380,11 @@ def main(argv=None) -> int:
     pre = {side: prefill_calls(fns[side], inp) for side in roots}
     for k in ("K2", "K2-int8", "K2 fresh"):
         calls[k] = {side: c[k] for side, c in pre.items()}
+    qin = quant_inputs(torch.Generator(device="cuda").manual_seed(1234))
+    quant = {side: quant_calls(fns[side], has_tc_quant(root), qin)
+             for side, root in roots.items()}
+    for label, *_rest in QUANT_CASES:
+        calls[label] = {side: c[label] for side, c in quant.items()}
     only = [x for x in args.only.split(",") if x]
     calls = {k: v for k, v in calls.items()
              if not only or any(k.startswith(x) for x in only)}

@@ -81,7 +81,7 @@ def _build(name: str, text: str) -> dict:
     out = os.path.join(d, "libragged_prefill.so")
     subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, src],
                    check=True, capture_output=True, text=True)
-    return ab_time.bind(out, "ragged_prefill")
+    return ab_time.bind(out, build.SIGNATURES["ragged_prefill"])
 
 
 def main(argv=None) -> int:
@@ -98,16 +98,13 @@ def main(argv=None) -> int:
         texts = variants(f.read())
     with concurrent.futures.ThreadPoolExecutor(len(texts)) as pool:   # one nvcc each
         futs = {name: pool.submit(_build, name, text) for name, text in texts.items()}
-        lib = build.library("paged_decode")          # ab_time's inputs include K1's
-        decode = {fn: getattr(lib, fn) for fn in build.SIGNATURES["paged_decode"]}
-        fns = {name: {"ragged_prefill": f.result(), "paged_decode": decode}
-               for name, f in futs.items()}
-    gen = torch.Generator(device="cuda").manual_seed(1234)
-    calls = ab_time.make_calls(fns, *ab_time.make_inputs(gen))
+        fns = {name: {"ragged_prefill": f.result()} for name, f in futs.items()}
+    inp = ab_time.make_inputs(torch.Generator(device="cuda").manual_seed(1234))
+    calls = {name: ab_time.prefill_calls(f, inp) for name, f in fns.items()}
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     summary = {}
     for kernel in ("K2", "K2-int8", "K2 fresh"):
-        sides = calls[kernel]
+        sides = {name: c[kernel] for name, c in calls.items()}
         for call in sides.values():          # warm-up
             for _ in range(3):
                 call()

@@ -45,8 +45,9 @@ SIGNATURES = {
         "contig_decode_attention_full_launch": [_P] * 9 + [_I] * 9 + [_P],    # K5
     },
     "quant_matmul": {
-        "quant_matmul_skinny_launch": [_P] * 5 + [_I] * 7 + [_P],             # W8 / W4
-        "quant_dequant_launch": [_P] * 3 + [_I] * 5 + [_P],                   # W8 / W4 wide
+        "quant_matmul_tc_launch": [_P] * 5 + [_I] * 7 + [_P],                 # W8 / W4 bf16
+        "quant_matmul_skinny_launch": [_P] * 5 + [_I] * 7 + [_P],             # W8 / W4 f32
+        "quant_dequant_launch": [_P] * 3 + [_I] * 5 + [_P],                   # f32 wide, table
     },
 }
 

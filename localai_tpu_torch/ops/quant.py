@@ -21,14 +21,23 @@ clamp, ``round(w / s)`` half to even), so its results are bit-identical.
 einsum over ``mat`` (XLA fused the dequantize into the product). On CPU
 tensors it runs exactly that, its plain version. On CUDA tensors it runs
 the hand-written kernels of ops/kernels/csrc/quant_matmul.cu, W8 (int8)
-or W4 (int4), or raises: M <= SKINNY_M rows (decode, a pack's unembed)
-go through one fused kernel that reads each weight byte once (split-K
-over the contraction axis, partials summed by a second kernel in a fixed
-order: no atomics, so a greedy stream does not change between runs);
-more rows dequantize the weight into one reused scratch with a
-hand-written kernel and multiply it with ``torch.matmul``, the large
-plain product the JAX package left to XLA. A dense weight is a plain
-``x @ w``.
+or W4 (int4), or raises. The route is chosen by x's dtype and the
+weight's orientation, never by a fallback:
+  * bfloat16 x, a [K, N] weight (every projection and an untied lm_head),
+    any M: ONE tensor-core kernel (wgmma) that stages the raw int8 / int4
+    tiles, widens them to bf16(q * s) in shared memory and multiplies
+    them there; no dense copy of the weight. ``tc_plan`` picks its token
+    tile and splits K over blocks for small grids; the partials are
+    summed by a second kernel in a fixed order (no atomics, so a greedy
+    stream does not change between runs). A call it does not take (K not
+    a multiple of 8, an int4 group under 16) raises;
+  * float32 x: M <= SKINNY_M rows through the CUDA-core skinny kernel
+    (split-K, the same fixed-order combine), more rows dequantize the
+    weight into one reused scratch and multiply it with ``torch.matmul``
+    (float32 stays off the TF32 tensor cores);
+  * a tied embedding table used transposed (``transposed=True``), either
+    dtype: the dequantize + ``torch.matmul`` route.
+A dense weight is a plain ``x @ w``.
 """
 
 from __future__ import annotations
@@ -37,13 +46,23 @@ import torch
 
 from localai_tpu_torch.ops.kernels import LAUNCHES, build
 
-# rows of x up to which the fused skinny kernel runs (decode: num_slots;
-# a prefill pack's unembed: its segments); more go the dequantize path
+# float32 x: rows up to which the CUDA-core skinny kernel runs (decode:
+# num_slots; a prefill pack's unembed: its segments); more go the
+# dequantize path
 SKINNY_M = 16
 # the skinny kernel's tiling (csrc/quant_matmul.cu): output columns per
 # block, and the most contraction rows one block stages
 TILE_N = 512
 MAX_K_CHUNK = 1024
+# the tensor-core kernel's tiling (csrc/quant_matmul.cu, tensor_core::):
+# weight columns per block, contraction rows per stage, the token tiles it
+# is built for, the fewest contraction rows a split takes, the smallest
+# int4 group (a stage stages the scale rows its 64 rows span)
+TC_TILE_N = 128
+TC_TILE_K = 64
+TC_TOKEN_TILES = (8, 16, 64, 128, 256)
+TC_MIN_K_CHUNK = 256
+TC_MIN_GROUP = 16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -156,7 +175,16 @@ def quant_matmul(x, w, transposed: bool = False):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bits = 4 if grouped else 8
     group = rows // s.shape[-3] if grouped else 0
-    if M <= SKINNY_M and not transposed:
+    if x.dtype == torch.bfloat16 and not transposed:     # tensor cores
+        tile, chunk, n_split = tc_plan(M, K, N, _sm_count(x.device))
+        out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+        ws = torch.empty(n_split * M * N if n_split > 1 else 1,
+                         dtype=torch.float32, device=x.device)
+        err = build.launcher("quant_matmul", "quant_matmul_tc_launch")(
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), M, K, N, group, bits, tile, chunk, stream)
+        build.check(err, name)
+    elif M <= SKINNY_M and not transposed:               # float32, CUDA cores
         out = torch.empty((M, N), dtype=x.dtype, device=x.device)
         chunk = skinny_k_chunk(K, N, _sm_count(x.device))
         n_split = -(-K // chunk)
@@ -166,7 +194,7 @@ def quant_matmul(x, w, transposed: bool = False):
             x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
             ws.data_ptr(), M, K, N, group, bits, chunk, code, stream)
         build.check(err, name)
-    else:
+    else:                           # float32 wide, or the transposed table
         wd = dequant_scratch(rows * cols, x.dtype, x.device)[:rows * cols]
         err = build.launcher("quant_matmul", "quant_dequant_launch")(
             q.data_ptr(), s.data_ptr(), wd.data_ptr(), rows, cols, group,
@@ -176,6 +204,38 @@ def quant_matmul(x, w, transposed: bool = False):
         out = x @ (wd.T if transposed else wd)
     LAUNCHES[name] += 1
     return out
+
+
+def tc_token_tile(M: int) -> int:
+    """The tensor-core kernel's token tile for M rows of x: the smallest
+    of TC_TOKEN_TILES that holds M; past 256 rows the one of 128 and 256
+    that pads M least (256 on a tie)."""
+    for t in TC_TOKEN_TILES:
+        if M <= t:
+            return t
+    return min((256, 128), key=lambda t: -(-M // t) * t)
+
+
+def tc_blocks_per_sm(tile: int) -> int:
+    """Blocks of the tensor-core kernel an SM holds at a token tile (its
+    __launch_bounds__ and shared memory: two up to 64 tokens, one above)."""
+    return 2 if tile <= 64 else 1
+
+
+def tc_plan(M: int, K: int, N: int, sms: int) -> tuple:
+    """(token tile, k_chunk, n_split) of the tensor-core kernel: the grid is
+    column tiles (N / TC_TILE_N) x token tiles x splits of K. K is split
+    only while the grid stays within one wave (``sms`` x blocks per SM)
+    and every split keeps TC_MIN_K_CHUNK rows; a grid whose tiles alone
+    fill a wave is not split. k_chunk is a multiple of TC_TILE_K. The plan
+    depends on the shapes and the SM count only, never on the data."""
+    tile = tc_token_tile(M)
+    tiles = -(-N // TC_TILE_N) * -(-M // tile)
+    wave = sms * tc_blocks_per_sm(tile)
+    splits = max(1, min(wave // tiles, K // TC_MIN_K_CHUNK))
+    k_tiles = -(-K // TC_TILE_K)
+    chunk = -(-k_tiles // splits) * TC_TILE_K
+    return tile, chunk, -(-K // chunk)
 
 
 def skinny_k_chunk(K: int, N: int, sms: int) -> int:
@@ -203,9 +263,10 @@ def _sm_count(dev) -> int:
 
 
 def dequant_scratch(numel: int, dtype, dev) -> torch.Tensor:
-    """The one reused buffer the wide path dequantizes into, per device and
-    dtype, grown to the largest weight seen (the JAX package's fused
-    dequantize needs none; here it costs one weight's dense copy). Kernels
+    """The one reused buffer the dequantize route (float32 x with more than
+    SKINNY_M rows, a transposed table) writes into, per device and dtype,
+    grown to the largest weight seen (the JAX package's fused dequantize
+    needs none; here it costs one weight's dense copy). Kernels
     run in stream order, so the next dequantize waits for the product
     that reads the last one."""
     key = (dev.index, dtype)
@@ -220,7 +281,9 @@ def _check_args(name, x, q, s, grouped, K, transposed):
     """What W8 / W4 take: x [M, K] float32 or bfloat16, q int8 [K, N] or
     packed uint8 [K, N/2] (int4), s float32 [1, N] or [K/g, 1, N], all
     contiguous on x's device; N a multiple of 16 (16-byte rows of int8
-    columns, 8-byte rows of int4 ones) and 16-byte aligned leaves.
+    columns, 8-byte rows of int4 ones) and 16-byte aligned leaves; for
+    the tensor-core kernel (bf16 x, not transposed) also K a multiple of
+    8, x 16-byte aligned and an int4 group of at least TC_MIN_GROUP rows.
     Returns x's dtype code."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: x dtype {x.dtype} not supported "
@@ -251,6 +314,13 @@ def _check_args(name, x, q, s, grouped, K, transposed):
                          f"q{tuple(q.shape)}")
     if cols % 16:
         raise ValueError(f"{name}: out {cols} must be a multiple of 16")
+    if x.dtype == torch.bfloat16 and not transposed:   # the tensor-core kernel
+        if K % 8 or x.data_ptr() % 16:
+            raise ValueError(f"{name}: in {K} must be a multiple of 8 and x "
+                             f"16-byte aligned (16-byte copies of bf16 rows)")
+        if grouped and rows // s.shape[0] < TC_MIN_GROUP:
+            raise ValueError(f"{name}: int4 group {rows // s.shape[0]} under "
+                             f"{TC_MIN_GROUP}")
     for k, t in (("q", q), ("s", s)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {k} must be 16-byte aligned")

@@ -19,8 +19,11 @@ over a head-shape grid (G 1/2/4/8 x hd 32/64/128/256), and across calls
 that reuse one workspace from the caching allocator (once NaN-poisoned),
 captured in a CUDA graph and replayed (again after the lengths changed
 on the device), and at 8192 rows per slot. W8 / W4 (weight-only int8 /
-int4 products) in both regimes (M <= 16 and above), at int4 groups 128
-and 86, a tied table used transposed, and run twice for equal bits.
+int4 products): bfloat16 on the tensor-core kernel at every token tile
+and its edges (M 1 ... 512, one 64 x 128 tile alone against
+torch.matmul), float32 on the CUDA-core skinny kernel (M <= 16) and the
+dequantize route above, at int4 groups 128 and 86, a tied table used
+transposed, and run twice for equal bits (decode and a prefill pack).
 Tolerances: float32 1e-4 absolute (summation order);
 bfloat16 2e-2 absolute and relative (bf16 rounding of the plain version's
 scores, probabilities and output, plus order). Int8 cases compare the
@@ -538,13 +541,16 @@ def _quant_operands(M, K, N, bits, dtype, seed, group=128):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("M", [1, 3, 8, 16, 17, 64])
+@pytest.mark.parametrize("M", [1, 3, 8, 9, 15, 16, 17, 64, 65, 256, 476, 512])
 @pytest.mark.parametrize("K,N,group", [(4096, 1024, 128), (1024, 4096, 128),
                                        (11008, 1024, 86), (256, 2064, 64)])
 def test_quant_matmul_matches_plain(card, dtype, bits, M, K, N, group):
-    """Both regimes (skinny M <= 16 split-K, wide M > 16 dequantize +
-    matmul), int8 and int4 at g 128 and at the g pick_int4_group gives
-    11008 rows at tp 8 (86), a last column tile of 16 columns (2064)."""
+    """Every route: bfloat16 on the tensor-core kernel at each token tile
+    (8, 16, 64, 128, 256) and across its edges, float32 on the skinny
+    kernel (M <= 16, split-K) or dequantize + matmul; int8 and int4 at g
+    128 and at the g pick_int4_group gives 11008 rows at tp 8 (86, not a
+    divisor of the 64-row tile), a last column tile of 16 columns
+    (2064)."""
     from localai_tpu_torch.ops.kernels import LAUNCHES
     from localai_tpu_torch.ops.quant import is_grouped, quant_matmul, quant_matmul_plain
 
@@ -565,14 +571,59 @@ def test_quant_matmul_matches_plain(card, dtype, bits, M, K, N, group):
 @pytest.mark.parametrize("bits", [8, 4])
 def test_quant_matmul_skinny_is_deterministic(card, bits):
     """The split-K partials are summed in a fixed order (no atomics): two
-    calls give the same bits."""
-    from localai_tpu_torch.ops.quant import quant_matmul
+    calls give the same bits (decode: M = 8, 8 splits of w_down)."""
+    from localai_tpu_torch.ops.quant import quant_matmul, tc_plan
 
     x, leaf = _quant_operands(8, 14336, 4096, bits, torch.bfloat16, seed=5)
+    assert tc_plan(8, 14336, 4096, 132)[2] > 1
     a = quant_matmul(x, leaf)
     b = quant_matmul(x, leaf)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_wide_is_deterministic(card, bits):
+    """The same for a prefill pack (M = 512, token tile 256, w_down split
+    in two): two calls give the same bits."""
+    from localai_tpu_torch.ops.quant import quant_matmul, tc_plan
+
+    x, leaf = _quant_operands(512, 14336, 4096, bits, torch.bfloat16, seed=6)
+    assert tc_plan(512, 14336, 4096, 132)[2] > 1
+    a = quant_matmul(x, leaf)
+    b = quant_matmul(x, leaf)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [8, 16, 64, 128, 256])
+def test_quant_matmul_one_tile_matches_matmul(card, bits, M):
+    """One block, one 64-row tile (K 64, N 128): the wgmma operands' layout
+    (the widened weight tile MN-major through the transpose bit, x
+    K-major) against torch.matmul on the dequantized weight, at each
+    token tile. Integer-valued x and a weight of small integers times
+    powers of two make every product and sum exact in float32."""
+    from localai_tpu_torch.ops.quant import mat, pack_int4, quant_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(M + bits)
+    K, N = 64, 128
+    lim = 7 if bits == 4 else 127
+    qv = torch.randint(-lim, lim + 1, (K, N), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    if bits == 4:
+        s = 2.0 ** torch.randint(-4, 1, (K // 16, 1, N), generator=gen, device="cuda")
+        leaf = {"q": pack_int4(qv), "s": s.float()}
+    else:
+        s = 2.0 ** torch.randint(-8, -5, (1, N), generator=gen, device="cuda")
+        leaf = {"q": qv, "s": s.float()}
+    x = torch.randint(-3, 4, (M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    got = quant_matmul(x, leaf)
+    ref = (x.float() @ mat(leaf, torch.float32)).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda
