@@ -48,7 +48,14 @@ Phases, each raising on failure (no phase swallows an error):
               int8 weights + int8 KV, int4 weights): prefill and decode
               logits within 1e-3 (int8 KV: 5e-3, since a row may quantize
               one level apart where the card's and the CPU's float32
-              projections differ in the last bits).
+              projections differ in the last bits). On the same small
+              model, in each configuration, the decode step captured as a
+              CUDA graph (engine/decode_graph.py) against the eager
+              per-step loop: bursts of 16, 8, 1 and 4 steps with greedy,
+              seeded-sampled and idle slots give byte-identical ids,
+              logprobs, cache rows and sampler counters, and the decode
+              kernel's launches, counted through the replays, are layers
+              x steps on both sides.
   3. serving  the port's HTTP server (stdlib) with a Llama-3.1-8B-shaped
               config-only model dir, full width and depth: random bf16
               weights from a seed, 8 slots, context 4096, prefill_chunk 512,
@@ -72,7 +79,27 @@ Phases, each raising on failure (no phase swallows an error):
               continued packs, concurrently. max_tokens 32 with ignore_eos:
               every usage.completion_tokens must be 32. Launch counters are
               zeroed just before each configuration's four requests and
-              read just after.
+              read just after. Every decode burst runs as replays of the
+              graph the engine captured at start: the decode kernel's
+              launches, counted through the replays, must be 32 x the
+              decode steps.
+  3b. decode  right after each configuration's requests, on the same
+              loaded model (decode_phase): 8 requests of 256 greedy tokens
+              (ignore_eos, admission held until all 8 are queued, so they
+              prefill in one pack and decode in lockstep), once through the
+              graph (serving's path) and once through the eager per-step
+              loop (Engine._burst_eager, which serving never selects).
+              Each way: decode ms/step as the median over the bursts of 16
+              steps with all 8 slots active (at least 10; host wall of the
+              burst: copy in, 16 steps, copy out), the median host time
+              between bursts, a torch.profiler trace of one such burst (CUDA
+              kernels per step, the device's busy share of the burst window,
+              its idle gaps, the 10 longest kernels by total time),
+              the decode kernel's launches = 32 x steps. Greedy streams
+              graph vs eager: the agreement is printed, and the first
+              step's logits must agree within 2e-2. Capture seconds and
+              the graph pool's bytes. A {"decode": ...} JSON line before
+              the kernels line holds it all.
   4. kernels  one JSON line {"kernels": [...]}: for each of the eight kernels,
               launches during its serving configuration (K5 has no serving
               path: its launches are those of phases 2 and 4), parity
@@ -201,6 +228,14 @@ def setup():
                 log(f"[setup] ptxas {name}: {line.strip()}")
     for name in build.SIGNATURES:
         build.library(name)
+    # start the profiler's tracing library once on this (the main) thread:
+    # the decode phase traces bursts on the engine's thread, and the
+    # library initialises its client only on the thread that registered it
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.zeros(1, device=DEV).add_(1)
+        torch.cuda.synchronize()
     return card
 
 
@@ -474,6 +509,7 @@ def parity():
     quant_parity(record)
     for kind in ("paged", "int8", "contig", "w8kv8", "w4"):
         model_parity(kind)
+        graph_parity(kind)
     return errs
 
 
@@ -613,6 +649,106 @@ def model_parity(kind: str):
     log(f"[parity] small model (hd 128, f32, {kind}) card kernels vs CPU "
         f"plain: logits max_abs_err {err:.3e} (tol {tol:g}; W8 / W4 "
         f"launches {w8} / {w4})")
+
+
+def graph_parity(kind: str):
+    """The decode step captured as a CUDA graph (engine/decode_graph.py)
+    against the eager per-step loop on the card, on model_parity's small
+    hd-128 float32 llama: three slots prefilled (greedy, seeded-sampled,
+    greedy) and one idle, bursts of 16, 8, 1 and 4 steps from twin states.
+    Ids, logprobs, the cache rows and the sampler counters must be
+    byte-identical; the decode kernel's launches, counted through the
+    replays, must be layers x steps on both sides."""
+    import numpy as np
+    import torch
+
+    from localai_tpu_torch.engine import decode_graph, sampling
+    from localai_tpu_torch.engine.weights import random_params
+    from localai_tpu_torch.models import llama
+    from localai_tpu_torch.ops.kernels import LAUNCHES
+
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256,
+                            intermediate_size=512, num_layers=2, num_heads=4,
+                            num_kv_heads=1, head_dim=128, rope_theta=500000.0,
+                            dtype=torch.float32)
+    quantize = {"w8kv8": "int8", "w4": "int4"}.get(kind, "")
+    params = random_params(cfg, SEED, device=DEV, quantize=quantize)
+    S, C, pg = 4, 256, 64
+    if kind == "contig":
+        ck, cv = llama.init_cache(cfg, S, C, 0, device=DEV)
+    else:
+        ck, cv = llama.init_cache(
+            cfg, S, C, pg, dtype=torch.int8 if kind in ("int8", "w8kv8") else None,
+            device=DEV)
+        ptab = torch.arange(S * C // pg, dtype=torch.int32).flip(0).reshape(S, -1)
+        ck["ptab"] = cv["ptab"] = ptab.to(DEV)
+    gen = torch.Generator().manual_seed(SEED)
+    lengths = np.array([70, 30, 45, 0], np.int32)
+    N = int(lengths.sum())
+    tokens = torch.randint(0, 512, (N,), generator=gen, dtype=torch.int32)
+    positions = torch.cat([torch.arange(n, dtype=torch.int32) for n in lengths[:3]])
+    seg_of = torch.cat([torch.full((int(n),), b, dtype=torch.int32)
+                        for b, n in enumerate(lengths[:3])])
+    tab = torch.tensor([[0, 1, 2, S], [0, 0, 0, 0], [0, 70, 100, 0], [70, 30, 45, 0]],
+                       dtype=torch.int32)
+    llama.ragged_prefill(params, cfg, tokens.to(DEV), positions.to(DEV),
+                         *(t.to(DEV) for t in tab), seg_of.to(DEV), ck, cv,
+                         continued=False)
+
+    def sampler():
+        sm = sampling.SlotSampler(S, DEV)
+        for s in range(S):
+            sm.set_slot(s, sampling.SamplingParamsHost(
+                temperature=1.0 if s == 1 else 0.0, top_k=0, top_p=1.0, seed=SEED),
+                fallback_seed=0)
+        return sm
+
+    def twin(c):
+        return {k: (v if k in ("ptab", "itab") else v.clone()) for k, v in c.items()}
+
+    states = {"graph": (ck, cv, sampler()), "eager": (twin(ck), twin(cv), sampler())}
+    graph = decode_graph.DecodeGraph(params, cfg, ck, cv, states["graph"][2], S,
+                                     16, DEV)
+    graph.capture()
+    kernel = {"paged": "paged_decode_attention", "int8": "paged_decode_attention_quant",
+              "contig": "decode_attention_append_contig",
+              "w8kv8": "paged_decode_attention_quant", "w4": "paged_decode_attention"}[kind]
+    active = np.array([True, True, True, False])
+    steps = (16, 8, 1, 4)
+    outs = {}
+    for side, (k_c, v_c, sm) in states.items():
+        tok, lens = np.array([3, 4, 5, 0], np.int32), lengths.copy()
+        n0 = LAUNCHES[kernel]
+        res = []
+        for n in steps:
+            host = (graph.run(tok, lens, active, n) if side == "graph" else
+                    decode_graph.eager_burst(params, cfg, k_c, v_c, sm, tok, lens,
+                                             active, n))
+            res.append(host[:, :, :3])
+            lens = lens + n * active
+            tok = np.where(active, host[-1, 0].astype(np.int64), tok)
+        torch.cuda.synchronize()
+        outs[side] = np.concatenate(res)
+        launched = LAUNCHES[kernel] - n0
+        if launched != cfg.num_layers * sum(steps):
+            raise AssertionError(f"graph parity ({kind}, {side}): {kernel} launched "
+                                 f"{launched} times, expected "
+                                 f"{cfg.num_layers * sum(steps)}")
+    if not np.array_equal(outs["graph"], outs["eager"]):
+        raise AssertionError(f"graph parity ({kind}): graph replay ids / logprobs "
+                             f"differ from the eager loop")
+    (gk, gv, gs), (ek, ev, es) = states["graph"], states["eager"]
+    for a, b in ((gk, ek), (gv, ev)):
+        for k in a:
+            if k not in ("ptab", "itab") and not torch.equal(a[k][:, :-1], b[k][:, :-1]):
+                raise AssertionError(f"graph parity ({kind}): cache {k} differs")
+    if not torch.equal(gs.counter, es.counter):
+        raise AssertionError(f"graph parity ({kind}): sampler counters differ")
+    log(f"[parity] small model (hd 128, f32, {kind}) decode graph vs eager loop: "
+        f"{sum(steps)} steps in bursts {steps}, greedy + seeded-sampled ids, "
+        f"logprobs, cache rows and counters byte-identical; {kernel} launches "
+        f"{cfg.num_layers} x {sum(steps)} on each side; capture "
+        f"{graph.capture_seconds:.2f} s, pool {graph.pool_bytes} bytes")
 
 
 # ---------- phase 3 ----------
@@ -781,11 +917,19 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
             raise AssertionError(f"{tag} no continued pack (seg_start > 0) ran")
         if pk["kernel_fallback"] != 0:
             raise AssertionError(f"{tag} K2 shape fallbacks: {pk['kernel_fallback']}")
+        n_layers = LLAMA31_8B["num_hidden_layers"]
+        dk = DECODE_KERNEL[config]
+        if launches[dk] != n_layers * dec["steps"]:
+            raise AssertionError(f"{tag} {dk} launched {launches[dk]} times over "
+                                 f"{dec['steps']} decode steps (graph replays), "
+                                 f"expected {n_layers} x {dec['steps']}")
         prompt_lens = [len(lm.tokenizer.encode(render_chat(c))) for c in chats]
+        decode = decode_phase(lm, card, config)
         return launches, {"prompt_lens": prompt_lens, "n_long": n_long,
                           "ttft_ms": ttft_ms, "decode_tok_s": decode_tok_s,
                           "step_ms": step_ms, "pack_ms": pack_ms,
-                          "gb": gb, "peak_gb": peak_gb, "weight_gb": weight_gb}
+                          "gb": gb, "peak_gb": peak_gb, "weight_gb": weight_gb,
+                          "decode": decode}
     finally:
         server.shutdown()
         server.server_close()
@@ -793,6 +937,221 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
         del lm, app
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ---------- phase 3b: decode, graph against eager ----------
+
+DECODE_KERNEL = {"paged": "paged_decode_attention", "int8": "paged_decode_attention_quant",
+                 "contig": "decode_attention_append_contig",
+                 "w8kv8": "paged_decode_attention_quant", "w4": "paged_decode_attention"}
+DECODE_TOKENS = 256          # max_tokens of each of the 8 decode requests
+PROFILED_BURST = 3           # which full burst of a run torch.profiler traces
+ANNOTATION = "decode_burst"
+
+
+def trace_split(prof, n_steps: int):
+    """From a torch.profiler trace of one burst (inside a record_function
+    ANNOTATION range): CUDA kernels per step, the device's busy share of
+    the burst's host window (the union of kernel, copy and memset
+    intervals over the window), the idle gaps inside that union (count
+    and time of those over 20 us, the longest: graph replays queued back
+    to back leave none at step boundaries), and the 10 kernels with the
+    most total time. None when the profiler recorded no device activity."""
+    from torch.autograd import DeviceType
+
+    evs = list(prof.events())
+    win = [e for e in evs if e.name == ANNOTATION and e.device_type == DeviceType.CPU]
+    dev = [e for e in evs if e.device_type == DeviceType.CUDA and e.name != ANNOTATION]
+    if not win or not dev:
+        return None
+    t0, t1 = win[0].time_range.start, win[0].time_range.end
+    spans = sorted((max(e.time_range.start, t0), min(e.time_range.end, t1))
+                   for e in dev if e.time_range.end > t0 and e.time_range.start < t1)
+    busy, cur_s, cur_e, gaps = 0.0, None, None, []
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+                gaps.append(a - cur_e)
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    long_gaps = [g for g in gaps if g > 20]
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    total: dict = {}
+    for e in kernels:
+        n, t = total.get(e.name, (0, 0.0))
+        total[e.name] = (n + 1, t + (e.time_range.end - e.time_range.start))
+    top = sorted(total.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"kernels_per_step": len(kernels) / n_steps,
+            "window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
+            "busy_share": busy / max(1e-9, t1 - t0),
+            "gaps_over_20us": len(long_gaps), "gaps_over_20us_ms": sum(long_gaps) / 1e3,
+            "longest_gap_ms": max(gaps, default=0.0) / 1e3,
+            "lead_in_ms": (spans[0][0] - t0) / 1e3 if spans else None,
+            "top10": [{"kernel": name[:90], "calls": n, "total_ms": t / 1e3}
+                      for name, (n, t) in top]}
+
+
+def decode_phase(lm, card: str, config: str) -> dict:
+    """8 slots all decoding DECODE_TOKENS tokens (greedy, ignore_eos), once
+    through the graph (serving's path) and once through the eager per-step
+    loop (``Engine._burst_eager``, which serving never selects), in this
+    process on this model. For each: the median ms/step over the bursts of
+    16 steps with all 8 slots active (the engine's ``_burst``, host wall:
+    copy in, 16 steps, copy out), the median host time between bursts
+    (emission and bookkeeping, while the card waits), a torch.profiler
+    trace of one such burst (excluded from the median), the decode kernel's launches against 32 x
+    steps, and the first step's logits (a 1-step probe before the first
+    burst: idempotent, it writes the rows the first step rewrites)."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.engine.sampling import SamplingParamsHost
+    from localai_tpu_torch.models import llama
+    from localai_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    eng = lm.engine
+    tag = f"[decode {config}]"
+    n_layers = LLAMA31_8B["num_hidden_layers"]
+    dk = DECODE_KERNEL[config]
+    prompts = [lm.tokenizer.encode(f"Decode request {i}: tell a story about "
+                                   f"the number {i * 7 + 3}.") for i in range(S_SLOTS)]
+    gm = eng.metrics()["decode_graph"]
+    if not gm["captured"]:
+        raise AssertionError(f"{tag} the engine captured no decode graph")
+    runs = {}
+    for way in ("graph", "eager"):
+        fn = eng._burst if way == "graph" else eng._burst_eager
+        rec, probe, prof_box, gaps = [], {}, {}, []
+
+        def timed(n_steps, active, fn=fn, rec=rec, probe=probe, prof_box=prof_box,
+                  way=way, gaps=gaps):
+            if not probe:                 # the first step's logits, once
+                probe["active"] = active.copy()
+                if way == "graph":
+                    eng._graph.run(eng.cur_tokens, eng.lengths, active, 1)
+                    probe["logits"] = eng._graph.logits.float().clone()
+                else:
+                    dev = eng.device
+                    probe["logits"] = llama.decode_step(
+                        eng.params, eng.cfg,
+                        torch.from_numpy(eng.cur_tokens.astype(np.int64)).to(dev),
+                        torch.from_numpy(eng.lengths.copy()).to(dev), eng.ck, eng.cv,
+                        active=torch.from_numpy(active.copy()).to(dev)).float()
+                probe["steps"] = 1
+            full = n_steps == 16 and int(active.sum()) == S_SLOTS
+            traced = full and sum(r[3] for r in rec) == PROFILED_BURST and not prof_box
+            t = time.perf_counter()
+            if rec:                       # host time since the last burst ended
+                gaps.append(t - rec[-1][4])
+            if traced:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    with record_function(ANNOTATION):
+                        host = fn(n_steps, active)
+                prof_box["prof"], prof_box["steps"] = prof, n_steps
+            else:
+                host = fn(n_steps, active)
+            end = time.perf_counter()
+            rec.append((n_steps, int(active.sum()), end - t, full and not traced, end))
+            return host
+
+        # admission waits until all 8 requests are queued, so both runs
+        # prefill them in one pack and decode in lockstep
+        gate = threading.Event()
+        admit = eng._admit
+        eng._admit = lambda admit=admit, gate=gate: gate.is_set() and admit()
+        eng._burst = timed
+        try:
+            m0 = eng.metrics()["decode"]
+            torch.cuda.synchronize()
+            reset_launches()
+            outs = [eng.submit(GenRequest(
+                prompt_ids=list(p), max_new_tokens=DECODE_TOKENS, ignore_eos=True,
+                params=SamplingParamsHost(temperature=0.0))) for p in prompts]
+            gate.set()
+            eng._wake.set()
+            streams = []
+            for o in outs:
+                ids = []
+                while True:
+                    ev = o.get(timeout=900)
+                    if ev is None:
+                        break
+                    if ev.error:
+                        raise AssertionError(f"{tag} {way}: {ev.error}")
+                    ids.extend(ev.token_ids or [ev.token_id])
+                streams.append(ids)
+            torch.cuda.synchronize()
+            launched = dict(LAUNCHES)
+            m1 = eng.metrics()["decode"]
+        finally:
+            del eng._burst, eng._admit    # back to the class's methods
+        steps = m1["steps"] - m0["steps"]
+        if any(len(ids) != DECODE_TOKENS for ids in streams):
+            raise AssertionError(f"{tag} {way}: stream lengths "
+                                 f"{[len(i) for i in streams]}")
+        if launched[dk] != n_layers * (steps + probe["steps"]):
+            raise AssertionError(f"{tag} {way}: {dk} launched {launched[dk]} times "
+                                 f"for {steps} + {probe['steps']} (probe) steps, "
+                                 f"expected {n_layers} per step")
+        per_step = [sec / n * 1e3 for n, _a, sec, use, _e in rec if use]
+        if len(per_step) < 10:
+            raise AssertionError(f"{tag} {way}: only {len(per_step)} bursts of 16 "
+                                 f"steps with all {S_SLOTS} slots active: {rec}")
+        split = trace_split(prof_box["prof"], prof_box["steps"]) if prof_box else None
+        runs[way] = {"ms_per_step": statistics.median(per_step),
+                     "ms_per_step_min": min(per_step), "ms_per_step_max": max(per_step),
+                     "bursts": len(per_step), "steps": steps,
+                     "between_bursts_ms": statistics.median(gaps) * 1e3,
+                     "launches": launched[dk], "trace": split,
+                     "streams": streams, "logits": probe["logits"],
+                     "active": probe["active"]}
+        tr = split or {}
+        log(f"{tag} {card}: {way}: decode {runs[way]['ms_per_step']:.3f} ms/step "
+            f"(median of {len(per_step)} bursts of 16 steps, 8 slots; min "
+            f"{min(per_step):.3f}, max {max(per_step):.3f}; host time between "
+            f"bursts, median {runs[way]['between_bursts_ms']:.3f} ms); {dk} "
+            f"launches {launched[dk]} = {n_layers} x ({steps} + 1 probe) steps; "
+            + (f"trace of one burst: {tr['kernels_per_step']:.1f} CUDA kernels per "
+               f"step, device busy {tr['busy_share'] * 100:.1f}% of the "
+               f"{tr['window_ms']:.2f} ms window ({tr['lead_in_ms']:.3f} ms before "
+               f"the first device activity; {tr['gaps_over_20us']} idle gaps over "
+               f"20 us, {tr['gaps_over_20us_ms']:.3f} ms in all, longest "
+               f"{tr['longest_gap_ms']:.3f} ms)" if split else
+               "trace: the profiler recorded no device activity (not measured)"))
+        if split:
+            log(f"{tag} {way}: 10 longest kernels by total time in the traced "
+                f"burst: {json.dumps(split['top10'])}")
+    g, e = runs["graph"], runs["eager"]
+    same = sum(a == b for a, b in zip(g["streams"], e["streams"]))
+    agree = sum(x == y for a, b in zip(g["streams"], e["streams"])
+                for x, y in zip(a, b)) / (S_SLOTS * DECODE_TOKENS)
+    if not (g["active"].all() and e["active"].all()):
+        raise AssertionError(f"{tag} the first burst did not decode all "
+                             f"{S_SLOTS} slots: {g['active']} / {e['active']}")
+    first = max_err(g["logits"], e["logits"])
+    if first > 2e-2:
+        raise AssertionError(f"{tag} first decode step's logits: graph vs eager "
+                             f"max err {first:.3e} > 2e-2")
+    log(f"{tag} graph vs eager greedy tokens: {same} of {S_SLOTS} streams "
+        f"identical, {agree * 100:.2f}% of tokens agree; first step's logits max "
+        f"abs err {first:.3e} (tol 2e-2); capture {gm['capture_seconds']:.2f} s, "
+        f"graph pool {gm['pool_bytes']} bytes")
+    out = {"capture_s": gm["capture_seconds"], "pool_bytes": gm["pool_bytes"],
+           "streams_identical": same, "token_agreement": agree,
+           "first_step_logits_err": first}
+    for way, r in runs.items():
+        out[way] = {k: v for k, v in r.items()
+                    if k not in ("streams", "logits", "active")}
+    return out
 
 
 # ---------- phase 4 ----------
@@ -1170,6 +1529,16 @@ def main():
     rows = kernel_report(launches, k5_launches, errs, shapes, card)
     import torch
 
+    print(json.dumps({"decode": {c: shapes[c]["decode"] for c in shapes},
+                      "card": card}), flush=True)
+    for c in shapes:
+        d = shapes[c]["decode"]
+        busy = {w: (f"{d[w]['trace']['busy_share'] * 100:.1f}%" if d[w]["trace"]
+                    else "not measured") for w in ("graph", "eager")}
+        log(f"[decode] {card}: {c}: graph {d['graph']['ms_per_step']:.3f} ms/step "
+            f"(busy {busy['graph']}) vs eager {d['eager']['ms_per_step']:.3f} "
+            f"(busy {busy['eager']}); capture {d['capture_s']:.2f} s, pool "
+            f"{d['pool_bytes'] / 1e6:.1f} MB")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,10 @@ What this slice keeps of the JAX engine, with the same knob names:
     sample their first token in the same tick;
   * DECODE BURSTS of up to ``decode_burst`` steps: tokens, lengths and
     sampling stay on the device for the whole burst (kernel K1, K3 or K4
-    in every layer of every step) and the host syncs once, at its end;
+    in every layer of every step) and the host syncs once, at its end.
+    On the card a step is ONE captured CUDA graph (engine/decode_graph.py,
+    the JAX engine's compiled scan body), captured at ``start`` and
+    replayed once per step; on the CPU the same step body runs eagerly;
   * EOS / stop-sequence / max-tokens handling and slot release;
   * ``cancel(request_id)`` (the JAX engine's): a running request is
     released at the next step or burst boundary, a queued one is dropped
@@ -51,6 +54,7 @@ import torch
 
 from localai_tpu_torch import resolve_device
 from localai_tpu_torch.engine import sampling
+from localai_tpu_torch.engine.decode_graph import DecodeGraph, eager_burst
 from localai_tpu_torch.engine.detok import IncrementalDetokenizer
 from localai_tpu_torch.engine.paging import PagePool
 from localai_tpu_torch.models import llama
@@ -167,7 +171,14 @@ class Engine:
         self.ck, self.cv = llama.init_cache(
             model_cfg, S, C, pg, self._pool.num_pages if self._pool else 0,
             dtype=self.cache_dtype, device=self.device)
+        if self._pool is not None:
+            # ONE device page table, rewritten in place (_commit_ptab): the
+            # captured decode step reads it where it lies
+            self.cv["ptab"] = self.ck["ptab"]
         self.sampler = sampling.SlotSampler(S, self.device)
+        self._graph = DecodeGraph(params, model_cfg, self.ck, self.cv,
+                                  self.sampler, S, self.ecfg.decode_burst,
+                                  self.device)
         eid = getattr(tokenizer, "eos_token_id", None)
         self.eos_ids = {int(eid)} if eid is not None else set()
         # host mirrors of the per-slot decode state
@@ -198,10 +209,19 @@ class Engine:
     # ---------- lifecycle ----------
 
     def start(self):
+        """Start the engine thread. On the card it first captures the
+        decode step's graph (as the JAX engine precompiles its bursts);
+        start returns once that is done and raises if it failed."""
         if self._thread is None:
+            ready, failed = threading.Event(), []
             self._thread = threading.Thread(target=self._run, name="engine",
-                                            daemon=True)
+                                            args=(ready, failed), daemon=True)
             self._thread.start()
+            ready.wait()
+            if failed:
+                self._thread.join()
+                self._thread = None
+                raise RuntimeError("decode graph capture failed") from failed[0]
         return self
 
     def shutdown(self):
@@ -265,7 +285,10 @@ class Engine:
                "kv_layout": self.kv_layout,
                "cache_dtype": str(self.cache_dtype).replace("torch.", ""),
                "packed_prefill": dict(self._pack_stats),
-               "decode": dict(self._decode_stats)}
+               "decode": dict(self._decode_stats),
+               "decode_graph": {"captured": self._graph.graph is not None,
+                                "capture_seconds": self._graph.capture_seconds,
+                                "pool_bytes": self._graph.pool_bytes}}
         if self._pool is not None:
             out["pages_in_use"] = self._pool.pages_in_use
             out["pages_total"] = self._pool.num_pages
@@ -273,7 +296,15 @@ class Engine:
 
     # ---------- engine loop ----------
 
-    def _run(self):
+    def _run(self, ready: threading.Event, failed: list):
+        try:
+            if self.device.type == "cuda":
+                self._graph.capture()
+        except Exception as e:     # start() re-raises it
+            failed.append(e)
+            return
+        finally:
+            ready.set()
         while not self._stop:
             try:
                 self._reap_cancelled()
@@ -350,10 +381,11 @@ class Engine:
         self._prefill_queue.append(slot)
 
     def _commit_ptab(self):
+        """Copy the host page table into the one device table, in place
+        (K and V share it). A plain copy: every pack and burst syncs the
+        host at its end, so no pending read sees the table change."""
         if self._pool is not None and self._pool.dirty:
-            ptab = torch.from_numpy(self._pool.ptab.copy()).to(self.device)
-            self.ck["ptab"] = ptab
-            self.cv["ptab"] = ptab
+            self.ck["ptab"].copy_(torch.from_numpy(self._pool.ptab))
             self._pool.dirty = False
 
     def _prefill_step(self) -> bool:
@@ -474,21 +506,7 @@ class Engine:
         self._commit_ptab()
         active_np = np.zeros((S,), np.bool_)
         active_np[decoding] = True
-        dev = self.device
-        tokens = torch.from_numpy(self.cur_tokens.astype(np.int64)).to(dev)
-        lengths = torch.from_numpy(self.lengths.copy()).to(dev)
-        active = torch.from_numpy(active_np).to(dev)
-        rows = list(range(S))
-        draw = active_np.tolist()
-        out = []
-        for _ in range(n_steps):
-            logits = llama.decode_step(self.params, self.cfg, tokens, lengths,
-                                       self.ck, self.cv, active=active)
-            ids, lps = self.sampler.sample(logits, rows, draw=draw)
-            tokens = torch.where(active, ids, tokens)
-            lengths = lengths + active.to(lengths.dtype)
-            out.append(torch.stack([ids.to(torch.float64), lps.to(torch.float64)]))
-        host = torch.stack(out).cpu().numpy()          # [K, 2, S]: ONE sync
+        host = self._burst(n_steps, active_np)          # [K, 2, S]: ONE sync
         ids_np = host[:, 0].astype(np.int64)
         lps_np = host[:, 1]
         snaps = [(i, self.slots[i]) for i in decoding]
@@ -509,6 +527,19 @@ class Engine:
                 self.lengths[i] += n_steps
                 self.cur_tokens[i] = int(ids_np[-1, i])
         return True
+
+    def _burst(self, n_steps: int, active: np.ndarray) -> np.ndarray:
+        """The burst's device work: graph replays on the card, the same
+        step body eagerly on the CPU (decode_graph.DecodeGraph.run)."""
+        return self._graph.run(self.cur_tokens, self.lengths, active, n_steps)
+
+    def _burst_eager(self, n_steps: int, active: np.ndarray) -> np.ndarray:
+        """The eager per-step loop (decode_graph.eager_burst), the
+        reference chip_smoke.py and the card tests hold the graph against;
+        serving never calls it."""
+        return eager_burst(self.params, self.cfg, self.ck, self.cv,
+                           self.sampler, self.cur_tokens, self.lengths,
+                           active, n_steps)
 
     # ---------- emission ----------
 

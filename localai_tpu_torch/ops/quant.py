@@ -253,6 +253,7 @@ def skinny_k_chunk(K: int, N: int, sms: int) -> int:
 
 _SMS: dict = {}
 _SCRATCH: dict = {}
+_CAPTURED: list = []     # scratch buffers a captured graph writes into
 
 
 def _sm_count(dev) -> int:
@@ -268,12 +269,26 @@ def dequant_scratch(numel: int, dtype, dev) -> torch.Tensor:
     grown to the largest weight seen (the JAX package's fused dequantize
     needs none; here it costs one weight's dense copy). Kernels
     run in stream order, so the next dequantize waits for the product
-    that reads the last one."""
+    that reads the last one.
+
+    Under CUDA graph capture the buffer must already be large enough (the
+    warm-up steps before capture grow it): one allocated inside a capture
+    would come from the graph's private pool, so growing it there raises.
+    A buffer a capture used is kept alive even once a larger one replaces
+    it, since the graph writes into it at every replay."""
     key = (dev.index, dtype)
     buf = _SCRATCH.get(key)
+    capturing = dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
     if buf is None or buf.numel() < numel:
+        if capturing:
+            raise RuntimeError(
+                f"dequant_scratch: {numel} elements of {dtype} needed under "
+                f"CUDA graph capture, {0 if buf is None else buf.numel()} "
+                f"allocated: run the captured step eagerly first")
         _SCRATCH.pop(key, None)
         buf = _SCRATCH[key] = torch.empty(numel, dtype=dtype, device=dev)
+    if capturing and not any(b is buf for b in _CAPTURED):
+        _CAPTURED.append(buf)
     return buf
 
 

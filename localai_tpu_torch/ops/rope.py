@@ -3,6 +3,11 @@
 HF "rotate_half" convention, so HF checkpoints load unmodified. The
 scaling families ported so far are none, linear and llama3 (Llama-3.1);
 yarn and the self-extend delta rotation come with a later slice.
+
+The inverse-frequency table is built once per (rope parameters, device)
+and kept on the device (``inv_freq``): building it from numpy is a
+host-to-device copy, which a captured CUDA graph cannot hold, so the
+decode step only looks it up.
 """
 
 from __future__ import annotations
@@ -40,11 +45,28 @@ def _scaled_inv_freq(cfg) -> np.ndarray:
     raise ValueError(f"unsupported rope scaling type in this port: {t}")
 
 
+_INV_FREQ: dict = {}
+
+
+def inv_freq(cfg, device) -> torch.Tensor:
+    """The float32 inverse frequencies [head_dim / 2] of ``cfg`` on
+    ``device``, built at the first call for these rope parameters and
+    device and shared afterwards (read-only)."""
+    key = (cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling_type,
+           cfg.rope_scaling_factor, cfg.rope_low_freq_factor,
+           cfg.rope_high_freq_factor, cfg.rope_original_max_position,
+           str(torch.device(device)))
+    table = _INV_FREQ.get(key)
+    if table is None:
+        table = _INV_FREQ[key] = torch.tensor(
+            _scaled_inv_freq(cfg), dtype=torch.float32, device=device)
+    return table
+
+
 def rope_frequencies(cfg, positions: torch.Tensor):
     """positions [B, T] int -> (sin, cos) each [B, T, head_dim] float32."""
-    inv_freq = torch.tensor(_scaled_inv_freq(cfg), dtype=torch.float32,
-                            device=positions.device)
-    freqs = positions.to(torch.float32)[..., None] * inv_freq  # [B, T, hd/2]
+    freqs = (positions.to(torch.float32)[..., None]
+             * inv_freq(cfg, positions.device))                 # [B, T, hd/2]
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.sin(emb), torch.cos(emb)
 

@@ -1,0 +1,484 @@
+"""The decode burst as one captured step (engine/decode_graph.py), the
+device-side counter RNG of the sampler (engine/sampling.py), the cached
+rope table (ops/rope.py) and the in-place page-table commit.
+
+On the CPU (small f32 models, seeded inputs):
+  * ``counter_uniform`` equals a numpy reimplementation (uint32
+    arithmetic) bit for bit, over seeds, counters and slots; its draws are
+    uniform (Kolmogorov-Smirnov over 2 x 10^5 draws, p > 1e-3); an inactive
+    or greedy row leaves its slot's counter unchanged;
+  * the step body builds nothing from the host: after one warm-up step it
+    runs with torch.tensor / as_tensor / from_numpy and Tensor.item / cpu
+    / tolist patched to raise, in all five configurations;
+  * bursts of 1, 2, 4, 8 and 16 steps through the static buffers give the
+    same ids, logprobs, caches and counters as the per-step loop the
+    engine ran before (``eager_burst``), greedy and seeded-sampled slots
+    mixed with idle ones;
+  * ``Engine._commit_ptab`` rewrites the one device table in place (same
+    ``data_ptr``, K and V share it) and equals ``PagePool.ptab``;
+  * the cached rope table is bit-identical in float32 to the per-call
+    table the port built before, and matches the JAX package's.
+
+On the card (``cuda`` marker; skips here), small f32 models with head_dim
+128 in the five configurations (paged, int8 KV, contiguous, int8 weights
++ int8 KV, int4 weights): the graph's greedy and seeded-sampled tokens
+equal the eager loop's byte for byte, its kernel launch counts are the
+layers x steps the replays ran, capture runs under
+``torch.cuda.set_sync_debug_mode("error")``, and an Engine captures at
+start and serves through replays. On the card's machine (no JAX):
+
+    python -m pytest --noconftest tests/test_torch_decode_graph.py -q -m cuda
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from localai_tpu_torch.engine import decode_graph as dg
+from localai_tpu_torch.engine import sampling
+from localai_tpu_torch.engine.weights import random_params
+from localai_tpu_torch.models import llama
+from localai_tpu_torch.ops import rope as trope
+from localai_tpu_torch.ops.kernels import LAUNCHES
+
+CONFIGS = ("paged", "int8", "contig", "w8kv8", "w4")
+
+
+# ---------- the counter RNG ----------
+
+def _np_fmix32(h):
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(0x85EBCA6B)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
+def _np_uniform(seed, counter):
+    """numpy uint32 reimplementation of sampling.counter_uniform."""
+    with np.errstate(over="ignore"):
+        key = _np_fmix32((np.asarray(seed, np.int64) & 0xFFFFFFFF).astype(np.uint32))
+        ctr = (np.asarray(counter, np.int64) & 0xFFFFFFFF).astype(np.uint32)
+        h = _np_fmix32(key ^ (ctr * np.uint32(0x9E3779B1)))
+    return (h >> np.uint32(8)).astype(np.float32) * np.float32(1.0 / (1 << 24))
+
+
+@pytest.mark.parametrize("case", ["random", "edges", "slots"])
+def test_counter_rng_matches_numpy_bit_for_bit(case):
+    rng = np.random.default_rng(5)
+    if case == "random":
+        seed = rng.integers(0, 2 ** 32, size=4096, dtype=np.int64)
+        counter = rng.integers(0, 2 ** 40, size=4096, dtype=np.int64)
+    elif case == "edges":
+        vals = np.array([0, 1, 2, 255, 256, 65535, 65536, 2 ** 31 - 1,
+                         2 ** 31, 2 ** 32 - 1], np.int64)
+        seed, counter = (a.ravel() for a in np.meshgrid(vals, vals))
+    else:       # through the sampler's per-slot state, after set_slot
+        sm = sampling.SlotSampler(6, "cpu")
+        for s in range(6):
+            sm.set_slot(s, sampling.SamplingParamsHost(seed=[7, 7, 0, 2 ** 40 + 3,
+                                                             -1, 123][s]),
+                        fallback_seed=99)
+        sm.counter.copy_(torch.tensor([0, 5, 1, 2, 3, 1000]))
+        seed, counter = sm.seed.numpy().copy(), sm.counter.numpy().copy()
+        assert seed.tolist() == [7, 7, 0, 3, 99, 123]
+    got = sampling.counter_uniform(torch.from_numpy(seed), torch.from_numpy(counter))
+    want = _np_uniform(seed, counter)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+    assert float(got.min()) >= 0.0 and float(got.max()) < 1.0
+
+
+@pytest.mark.parametrize("axis", ["counters", "seeds"])
+def test_counter_rng_draws_are_uniform(axis):
+    """KS test over 2 x 10^5 draws: along the counter of four seeds, and
+    across 2 x 10^5 seeds at counter 0."""
+    from scipy import stats
+
+    if axis == "counters":
+        ctr = torch.arange(50_000, dtype=torch.int64)
+        u = torch.cat([sampling.counter_uniform(torch.full_like(ctr, s), ctr)
+                       for s in (0, 1, 12345, 2 ** 32 - 1)])
+    else:
+        seed = torch.arange(200_000, dtype=torch.int64)
+        u = sampling.counter_uniform(seed, torch.zeros_like(seed))
+    assert u.numel() >= 100_000
+    p = stats.kstest(u.numpy().astype(np.float64), "uniform").pvalue
+    assert p > 1e-3, p
+
+
+def test_inactive_or_greedy_row_keeps_its_counter():
+    rng = np.random.default_rng(2)
+    logits = torch.from_numpy(rng.normal(size=(4, 40)).astype(np.float32))
+    sm = sampling.SlotSampler(4, "cpu")
+    for s in range(4):
+        sm.set_slot(s, sampling.SamplingParamsHost(
+            temperature=0.0 if s == 3 else 1.0, top_k=0, top_p=1.0, seed=s),
+            fallback_seed=0)
+    active = torch.tensor([True, False, True, True])
+    sm.sample_all(logits, active)
+    sm.sample_all(logits, active)
+    assert sm.counter.tolist() == [2, 0, 2, 0]
+    # the list path (prefill's first tokens) keeps the same rule
+    sm.sample(logits[:3], [1, 3, 0], draw=[True, True, False])
+    assert sm.counter.tolist() == [2, 1, 2, 0]
+    # set_slot resets the counter
+    sm.set_slot(0, sampling.SamplingParamsHost(seed=4), fallback_seed=0)
+    assert sm.counter.tolist() == [0, 1, 2, 0]
+
+
+def test_sample_all_equals_the_list_path():
+    """sample_all over all S rows == sample(logits, range(S), draw=...)
+    on a copy of the same state: ids, logprobs and counters."""
+    rng = np.random.default_rng(4)
+    logits = torch.from_numpy(rng.normal(size=(5, 300)).astype(np.float32) * 3)
+    a, b = sampling.SlotSampler(5, "cpu"), sampling.SlotSampler(5, "cpu")
+    for sm in (a, b):
+        for s, (t, k, p, mp) in enumerate([(0.0, 40, 0.95, 0.0), (0.7, 40, 0.9, 0.0),
+                                           (1.3, 0, 1.0, 0.05), (1.0, 5, 0.5, 0.0),
+                                           (0.9, 300, 0.99, 0.0)]):
+            sm.set_slot(s, sampling.SamplingParamsHost(
+                temperature=t, top_k=k, top_p=p, min_p=mp, seed=11 * s),
+                fallback_seed=0)
+    active = [True, True, False, True, True]
+    for _ in range(4):
+        ia, la = a.sample_all(logits, torch.tensor(active))
+        ib, lb = b.sample(logits, list(range(5)), draw=active)
+        np.testing.assert_array_equal(ia.numpy(), ib.numpy())
+        np.testing.assert_array_equal(la.numpy(), lb.numpy())
+    np.testing.assert_array_equal(a.counter.numpy(), b.counter.numpy())
+    assert a.counter.tolist() == [0, 4, 0, 4, 4]
+
+
+# ---------- a small model and its caches ----------
+
+S, C, PG = 4, 64, 16
+
+
+def _small(kind: str, device, head_dim: int = 8, seed: int = 0,
+           dtype=torch.float32):
+    """(cfg, params, ck, cv, sampler, lengths) of a small llama (float32
+    unless ``dtype``) with three slots prefilled with seeded prompts (slot
+    3 idle): greedy slots 0 and 2, slot 1 sampled with a seed."""
+    hd = head_dim
+    cfg = llama.LlamaConfig(vocab_size=96, hidden_size=4 * hd,
+                            intermediate_size=8 * hd, num_layers=2,
+                            num_heads=4, num_kv_heads=2, head_dim=hd,
+                            rope_theta=500000.0, dtype=dtype)
+    quant = {"w8kv8": "int8", "w4": "int4"}.get(kind, "")
+    params = random_params(cfg, seed, device=device, quantize=quant)
+    if kind == "contig":
+        ck, cv = llama.init_cache(cfg, S, C, 0, device=device)
+    else:
+        ck, cv = llama.init_cache(
+            cfg, S, C, PG, dtype=torch.int8 if kind in ("int8", "w8kv8") else None,
+            device=device)
+        # a scrambled table, ONE tensor for K and V (as the engine keeps it)
+        ptab = torch.arange(S * C // PG, dtype=torch.int32).flip(0).reshape(S, -1)
+        ck["ptab"] = cv["ptab"] = ptab.to(device)
+    rng = np.random.default_rng(seed + 1)
+    segs = [(0, 11), (1, 20), (2, 5)]
+    N = sum(n for _s, n in segs) + 2
+    tokens = np.zeros(N, np.int32)
+    positions = np.full(N, C, np.int32)
+    seg_of = np.full(N, S, np.int32)
+    tab = np.zeros((4, S), np.int32)
+    tab[0] = S
+    off = 0
+    for b, (slot, n) in enumerate(segs):
+        tokens[off:off + n] = rng.integers(0, cfg.vocab_size, n)
+        positions[off:off + n] = np.arange(n)
+        seg_of[off:off + n] = b
+        tab[:, b] = (slot, 0, off, n)
+        off += n
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    llama.ragged_prefill(params, cfg, t(tokens), t(positions), *(t(r) for r in tab),
+                         t(seg_of), ck, cv, continued=False)
+    sampler = sampling.SlotSampler(S, device)
+    for s in range(S):
+        sampler.set_slot(s, sampling.SamplingParamsHost(
+            temperature=1.0 if s == 1 else 0.0, top_k=0, top_p=1.0, seed=77),
+            fallback_seed=0)
+    lengths = np.array([11, 20, 5, 0], np.int32)
+    return cfg, params, ck, cv, sampler, lengths
+
+
+def _clone(x):
+    if isinstance(x, dict):
+        out = {k: _clone(v) for k, v in x.items()}
+        if "ptab" in x:
+            out["ptab"] = x["ptab"]     # shared and never written here
+        return out
+    return x.clone()
+
+
+def _twin(cfg, params, ck, cv, sampler, device):
+    """An independent copy of the caches and the sampler state."""
+    sm = sampling.SlotSampler(S, device)
+    for name in ("temperature", "top_k", "top_p", "min_p", "greedy", "seed",
+                 "counter"):
+        getattr(sm, name).copy_(getattr(sampler, name))
+    return _clone(ck), _clone(cv), sm
+
+
+def _burst_pair(kind, device, n_bursts_steps, capture=False, head_dim=8):
+    """Run the same bursts through DecodeGraph (captured when ``capture``)
+    and through eager_burst on twin states; returns both results, the
+    final caches / counters, and the graph."""
+    cfg, params, ck, cv, sampler, lengths = _small(kind, device, head_dim)
+    ck2, cv2, sm2 = _twin(cfg, params, ck, cv, sampler, device)
+    graph = dg.DecodeGraph(params, cfg, ck, cv, sampler, S, 16, device)
+    if capture:
+        graph.capture()
+    active = np.array([True, True, True, False])
+    tokens = np.array([3, 4, 5, 0], np.int32)
+    outs = {"graph": [], "eager": []}
+    for side in ("graph", "eager"):
+        tok, lens = tokens.copy(), lengths.copy()
+        for n in n_bursts_steps:
+            if side == "graph":
+                host = graph.run(tok, lens, active, n)
+            else:
+                host = dg.eager_burst(params, cfg, ck2, cv2, sm2, tok, lens,
+                                      active, n)
+            outs[side].append(host)
+            lens = lens + n * active
+            tok = np.where(active, host[-1, 0].astype(np.int64), tok)
+    return outs, (ck, cv, sampler), (ck2, cv2, sm2), graph, cfg
+
+
+def _assert_same(outs, state_a, state_b, active_only=True):
+    for a, b in zip(outs["graph"], outs["eager"]):
+        cols = slice(0, 3) if active_only else slice(None)
+        np.testing.assert_array_equal(a[:, 0, cols], b[:, 0, cols])   # ids
+        np.testing.assert_array_equal(a[:, 1, cols], b[:, 1, cols])   # logprobs
+    (ck, cv, sa), (ck2, cv2, sb) = state_a, state_b
+    for x, y in ((ck, ck2), (cv, cv2)):
+        for k in x:
+            if k not in ("ptab", "itab"):
+                # the scratch page / slot past the pool takes dropped writes
+                # (warm-up steps included) and is never read
+                torch.testing.assert_close(x[k][:, :-1], y[k][:, :-1], rtol=0, atol=0)
+    np.testing.assert_array_equal(sa.counter.cpu().numpy(), sb.counter.cpu().numpy())
+
+
+@pytest.mark.parametrize("kind", ("paged", "int8", "contig"))
+@pytest.mark.parametrize("n_steps", (1, 2, 4, 8, 16))
+def test_static_buffer_bursts_equal_the_per_step_loop(kind, n_steps):
+    outs, a, b, graph, _cfg = _burst_pair(kind, "cpu", (n_steps, n_steps))
+    _assert_same(outs, a, b)
+    assert graph.graph is None            # the CPU runs the body eagerly
+    assert a[2].counter.tolist()[1] == 2 * n_steps    # the sampled slot drew
+    assert a[2].counter.tolist()[0] == 0              # greedy: no draws
+
+
+def _raise(*_a, **_k):
+    raise AssertionError("the decode step built a tensor from host data "
+                         "or read one back")
+
+
+@pytest.mark.parametrize("kind", CONFIGS)
+def test_step_body_builds_nothing_from_the_host(kind, monkeypatch):
+    cfg, params, ck, cv, sampler, lengths = _small(kind, "cpu")
+    graph = dg.DecodeGraph(params, cfg, ck, cv, sampler, S, 4, "cpu")
+    graph.lengths.copy_(torch.from_numpy(lengths))
+    graph.active.copy_(torch.tensor([True, True, True, False]))
+    graph.step_body()                     # the warm-up step capture runs first
+    for name in ("tensor", "as_tensor", "from_numpy"):
+        monkeypatch.setattr(torch, name, _raise)
+    for name in ("item", "cpu", "tolist", "numpy"):
+        monkeypatch.setattr(torch.Tensor, name, _raise)
+    graph.step_body()
+    graph.step_body()
+    monkeypatch.undo()
+    assert graph.step.tolist() == [3]
+    assert graph.lengths.tolist() == (lengths + 3 * np.array([1, 1, 1, 0])).tolist()
+
+
+def test_commit_ptab_rewrites_the_one_table_in_place():
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+
+    class _Tok:
+        eos_token_id = 1
+
+    cfg = llama.LlamaConfig(vocab_size=64, hidden_size=32, intermediate_size=64,
+                            num_layers=1, num_heads=4, num_kv_heads=2,
+                            dtype=torch.float32)
+    e = Engine(cfg, random_params(cfg, 0, device="cpu"), _Tok(),
+               EngineConfig(num_slots=3, max_context=64, kv_page_size=16),
+               device="cpu")
+    tab = e.ck["ptab"]
+    assert e.cv["ptab"] is tab
+    ptr = tab.data_ptr()
+    for slot, rows in ((1, 20), (0, 64), (2, 1), (1, 40)):
+        e._pool.ensure(slot, rows)
+        e._commit_ptab()
+        assert not e._pool.dirty
+        assert e.ck["ptab"] is tab and e.cv["ptab"] is tab
+        assert tab.data_ptr() == ptr
+        np.testing.assert_array_equal(tab.numpy(), e._pool.ptab)
+    e._pool.release(0, 0)
+    e._commit_ptab()
+    np.testing.assert_array_equal(tab.numpy(), e._pool.ptab)
+    assert tab.data_ptr() == ptr
+
+
+@pytest.mark.parametrize("kind,factor", [("none", 1.0), ("linear", 4.0),
+                                         ("llama3", 8.0)])
+def test_cached_rope_table_is_bit_identical_and_matches_jax(kind, factor):
+    from localai_tpu.ops import rope as jrope
+
+    cfg = llama.LlamaConfig(head_dim=16, num_heads=2, hidden_size=32,
+                            rope_theta=500000.0, rope_scaling_type=kind,
+                            rope_scaling_factor=factor)
+    before = torch.tensor(trope._scaled_inv_freq(cfg), dtype=torch.float32)
+    cached = trope.inv_freq(cfg, "cpu")
+    assert trope.inv_freq(cfg, torch.device("cpu")) is cached    # built once
+    np.testing.assert_array_equal(cached.numpy().view(np.uint32),
+                                  before.numpy().view(np.uint32))
+    pos = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 9000, size=(3, 5)).astype(np.int32))
+    freqs = pos.to(torch.float32)[..., None] * before     # the per-call form
+    emb = torch.cat([freqs, freqs], dim=-1)
+    sin, cos = trope.rope_frequencies(cfg, pos)
+    np.testing.assert_array_equal(sin.numpy(), torch.sin(emb).numpy())
+    np.testing.assert_array_equal(cos.numpy(), torch.cos(emb).numpy())
+    np.testing.assert_allclose(cached.numpy(), jrope._scaled_inv_freq(cfg),
+                               rtol=1e-7)
+    js, jc = jrope.rope_frequencies(cfg, pos.numpy())
+    # sin/cos of large angles: float32 argument rounding dominates
+    np.testing.assert_allclose(sin.numpy(), np.asarray(js), atol=2e-5)
+    np.testing.assert_allclose(cos.numpy(), np.asarray(jc), atol=2e-5)
+
+
+# ---------- on the card ----------
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the decode graph is captured on the card")
+
+
+DECODE_KERNEL = {"paged": "paged_decode_attention", "int8": "paged_decode_attention_quant",
+                 "contig": "decode_attention_append_contig",
+                 "w8kv8": "paged_decode_attention_quant", "w4": "paged_decode_attention"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dtype", [(k, "float32") for k in CONFIGS]
+                         + [(k, "bfloat16") for k in ("paged", "w8kv8", "w4")])
+def test_graph_replays_equal_the_eager_loop_on_the_card(card, kind, dtype):
+    """Greedy slots 0 and 2 and seeded-sampled slot 1: byte-identical ids
+    and logprobs, caches and counters, graph against eager, over bursts of
+    16, 8, 1 and 4 steps; decode kernel launches = layers x replayed steps.
+    bfloat16 adds W8 / W4's tensor-core kernel, whose split-K combine is a
+    programmatic dependent launch inside the graph."""
+    from localai_tpu_torch.ops.kernels import reset_launches
+
+    steps = (16, 8, 1, 4)
+    cfg, params, ck, cv, sampler, lengths = _small(
+        kind, "cuda", head_dim=128, dtype=getattr(torch, dtype))
+    ck2, cv2, sm2 = _twin(cfg, params, ck, cv, sampler, "cuda")
+    graph = dg.DecodeGraph(params, cfg, ck, cv, sampler, S, 16, "cuda")
+    graph.capture()
+    assert graph.graph is not None and graph.launches
+    active = np.array([True, True, True, False])
+    outs = {"graph": [], "eager": []}
+    for side in ("graph", "eager"):
+        tok, lens = np.array([3, 4, 5, 0], np.int32), lengths.copy()
+        reset_launches()
+        for n in steps:
+            host = (graph.run(tok, lens, active, n) if side == "graph" else
+                    dg.eager_burst(params, cfg, ck2, cv2, sm2, tok, lens, active, n))
+            outs[side].append(host)
+            lens = lens + n * active
+            tok = np.where(active, host[-1, 0].astype(np.int64), tok)
+        torch.cuda.synchronize()
+        assert LAUNCHES[DECODE_KERNEL[kind]] == cfg.num_layers * sum(steps), (side, dict(LAUNCHES))
+    _assert_same(outs, (ck, cv, sampler), (ck2, cv2, sm2))
+    assert sampler.counter.tolist()[1] == sum(steps)
+
+
+@pytest.mark.cuda
+def test_capture_runs_under_sync_debug_error(card):
+    cfg, params, ck, cv, sampler, _lengths = _small("w8kv8", "cuda", head_dim=128)
+    graph = dg.DecodeGraph(params, cfg, ck, cv, sampler, S, 16, "cuda")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.capture()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert graph.graph is not None and graph.pool_bytes > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ("paged", "contig"))
+def test_engine_captures_at_start_and_serves_through_replays(card, kind):
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+    from localai_tpu_torch.ops.kernels import reset_launches
+
+    class _Tok:
+        eos_token_id = 1
+
+        def decode(self, ids, **kw):
+            return "".join(chr(97 + (i % 26)) for i in ids)
+
+    cfg, params, *_ = _small(kind, "cuda", head_dim=128)
+    e = Engine(cfg, params, _Tok(), EngineConfig(
+        num_slots=4, max_context=128, prefill_chunk=16, kv_page_size=16,
+        decode_burst=16, kv_layout="contiguous" if kind == "contig" else "auto"),
+        device="cuda").start()
+    try:
+        m = e.metrics()["decode_graph"]
+        assert m["captured"] and m["capture_seconds"] > 0
+        reset_launches()
+        _text, events = e.generate_text(GenRequest(
+            prompt_ids=[5, 6, 7], max_new_tokens=20, ignore_eos=True,
+            params=sampling.SamplingParamsHost(temperature=0.0)))
+        torch.cuda.synchronize()
+        assert events[-1].completion_tokens == 20
+        steps = e.metrics()["decode"]["steps"]
+        assert steps == 16 + 2 + 1     # 19 tokens after the first: bursts 16, 2, 1
+        assert LAUNCHES[DECODE_KERNEL[kind]] == cfg.num_layers * steps
+    finally:
+        e.shutdown()
+
+
+@pytest.mark.cuda
+def test_dequant_scratch_is_grown_before_capture_and_kept(card):
+    """A tied int8 table (the transposed route, dequantize + matmul into
+    the shared scratch) inside the graph: the warm-up steps size the
+    scratch, the graph equals the eager loop, and a capture that would
+    grow the scratch raises instead of allocating from the graph's pool."""
+    from localai_tpu_torch.ops import quant
+
+    cfg = llama.LlamaConfig(vocab_size=96, hidden_size=512, intermediate_size=1024,
+                            num_layers=2, num_heads=4, num_kv_heads=2, head_dim=128,
+                            tie_word_embeddings=True, dtype=torch.float32)
+    params = random_params(cfg, 0, device="cuda", quantize="int8")
+    assert "lm_head" not in params
+    quant._SCRATCH.clear()
+    outs = []
+    for eager in (False, True):
+        ck, cv = llama.init_cache(cfg, S, C, PG, device="cuda")
+        sm = sampling.SlotSampler(S, "cuda")
+        lens, tok = np.array([0, 0, 0, 0], np.int32), np.array([3, 4, 5, 6], np.int32)
+        act = np.array([True, True, True, True])
+        if eager:
+            outs.append(dg.eager_burst(params, cfg, ck, cv, sm, tok, lens, act, 8))
+        else:
+            graph = dg.DecodeGraph(params, cfg, ck, cv, sm, S, 16, "cuda")
+            graph.capture()
+            outs.append(graph.run(tok, lens, act, 8))
+    np.testing.assert_array_equal(outs[0], outs[1])
+    buf = quant._SCRATCH[(0, torch.float32)]
+    assert any(b is buf for b in quant._CAPTURED)
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="under CUDA graph capture"):
+        with torch.cuda.graph(g):
+            quant.dequant_scratch(buf.numel() + 1, torch.float32, buf.device)
