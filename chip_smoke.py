@@ -99,7 +99,46 @@ Phases, each raising on failure (no phase swallows an error):
               graph vs eager: the agreement is printed, and the first
               step's logits must agree within 2e-2. Capture seconds and
               the graph pool's bytes. A {"decode": ...} JSON line before
-              the kernels line holds it all.
+              the kernels line holds it all. Each run starts with nothing
+              retained for prefix reuse, so both prefill every row.
+  3c. prefix  for paged and w8kv8, right after 3b on the same loaded model
+              (prefix_phase): device-tier prefix reuse. Engines over the
+              same weights, one after the other: kv_prefix_cache on, off,
+              on with the pool cut to 96 pages, and (after the traced
+              pair below) off with prefill_chunk 256. Each runs turn 1
+              (a 1536-token chat prompt = 24 pages = three prefill chunks,
+              32 greedy tokens, ignore_eos), then 8 unrelated ~600-token
+              requests admitted together (every slot is taken, turn 1's
+              too), then turn 2 = turn 1's prompt + its 32 tokens + ~100
+              new tokens, then turn 3 = turn 2's first 1620 tokens + 30
+              new ones (its slot's own rows end inside a page the prefix
+              cache holds: tier 1 and a copy-on-write clone). Asserts: on
+              and off give identical greedy tokens for every request (a
+              cold turn 2 re-runs exactly the chunks turn 1 ran, so the
+              reused rows are the bytes it would compute); turn 2 reuses
+              >= 24 x 64 rows (turn 1's committed full pages) through one
+              tier-3 hit; off reuses nothing; turn 2's packs are all
+              continued and launch K2 (K2-int8 for w8kv8); its decode
+              launches the decode kernel 32 x steps through the graph; no
+              K2 shape fallback; turn 3 reuses 1620 rows with >= 1 clone
+              and launches K2 / K2-int8; the pressure run evicts and
+              finishes. Where the chunks differ from the cold run's (turn
+              3; the pressure run's shorter surviving chain) bf16
+              near-ties may flip tokens, so those are held by their
+              first-token logits against the cold run's (relative L2 err
+              <= 2e-2; a cold run with prefill_chunk 256 shows what
+              chunking alone moves), and the reused pages by their bytes
+              on the card: the pages turn 2 reused equal turn 1's (the pressure
+              run's against the on run's copy), every COW clone equals
+              its source when made, and after turn 3 its clone still
+              holds the reused rows and the held source page is unchanged.
+              Then on and off once more with turn 2, from submit to its
+              first token, under torch.profiler (device busy time and
+              share of that window, CUDA kernels, the top kernels; its
+              tokens must equal the untraced run's). Prints turn 2's TTFT
+              (host clock) and ms/pack on and off, reused rows, COW clones
+              and evictions, and a {"prefix_reuse": ...} JSON line before
+              the kernels line.
   4. kernels  one JSON line {"kernels": [...]}: for each of the eight kernels,
               launches during its serving configuration (K5 has no serving
               path: its launches are those of phases 2 and 4), parity
@@ -925,11 +964,12 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
                                  f"expected {n_layers} x {dec['steps']}")
         prompt_lens = [len(lm.tokenizer.encode(render_chat(c))) for c in chats]
         decode = decode_phase(lm, card, config)
+        prefix = prefix_phase(lm, card, config) if config in PREFIX_K2 else None
         return launches, {"prompt_lens": prompt_lens, "n_long": n_long,
                           "ttft_ms": ttft_ms, "decode_tok_s": decode_tok_s,
                           "step_ms": step_ms, "pack_ms": pack_ms,
                           "gb": gb, "peak_gb": peak_gb, "weight_gb": weight_gb,
-                          "decode": decode}
+                          "decode": decode, "prefix": prefix}
     finally:
         server.shutdown()
         server.server_close()
@@ -993,6 +1033,14 @@ def trace_split(prof, n_steps: int):
             "lead_in_ms": (spans[0][0] - t0) / 1e3 if spans else None,
             "top10": [{"kernel": name[:90], "calls": n, "total_ms": t / 1e3}
                       for name, (n, t) in top]}
+
+
+def forget_retained(eng):
+    """Drop the rows an idle engine keeps for prefix reuse (free slots'
+    tables and the prefix cache). Engine thread only."""
+    if eng._pool is not None:
+        eng._reclaim_pages((), eng._pool.num_pages)
+    eng._cache_tokens = [[] for _ in eng.slots]
 
 
 def decode_phase(lm, card: str, config: str) -> dict:
@@ -1064,10 +1112,21 @@ def decode_phase(lm, card: str, config: str) -> dict:
             return host
 
         # admission waits until all 8 requests are queued, so both runs
-        # prefill them in one pack and decode in lockstep
+        # prefill them in one pack and decode in lockstep; both start with
+        # nothing retained for prefix reuse, so both prefill every row
         gate = threading.Event()
         admit = eng._admit
-        eng._admit = lambda admit=admit, gate=gate: gate.is_set() and admit()
+        fresh = [True]
+
+        def gated(admit=admit, gate=gate, fresh=fresh):
+            if not gate.is_set():
+                return False
+            if fresh:
+                fresh.clear()
+                forget_retained(eng)
+            return admit()
+
+        eng._admit = gated
         eng._burst = timed
         try:
             m0 = eng.metrics()["decode"]
@@ -1151,6 +1210,396 @@ def decode_phase(lm, card: str, config: str) -> dict:
     for way, r in runs.items():
         out[way] = {k: v for k, v in r.items()
                     if k not in ("streams", "logits", "active")}
+    return out
+
+
+# ---------- phase 3c: prefix reuse ----------
+
+# the continued-prefill kernel of each configuration the phase runs
+PREFIX_K2 = {"paged": "ragged_prefill_attention",
+             "w8kv8": "ragged_prefill_attention_int8"}
+TURN1_TOKENS = 1536   # 24 pages of 64: the three prefill chunks a cold turn 2 re-runs
+TURN_NEW = 32         # greedy tokens of each turn
+TURN2_EXTRA = 100     # new prompt tokens of turn 2
+UNRELATED, UNRELATED_TOKENS, UNRELATED_NEW = 8, 600, 16
+# turn 3 = turn 2's first 1620 tokens + 30 new: its slot's own rows (tier 1)
+# end inside page 25, which the prefix cache holds, so that page is cloned
+TURN3_REUSE, TURN3_EXTRA = 1620, 30
+# pages of the pressure run's pool: the unrelated wave alone needs 8 x 10,
+# so turn 1's retained chain (24 pages) must be evicted, at least in part
+PRESSURE_PAGES = 96
+# turn 3 and the pressure run's turn 2 prefill other chunks than a cold
+# run, so bf16 rounding moves their logits: they are held to a relative
+# L2 error (||a - b|| / ||b|| over the vocabulary) against the cold run's
+PREFIX_LOGITS_RTOL = 2e-2
+RECHUNK = 256         # prefill_chunk of the cold run with other chunks
+
+
+def chain_pages(eng, ids) -> list:
+    """The physical pages of ids' chain in the engine's prefix cache, root
+    first, as far as it is indexed (read only: no LRU touch)."""
+    pages = []
+    for key in eng._pcache.chain_keys(ids):
+        e = eng._pcache._entries.get(key)
+        if e is None:
+            break
+        pages.append(e.page)
+    return pages
+
+
+def page_bytes(eng, pages) -> list:
+    """Copies of the K and V pages (and int8 scales) of physical
+    ``pages``, every layer: [L, len(pages), PG, ...] each."""
+    import torch
+
+    idx = torch.tensor(pages, dtype=torch.long, device=DEV)
+    leaves = [eng.ck["pages"], eng.cv["pages"]]
+    if "scales" in eng.ck:
+        leaves += [eng.ck["scales"], eng.cv["scales"]]
+    return [t.index_select(1, idx) for t in leaves]
+
+
+def prefix_sequence(lm, eng, tag: str, config: str, trace: bool = False,
+                    turn1_ref=None) -> dict:
+    """Turn 1, 8 unrelated requests admitted together (every slot, turn 1's
+    too), turn 2 = turn 1's prompt + its output + TURN2_EXTRA tokens, on
+    ``eng`` (requests built by the runner, submitted to the engine, each
+    event awaited at most 300 s), then turn 3 (TURN3_REUSE). Launch
+    counters are zeroed just before turn 2 and read just after, and again
+    for turn 3. ``trace``: turn 2's packs, up
+    to the one that samples its first token, run under torch.profiler on
+    the engine thread, as phase 3b traces a burst (trace_split of that
+    window). Turns 2 and 3 keep their first token's logits. With reuse on:
+    turn 1's retained pages are copied after turn 1 ("turn1_pages"), the
+    pages turn 2 reused are compared after turn 2 with ``turn1_ref`` (an
+    earlier run's copy; this run's own by default), and every copy-on-write
+    clone is compared with its source on the engine thread as it is made,
+    the source kept for the checks after turn 3."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from localai_tpu_torch.api.openai_routes import render_chat
+    from localai_tpu_torch.backend import runner
+    from localai_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    tok = lm.tokenizer
+    greedy = {"ignore_eos": True, "temperature": 0}
+    head = "Turn one of a chat about paged attention on one card. "
+    user1 = (head * (TURN1_TOKENS // len(head) + 1))[:TURN1_TOKENS - len("user: ")]
+    p1 = tok.encode(render_chat([{"role": "user", "content": user1}]))
+    assert len(p1) == TURN1_TOKENS, len(p1)
+
+    def run(req):
+        t0, t_first, ids, last = time.monotonic(), None, [], None
+        out = eng.submit(req)
+        while (ev := out.get(timeout=300)) is not None:
+            if ev.error:
+                raise AssertionError(f"{tag}: {ev.error}")
+            t_first = t_first or time.monotonic()
+            ids.extend(ev.token_ids or [ev.token_id])
+            last = ev
+        return ids, (t_first - t0) * 1e3, last
+
+    def request(ids, n):
+        req = runner.build_request(lm, "", {**greedy, "max_tokens": n})
+        req.prompt_ids = list(ids)
+        return req
+
+    firsts: dict = {}        # first-token logits of turns 2 and 3
+    sample = eng.sampler.sample
+
+    def sample_probe(logits, slots, sample=sample, **kw):
+        key = firsts.pop("next", None)
+        if key:
+            firsts[key] = logits[0].float().clone()
+        return sample(logits, slots, **kw)
+
+    eng.sampler.sample = sample_probe
+    clones = []              # (src, dst, src bytes at the clone, dst == src)
+    if eng._pcache is not None:
+        def clone_probe(src, dst, clone=eng._clone_page):
+            clone(src, dst)
+            before = page_bytes(eng, [src])
+            clones.append((src, dst, before, all(
+                torch.equal(a, b) for a, b in zip(before, page_bytes(eng, [dst])))))
+
+        eng._clone_page = clone_probe
+    turn1, _ttft1, _ev = run(request(p1, TURN_NEW))
+    turn1_pages = (page_bytes(eng, chain_pages(eng, p1))
+                   if eng._pcache is not None else None)
+    # the unrelated wave: admission held until all are queued, so they take
+    # the 8 slots at once
+    gate = threading.Event()
+    admit = eng._admit
+    eng._admit = lambda admit=admit, gate=gate: gate.is_set() and admit()
+    try:
+        outs = []
+        for i in range(UNRELATED):
+            text = f"Request {i}: " + f"an unrelated question number {i * 37 + 11}. " * 20
+            ids = tok.encode(render_chat([{"role": "user",
+                                           "content": text[:UNRELATED_TOKENS - 6]}]))
+            outs.append(eng.submit(request(ids, UNRELATED_NEW)))
+        t_end = time.monotonic() + 60
+        while eng._queue.qsize() < UNRELATED and time.monotonic() < t_end:
+            time.sleep(0.001)
+        gate.set()
+        eng._wake.set()
+        unrelated = []
+        for o in outs:
+            ids = []
+            while (ev := o.get(timeout=300)) is not None:
+                if ev.error:
+                    raise AssertionError(f"{tag} unrelated request: {ev.error}")
+                ids.extend(ev.token_ids or [ev.token_id])
+            unrelated.append(ids)
+    finally:
+        del eng._admit
+    p2 = p1 + turn1 + tok.encode("\nuser: " + ("And what about turn two? " * 5)[:TURN2_EXTRA - 7])
+    m0 = eng.metrics()
+    torch.cuda.synchronize()
+    reset_launches()
+    box: dict = {}
+    if trace:
+        prefill = eng._prefill_step
+
+        def traced(prefill=prefill, box=box):
+            if "prof" in box or not eng._prefill_queue:
+                return prefill()
+            if "open" not in box:
+                box["open"] = (profile(activities=[ProfilerActivity.CPU,
+                                                   ProfilerActivity.CUDA]),
+                               record_function(ANNOTATION))
+                for ctx in box["open"]:
+                    ctx.__enter__()
+            ran = prefill()
+            if not eng._prefill_queue:      # the pack that sampled the first token
+                for ctx in reversed(box["open"]):
+                    ctx.__exit__(None, None, None)
+                box["prof"] = box["open"][0]
+            return ran
+
+        eng._prefill_step = traced
+    firsts["next"] = "turn2"
+    try:
+        turn2, ttft2, last = run(request(p2, TURN_NEW))
+    finally:
+        if trace:
+            del eng._prefill_step
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    m1 = eng.metrics()
+    spliced = None           # (pages turn 2 reused, their bytes == turn 1's)
+    if eng._pcache is not None:
+        ref = turn1_ref if turn1_ref is not None else turn1_pages
+        n = last.timings["reused_prompt_tokens"] // PG
+        got = page_bytes(eng, chain_pages(eng, p2)[:n])
+        spliced = (n, len(got[0][0]) == n and all(
+            torch.equal(a, b[:, :n]) for a, b in zip(got, ref)))
+    p3 = p2[:TURN3_REUSE] + tok.encode((" A third turn, shorter." * 3)[:TURN3_EXTRA])
+    reset_launches()
+    n_clones = len(clones)
+    firsts["next"] = "turn3"
+    turn3, _ttft3, last3 = run(request(p3, TURN_NEW))
+    torch.cuda.synchronize()
+    launches3 = dict(LAUNCHES)
+    evicted3 = (eng.metrics().get("prefix_cache", {}).get("evicted_pages", 0)
+                - m1.get("prefix_cache", {}).get("evicted_pages", 0))
+    # turn 3's clones: the clone equalled its source when made; after turn 3
+    # the rows before its first write still do, and the source (a page the
+    # prefix cache holds) was not written (unless evicted since)
+    r3 = TURN3_REUSE % PG
+    clone_checks = []
+    for src, dst, before, same in clones[n_clones:]:
+        now_dst = page_bytes(eng, [dst])
+        kept = all(torch.equal(a[:, :, :r3], b[:, :, :r3])
+                   for a, b in zip(now_dst, before))
+        src_kept = (all(torch.equal(a, b) for a, b in zip(page_bytes(eng, [src]), before))
+                    if evicted3 == 0 else None)
+        clone_checks.append({"at_clone": same, "rows_kept": kept,
+                             "source_unchanged": src_kept})
+    clone_checks_all = [c[3] for c in clones]
+    del eng.sampler.sample
+    if eng._pcache is not None:
+        del eng._clone_page
+    pk = {k: m1["packed_prefill"][k] - m0["packed_prefill"][k]
+          for k in m1["packed_prefill"]}
+    steps = m1["decode"]["steps"] - m0["decode"]["steps"]
+    if len(turn1) != TURN_NEW or len(turn2) != TURN_NEW or len(turn3) != TURN_NEW or any(
+            len(u) != UNRELATED_NEW for u in unrelated):
+        raise AssertionError(f"{tag} stream lengths: {len(turn1)}, {len(turn2)}, "
+                             f"{[len(u) for u in unrelated]}")
+    if pk["kernel_fallback"] != 0:
+        raise AssertionError(f"{tag} K2 shape fallbacks: {pk['kernel_fallback']}")
+    dk = DECODE_KERNEL[config]
+    if launches[dk] != LLAMA31_8B["num_hidden_layers"] * steps:
+        raise AssertionError(f"{tag} turn 2: {dk} launched {launches[dk]} times "
+                             f"over {steps} decode steps (graph replays)")
+    pc = m1.get("prefix_cache", {})
+    pc0 = m0.get("prefix_cache", {})
+    clones3 = (eng.metrics().get("prefix_cache", {}).get("cow_clones", 0)
+               - pc.get("cow_clones", 0))
+    return {"turn1": turn1, "unrelated": unrelated, "turn2": turn2,
+            "turn3": turn3, "turn3_reused": last3.timings["reused_prompt_tokens"],
+            "turn3_cow_clones": clones3,
+            "turn3_k2_launches": {k: launches3[k] for k in (
+                "ragged_prefill_attention", "ragged_prefill_attention_int8")},
+            "p2_tokens": len(p2), "reused": last.timings["reused_prompt_tokens"],
+            "ttft_ms": ttft2, "packs": pk["dispatches"],
+            "continued_packs": pk["continued"],
+            "pack_ms": pk["seconds"] / max(1, pk["dispatches"]) * 1e3,
+            "decode_steps": steps,
+            "k2_launches": {k: launches[k] for k in ("ragged_prefill_attention",
+                                                     "ragged_prefill_attention_int8")},
+            "decode_launches": launches[dk],
+            "tier3_hits": pc.get("hits", 0) - pc0.get("hits", 0),
+            "prefix_cache": pc, "kv_pages_retained": m1["kv_pages_retained"],
+            "prompt_tokens_reused": m1["prompt_tokens_reused"],
+            "turn2_logits": firsts["turn2"], "turn3_logits": firsts["turn3"],
+            "turn1_pages": turn1_pages, "spliced": spliced,
+            "turn3_clone_checks": clone_checks,
+            "clones_equal_at_clone": clone_checks_all,
+            "trace": trace_split(box["prof"], pk["dispatches"]) if trace else None}
+
+
+def prefix_phase(lm, card: str, config: str) -> dict:
+    """Phase 3c on the loaded model (module doc): the sequence on an engine
+    with kv_prefix_cache on, one with it off, one with the pool cut to
+    PRESSURE_PAGES, then on and off again with turn 2's prefill traced,
+    then off with prefill_chunk RECHUNK, one after the other."""
+    import dataclasses
+
+    import torch
+
+    from localai_tpu_torch.engine.engine import Engine
+
+    tag = f"[prefix {config}]"
+    runs = {}
+    for name, knobs in (("on", {"kv_prefix_cache": True}),
+                        ("off", {"kv_prefix_cache": False}),
+                        ("pressure", {"kv_prefix_cache": True,
+                                      "kv_pool_pages": PRESSURE_PAGES}),
+                        ("on_traced", {"kv_prefix_cache": True}),
+                        ("off_traced", {"kv_prefix_cache": False}),
+                        ("off_rechunk", {"kv_prefix_cache": False,
+                                         "prefill_chunk": RECHUNK})):
+        eng = Engine(lm.cfg, lm.engine.params, lm.tokenizer,
+                     dataclasses.replace(lm.engine.ecfg, **knobs), device=DEV).start()
+        try:
+            t0 = time.monotonic()
+            runs[name] = prefix_sequence(
+                lm, eng, f"{tag} {name}", config, trace=name.endswith("traced"),
+                turn1_ref=runs["on"]["turn1_pages"] if name == "pressure" else None)
+            log(f"{tag} {name}: sequence done in {time.monotonic() - t0:.1f} s")
+        finally:
+            eng.shutdown()
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    on, off, pr = runs["on"], runs["off"], runs["pressure"]
+    full_pages = (TURN1_TOKENS + TURN_NEW - 1) // PG * PG    # turn 1's committed rows
+    for key in ("turn1", "unrelated", "turn2"):
+        if on[key] != off[key]:
+            raise AssertionError(f"{tag} greedy tokens differ on and off: {key}")
+    if on["reused"] < full_pages or on["tier3_hits"] != 1:
+        raise AssertionError(f"{tag} turn 2 reused {on['reused']} rows through "
+                             f"{on['tier3_hits']} tier-3 hits; expected >= "
+                             f"{full_pages} through one")
+    if off["reused"] != 0 or off["prompt_tokens_reused"] != 0:
+        raise AssertionError(f"{tag} reuse with kv_prefix_cache off: {off['reused']}")
+    k2 = PREFIX_K2[config]
+    if on["k2_launches"][k2] <= 0 or on["continued_packs"] != on["packs"]:
+        raise AssertionError(f"{tag} turn 2's continued pack launched "
+                             f"{on['k2_launches']}, packs {on['packs']} "
+                             f"({on['continued_packs']} continued)")
+    if (on["turn3_reused"] != TURN3_REUSE or on["turn3_cow_clones"] < 1
+            or on["turn3_k2_launches"][k2] <= 0 or off["turn3_reused"] != 0):
+        raise AssertionError(f"{tag} turn 3: reused {on['turn3_reused']} rows "
+                             f"(off {off['turn3_reused']}), "
+                             f"{on['turn3_cow_clones']} COW clones, K2 "
+                             f"{on['turn3_k2_launches']}; expected {TURN3_REUSE} "
+                             f"rows (off 0), >= 1 clone, {k2} launched")
+    evicted = pr["prefix_cache"]["evicted_pages"]
+    if evicted <= 0:
+        raise AssertionError(f"{tag} the pressure run ({PRESSURE_PAGES} pages) "
+                             f"evicted nothing")
+    # the reused pages on the card: turn 2's are turn 1's bytes (the
+    # pressure run's against the on run's copy), and every clone copied its
+    # source; turn 3's clone kept its reused rows and left its source alone
+    for name, want in (("on", full_pages // PG), ("pressure", pr["reused"] // PG)):
+        n, same = runs[name]["spliced"]
+        if n != want or not same:
+            raise AssertionError(f"{tag} {name}: the {n} pages turn 2 reused "
+                                 f"(expected {want}) hold "
+                                 f"{'turn 1' if same else 'other'} bytes")
+        if not all(runs[name]["clones_equal_at_clone"]):
+            raise AssertionError(f"{tag} {name}: a COW clone differs from its "
+                                 f"source: {runs[name]['clones_equal_at_clone']}")
+    c3 = on["turn3_clone_checks"]
+    if not c3 or not all(c["at_clone"] and c["rows_kept"] and c["source_unchanged"]
+                         for c in c3):
+        raise AssertionError(f"{tag} turn 3's clone(s): {c3}")
+    # first-token logits against the cold run's: (max abs err, relative L2
+    # err); the reuse runs' must stay within PREFIX_LOGITS_RTOL, and a cold
+    # run with other chunks (no reuse) shows what chunking alone moves
+    logit_errs = {}
+    for name, key in (("on", "turn2"), ("on", "turn3"), ("pressure", "turn2"),
+                      ("pressure", "turn3"), ("off_rechunk", "turn2"),
+                      ("off_rechunk", "turn3")):
+        a, b = runs[name][key + "_logits"], off[key + "_logits"]
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{tag} {name} {key}: non-finite logits")
+        logit_errs[f"{name}_{key}"] = (max_err(a, b),
+                                       float((a - b).norm() / b.norm()))
+    bad = {k: v for k, v in logit_errs.items()
+           if not k.startswith("off") and not v[1] <= PREFIX_LOGITS_RTOL}
+    if bad:
+        raise AssertionError(f"{tag} first-token logits vs off: relative L2 "
+                             f"err above {PREFIX_LOGITS_RTOL}: {bad}")
+    agree = sum(a == b for a, b in zip(pr["turn2"], off["turn2"]))
+    log(f"{tag} {card}: turn 2 ({on['p2_tokens']}-token prompt): reused "
+        f"{on['reused']} rows on (tier 3, >= {full_pages}) vs {off['reused']} off; "
+        f"TTFT {on['ttft_ms']:.2f} ms on vs {off['ttft_ms']:.2f} ms off (host clock, "
+        f"submit to first token); packed prefill {on['packs']} pack(s) at "
+        f"{on['pack_ms']:.2f} ms/pack on vs {off['packs']} at {off['pack_ms']:.2f} "
+        f"ms/pack off; {k2} launches on {on['k2_launches'][k2]}, decode "
+        f"{on['decode_launches']} = {LLAMA31_8B['num_hidden_layers']} x "
+        f"{on['decode_steps']} steps; greedy tokens "
+        f"identical on and off (turn 1, the {UNRELATED} unrelated, turn 2); "
+        f"turn 3 reused {on['turn3_reused']} rows (tier 1) with "
+        f"{on['turn3_cow_clones']} COW clone(s), {k2} launches "
+        f"{on['turn3_k2_launches'][k2]}; its tokens agree with the cold run on "
+        f"{sum(a == b for a, b in zip(on['turn3'], off['turn3']))} of {TURN_NEW}")
+    for way in ("on", "off"):
+        r, tr = runs[way + "_traced"], runs[way + "_traced"]["trace"]
+        if r["turn2"] != on["turn2"]:
+            raise AssertionError(f"{tag} {way}_traced: turn 2's tokens differ")
+        log(f"{tag} {card}: {way}: turn 2 from submit to first token under "
+            f"torch.profiler: {r['ttft_ms']:.2f} ms (untraced {runs[way]['ttft_ms']:.2f}); "
+            + (f"device busy {tr['device_busy_ms']:.2f} ms ({tr['busy_share'] * 100:.1f}% "
+               f"of the window), {tr['kernels_per_step'] * r['packs']:.0f} CUDA kernels in "
+               f"{r['packs']} pack(s), first device activity after "
+               f"{tr['lead_in_ms']:.2f} ms; top kernels {json.dumps(tr['top10'][:5])}"
+               if tr else "the profiler recorded no device activity (not measured)"))
+    log(f"{tag} {card}: prefix cache on {json.dumps(on['prefix_cache'])}; "
+        f"pressure run ({PRESSURE_PAGES} pages): turn 2 reused {pr['reused']} rows, "
+        f"evicted {evicted} pages, COW clones {pr['prefix_cache']['cow_clones']}, "
+        f"TTFT {pr['ttft_ms']:.2f} ms, {pr['packs']} packs; its turn 2 agrees with "
+        f"the cold run on {agree} of {TURN_NEW} tokens")
+    log(f"{tag} reused pages on the card: turn 2's {full_pages // PG} (on) and "
+        f"{pr['reused'] // PG} (pressure) pages byte-equal to turn 1's; turn 3's "
+        f"clone {json.dumps(c3)}; first-token logits vs off, (max abs err, "
+        f"relative L2 err): "
+        f"{json.dumps({k: [f'{e:.3e}' for e in v] for k, v in logit_errs.items()})} "
+        f"(reuse runs' tol {PREFIX_LOGITS_RTOL} relative L2; off_rechunk = "
+        f"reuse off, prefill_chunk {RECHUNK}; max |logit| off "
+        f"{float(off['turn3_logits'].abs().max()):.3f})")
+    keep = ("p2_tokens", "reused", "ttft_ms", "packs", "continued_packs", "pack_ms",
+            "decode_steps", "k2_launches", "decode_launches", "tier3_hits",
+            "turn3_reused", "turn3_cow_clones", "turn3_k2_launches",
+            "prefix_cache", "kv_pages_retained", "trace")
+    out = {name: {k: r[k] for k in keep} for name, r in runs.items()}
+    out["pressure"]["turn2_agreement_with_off"] = agree
+    out["first_token_logits_err"] = logit_errs
     return out
 
 
@@ -1530,6 +1979,9 @@ def main():
     import torch
 
     print(json.dumps({"decode": {c: shapes[c]["decode"] for c in shapes},
+                      "card": card}), flush=True)
+    print(json.dumps({"prefix_reuse": {c: shapes[c]["prefix"] for c in shapes
+                                       if shapes[c]["prefix"]},
                       "card": card}), flush=True)
     for c in shapes:
         d = shapes[c]["decode"]

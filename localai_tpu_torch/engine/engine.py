@@ -28,14 +28,31 @@ What this slice keeps of the JAX engine, with the same knob names:
   * EOS / stop-sequence / max-tokens handling and slot release;
   * ``cancel(request_id)`` (the JAX engine's): a running request is
     released at the next step or burst boundary, a queued one is dropped
-    unadmitted; the HTTP layer cancels a stream whose client went away.
+    unadmitted; the HTTP layer cancels a stream whose client went away;
+  * DEVICE-TIER PREFIX REUSE (``kv_prefix_cache``, on by default as in
+    the JAX engine). A released slot keeps its committed rows
+    (``_cache_tokens``, trimmed to the rows whose KV write ran) and, on
+    the paged layout, indexes their full pages in the cross-release
+    prefix cache (engine/prefix_cache.py). Admission picks the free slot
+    with the longest common prefix (``_pick_slot``) and then, paged, the
+    best of three tiers (``_paged_admission``): 1. the slot's own
+    retained rows; 2. another slot's committed prompt rows, shared
+    copy-on-write (``_share_prefix``); 3. a retained chain found by hash
+    and spliced into the table. The reused rows are never copied; only
+    the first page the request writes is cloned when others still read
+    it (``_cow_guard``), and the rest of the prompt is prefilled as a
+    continued segment. Under pool pressure free slots' tables are
+    reclaimed first, then retained chains evicted LRU-first
+    (``_reclaim_pages``). The contiguous layout has tier 1 only: the rows
+    stay in the slot's block. ``kv_prefix_cache=False`` reuses nothing
+    (every prompt is prefilled whole, as before this existed).
 
 Prefill and decode run as separate ticks (the JAX engine's
 ``prefill_packed_fuse="0"``); greedy output does not depend on that.
-Left for later slices: prefix reuse (own-slot retention, copy-on-write
-sharing, the prefix cache and host tier), context shift (a slot at the
-cache edge finishes with "length"), speculation, grammar, penalties,
-preemption, self-extend and the replica pool.
+Left for later slices: the host tier of prefix reuse (kv_offload),
+context shift (a slot at the cache edge finishes with "length"), the
+snap-back window, speculation, grammar, penalties, preemption,
+self-extend and the replica pool.
 """
 
 from __future__ import annotations
@@ -56,8 +73,10 @@ from localai_tpu_torch import resolve_device
 from localai_tpu_torch.engine import sampling
 from localai_tpu_torch.engine.decode_graph import DecodeGraph, eager_burst
 from localai_tpu_torch.engine.detok import IncrementalDetokenizer
-from localai_tpu_torch.engine.paging import PagePool
+from localai_tpu_torch.engine.paging import PagePool, PoolExhausted
+from localai_tpu_torch.engine.prefix_cache import PrefixPageCache, build_scope
 from localai_tpu_torch.models import llama
+from localai_tpu_torch.ops import kvcache
 from localai_tpu_torch.ops.ragged_prefill import kernel_supports
 
 log = logging.getLogger(__name__)
@@ -80,6 +99,13 @@ class EngineConfig:
     cache_dtype: Any = None           # None = the model dtype; torch.int8
     # KV_LAYOUTS; "auto" is paged, as in the JAX engine without self-extend
     kv_layout: str = "auto"
+    # device-tier prefix reuse (module doc): released slots keep their
+    # committed rows, paged ones index their full pages by hash; False
+    # reuses nothing
+    kv_prefix_cache: bool = True
+    # the fewest reusable rows for a tier-2 share or a tier-3 hit to beat
+    # a clean prefill
+    kv_prefix_cache_min_rows: int = 16
 
 
 @dataclasses.dataclass
@@ -117,6 +143,16 @@ class StreamEvent:
     logprobs: Optional[list] = None
 
 
+def _prefix_len(a: list, b: list) -> int:
+    """Length of the common prefix of two token lists."""
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
 def _merge_events(evs: list) -> StreamEvent:
     last = evs[-1]
     return dataclasses.replace(
@@ -127,7 +163,8 @@ def _merge_events(evs: list) -> StreamEvent:
 class _Slot:
     __slots__ = ("req", "detok", "held_text", "prompt_len",
                  "t_start", "t_first_token", "n_decoded", "t_prefill_ms",
-                 "phase", "pending", "written", "cache_len")
+                 "phase", "pending", "written", "cache_len", "committed",
+                 "reused")
 
     def __init__(self, req: GenRequest, detok, prompt_len: int):
         self.req = req
@@ -142,6 +179,8 @@ class _Slot:
         self.pending: list = []  # prompt tokens not yet prefilled
         self.written = 0         # cache rows holding this request's tokens
         self.cache_len = 0       # rows the next decode step writes at
+        self.committed = 0       # rows whose KV write has run
+        self.reused = 0          # prompt rows reused from earlier requests
 
 
 class Engine:
@@ -168,6 +207,16 @@ class Engine:
             while C % pg:         # the page size must divide the context
                 pg -= 1
             self._pool = PagePool(S, C, pg, self.ecfg.kv_pool_pages)
+        self._reuse = bool(self.ecfg.kv_prefix_cache)
+        self._pcache: Optional[PrefixPageCache] = None
+        if self._reuse and self._pool is not None:
+            self._pcache = PrefixPageCache(
+                build_scope("llama", model_cfg, pg, self.cache_dtype), pg)
+        # per slot, the tokens whose KV rows the slot holds (reuse only):
+        # a running request's prompt + emitted tokens, trimmed to the
+        # committed rows at release
+        self._cache_tokens: list = [[] for _ in range(S)]
+        self._reuse_stats = {"reused_rows": 0, "cow_clones": 0}
         self.ck, self.cv = llama.init_cache(
             model_cfg, S, C, pg, self._pool.num_pages if self._pool else 0,
             dtype=self.cache_dtype, device=self.device)
@@ -289,9 +338,21 @@ class Engine:
                "decode_graph": {"captured": self._graph.graph is not None,
                                 "capture_seconds": self._graph.capture_seconds,
                                 "pool_bytes": self._graph.pool_bytes}}
+        out["prompt_tokens_reused"] = self._reuse_stats["reused_rows"]
         if self._pool is not None:
-            out["pages_in_use"] = self._pool.pages_in_use
-            out["pages_total"] = self._pool.num_pages
+            pool = self._pool
+            # the running requests' pages and any leaked reference: a free
+            # slot's retained rows and the prefix cache's are not in use,
+            # so this is 0 at idle unless a page leaked
+            out["pages_in_use"] = pool.pages_beyond(
+                [i for i, s in enumerate(self.slots) if s is None])
+            out["pages_total"] = pool.num_pages
+            out["kv_pages_free"] = pool.free_pages
+            out["kv_pages_retained"] = pool.retained_pages
+            out["kv_pages_active"] = pool.active_pages
+            if self._pcache is not None:
+                out["prefix_cache"] = {**self._pcache.stats(),
+                                       "cow_clones": self._reuse_stats["cow_clones"]}
         return out
 
     # ---------- engine loop ----------
@@ -357,7 +418,15 @@ class Engine:
             if cancelled:                   # cancelled while queued
                 req.out.put(None)
                 continue
-            self._start_request(req)
+            try:
+                self._start_request(req)
+            except Exception as e:          # the JAX engine's admission handler
+                log.exception("admission failed")
+                req.out.put(StreamEvent(
+                    token_id=-1, text="", logprob=0.0, finish_reason="stop",
+                    error=f"{type(e).__name__}: {e}"))
+                req.out.put(None)
+                continue
             admitted = True
         return admitted
 
@@ -372,13 +441,155 @@ class Engine:
             ids = ids[-max_prompt:]
         if not ids:
             ids = [getattr(self.tokenizer, "eos_token_id", 0) or 0]
-        slot = self.slots.index(None)
+        slot, common = self._pick_slot(ids)
+        # a short accidental match (a shared BOS or first word) is not
+        # worth the continued prefill it forces (the JAX engine's guard)
+        if common < 16:
+            common = 0
+        if self._pool is not None and self._reuse:
+            try:
+                common = self._paged_admission(slot, ids, common)
+            except Exception:
+                # the table may hold another prompt's shared or spliced
+                # pages now (PoolExhausted for a clone): the slot forgets
+                # every row, so no later pick reuses rows it does not hold
+                self._pool.release(slot, 0)
+                self._cache_tokens[slot] = []
+                raise
         self.sampler.set_slot(slot, req.params,
                               fallback_seed=zlib.crc32(req.request_id.encode()))
         s = _Slot(req, IncrementalDetokenizer(self.tokenizer), len(ids))
-        s.pending = ids
+        s.pending = ids[common:]
+        s.written = s.committed = s.reused = common
+        self._reuse_stats["reused_rows"] += common
+        if self._reuse:
+            self._cache_tokens[slot] = list(ids)
         self.slots[slot] = s
         self._prefill_queue.append(slot)
+
+    def _pick_slot(self, ids: list) -> tuple:
+        """The free slot with the longest cached common prefix; on ties the
+        one with the least cached content, so unrelated requests do not
+        evict another conversation's rows. Returns (slot, reusable rows),
+        leaving at least one token to prefill for the last position's
+        logits."""
+        best, best_key = None, None
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                continue
+            key = (_prefix_len(self._cache_tokens[i], ids),
+                   -len(self._cache_tokens[i]))
+            if best_key is None or key > best_key:
+                best, best_key = i, key
+        return best, min(best_key[0], len(ids) - 1)
+
+    # ---------- prefix reuse (paged) ----------
+
+    def _paged_admission(self, slot: int, ids: list, common: int) -> int:
+        """Paged prefix reuse at admission: the rows reusable from the
+        best of three tiers (module doc). Tier 1, ``common``, is the
+        slot's own retained rows. Tier 2 shares another slot's rows that
+        are read-only for it (the committed prompt rows of a running slot,
+        the retained rows of a free one). Tier 3 splices a retained chain
+        of the prefix cache. Tiers 2 and 3 need kv_prefix_cache_min_rows
+        rows. The first page this request writes is cloned if shared."""
+        pool = self._pool
+        min_rows = max(1, self.ecfg.kv_prefix_cache_min_rows)
+        cap = len(ids) - 1              # leave >= 1 token to prefill
+        best_src, best_rows = -1, 0
+        for j, sj in enumerate(self.slots):
+            if j == slot:
+                continue
+            toks = self._cache_tokens[j]
+            limit = len(toks) if sj is None else min(sj.committed, sj.prompt_len)
+            limit = min(limit, cap, pool.slot_rows_capacity(j))
+            n = _prefix_len(toks[:limit], ids)
+            if n > best_rows:
+                best_src, best_rows = j, n
+        cached_pages = self._pcache.match(ids, pool.max_pages)
+        cached_rows = min(len(cached_pages) * pool.page_size, cap)
+        if cached_rows >= min_rows and cached_rows > max(common, best_rows):
+            pool.release(slot, 0)
+            pool.splice(slot, cached_pages)
+            # a retained page back in a table has refs >= 2 (table + hold),
+            # so the guard clones the page the prefill writes first
+            self._cow_guard(slot, cached_rows)
+            self._pcache.note_hit(cached_rows)
+            return cached_rows
+        self._pcache.note_miss()
+        if best_rows > common and best_rows >= min_rows:
+            pool.release(slot, 0)
+            return self._share_prefix(best_src, slot, best_rows)
+        pool.release(slot, common)
+        if common:
+            self._cow_guard(slot, common)
+        return common
+
+    def _share_prefix(self, src: int, dst: int, rows: int) -> int:
+        """Tier 2: src's full pages covering rows[0:rows] are shared into
+        dst's table; where the prefix ends mid-page that page is cloned
+        (one page copy), so dst reuses exactly ``rows`` rows."""
+        shared = self._pool.share(src, dst, rows)
+        if shared < rows:
+            pi = shared // self._pool.page_size
+            new = self._alloc_detached((src, dst))
+            self._clone_page(int(self._pool.ptab[src, pi]), new)
+            self._pool.adopt(dst, new)
+            shared = rows
+        return shared
+
+    def _cow_guard(self, slot: int, row: int):
+        """Copy-on-write: if the page holding ``row`` (the slot's first
+        write) is shared, clone it into a fresh page and swap that into the
+        table before any scatter can touch it."""
+        pi = self._pool.cow_page(slot, row)
+        if pi < 0:
+            return
+        new = self._alloc_detached(slot)
+        old = int(self._pool.ptab[slot, pi])
+        self._clone_page(old, new)
+        self._pool.replace(slot, pi, new)
+
+    def _clone_page(self, src: int, dst: int):
+        kvcache.clone_page(self.ck, src, dst)
+        kvcache.clone_page(self.cv, src, dst)
+        self._reuse_stats["cow_clones"] += 1
+
+    def _alloc_detached(self, protect) -> int:
+        """A clone target, reclaiming under pressure (``protect`` as in
+        _reclaim_pages)."""
+        try:
+            return self._pool.alloc_detached()
+        except PoolExhausted:
+            self._reclaim_pages(protect, 1)
+            return self._pool.alloc_detached()
+
+    def _reclaim_pages(self, protect, need_free: int):
+        """Free pages under pool pressure, cheapest first: release the
+        retained tables of free slots (forgetting their tokens), then
+        evict retained chains LRU-first. ``protect`` (a slot or a tuple of
+        slots) names tables to keep: mid-admission the destination slot is
+        still free, and a share source may be a free slot."""
+        protect = protect if isinstance(protect, tuple) else (protect,)
+        for i, s in enumerate(self.slots):
+            if self._pool.free_pages >= need_free:
+                return
+            if s is None and i not in protect and self._pool.owned[i]:
+                self._pool.release(i, 0)
+                self._cache_tokens[i] = []
+        if self._pcache is not None:
+            self._pcache.evict(self._pool, need_free)
+
+    def _ensure_pages(self, slot: int, rows: int):
+        """Lazy page allocation; under pool pressure reclaim and retry once
+        (PoolExhausted if the running requests alone fill the pool)."""
+        try:
+            self._pool.ensure(slot, rows)
+            return
+        except PoolExhausted:
+            pass
+        self._reclaim_pages(slot, self._pool.pages_for(rows))
+        self._pool.ensure(slot, rows)
 
     def _commit_ptab(self):
         """Copy the host page table into the one device table, in place
@@ -412,7 +623,7 @@ class Engine:
         t0 = time.monotonic()
         if self._pool is not None:
             for slot, s, take, _f in segs:
-                self._pool.ensure(slot, s.written + take)
+                self._ensure_pages(slot, s.written + take)
         self._commit_ptab()
 
         tokens = np.zeros((total,), np.int32)
@@ -460,6 +671,7 @@ class Engine:
         for slot, s, take, final in segs:
             s.pending = s.pending[take:]
             s.written += take
+            s.committed = s.written
             s.t_prefill_ms += (t1 - t0) * 1e3
         self._sink = {}
         try:
@@ -502,7 +714,7 @@ class Engine:
         n_steps = self._pick_burst(decoding)
         if self._pool is not None:
             for i in decoding:
-                self._pool.ensure(i, min(C, int(self.lengths[i]) + n_steps + 2))
+                self._ensure_pages(i, min(C, int(self.lengths[i]) + n_steps + 2))
         self._commit_ptab()
         active_np = np.zeros((S,), np.bool_)
         active_np[decoding] = True
@@ -519,6 +731,8 @@ class Engine:
                 for i, snap in snaps:
                     if self.slots[i] is not snap:
                         continue          # finished earlier in this burst
+                    # step j wrote the row of the slot's previous token
+                    snap.committed = min(snap.committed + 1, snap.cache_len)
                     self._emit(i, int(ids_np[j, i]), float(lps_np[j, i]))
         finally:
             self._flush_sink()
@@ -573,6 +787,8 @@ class Engine:
                     delta, s.held_text = self._holdback(s, delta)
         if finish is None:
             s.cache_len += 1      # this token's KV is written by the next step
+            if self._reuse:
+                self._cache_tokens[slot].append(token_id)
         ev = StreamEvent(token_id=token_id, text=delta, logprob=logprob,
                          finish_reason=finish, prompt_tokens=s.prompt_len,
                          completion_tokens=s.n_decoded)
@@ -586,6 +802,7 @@ class Engine:
                 "admit_to_first_ms": max(0.0, (s.t_first_token - s.t_start) * 1e3),
                 "decode_tokens_per_s": (s.n_decoded - 1) / dt
                 if dt > 0 and s.n_decoded > 1 else 0.0,
+                "reused_prompt_tokens": s.reused,
             }
             self._release_slot(slot)
             if self._sink is not None and key in self._sink:
@@ -623,8 +840,17 @@ class Engine:
         return delta, ""
 
     def _release_slot(self, slot: int):
+        """Free a slot. With reuse it keeps the rows whose KV write ran
+        (``_cache_tokens`` trimmed to ``committed``; rows a burst wrote
+        past a stop are not among them): paged, their full pages enter the
+        prefix cache while the table still pins them, and the table keeps
+        the pages covering them for the slot's own next request."""
+        toks = self._cache_tokens[slot][:self.slots[slot].committed]
+        self._cache_tokens[slot] = toks
         if self._pool is not None:
-            self._pool.release(slot, 0)
+            if self._pcache is not None:
+                self._pcache.insert(self._pool, slot, toks)
+            self._pool.release(slot, len(toks))
         self.slots[slot] = None
         self.lengths[slot] = 0
         if slot in self._prefill_queue:

@@ -1,12 +1,26 @@
 """Host-side page allocator for the paged KV cache (a copy of
-localai_tpu/engine/paging.py, the subset this slice runs).
+localai_tpu/engine/paging.py without the window's ``demote`` and the
+lifecycle auditor).
 
-The device holds the page pool and a snapshot of the page table; this
-module owns the table's numpy mirror, the FIFO free list, per-page
-reference counts and lazy allocation. Copy-on-write prefix sharing,
-prefix-cache holds, host-tier restores and window demotion of the JAX
-allocator arrive with the slices that port prefix reuse and the host
-tier.
+The device holds the page pool and the page table; this module owns the
+table's numpy mirror, the FIFO free list, per-page reference counts,
+lazy allocation and the copy-on-write sharing decisions:
+
+  * ``share(src, dst, rows)`` points dst's leading entries at src's FULL
+    pages covering rows[0:rows] and bumps their counts; no row moves.
+    ``splice(dst, pages)`` does the same from an explicit page list (a
+    prefix-cache chain whose slot is gone).
+  * The first page a request writes is cloned when its count is > 1
+    (``cow_page`` finds it, ``alloc_detached`` + ``ops/kvcache.py::
+    clone_page`` + ``replace`` or ``adopt`` commit it).
+  * ``hold`` / ``drop`` are the prefix cache's retention references: a
+    page whose only references are holds is RETAINED — its rows outlive
+    every slot table and wait to be spliced into a later request.
+  * ``release(slot, keep_rows)`` drops a slot's pages past keep_rows; a
+    page returns to the free list when its last reference goes.
+
+Every change to the table sets ``dirty``; the engine copies the mirror
+into the one device table before the next pack or burst.
 """
 
 from __future__ import annotations
@@ -17,7 +31,8 @@ import numpy as np
 
 
 class KVLifecycleError(RuntimeError):
-    """A page lifecycle rule was broken (a free of a free page). Raised
+    """A page lifecycle rule was broken (a free of a free page, a share
+    into a non-empty table, a drop without a hold, ...). Raised
     unconditionally, so it survives ``python -O``."""
 
     def __init__(self, op: str, detail: str, page: int = -1, slot=None):
@@ -30,7 +45,7 @@ class KVLifecycleError(RuntimeError):
 
 
 class PoolExhausted(RuntimeError):
-    """No free page."""
+    """No free page; the engine reclaims retained prefixes and retries."""
 
 
 class PagePool:
@@ -48,6 +63,9 @@ class PagePool:
         self.ptab = np.full((num_slots, self.max_pages), self.num_pages,
                             np.int32)
         self.refs = np.zeros((self.num_pages,), np.int32)
+        # references held by the prefix cache (a subset of refs): a page
+        # with refs == held > 0 is RETAINED, alive only for reuse
+        self.held = np.zeros((self.num_pages,), np.int32)
         self.owned = np.zeros((num_slots,), np.int32)  # table entries in use
         self._free = deque(range(self.num_pages))
         self.dirty = True      # device table snapshot is stale
@@ -65,6 +83,30 @@ class PagePool:
     def pages_in_use(self) -> int:
         return self.num_pages - len(self._free)
 
+    @property
+    def retained_pages(self) -> int:
+        """Pages alive only through prefix-cache holds (reclaimable by
+        eviction without touching any slot)."""
+        return int(((self.refs > 0) & (self.refs == self.held)).sum())
+
+    @property
+    def active_pages(self) -> int:
+        """Pages some slot table (or a detached clone) references."""
+        return int(((self.refs > 0) & (self.refs > self.held)).sum())
+
+    def pages_beyond(self, idle_slots) -> int:
+        """Pages referenced beyond the prefix cache's holds and the tables
+        of ``idle_slots``: the running requests' pages, plus any reference
+        nothing accounts for (a detached page never adopted, a count never
+        dropped). 0 when every slot is idle and nothing leaked."""
+        known = self.held.copy()
+        for s in idle_slots:
+            np.add.at(known, self.ptab[s, :int(self.owned[s])], 1)
+        return int((self.refs > known).sum())
+
+    def slot_rows_capacity(self, slot: int) -> int:
+        return int(self.owned[slot]) * self.page_size
+
     def page_refs(self, slot: int, page_idx: int) -> int:
         p = int(self.ptab[slot, page_idx])
         return int(self.refs[p]) if p < self.num_pages else 0
@@ -79,6 +121,20 @@ class PagePool:
         p = self._free.popleft()
         self.refs[p] = 1
         return p
+
+    def alloc_detached(self) -> int:
+        """One page owned by no table yet (a copy-on-write clone target);
+        hand it to ``replace`` / ``adopt`` or free it with
+        ``unref_detached``."""
+        return self._alloc()
+
+    def alloc_many(self, n: int) -> list:
+        """Up to ``n`` detached pages: as many as the free list gives,
+        without raising."""
+        out = []
+        while len(out) < n and self._free:
+            out.append(self._alloc())
+        return out
 
     def unref_detached(self, page: int):
         if self.refs[page] <= 0:
@@ -110,3 +166,90 @@ class PagePool:
             self.unref_detached(int(self.ptab[slot, i]))
             self.ptab[slot, i] = self.num_pages
             self.dirty = True
+
+    # ---------- sharing / copy-on-write ----------
+
+    def share(self, src: int, dst: int, rows: int) -> int:
+        """Point dst's leading entries at src's full pages covering
+        rows[0:rows]; counts bump, nothing is copied. dst must own no
+        pages. Returns the rows shared (a page multiple)."""
+        n = min(int(rows) // self.page_size, int(self.owned[src]))
+        if self.owned[dst] != 0:
+            raise KVLifecycleError("share", "share() into a non-empty slot",
+                                   slot=(src, dst))
+        for i in range(n):
+            p = int(self.ptab[src, i])
+            self.ptab[dst, i] = p
+            self.refs[p] += 1
+        self.owned[dst] = n
+        if n:
+            self.dirty = True
+        return n * self.page_size
+
+    def hold(self, page: int):
+        """A prefix-cache retention reference: keeps the page and its rows
+        alive after every slot table lets go. Only a referenced page can
+        be held (a free page holds nothing worth keeping)."""
+        if self.refs[page] <= 0:
+            raise KVLifecycleError("hold", "hold() on an unreferenced page",
+                                   page=page)
+        self.refs[page] += 1
+        self.held[page] += 1
+
+    def drop(self, page: int):
+        """Release a ``hold`` reference (eviction)."""
+        if self.held[page] <= 0:
+            raise KVLifecycleError("drop", "drop() without a matching hold()",
+                                   page=page)
+        self.held[page] -= 1
+        self.unref_detached(page)
+
+    def splice(self, dst: int, pages) -> int:
+        """Point dst's leading entries at an explicit page list (a prefix
+        cache chain) and bump the counts. dst must own no pages. Returns
+        the rows spliced (a page multiple)."""
+        if self.owned[dst] != 0:
+            raise KVLifecycleError("splice", "splice() into a non-empty slot",
+                                   slot=dst)
+        n = min(len(pages), self.max_pages)
+        for i in range(n):
+            p = int(pages[i])
+            if self.refs[p] <= 0:
+                raise KVLifecycleError("splice", "splice() of a freed page",
+                                       page=p, slot=dst)
+            self.ptab[dst, i] = p
+            self.refs[p] += 1
+        self.owned[dst] = n
+        if n:
+            self.dirty = True
+        return n * self.page_size
+
+    def adopt(self, slot: int, page: int):
+        """Append a detached (just cloned) page to the slot's table."""
+        i = int(self.owned[slot])
+        if i >= self.max_pages:
+            raise KVLifecycleError("adopt", "adopt() into a full table",
+                                   page=page, slot=slot)
+        if self.refs[page] <= 0:
+            raise KVLifecycleError("adopt", "adopt() of a freed page",
+                                   page=page, slot=slot)
+        self.ptab[slot, i] = page
+        self.owned[slot] = i + 1
+        self.dirty = True
+
+    def cow_page(self, slot: int, row: int) -> int:
+        """Table index of the page holding ``row`` if the slot owns it and
+        it is shared (count > 1), so writing the row needs a clone first;
+        -1 otherwise."""
+        i = int(row) // self.page_size
+        if i < self.owned[slot] and self.page_refs(slot, i) > 1:
+            return i
+        return -1
+
+    def replace(self, slot: int, page_idx: int, new_page: int):
+        """Swap a (cloned) page into the slot's table: the copy-on-write
+        commit. The old page loses this table's reference."""
+        old = int(self.ptab[slot, page_idx])
+        self.ptab[slot, page_idx] = new_page
+        self.unref_detached(old)
+        self.dirty = True

@@ -44,16 +44,47 @@ without a host sync to filter the rows.
 
 Unlike JAX's functional updates, the scatters here write into the store
 in place; the pool is the largest buffer on the card and is never copied.
+``clone_page`` (the copy-on-write primitive of prefix reuse) copies one
+physical page over every layer in place in the same way.
+
+PAGE IDENTITY (the cross-release prefix cache, engine/prefix_cache.py):
+a full page is named by a chained block hash over token ids,
+``page_chain_hash(parent, tokens, scope)``, never by its float content.
+The digests are byte-identical to the JAX package's for the same inputs.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Tuple
 
 import numpy as np
 import torch
 
 _EPS = 1e-8
+
+PAGE_HASH_BYTES = 16
+PAGE_HASH_ROOT = b"\x00" * PAGE_HASH_BYTES
+
+
+def page_scope(page_size: int, *parts) -> bytes:
+    """Scope token for a page-hash chain: the page size plus any
+    model-identity parts. Two engines whose scopes differ never alias
+    each other's chains: the scope is folded into every link."""
+    text = "|".join([f"pg={int(page_size)}"] + [str(p) for p in parts])
+    return hashlib.blake2b(text.encode("utf-8"),
+                           digest_size=PAGE_HASH_BYTES).digest()
+
+
+def page_chain_hash(parent: bytes, token_ids, scope: bytes) -> bytes:
+    """hash(scope, parent, page token ids): one link of the chained block
+    hash; ``parent`` is PAGE_HASH_ROOT for the first page. Token ids are
+    hashed as int64, so the digest does not depend on the container."""
+    h = hashlib.blake2b(digest_size=PAGE_HASH_BYTES)
+    h.update(scope)
+    h.update(parent)
+    h.update(np.asarray(token_ids, np.int64).tobytes())
+    return h.digest()
 
 
 def init_paged(shape: Tuple[int, ...], dtype, page_size: int,
@@ -234,6 +265,22 @@ def scatter_ragged(lcache: dict, slot_of: torch.Tensor, cols: torch.Tensor,
     sentinel C and are dropped; out-of-range slot ids (pad segments)
     clamp, their column sentinel still drops the write."""
     return write_rows(lcache, scatter_index(lcache, slot_of, cols), new_kv)
+
+
+def clone_page(cache: dict, src: int, dst: int) -> dict:
+    """Copy physical page ``src`` over page ``dst`` in every layer, in
+    place, scales included for int8 (the copy-on-write primitive: the
+    first page a request writes is cloned when others still read it).
+    Both must be real pages (< n_pages): the scratch page is never a
+    source or a target."""
+    st = cache["pages"]
+    n = st.shape[1] - 1
+    if not (0 <= src < n and 0 <= dst < n):
+        raise ValueError(f"clone_page({src}, {dst}) outside the {n} pages")
+    st[:, dst].copy_(st[:, src])
+    if is_quant(cache):
+        cache["scales"][:, dst].copy_(cache["scales"][:, src])
+    return cache
 
 
 def from_jax(jcache, device="cuda") -> dict:

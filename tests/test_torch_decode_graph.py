@@ -17,7 +17,10 @@ On the CPU (small f32 models, seeded inputs):
   * ``Engine._commit_ptab`` rewrites the one device table in place (same
     ``data_ptr``, K and V share it) and equals ``PagePool.ptab``;
   * the cached rope table is bit-identical in float32 to the per-call
-    table the port built before, and matches the JAX package's.
+    table the port built before, and matches the JAX package's;
+  * after prefix reuse rewrites the table (a tier-3 splice, a tier-1
+    copy-on-write replace), every engine burst equals the eager loop on a
+    twin state (also on the card, where the bursts are graph replays).
 
 On the card (``cuda`` marker; skips here), small f32 models with head_dim
 128 in the five configurations (paged, int8 KV, contiguous, int8 weights
@@ -25,7 +28,8 @@ On the card (``cuda`` marker; skips here), small f32 models with head_dim
 equal the eager loop's byte for byte, its kernel launch counts are the
 layers x steps the replays ran, capture runs under
 ``torch.cuda.set_sync_debug_mode("error")``, and an Engine captures at
-start and serves through replays. On the card's machine (no JAX):
+start and serves through replays; ``clone_page`` on the card equals the
+plain copy, scales included. On the card's machine (no JAX):
 
     python -m pytest --noconftest tests/test_torch_decode_graph.py -q -m cuda
 """
@@ -482,3 +486,120 @@ def test_dequant_scratch_is_grown_before_capture_and_kept(card):
     with pytest.raises(RuntimeError, match="under CUDA graph capture"):
         with torch.cuda.graph(g):
             quant.dequant_scratch(buf.numel() + 1, torch.float32, buf.device)
+
+
+# ---------- the page table under the graph after prefix reuse ----------
+
+class _EngineTok:
+    eos_token_id = 1
+
+    def decode(self, ids, **kw):
+        return "".join(chr(97 + (i % 26)) for i in ids)
+
+
+def _drive(e):
+    """Run an engine's ticks on this thread until it is idle."""
+    while True:
+        e._reap_cancelled()
+        if not (e._admit() | e._prefill_step() | e._decode_burst()):
+            return
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("kind", ("paged", "int8"))
+def test_replays_after_splice_and_replace_read_the_new_table(device, kind):
+    """Prefix reuse rewrites the table the captured step reads: a tier-3
+    splice (a retained chain into an overwritten slot) and a tier-1
+    copy-on-write replace (a held page cloned and swapped in). Every burst
+    of the engine runs through the graph (captured on the card) and, from
+    the same state, through the eager loop on a twin of the caches and the
+    sampler: ids, logprobs and cache rows are identical, bursts after the
+    splice and after the replace included."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the decode graph is captured on the card")
+    cfg, params, *_ = _small(kind, device, head_dim=128 if device == "cuda" else 8)
+    e = Engine(cfg, params, _EngineTok(), EngineConfig(
+        num_slots=S, max_context=C, prefill_chunk=16, kv_page_size=PG,
+        decode_burst=8, cache_dtype=torch.int8 if kind == "int8" else None),
+        device=device)
+    if device == "cuda":
+        e._graph.capture()
+    graph_burst = e._burst
+    seen = []
+
+    def both(n, active):
+        tok, lens = e.cur_tokens.copy(), e.lengths.copy()
+        ck2, cv2, sm2 = _twin(cfg, params, e.ck, e.cv, e.sampler, device)
+        ref = dg.eager_burst(params, cfg, ck2, cv2, sm2, tok, lens, active, n)
+        got = graph_burst(n, active)
+        cols = np.flatnonzero(active)
+        np.testing.assert_array_equal(got[:, :, cols], ref[:, :, cols])
+        for x, y in ((e.ck, ck2), (e.cv, cv2)):
+            for k in x:
+                if k != "ptab":
+                    assert torch.equal(x[k][:, :-1], y[k][:, :-1]), k
+        m = e.metrics()["prefix_cache"]
+        seen.append((m["hits"], m["cow_clones"]))
+        return got
+
+    e._burst = both
+    rng = np.random.default_rng(3)
+
+    def request(ids, n):
+        return e.submit(GenRequest(prompt_ids=list(ids), max_new_tokens=n,
+                                   ignore_eos=True,
+                                   params=sampling.SamplingParamsHost(temperature=0.0)))
+
+    def run(ids, n):
+        out = request(ids, n)
+        _drive(e)
+        evs = []
+        while (ev := out.get_nowait()) is not None:
+            evs.append(ev)
+        return [t for ev in evs for t in (ev.token_ids or [ev.token_id])], evs[-1]
+
+    a = rng.integers(2, 96, size=20).tolist()
+    out_a, _ev = run(a, 6)
+    outs = [request(rng.integers(2, 96, size=10).tolist(), 3) for _ in range(S)]
+    _drive(e)                                # every slot, a's too, overwritten
+    assert all(o.qsize() > 1 for o in outs)
+    a2 = a + out_a[:5] + rng.integers(2, 96, size=4).tolist()
+    _ids, ev = run(a2, 6)
+    assert ev.timings["reused_prompt_tokens"] == 16      # tier 3: a spliced page
+    hits_at_splice = seen[-1][0]
+    _ids, ev = run(a2[:20] + rng.integers(2, 96, size=3).tolist(), 4)
+    assert ev.timings["reused_prompt_tokens"] == 20      # tier 1, page 1 cloned
+    assert hits_at_splice == 1 and seen[-1][1] == 1
+    assert np.array_equal(e.ck["ptab"].cpu().numpy(), e._pool.ptab)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_clone_page_on_the_card_equals_the_plain_copy(card, quant):
+    """ops/kvcache.py::clone_page on CUDA tensors: the page (and its
+    scales) copied over every layer in place, every other page and the
+    scratch page untouched; the plain copy is the same indexing on the
+    CPU."""
+    from localai_tpu_torch.ops import kvcache
+
+    gen = torch.Generator().manual_seed(5)
+    shape = (3, 2, 64, 8, 128)         # L, S, C, KV, hd: 8 pages of 16
+    cache = kvcache.init_paged(shape, torch.int8 if quant else torch.bfloat16,
+                               16, device="cuda")
+    if quant:
+        cache["pages"].copy_(torch.randint(-127, 128, cache["pages"].shape,
+                                           generator=gen, dtype=torch.int8))
+        cache["scales"].copy_(torch.rand(cache["scales"].shape, generator=gen))
+    else:
+        cache["pages"].copy_(torch.randn(cache["pages"].shape, generator=gen))
+    plain = {k: v.cpu().clone() for k, v in cache.items()}
+    for k in ("pages", "scales") if quant else ("pages",):
+        plain[k][:, 6] = plain[k][:, 2]
+    ptr = cache["pages"].data_ptr()
+    kvcache.clone_page(cache, 2, 6)
+    torch.cuda.synchronize()
+    assert cache["pages"].data_ptr() == ptr
+    for k, v in plain.items():
+        assert torch.equal(cache[k].cpu(), v), k
