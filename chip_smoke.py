@@ -82,7 +82,11 @@ Phases, each raising on failure (no phase swallows an error):
               read just after. Every decode burst runs as replays of the
               graph the engine captured at start: the decode kernel's
               launches, counted through the replays, must be 32 x the
-              decode steps.
+              decode steps. Every pack is padded to its bucket (the JAX
+              engine's prefill_buckets rule: 32, 128, 512, 1024 here) and
+              replays the (bucket, continued) graph the engine captured at
+              start: K2 + K2-int8 launches, counted through the replays,
+              must be 32 x the packs.
   3b. decode  right after each configuration's requests, on the same
               loaded model (decode_phase): 8 requests of 256 greedy tokens
               (ignore_eos, admission held until all 8 are queued, so they
@@ -101,7 +105,21 @@ Phases, each raising on failure (no phase swallows an error):
               the graph pool's bytes. A {"decode": ...} JSON line before
               the kernels line holds it all. Each run starts with nothing
               retained for prefix reuse, so both prefill every row.
-  3c. prefix  for paged and w8kv8, right after 3b on the same loaded model
+  3d. prefill right after 3b, on the same loaded model (prefill_phase, on
+              the engine's thread): for each of the 8 (bucket, continued)
+              pairs a pack of PREFILL_PACKS (fresh: 2-8 segments from row
+              0; continued: 2-4 segments over the fresh pack's rows; the
+              last segment non-final) through its graph (serving's path)
+              and through the eager pack at the same bucket
+              (Engine._prefill_eager, which serving never selects): first
+              tokens and logits bit for bit, K2 / K2-int8 launched 32 times
+              per replay; ms/pack each way (median of 7, host wall: copy
+              in, the pack, copy out); a torch.profiler trace of one
+              replayed and one eager pack at bucket 512, continued (phase
+              3c's turn-2 shape): CUDA kernels, busy share, idle gaps;
+              capture seconds and the shared pool's MB. A {"prefill": ...}
+              JSON line before the kernels line holds it all.
+  3c. prefix  for paged and w8kv8, right after 3d on the same loaded model
               (prefix_phase): device-tier prefix reuse. Engines over the
               same weights, one after the other: kv_prefix_cache on, off,
               on with the pool cut to 96 pages, and (after the traced
@@ -138,7 +156,14 @@ Phases, each raising on failure (no phase swallows an error):
               tokens must equal the untraced run's). Prints turn 2's TTFT
               (host clock) and ms/pack on and off, reused rows, COW clones
               and evictions, and a {"prefix_reuse": ...} JSON line before
-              the kernels line.
+              the kernels line. Last, the shape witness (the open bf16
+              check): on a fresh engine's cache, exact-size eager packs
+              (the shapes before the buckets) give the first-token logits
+              of turn 3 and of the pressure run's turn 2 three ways: the
+              cold run's packs, the packs that wrote the reuse run's rows
+              then its last pack, and a cold run whose last pack has the
+              reuse run's shape (30 / 388 rows); it prints their pairwise
+              errors.
   4. kernels  one JSON line {"kernels": [...]}: for each of the eight kernels,
               launches during its serving configuration (K5 has no serving
               path: its launches are those of phases 2 and 4), parity
@@ -962,14 +987,23 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
             raise AssertionError(f"{tag} {dk} launched {launches[dk]} times over "
                                  f"{dec['steps']} decode steps (graph replays), "
                                  f"expected {n_layers} x {dec['steps']}")
+        # every pack is a graph replay: K2 / K2-int8 once per layer per
+        # pack, counted through the replays
+        k2 = launches["ragged_prefill_attention"] + launches["ragged_prefill_attention_int8"]
+        if k2 != n_layers * pk["dispatches"]:
+            raise AssertionError(f"{tag} K2 / K2-int8 launched {k2} times over "
+                                 f"{pk['dispatches']} packs (graph replays), "
+                                 f"expected {n_layers} per pack")
         prompt_lens = [len(lm.tokenizer.encode(render_chat(c))) for c in chats]
         decode = decode_phase(lm, card, config)
+        prefill = prefill_phase(lm, card, config)
         prefix = prefix_phase(lm, card, config) if config in PREFIX_K2 else None
         return launches, {"prompt_lens": prompt_lens, "n_long": n_long,
                           "ttft_ms": ttft_ms, "decode_tok_s": decode_tok_s,
                           "step_ms": step_ms, "pack_ms": pack_ms,
+                          "pad_tokens": pk["pad_tokens"],
                           "gb": gb, "peak_gb": peak_gb, "weight_gb": weight_gb,
-                          "decode": decode, "prefix": prefix}
+                          "decode": decode, "prefill": prefill, "prefix": prefix}
     finally:
         server.shutdown()
         server.server_close()
@@ -1213,6 +1247,192 @@ def decode_phase(lm, card: str, config: str) -> dict:
     return out
 
 
+# ---------- phase 3d: prefill, graph against eager ----------
+
+# per pack bucket, the segments of a fresh pack and of a continued pack
+# over its rows: (slot, tokens) each, the last segment non-final; totals
+# fall in (previous bucket, bucket], so the engine's rule picks the bucket
+PREFILL_PACKS = {
+    32: ([(0, 20), (1, 10)], [(0, 16), (1, 12)]),
+    128: ([(0, 50), (1, 40), (2, 20), (3, 10)], [(0, 60), (1, 40), (2, 20)]),
+    512: ([(0, 200), (1, 100), (2, 80), (3, 50), (4, 30), (5, 20), (6, 20), (7, 10)],
+          [(0, 200), (1, 150), (2, 100), (3, 50)]),
+    1024: ([(0, 512), (1, 500)], [(0, 512), (1, 500)]),
+}
+PREFILL_REPS = 7             # timed packs per (bucket, continued) and way
+TRACED_PACK = (512, True)    # the bucket of phase 3c's continued turn-2 pack
+
+
+def on_engine_thread(eng, fn, timeout=900):
+    """Run fn() on an idle engine's thread (the thread that owns its CUDA
+    state and replays its graphs), at its next tick; return its result."""
+    box, done = {}, threading.Event()
+    admit = eng._admit
+
+    def hook(admit=admit):
+        if not done.is_set():
+            try:
+                box["result"] = fn()
+            except BaseException as e:     # re-raised on the caller's thread
+                box["error"] = e
+            finally:
+                done.set()
+        return admit()
+
+    eng._admit = hook
+    try:
+        eng._wake.set()
+        if not done.wait(timeout):
+            raise AssertionError("the engine thread did not run the phase")
+    finally:
+        del eng._admit
+    if "error" in box:
+        raise box["error"]
+    return box["result"]
+
+
+def prefill_phase(lm, card: str, config: str) -> dict:
+    """Phase 3d on the loaded model (module doc): every (bucket, continued)
+    pack of PREFILL_PACKS through its captured graph (serving's path) and
+    through the eager pack at the same bucket (``Engine._prefill_eager``,
+    which serving never selects): first tokens and logits bit for bit,
+    ms/pack each way (median of PREFILL_REPS, host wall: copy in, the
+    pack, copy out), a torch.profiler trace of one replayed pack
+    (TRACED_PACK) and of the eager one, capture seconds and pool MB. Runs
+    on the engine's thread; greedy slots, nothing retained before or
+    after."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from localai_tpu_torch.engine.prefill_graph import new_pack, split_pack
+    from localai_tpu_torch.engine.sampling import SamplingParamsHost
+    from localai_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    eng = lm.engine
+    tag = f"[prefill {config}]"
+    n_layers = LLAMA31_8B["num_hidden_layers"]
+    pm = eng.metrics()["prefill_graph"]
+    want = [(b, c) for b in eng._pack_buckets for c in (False, True)]
+    if pm["captured"] != want or sorted(PREFILL_PACKS) != list(eng._pack_buckets):
+        raise AssertionError(f"{tag} captured {pm['captured']}, expected {want} "
+                             f"(phase packs for {sorted(PREFILL_PACKS)})")
+    gen = np.random.default_rng(SEED)
+    vocab = LLAMA31_8B["vocab_size"]
+
+    def pack(bucket, segs, starts):
+        host = new_pack(bucket, S_SLOTS, C_MAX)
+        v = split_pack(host, bucket, S_SLOTS)
+        off = 0
+        for b, (slot, n) in enumerate(segs):
+            start = starts.get(slot, 0)
+            v["tokens"][off:off + n] = gen.integers(0, vocab, n)
+            v["positions"][off:off + n] = np.arange(start, start + n)
+            v["seg_of"][off:off + n] = b
+            v["seg_slots"][b], v["seg_start"][b] = slot, start
+            v["seg_off"][b], v["seg_len"][b] = off, n
+            v["final_mask"][b] = b < len(segs) - 1
+            off += n
+        assert off <= bucket
+        return host
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t) * 1e3
+
+    def body():
+        forget_retained(eng)
+        for slot in range(S_SLOTS):
+            eng.sampler.set_slot(slot, SamplingParamsHost(temperature=0.0), 0)
+            if eng._pool is not None:
+                eng._pool.ensure(slot, 1024)
+        eng._commit_ptab()
+        counters = eng.sampler.counter.clone()
+        rows, traces = {}, {}
+        for bucket, (fresh, cont) in PREFILL_PACKS.items():
+            starts = {}
+            for continued, segs in ((False, fresh), (True, cont)):
+                host = pack(bucket, segs, starts)
+                reset_launches()
+                g_out = eng._prefill_pack(bucket, continued, host)
+                g_logits = eng._pgraph.logits[:len(segs)].float().clone()
+                torch.cuda.synchronize()
+                g_launch = dict(LAUNCHES)
+                e_out, e_logits = eng._prefill_eager(bucket, continued, host)
+                e_logits = e_logits[:len(segs)].float()
+                same = (np.array_equal(g_out, e_out)
+                        and bool(torch.equal(g_logits, e_logits)))
+                k2 = g_launch["ragged_prefill_attention"] + \
+                    g_launch["ragged_prefill_attention_int8"]
+                if not same or k2 != n_layers:
+                    raise AssertionError(
+                        f"{tag} bucket {bucket} continued={continued}: graph vs "
+                        f"eager ids {g_out[0].tolist()} / {e_out[0].tolist()}, "
+                        f"logits max err {max_err(g_logits, e_logits):.3e}; "
+                        f"K2 launches in the replay {k2} (expected {n_layers})")
+                # both write the same rows from the same inputs, so the
+                # repeats are idempotent
+                g_ms = [timed(lambda: eng._prefill_pack(bucket, continued, host))
+                        for _ in range(PREFILL_REPS)]
+                e_ms = [timed(lambda: eng._prefill_eager(bucket, continued, host))
+                        for _ in range(PREFILL_REPS)]
+                if (bucket, continued) == TRACED_PACK:
+                    for way, fn in (("graph", lambda: eng._prefill_pack(
+                            bucket, continued, host)),
+                                    ("eager", lambda: eng._prefill_eager(
+                                        bucket, continued, host))):
+                        torch.cuda.synchronize()
+                        with profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as prof:
+                            with record_function(ANNOTATION):
+                                fn()
+                        traces[way] = trace_split(prof, 1)
+                tokens = sum(n for _s, n in segs)
+                rows[f"{bucket}{'c' if continued else 'f'}"] = {
+                    "bucket": bucket, "continued": continued, "tokens": tokens,
+                    "segments": len(segs), "graph_ms": statistics.median(g_ms),
+                    "graph_ms_min": min(g_ms), "eager_ms": statistics.median(e_ms),
+                    "eager_ms_min": min(e_ms), "launches": {
+                        k: n for k, n in g_launch.items() if n}}
+                starts = {slot: n for slot, n in segs}
+        if not torch.equal(counters, eng.sampler.counter):
+            raise AssertionError(f"{tag} greedy packs moved the sampler counters")
+        for slot in range(S_SLOTS):
+            if eng._pool is not None:
+                eng._pool.release(slot, 0)
+        eng._commit_ptab()
+        return rows, traces
+
+    rows, traces = on_engine_thread(eng, body)
+    for key, r in rows.items():
+        log(f"{tag} {card}: bucket {r['bucket']} {'continued' if r['continued'] else 'fresh'} "
+            f"({r['tokens']} tokens, {r['segments']} segments): graph == eager "
+            f"bit for bit (first tokens, logits); {r['graph_ms']:.3f} ms/pack "
+            f"graph (min {r['graph_ms_min']:.3f}) vs {r['eager_ms']:.3f} eager (min "
+            f"{r['eager_ms_min']:.3f}), host wall, median of {PREFILL_REPS}; "
+            f"launches per replay {json.dumps(r['launches'])}")
+    for way, tr in traces.items():
+        log(f"{tag} {card}: trace of one {way} pack at bucket {TRACED_PACK[0]} "
+            f"continued: "
+            + (f"{tr['kernels_per_step']:.0f} CUDA kernels, device busy "
+               f"{tr['device_busy_ms']:.3f} ms = {tr['busy_share'] * 100:.1f}% of the "
+               f"{tr['window_ms']:.3f} ms window ({tr['lead_in_ms']:.3f} ms before the "
+               f"first device activity; {tr['gaps_over_20us']} idle gaps over 20 us, "
+               f"{tr['gaps_over_20us_ms']:.3f} ms in all, longest "
+               f"{tr['longest_gap_ms']:.3f} ms); top kernels "
+               f"{json.dumps(tr['top10'][:5])}" if tr else
+               "the profiler recorded no device activity (not measured)"))
+    log(f"{tag} {card}: {len(pm['captured'])} graphs captured in "
+        f"{pm['capture_seconds']:.2f} s (warm-ups included), shared pool "
+        f"{pm['pool_bytes'] / 1e6:.1f} MB")
+    return {"capture_s": pm["capture_seconds"], "pool_bytes": pm["pool_bytes"],
+            "packs": rows, "trace": traces}
+
+
 # ---------- phase 3c: prefix reuse ----------
 
 # the continued-prefill kernel of each configuration the phase runs
@@ -1306,15 +1526,16 @@ def prefix_sequence(lm, eng, tag: str, config: str, trace: bool = False,
         return req
 
     firsts: dict = {}        # first-token logits of turns 2 and 3
-    sample = eng.sampler.sample
+    run_pack = eng._prefill_pack
 
-    def sample_probe(logits, slots, sample=sample, **kw):
-        key = firsts.pop("next", None)
-        if key:
-            firsts[key] = logits[0].float().clone()
-        return sample(logits, slots, **kw)
+    def pack_probe(bucket, continued, host, run_pack=run_pack):
+        out = run_pack(bucket, continued, host)
+        key = firsts.pop("next", None) if out.shape[1] else None
+        if key:                # the first pack that samples a first token
+            firsts[key] = eng._pgraph.logits[0].float().clone()
+        return out
 
-    eng.sampler.sample = sample_probe
+    eng._prefill_pack = pack_probe
     clones = []              # (src, dst, src bytes at the clone, dst == src)
     if eng._pcache is not None:
         def clone_probe(src, dst, clone=eng._clone_page):
@@ -1418,7 +1639,7 @@ def prefix_sequence(lm, eng, tag: str, config: str, trace: bool = False,
         clone_checks.append({"at_clone": same, "rows_kept": kept,
                              "source_unchanged": src_kept})
     clone_checks_all = [c[3] for c in clones]
-    del eng.sampler.sample
+    del eng._prefill_pack
     if eng._pcache is not None:
         del eng._clone_page
     pk = {k: m1["packed_prefill"][k] - m0["packed_prefill"][k]
@@ -1438,7 +1659,8 @@ def prefix_sequence(lm, eng, tag: str, config: str, trace: bool = False,
     pc0 = m0.get("prefix_cache", {})
     clones3 = (eng.metrics().get("prefix_cache", {}).get("cow_clones", 0)
                - pc.get("cow_clones", 0))
-    return {"turn1": turn1, "unrelated": unrelated, "turn2": turn2,
+    return {"p1": p1, "p2": p2, "p3": p3,
+            "turn1": turn1, "unrelated": unrelated, "turn2": turn2,
             "turn3": turn3, "turn3_reused": last3.timings["reused_prompt_tokens"],
             "turn3_cow_clones": clones3,
             "turn3_k2_launches": {k: launches3[k] for k in (
@@ -1541,11 +1763,12 @@ def prefix_phase(lm, card: str, config: str) -> dict:
     # first-token logits against the cold run's: (max abs err, relative L2
     # err); the reuse runs' must stay within PREFIX_LOGITS_RTOL, and a cold
     # run with other chunks (no reuse) shows what chunking alone moves
-    logit_errs = {}
+    logit_errs, same_first = {}, {}
     for name, key in (("on", "turn2"), ("on", "turn3"), ("pressure", "turn2"),
                       ("pressure", "turn3"), ("off_rechunk", "turn2"),
                       ("off_rechunk", "turn3")):
         a, b = runs[name][key + "_logits"], off[key + "_logits"]
+        same_first[f"{name}_{key}"] = bool(a.argmax() == b.argmax())
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"{tag} {name} {key}: non-finite logits")
         logit_errs[f"{name}_{key}"] = (max_err(a, b),
@@ -1578,7 +1801,9 @@ def prefix_phase(lm, card: str, config: str) -> dict:
             + (f"device busy {tr['device_busy_ms']:.2f} ms ({tr['busy_share'] * 100:.1f}% "
                f"of the window), {tr['kernels_per_step'] * r['packs']:.0f} CUDA kernels in "
                f"{r['packs']} pack(s), first device activity after "
-               f"{tr['lead_in_ms']:.2f} ms; top kernels {json.dumps(tr['top10'][:5])}"
+               f"{tr['lead_in_ms']:.2f} ms; {tr['gaps_over_20us']} idle gaps over 20 us, "
+               f"{tr['gaps_over_20us_ms']:.2f} ms in all; top kernels "
+               f"{json.dumps(tr['top10'][:5])}"
                if tr else "the profiler recorded no device activity (not measured)"))
     log(f"{tag} {card}: prefix cache on {json.dumps(on['prefix_cache'])}; "
         f"pressure run ({PRESSURE_PAGES} pages): turn 2 reused {pr['reused']} rows, "
@@ -1593,6 +1818,13 @@ def prefix_phase(lm, card: str, config: str) -> dict:
         f"(reuse runs' tol {PREFIX_LOGITS_RTOL} relative L2; off_rechunk = "
         f"reuse off, prefill_chunk {RECHUNK}; max |logit| off "
         f"{float(off['turn3_logits'].abs().max()):.3f})")
+    # a first token that differs from the cold run's is a near-tie when the
+    # cold run's top two logits lie within the logits' error of each other
+    margins = {k: float(t[0] - t[1]) for k, t in (
+        (k, off[k + "_logits"].topk(2).values) for k in ("turn2", "turn3"))}
+    log(f"{tag} first token vs off, same argmax: {json.dumps(same_first)}; the "
+        f"cold run's top-2 logit margin: turn 2 {margins['turn2']:.4f}, turn 3 "
+        f"{margins['turn3']:.4f}")
     keep = ("p2_tokens", "reused", "ttft_ms", "packs", "continued_packs", "pack_ms",
             "decode_steps", "k2_launches", "decode_launches", "tier3_hits",
             "turn3_reused", "turn3_cow_clones", "turn3_k2_launches",
@@ -1600,6 +1832,81 @@ def prefix_phase(lm, card: str, config: str) -> dict:
     out = {name: {k: r[k] for k in keep} for name, r in runs.items()}
     out["pressure"]["turn2_agreement_with_off"] = agree
     out["first_token_logits_err"] = logit_errs
+    out["first_token_same"] = same_first
+    out["cold_top2_margin"] = margins
+    out["shape_witness"] = shape_witness(lm, runs, tag)
+    return out
+
+
+def shape_witness(lm, runs, tag: str) -> dict:
+    """The open bf16 check (module doc, phase 3c): first-token logits of
+    exact-size eager packs (``Engine._prefill_eager(exact=True)``, the
+    shapes every pack had before the buckets) on a fresh engine's cache,
+    for turn 3 and the pressure run's turn 2: "cold" = a cold run's packs;
+    "reuse" = the packs that wrote the rows the reuse run holds (turn 1's,
+    turn 2's), then its last pack; "witness" = a cold run whose last pack
+    has the reuse run's shape. Returns (max abs err, relative L2 err,
+    same argmax) for each pair."""
+    import dataclasses
+
+    import torch
+
+    from localai_tpu_torch.engine.engine import Engine
+    from localai_tpu_torch.engine.prefill_graph import new_pack, split_pack
+
+    on, pr = runs["on"], runs["pressure"]
+    p1, p2, p3 = on["p1"], on["p2"], on["p3"]
+    # not started: no graphs, only the exact-size eager reference
+    eng = Engine(lm.cfg, lm.engine.params, lm.tokenizer,
+                 dataclasses.replace(lm.engine.ecfg, kv_prefix_cache=False),
+                 device=DEV)
+    chunk = lm.engine.ecfg.prefill_chunk
+
+    def chunks(ids, upto, start=0):
+        return [(ids, a, min(chunk, upto - a)) for a in range(start, upto, chunk)]
+
+    def first_logits(packs):
+        eng._pool.ensure(0, max(a + n for _ids, a, n in packs))
+        eng._commit_ptab()
+        for i, (ids, start, n) in enumerate(packs):
+            host = new_pack(n, S_SLOTS, C_MAX)
+            v = split_pack(host, n, S_SLOTS)
+            v["tokens"][:] = ids[start:start + n]
+            v["positions"][:] = range(start, start + n)
+            v["seg_of"][:] = 0
+            v["seg_slots"][0], v["seg_start"][0], v["seg_len"][0] = 0, start, n
+            v["final_mask"][0] = i == len(packs) - 1
+            _out, logits = eng._prefill_eager(n, start > 0, host, exact=True)
+        return logits[0].float().clone()
+
+    r2, r3, rp = on["reused"], on["turn3_reused"], pr["reused"]
+    cases = {
+        "turn3": {"cold": chunks(p3, len(p3)),
+                  "reuse": chunks(p1, len(p1)) + [(p2, r2, len(p2) - r2),
+                                                  (p3, r3, len(p3) - r3)],
+                  "witness": chunks(p3, r3) + [(p3, r3, len(p3) - r3)]},
+        "pressure_turn2": {"cold": chunks(p2, len(p2)),
+                           "reuse": chunks(p1, len(p1)) + [(p2, rp, len(p2) - rp)],
+                           "witness": chunks(p2, rp) + [(p2, rp, len(p2) - rp)]},
+    }
+    out = {}
+    try:
+        for case, scheds in cases.items():
+            lg = {k: first_logits(v) for k, v in scheds.items()}
+            shapes = {k: [n for _i, _a, n in v] for k, v in scheds.items()}
+            errs = {}
+            for a, b in (("witness", "reuse"), ("witness", "cold"), ("reuse", "cold")):
+                x, y = lg[a], lg[b]
+                errs[f"{a}_vs_{b}"] = (max_err(x, y), float((x - y).norm() / y.norm()),
+                                       bool(x.argmax() == y.argmax()))
+            out[case] = {"packs": shapes, "errs": errs}
+            log(f"{tag} shape witness, {case}: exact-size packs {json.dumps(shapes)}; "
+                f"first-token logits (max abs err, relative L2 err, same argmax): "
+                f"{json.dumps({k: [f'{v[0]:.3e}', f'{v[1]:.3e}', v[2]] for k, v in errs.items()})}")
+    finally:
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1983,6 +2290,18 @@ def main():
     print(json.dumps({"prefix_reuse": {c: shapes[c]["prefix"] for c in shapes
                                        if shapes[c]["prefix"]},
                       "card": card}), flush=True)
+    print(json.dumps({"prefill": {c: shapes[c]["prefill"] for c in shapes},
+                      "card": card}), flush=True)
+    for c in shapes:
+        p = shapes[c]["prefill"]
+        tr = p["trace"].get("graph")
+        log(f"[prefill] {card}: {c}: ms/pack graph vs eager "
+            + ", ".join(f"{r['bucket']}{'c' if r['continued'] else 'f'} "
+                        f"{r['graph_ms']:.2f}/{r['eager_ms']:.2f}"
+                        for r in p["packs"].values())
+            + f"; replayed {TRACED_PACK[0]}c pack busy "
+            + (f"{tr['busy_share'] * 100:.1f}%" if tr else "not measured")
+            + f"; capture {p['capture_s']:.2f} s, pool {p['pool_bytes'] / 1e6:.1f} MB")
     for c in shapes:
         d = shapes[c]["decode"]
         busy = {w: (f"{d[w]['trace']['busy_share'] * 100:.1f}%" if d[w]["trace"]

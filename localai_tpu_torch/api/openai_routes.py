@@ -1,6 +1,9 @@
 """OpenAI-compatible routes (counterpart of localai_tpu/api/openai_routes.py):
 /v1/chat/completions and /v1/completions, streamed (SSE) and not, with
-the same response fields, plus /v1/models and /readyz.
+the same response fields, plus /v1/models and /readyz. ``"echo": true``
+on a non-streamed request returns the rendered prompt followed by the
+text, as the JAX backend's ``Predict`` does; a streamed request carries
+the text alone, as its ``PredictStream`` does.
 
 Chat prompts render with the JAX package's default chat-message template
 (templates/prompts.py DEFAULT_CHAT_MESSAGE, "{Role}: {Content}", messages
@@ -166,8 +169,9 @@ def chat_completions(app: App, body: dict) -> Response:
             o["seed"] = int(o["seed"]) + i      # n distinct samples
         reqs.append(runner.build_request(lm, prompt, o, f"{rid}-c{i}"))
     results = _fan_out(lm, reqs)
+    echo = prompt if body.get("echo") else ""
     choices = [{"index": i,
-                "message": {"role": "assistant", "content": r["text"]},
+                "message": {"role": "assistant", "content": echo + r["text"]},
                 "finish_reason": r["finish_reason"]}
                for i, r in enumerate(results)]
     return Response({
@@ -216,8 +220,9 @@ def completions(app: App, body: dict) -> Response:
     return Response({
         "id": cmpl_id, "object": "text_completion", "created": created,
         "model": model,
-        "choices": [{"index": i, "text": r["text"],
+        "choices": [{"index": i,
+                     "text": (p if body.get("echo") else "") + r["text"],
                      "finish_reason": r["finish_reason"]}
-                    for i, r in enumerate(results)],
+                    for i, (p, r) in enumerate(zip(prompts, results))],
         "usage": _usage(sum(r["prompt_tokens"] for r in results),
                         sum(r["completion_tokens"] for r in results))})

@@ -18,7 +18,12 @@ What this slice keeps of the JAX engine, with the same knob names:
     forward (models/llama.py::ragged_prefill, kernel K2 or K2-int8). A
     prompt longer than the chunk is split across ticks, so its later
     chunks are continued segments over committed rows. Final segments
-    sample their first token in the same tick;
+    sample their first token in the same tick, on the device. The pack
+    is padded to a total-token bucket (``prefill_buckets``, the JAX
+    engine's ``_pack_buckets`` rule); on the card each (bucket,
+    continued) pair is ONE CUDA graph (engine/prefill_graph.py, the JAX
+    engine's compiled program per pair), captured at ``start`` and
+    replayed once per pack; on the CPU the same padded body runs eagerly;
   * DECODE BURSTS of up to ``decode_burst`` steps: tokens, lengths and
     sampling stay on the device for the whole burst (kernel K1, K3 or K4
     in every layer of every step) and the host syncs once, at its end.
@@ -74,6 +79,8 @@ from localai_tpu_torch.engine import sampling
 from localai_tpu_torch.engine.decode_graph import DecodeGraph, eager_burst
 from localai_tpu_torch.engine.detok import IncrementalDetokenizer
 from localai_tpu_torch.engine.paging import PagePool, PoolExhausted
+from localai_tpu_torch.engine.prefill_graph import (
+    PrefillGraph, eager_pack, new_pack, split_pack)
 from localai_tpu_torch.engine.prefix_cache import PrefixPageCache, build_scope
 from localai_tpu_torch.models import llama
 from localai_tpu_torch.ops import kvcache
@@ -88,6 +95,10 @@ KV_LAYOUTS = ("auto", "paged", "contiguous")   # auto = paged
 class EngineConfig:
     num_slots: int = 8
     max_context: int = 2048
+    # total-token pad buckets of a pack: those within prefill_chunk, plus
+    # the chunk, each capped at the pack budget, plus the budget (the JAX
+    # engine's rule); one captured graph per (bucket, continued)
+    prefill_buckets: tuple = (32, 128, 512, 2048)
     prefill_chunk: int = 512          # max prompt tokens per slot per tick
     # max packed prompt tokens per tick (the decode-ITL bound of packed
     # prefill); 0 = auto: 2 * prefill_chunk, clamped to max_context
@@ -245,13 +256,24 @@ class Engine:
         self._chunk = min(self.ecfg.prefill_chunk, C)
         budget = self.ecfg.prefill_token_budget or 2 * self._chunk
         self._pack_budget = max(1, min(budget, C))
+        # the JAX engine's pad buckets (engine.py:1006-1008, :1050-1053):
+        # the ladder within the chunk plus the chunk, capped at the pack
+        # budget, plus the budget (the loaded steady state)
+        ladder = {b for b in self.ecfg.prefill_buckets if b <= self._chunk}
+        self._pack_buckets = tuple(sorted(
+            {min(b, self._pack_budget) for b in ladder | {self._chunk}}
+            | {self._pack_budget}))
+        self._pgraph = PrefillGraph(params, model_cfg, self.ck, self.cv,
+                                    self.sampler, S, C, self._pack_buckets,
+                                    self.device)
         self._sink: Optional[dict] = None   # per-slot event coalescing
-        # counters exposed by metrics(); kernel_fallback counts packs whose
-        # head shapes the K2 kernel cannot take — it must stay 0
-        # ("seconds": host wall time of the ticks, device sync included)
+        # counters exposed by metrics(); pad_tokens counts the bucket's pad
+        # rows; kernel_fallback counts packs whose head shapes the K2
+        # kernel cannot take — it must stay 0 ("seconds": host wall time
+        # of the ticks, device sync included)
         self._pack_stats = {"dispatches": 0, "tokens": 0, "segments": 0,
-                            "continued": 0, "kernel_fallback": 0,
-                            "seconds": 0.0}
+                            "pad_tokens": 0, "continued": 0,
+                            "kernel_fallback": 0, "seconds": 0.0}
         self._decode_stats = {"bursts": 0, "steps": 0, "tokens": 0,
                               "seconds": 0.0}
 
@@ -259,8 +281,9 @@ class Engine:
 
     def start(self):
         """Start the engine thread. On the card it first captures the
-        decode step's graph (as the JAX engine precompiles its bursts);
-        start returns once that is done and raises if it failed."""
+        decode step's graph and the prefill graphs (as the JAX engine
+        precompiles its bursts and packs); start returns once that is
+        done and raises if it failed."""
         if self._thread is None:
             ready, failed = threading.Event(), []
             self._thread = threading.Thread(target=self._run, name="engine",
@@ -270,7 +293,7 @@ class Engine:
             if failed:
                 self._thread.join()
                 self._thread = None
-                raise RuntimeError("decode graph capture failed") from failed[0]
+                raise RuntimeError("CUDA graph capture failed") from failed[0]
         return self
 
     def shutdown(self):
@@ -278,6 +301,11 @@ class Engine:
         self._wake.set()
         if self._thread is not None:
             self._thread.join(timeout=60)
+            if not self._thread.is_alive():
+                # free the graphs and their pools (an engine thread still
+                # running may replay them)
+                self._graph.graph = None
+                self._pgraph.free()
             self._thread = None
         err = StreamEvent(token_id=-1, text="", logprob=0.0,
                           finish_reason="stop", error="engine shut down")
@@ -337,7 +365,11 @@ class Engine:
                "decode": dict(self._decode_stats),
                "decode_graph": {"captured": self._graph.graph is not None,
                                 "capture_seconds": self._graph.capture_seconds,
-                                "pool_bytes": self._graph.pool_bytes}}
+                                "pool_bytes": self._graph.pool_bytes},
+               "prefill_graph": {"captured": sorted(self._pgraph.graphs),
+                                 "buckets": list(self._pack_buckets),
+                                 "capture_seconds": self._pgraph.capture_seconds,
+                                 "pool_bytes": self._pgraph.pool_bytes}}
         out["prompt_tokens_reused"] = self._reuse_stats["reused_rows"]
         if self._pool is not None:
             pool = self._pool
@@ -357,10 +389,16 @@ class Engine:
 
     # ---------- engine loop ----------
 
+    def _capture(self):
+        """Capture the decode step and every (bucket, continued) prefill
+        graph (CUDA only; engine thread)."""
+        self._graph.capture()
+        self._pgraph.capture()
+
     def _run(self, ready: threading.Event, failed: list):
         try:
             if self.device.type == "cuda":
-                self._graph.capture()
+                self._capture()
         except Exception as e:     # start() re-raises it
             failed.append(e)
             return
@@ -626,46 +664,31 @@ class Engine:
                 self._ensure_pages(slot, s.written + take)
         self._commit_ptab()
 
-        tokens = np.zeros((total,), np.int32)
-        positions = np.full((total,), C, np.int32)
-        seg_of = np.full((total,), S, np.int32)
-        seg_slots = np.full((S,), S, np.int32)        # pads: sentinel slot
-        seg_start = np.zeros((S,), np.int32)
-        seg_off = np.zeros((S,), np.int32)
-        seg_len = np.zeros((S,), np.int32)
+        bucket = next(b for b in self._pack_buckets if total <= b)
+        host = new_pack(bucket, S, C)
+        v = split_pack(host, bucket, S)
         off = 0
-        for b, (slot, s, take, _f) in enumerate(segs):
-            tokens[off:off + take] = s.pending[:take]
-            positions[off:off + take] = np.arange(s.written, s.written + take)
-            seg_of[off:off + take] = b
-            seg_slots[b], seg_start[b] = slot, s.written
-            seg_off[b], seg_len[b] = off, take
+        for b, (slot, s, take, final) in enumerate(segs):
+            v["tokens"][off:off + take] = s.pending[:take]
+            v["positions"][off:off + take] = np.arange(s.written, s.written + take)
+            v["seg_of"][off:off + take] = b
+            v["seg_slots"][b], v["seg_start"][b] = slot, s.written
+            v["seg_off"][b], v["seg_len"][b] = off, take
+            v["final_mask"][b] = final
             off += take
         cfg = self.cfg
         st = self._pack_stats
         st["dispatches"] += 1
         st["tokens"] += total
         st["segments"] += len(segs)
+        st["pad_tokens"] += bucket - total
         continued = any(s.written > 0 for _sl, s, _t, _f in segs)
         st["continued"] += int(continued)
         st["kernel_fallback"] += int(not kernel_supports(
             cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim_))
-
-        dev = self.device
-        as_dev = lambda a: torch.from_numpy(a).to(dev)   # noqa: E731
-        logits = llama.ragged_prefill(
-            self.params, cfg, as_dev(tokens), as_dev(positions),
-            as_dev(seg_slots), as_dev(seg_start), as_dev(seg_off),
-            as_dev(seg_len), as_dev(seg_of), self.ck, self.cv,
-            continued=continued)
+        firsts = self._prefill_pack(bucket, continued, host)    # [2, finals]
         finals = [(slot, s) for slot, s, _t, f in segs if f]
-        ids_np = lps_np = None
-        if finals:
-            ids, lps = self.sampler.sample(logits[:len(finals)],
-                                           [slot for slot, _s in finals])
-            host = torch.stack([ids.to(torch.float64),
-                                lps.to(torch.float64)]).cpu().numpy()
-            ids_np, lps_np = host[0].astype(np.int64), host[1]
+        ids_np, lps_np = firsts[0].astype(np.int64), firsts[1]
         t1 = time.monotonic()
         st["seconds"] += t1 - t0
         for slot, s, take, final in segs:
@@ -686,6 +709,23 @@ class Engine:
         finally:
             self._flush_sink()
         return True
+
+    def _prefill_pack(self, bucket: int, continued: bool,
+                      host: np.ndarray) -> np.ndarray:
+        """The pack's device work: a graph replay on the card, the same
+        padded body eagerly on the CPU (prefill_graph.PrefillGraph.run).
+        Returns the finals' [2, n] first-token ids and logprobs."""
+        return self._pgraph.run(bucket, continued, host)
+
+    def _prefill_eager(self, bucket: int, continued: bool, host: np.ndarray,
+                       exact: bool = False):
+        """The eager pack (prefill_graph.eager_pack: at the bucket, or at
+        the pack's exact size), the reference chip_smoke.py and the card
+        tests hold the graphs against; serving never calls it. Returns
+        ([2, n] ids and logprobs, logits)."""
+        return eager_pack(self.params, self.cfg, self.ck, self.cv,
+                          self.sampler, host, bucket, self.ecfg.num_slots,
+                          continued, exact=exact)
 
     def _pick_burst(self, decoding: list) -> int:
         """Steps in the next burst: a power of two <= decode_burst, clamped

@@ -160,11 +160,33 @@ class SlotSampler:
         self.counter.add_(adv.to(torch.int64))
         return ids, lps
 
+    def sample_rows(self, logits: torch.Tensor, seg_slots: torch.Tensor,
+                    final_mask: torch.Tensor):
+        """The packed prefill's first-token sampler: row r of ``logits``
+        [R, V] is segment r of a pack, ``seg_slots`` [R] int (on the
+        device) its slot, the sentinel S for a pad segment, and
+        ``final_mask`` [R] bool the rows whose token is used. Every row
+        draws with its slot's parameters and counter (a pad row reads a
+        clamped slot); the counter advances only for final, non-greedy
+        rows, and a pad row writes nothing (the JAX engine's
+        ``keys.at[seg_slots].set(where(final_mask, new, old),
+        mode="drop")``; slots are unique within a pack). Builds nothing
+        from the host and never branches on a value, so a CUDA graph can
+        hold it. Returns (ids [R] int64, logprobs [R] f32)."""
+        sel = seg_slots.to(torch.int64).clamp(0, self.counter.shape[0] - 1)
+        ids, lps, adv = self._draw(
+            logits, self.temperature[sel], self.top_k[sel], self.top_p[sel],
+            self.min_p[sel], self.greedy[sel], self.seed[sel],
+            self.counter[sel], final_mask)
+        self.counter.index_add_(0, sel, adv.to(torch.int64))
+        return ids, lps
+
     def sample(self, logits: torch.Tensor, slots: Sequence[int],
                draw: Optional[Sequence[bool]] = None):
         """Sample one token per row; row r uses slot ``slots[r]``'s
-        parameters and generator (prefill's first tokens: index tensors
-        built from the host lists, outside any graph). ``draw[r]`` False
+        parameters and generator (index tensors built from the host
+        lists, outside any graph: the eager reference loops of
+        engine/decode_graph.py and engine/prefill_graph.py). ``draw[r]`` False
         marks rows whose result will be discarded (inactive slots): their
         counter does not advance. Returns (ids [R] int64, logprobs [R]
         f32), on the device, without a host sync."""
@@ -172,9 +194,4 @@ class SlotSampler:
         drawing = torch.as_tensor(
             [True] * len(sel) if draw is None else list(draw),
             dtype=torch.bool, device=self.device)
-        ids, lps, adv = self._draw(
-            logits, self.temperature[sel], self.top_k[sel], self.top_p[sel],
-            self.min_p[sel], self.greedy[sel], self.seed[sel],
-            self.counter[sel], drawing)
-        self.counter.index_add_(0, sel, adv.to(torch.int64))
-        return ids, lps
+        return self.sample_rows(logits, sel, drawing)

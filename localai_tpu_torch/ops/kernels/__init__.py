@@ -23,9 +23,9 @@ ops/decode_attention.py (K4, K5) and ops/quant.py (W8, W4). ``LAUNCHES`` counts 
 wrapper: each wrapper adds one where it launches its kernel, and nowhere
 else, so a run can show its main path went through the kernels. A
 wrapper called while a CUDA graph is captured counts a launch that has
-not run; the graph's owner (engine/decode_graph.py) takes those counts
-back after the capture and adds them once per replay, so the counts stay
-what the card ran.
+not run; the graph's owner (engine/decode_graph.py,
+engine/prefill_graph.py) takes those counts back after the capture and
+adds them once per replay, so the counts stay what the card ran.
 """
 
 from __future__ import annotations

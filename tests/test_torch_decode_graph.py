@@ -525,7 +525,7 @@ def test_replays_after_splice_and_replace_read_the_new_table(device, kind):
         decode_burst=8, cache_dtype=torch.int8 if kind == "int8" else None),
         device=device)
     if device == "cuda":
-        e._graph.capture()
+        e._capture()          # the decode step and the prefill graphs
     graph_burst = e._burst
     seen = []
 

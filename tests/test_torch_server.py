@@ -157,6 +157,46 @@ def test_chat_greedy_text_matches_jax(served, stream):
     assert text == _jax_text(je, hf_tok, rendered, 10)
 
 
+@pytest.mark.parametrize("route", ["completions", "chat"])
+@pytest.mark.parametrize("stream", [False, True])
+def test_echo_prepends_the_prompt_as_the_jax_runner(served, route, stream):
+    """``"echo": true``: the JAX backend's non-streamed Predict returns the
+    prompt followed by the text (its fake backend shows the rule), and
+    its PredictStream the text alone. The port's non-streamed text is
+    the rendered prompt + the JAX Engine's greedy text; streamed, the
+    text without the prompt."""
+    from localai_tpu.backend import contract_pb2 as pb
+    from localai_tpu.backend.fake import FakeServicer
+    from localai_tpu_torch.api.openai_routes import render_chat
+
+    base, _lm, je, hf_tok = served
+    fake = FakeServicer()
+    plain = fake.Predict(pb.PredictOptions(prompt=PROMPT, max_tokens=3), None)
+    echoed = fake.Predict(pb.PredictOptions(prompt=PROMPT, max_tokens=3,
+                                            echo=True), None)
+    assert echoed.message.decode() == PROMPT + plain.message.decode()
+    body = {"model": "tiny", "max_tokens": 8, "temperature": 0,
+            "ignore_eos": True, "stream": stream, "echo": True}
+    if route == "chat":
+        prompt = render_chat(MESSAGES)
+        status, raw = _post(base + "/v1/chat/completions",
+                            {**body, "messages": MESSAGES})
+    else:
+        prompt = PROMPT
+        status, raw = _post(base + "/v1/completions", {**body, "prompt": PROMPT})
+    assert status == 200
+    if stream:
+        chunks = _sse(raw)
+        text = "".join(c["choices"][0]["text"] if route == "completions"
+                       else c["choices"][0]["delta"].get("content", "")
+                       for c in chunks)
+    else:
+        out = json.loads(raw)["choices"][0]
+        text = out["text"] if route == "completions" else out["message"]["content"]
+    gen = _jax_text(je, hf_tok, prompt, 8)
+    assert text == (gen if stream else prompt + gen)
+
+
 def test_unsupported_knob_and_bad_request_are_400(served):
     base, *_ = served
     for body in ({"model": "tiny", "prompt": "x", "repeat_penalty": 1.3},
