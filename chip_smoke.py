@@ -49,13 +49,18 @@ Phases, each raising on failure (no phase swallows an error):
               logits within 1e-3 (int8 KV: 5e-3, since a row may quantize
               one level apart where the card's and the CPU's float32
               projections differ in the last bits). On the same small
-              model, in each configuration, the decode step captured as a
-              CUDA graph (engine/decode_graph.py) against the eager
-              per-step loop: bursts of 16, 8, 1 and 4 steps with greedy,
-              seeded-sampled and idle slots give byte-identical ids,
-              logprobs, cache rows and sampler counters, and the decode
-              kernel's launches, counted through the replays, are layers
-              x steps on both sides.
+              model, in each configuration, the decode step captured as
+              CUDA graphs (engine/decode_graph.py: the plain and the full
+              sampler variant) against the eager per-step loop, bursts of
+              16, 8, 1 and 4 steps with an idle slot: greedy and
+              seeded-sampled slots, graph (plain) == eager; the same
+              neutral slots through the full variant == the plain graph;
+              slots with penalties + a logit bias (greedy), typical-p and
+              mirostat (seeded), full graph == full eager. Byte-identical
+              ids, logprobs, cache rows and sampler state (counters,
+              penalty rings, mirostat mu); the banned token never comes
+              out; the decode kernel's launches, counted through the
+              replays, are layers x steps on every side.
   3. serving  the port's HTTP server (stdlib) with a Llama-3.1-8B-shaped
               config-only model dir, full width and depth: random bf16
               weights from a seed, 8 slots, context 4096, prefill_chunk 512,
@@ -77,7 +82,12 @@ Phases, each raising on failure (no phase swallows an error):
               requests (one streamed) and one /v1/completions request with
               a ~1500-token prompt, which prefill_chunk splits into
               continued packs, concurrently. max_tokens 32 with ignore_eos:
-              every usage.completion_tokens must be 32. Launch counters are
+              every usage.completion_tokens must be 32. One chat sends
+              presence_penalty, frequency_penalty, repeat_penalty and a
+              logit_bias of -100 on the first token an engine-level probe
+              of its prompt got without them: its 32 tokens (read on the
+              engine thread) must not hold that token, and some decode
+              steps must run the full sampler variant. Launch counters are
               zeroed just before each configuration's four requests and
               read just after. Every decode burst runs as replays of the
               graph the engine captured at start: the decode kernel's
@@ -91,8 +101,11 @@ Phases, each raising on failure (no phase swallows an error):
               loaded model (decode_phase): 8 requests of 256 greedy tokens
               (ignore_eos, admission held until all 8 are queued, so they
               prefill in one pack and decode in lockstep), once through the
-              graph (serving's path) and once through the eager per-step
-              loop (Engine._burst_eager, which serving never selects).
+              graph (serving's path, the plain sampler variant), once
+              through the full variant's graph on the same neutral slots
+              (what a penalized batch costs) and once through the eager
+              per-step loop (Engine._burst_eager, which serving never
+              selects).
               Each way: decode ms/step as the median over the bursts of 16
               steps with all 8 slots active (at least 10; host wall of the
               burst: copy in, 16 steps, copy out), the median host time
@@ -164,6 +177,17 @@ Phases, each raising on failure (no phase swallows an error):
               then its last pack, and a cold run whose last pack has the
               reuse run's shape (30 / 388 rows); it prints their pairwise
               errors.
+  3e. shift   for paged and w8kv8, right after 3c on the same loaded
+              model (shift_phase): context shift at Llama-3.1-8B width and
+              depth. A second engine over the same weights (context 1024,
+              chunk 512) serves one greedy request with a 300-token prompt
+              and max_tokens 1600 (ignore_eos): it must finish "length"
+              after 1600 tokens and shift at least twice, counted from the
+              packed_prefill dispatches beyond its first pack; the decode
+              kernel launches 32 x steps and K2 32 x packs through the
+              graphs. Prints each shift's stall (host clock, from the event
+              holding the trigger token to the one holding the next) and a
+              {"context_shift": ...} JSON line before the kernels line.
   4. kernels  one JSON line {"kernels": [...]}: for each of the eight kernels,
               launches during its serving configuration (K5 has no serving
               path: its launches are those of phases 2 and 4), parity
@@ -716,13 +740,23 @@ def model_parity(kind: str):
 
 
 def graph_parity(kind: str):
-    """The decode step captured as a CUDA graph (engine/decode_graph.py)
-    against the eager per-step loop on the card, on model_parity's small
-    hd-128 float32 llama: three slots prefilled (greedy, seeded-sampled,
-    greedy) and one idle, bursts of 16, 8, 1 and 4 steps from twin states.
-    Ids, logprobs, the cache rows and the sampler counters must be
-    byte-identical; the decode kernel's launches, counted through the
-    replays, must be layers x steps on both sides."""
+    """The decode step captured as CUDA graphs (engine/decode_graph.py, the
+    plain and the full sampler variant) against the eager per-step loop
+    on the card, on model_parity's small hd-128 float32 llama: three slots
+    prefilled and one idle, bursts of 16, 8, 1 and 4 steps, every side
+    from a twin of the same prefilled state. Three runs:
+      plain  greedy, seeded-sampled, greedy slots; graph (plain) vs eager;
+      full   the same neutral slots through the full variant's graph:
+             equal to the plain graph's run (the full sampler on neutral
+             parameters is the plain one);
+      feat   slot 0 greedy with repeat / presence / frequency penalties
+             and a logit bias of -100 on the token the plain run's slot 0
+             chose first, slot 1 seeded typical-p 0.5, slot 2 seeded
+             mirostat 2; full graph vs full eager.
+    Ids, logprobs, the cache rows and the sampler state (counters, rings,
+    mu) must be byte-identical pairwise; the decode kernel's launches,
+    counted through the replays, must be layers x steps on every side;
+    the banned token never comes out of slot 0."""
     import numpy as np
     import torch
 
@@ -758,61 +792,95 @@ def graph_parity(kind: str):
     llama.ragged_prefill(params, cfg, tokens.to(DEV), positions.to(DEV),
                          *(t.to(DEV) for t in tab), seg_of.to(DEV), ck, cv,
                          continued=False)
+    prompts = torch.split(tokens, [int(n) for n in lengths[:3]])
+    H = sampling.SamplingParamsHost
 
-    def sampler():
-        sm = sampling.SlotSampler(S, DEV)
+    def sampler(rows):
+        sm = sampling.SlotSampler(S, cfg.vocab_size, DEV)
         for s in range(S):
-            sm.set_slot(s, sampling.SamplingParamsHost(
-                temperature=1.0 if s == 1 else 0.0, top_k=0, top_p=1.0, seed=SEED),
-                fallback_seed=0)
+            sm.set_slot(s, rows[s] if s < len(rows) else H(temperature=0.0),
+                        fallback_seed=0)
+            sm.set_ring(s, prompts[s].tolist() if s < 3 else [])
         return sm
+
+    neutral = [H(temperature=0.0), H(temperature=1.0, top_k=0, top_p=1.0, seed=SEED),
+               H(temperature=0.0)]
 
     def twin(c):
         return {k: (v if k in ("ptab", "itab") else v.clone()) for k, v in c.items()}
 
-    states = {"graph": (ck, cv, sampler()), "eager": (twin(ck), twin(cv), sampler())}
-    graph = decode_graph.DecodeGraph(params, cfg, ck, cv, states["graph"][2], S,
-                                     16, DEV)
-    graph.capture()
     kernel = {"paged": "paged_decode_attention", "int8": "paged_decode_attention_quant",
               "contig": "decode_attention_append_contig",
               "w8kv8": "paged_decode_attention_quant", "w4": "paged_decode_attention"}[kind]
     active = np.array([True, True, True, False])
     steps = (16, 8, 1, 4)
-    outs = {}
-    for side, (k_c, v_c, sm) in states.items():
+    pristine = (twin(ck), twin(cv))
+
+    def side(rows, full: bool, way: str):
+        """One run of the bursts from the prefilled state: (ids and
+        logprobs [steps, 2, 3], caches, sampler, graph or None)."""
+        k_c, v_c = twin(pristine[0]), twin(pristine[1])
+        sm = sampler(rows)
+        graph = None
+        if way == "graph":
+            graph = decode_graph.DecodeGraph(params, cfg, k_c, v_c, sm, S, 16, DEV)
+            graph.capture()
         tok, lens = np.array([3, 4, 5, 0], np.int32), lengths.copy()
         n0 = LAUNCHES[kernel]
         res = []
         for n in steps:
-            host = (graph.run(tok, lens, active, n) if side == "graph" else
-                    decode_graph.eager_burst(params, cfg, k_c, v_c, sm, tok, lens,
-                                             active, n))
+            host = (graph.run(tok, lens, active, n, full=full) if graph is not None
+                    else decode_graph.eager_burst(params, cfg, k_c, v_c, sm, tok,
+                                                  lens, active, n, full=full))
             res.append(host[:, :, :3])
             lens = lens + n * active
             tok = np.where(active, host[-1, 0].astype(np.int64), tok)
         torch.cuda.synchronize()
-        outs[side] = np.concatenate(res)
         launched = LAUNCHES[kernel] - n0
         if launched != cfg.num_layers * sum(steps):
-            raise AssertionError(f"graph parity ({kind}, {side}): {kernel} launched "
-                                 f"{launched} times, expected "
+            raise AssertionError(f"graph parity ({kind}, {way}, full={full}): "
+                                 f"{kernel} launched {launched} times, expected "
                                  f"{cfg.num_layers * sum(steps)}")
-    if not np.array_equal(outs["graph"], outs["eager"]):
-        raise AssertionError(f"graph parity ({kind}): graph replay ids / logprobs "
-                             f"differ from the eager loop")
-    (gk, gv, gs), (ek, ev, es) = states["graph"], states["eager"]
-    for a, b in ((gk, ek), (gv, ev)):
-        for k in a:
-            if k not in ("ptab", "itab") and not torch.equal(a[k][:, :-1], b[k][:, :-1]):
-                raise AssertionError(f"graph parity ({kind}): cache {k} differs")
-    if not torch.equal(gs.counter, es.counter):
-        raise AssertionError(f"graph parity ({kind}): sampler counters differ")
-    log(f"[parity] small model (hd 128, f32, {kind}) decode graph vs eager loop: "
-        f"{sum(steps)} steps in bursts {steps}, greedy + seeded-sampled ids, "
-        f"logprobs, cache rows and counters byte-identical; {kernel} launches "
-        f"{cfg.num_layers} x {sum(steps)} on each side; capture "
-        f"{graph.capture_seconds:.2f} s, pool {graph.pool_bytes} bytes")
+        return np.concatenate(res), (k_c, v_c), sm, graph
+
+    def same(a, b, what):
+        (oa, (ka, va), sa, _ga), (ob, (kb, vb), sb, _gb) = a, b
+        if not np.array_equal(oa, ob):
+            raise AssertionError(f"graph parity ({kind}, {what}): ids / logprobs differ")
+        for x, y in ((ka, kb), (va, vb)):
+            for k in x:
+                if k not in ("ptab", "itab") and not torch.equal(x[k][:, :-1], y[k][:, :-1]):
+                    raise AssertionError(f"graph parity ({kind}, {what}): cache {k} differs")
+        for name in ("counter", "ring", "ring_pos", "mu"):
+            if not torch.equal(getattr(sa, name), getattr(sb, name)):
+                raise AssertionError(f"graph parity ({kind}, {what}): sampler {name} differs")
+
+    plain_g = side(neutral, False, "graph")
+    same(plain_g, side(neutral, False, "eager"), "plain: graph vs eager")
+    same(side(neutral, True, "graph"), plain_g, "neutral full graph vs plain graph")
+    banned = int(plain_g[0][0, 0, 0])
+    feat = [H(temperature=0.0, repeat_penalty=1.3, presence_penalty=0.5,
+              frequency_penalty=0.4, logit_bias={banned: -100.0}),
+            H(temperature=1.0, top_k=0, top_p=1.0, typical_p=0.5, seed=SEED),
+            H(temperature=1.0, mirostat=2, mirostat_tau=3.0, mirostat_eta=0.3,
+              seed=SEED + 1)]
+    feat_g = side(feat, True, "graph")
+    same(feat_g, side(feat, True, "eager"), "features: graph vs eager")
+    if banned in feat_g[0][:, 0, 0].astype(np.int64).tolist():
+        raise AssertionError(f"graph parity ({kind}): the banned token {banned} came out")
+    mu = feat_g[2].mu.tolist()
+    if mu[2] == 6.0 or feat_g[2].counter.tolist()[:3] != [0, sum(steps), sum(steps)]:
+        raise AssertionError(f"graph parity ({kind}): mirostat mu {mu} / counters "
+                             f"{feat_g[2].counter.tolist()} did not move as expected")
+    g = plain_g[3]
+    log(f"[parity] small model (hd 128, f32, {kind}) decode graphs vs eager loop: "
+        f"{sum(steps)} steps in bursts {steps}; plain (greedy + seeded-sampled) "
+        f"graph == eager, the full variant on the same neutral slots == plain, "
+        f"and the full variant with penalties + bias / typical-p / mirostat graph "
+        f"== eager: ids, logprobs, cache rows, counters, rings and mu "
+        f"byte-identical; banned token {banned} never chosen (mu {mu[2]:.4f}); "
+        f"{kernel} launches {cfg.num_layers} x {sum(steps)} on every side; capture "
+        f"of both variants {g.capture_seconds:.2f} s, pool {g.pool_bytes} bytes")
 
 
 # ---------- phase 3 ----------
@@ -860,6 +928,8 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
     from localai_tpu_torch.api.app import App, make_server
     from localai_tpu_torch.api.openai_routes import render_chat
     from localai_tpu_torch.backend.runner import load_model
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.engine.sampling import SamplingParamsHost
     from localai_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
     model_dir = os.path.join(ROOT, "build", "chip_smoke", "llama-3.1-8b")
@@ -908,6 +978,14 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
             except Exception as e:      # re-raised on the main thread
                 results[key] = (e, t, time.monotonic())
 
+        # chat 2 sends the penalties and bans, by logit_bias -100, the first
+        # token its prompt gets without them (an engine-level probe)
+        probe = lm.engine.generate(GenRequest(
+            prompt_ids=lm.tokenizer.encode(render_chat(chats[2])),
+            max_new_tokens=1, params=SamplingParamsHost(temperature=0.0)))
+        banned = [ev.token_id for ev in probe][0]
+        penalized = {"presence_penalty": 0.5, "frequency_penalty": 0.5,
+                     "repeat_penalty": 1.3, "logit_bias": {str(banned): -100}}
         jobs = {
             "chat_stream": lambda: http_stream(
                 base + "/v1/chat/completions",
@@ -915,7 +993,8 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
             "chat_1": lambda: http_json(base + "/v1/chat/completions",
                                         {**common, "messages": chats[1]}),
             "chat_2": lambda: http_json(base + "/v1/chat/completions",
-                                        {**common, "messages": chats[2]}),
+                                        {**common, "messages": chats[2],
+                                         **penalized}),
             "completion_long": lambda: http_json(
                 base + "/v1/completions", {**common, "prompt": long_prompt}),
         }
@@ -923,16 +1002,28 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
                          {**common, "prompt": "Warm up.", "max_tokens": 4})
         assert warm["usage"]["completion_tokens"] == 4, warm
         m0 = lm.engine.metrics()
+        biased = []                       # chat 2's tokens, on the engine thread
+        emit = lm.engine._emit
+
+        def spy(slot, token_id, logprob):
+            if lm.engine.slots[slot].req.params.logit_bias:
+                biased.append(token_id)
+            return emit(slot, token_id, logprob)
+
+        lm.engine._emit = spy
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t_start = time.monotonic()
         threads = [threading.Thread(target=run, args=kv) for kv in jobs.items()]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        torch.cuda.synchronize()
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+            torch.cuda.synchronize()
+        finally:
+            del lm.engine._emit
         launches = dict(LAUNCHES)
         wall = time.monotonic() - t_start
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -948,6 +1039,10 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
             assert u["completion_tokens"] == 32, (config, key, u)
             assert body["choices"][0]["finish_reason"] == "length", (config, key, body)
         assert results["completion_long"][0]["usage"]["prompt_tokens"] == n_long
+        if len(biased) != 32 or banned in biased:
+            raise AssertionError(f"{tag} the penalized chat emitted {len(biased)} "
+                                 f"tokens, the banned {banned} among them: "
+                                 f"{banned in biased}")
         chunks, t_first, t_last = results["chat_stream"][0]
         assert chunks[0]["choices"][0]["delta"].get("role") == "assistant"
         final = chunks[-1]
@@ -958,6 +1053,9 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
         pk = {k: m1["packed_prefill"][k] - m0["packed_prefill"][k]
               for k in m1["packed_prefill"]}
         dec = {k: m1["decode"][k] - m0["decode"][k] for k in m1["decode"]}
+        if dec["full_steps"] <= 0:
+            raise AssertionError(f"{tag} no decode step ran the full sampler "
+                                 f"variant for the penalized chat: {dec}")
         step_ms = dec["seconds"] / max(1, dec["steps"]) * 1e3
         pack_ms = pk["seconds"] / max(1, pk["dispatches"]) * 1e3
         log(f"{tag} {card}: 4 concurrent requests in {wall:.2f} s; streamed "
@@ -998,12 +1096,14 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
         decode = decode_phase(lm, card, config)
         prefill = prefill_phase(lm, card, config)
         prefix = prefix_phase(lm, card, config) if config in PREFIX_K2 else None
+        shift = shift_phase(lm, card, config) if config in PREFIX_K2 else None
         return launches, {"prompt_lens": prompt_lens, "n_long": n_long,
                           "ttft_ms": ttft_ms, "decode_tok_s": decode_tok_s,
                           "step_ms": step_ms, "pack_ms": pack_ms,
                           "pad_tokens": pk["pad_tokens"],
                           "gb": gb, "peak_gb": peak_gb, "weight_gb": weight_gb,
-                          "decode": decode, "prefill": prefill, "prefix": prefix}
+                          "decode": decode, "prefill": prefill, "prefix": prefix,
+                          "shift": shift, "banned": banned}
     finally:
         server.shutdown()
         server.server_close()
@@ -1109,16 +1209,24 @@ def decode_phase(lm, card: str, config: str) -> dict:
     if not gm["captured"]:
         raise AssertionError(f"{tag} the engine captured no decode graph")
     runs = {}
-    for way in ("graph", "eager"):
-        fn = eng._burst if way == "graph" else eng._burst_eager
+
+    def full_burst(n_steps, active):
+        """The full sampler variant's graph on the same (neutral) slots."""
+        return eng._graph.run(eng.cur_tokens, eng.lengths, active, n_steps,
+                              full=True)
+
+    for way in ("graph", "full", "eager"):
+        fn = {"graph": eng._burst, "full": full_burst,
+              "eager": eng._burst_eager}[way]
         rec, probe, prof_box, gaps = [], {}, {}, []
 
         def timed(n_steps, active, fn=fn, rec=rec, probe=probe, prof_box=prof_box,
                   way=way, gaps=gaps):
             if not probe:                 # the first step's logits, once
                 probe["active"] = active.copy()
-                if way == "graph":
-                    eng._graph.run(eng.cur_tokens, eng.lengths, active, 1)
+                if way != "eager":
+                    eng._graph.run(eng.cur_tokens, eng.lengths, active, 1,
+                                   full=way == "full")
                     probe["logits"] = eng._graph.logits.float().clone()
                 else:
                     dev = eng.device
@@ -1223,11 +1331,17 @@ def decode_phase(lm, card: str, config: str) -> dict:
         if split:
             log(f"{tag} {way}: 10 longest kernels by total time in the traced "
                 f"burst: {json.dumps(split['top10'])}")
-    g, e = runs["graph"], runs["eager"]
+    g, e, f = runs["graph"], runs["eager"], runs["full"]
+    full_same = sum(a == b for a, b in zip(g["streams"], f["streams"]))
+    log(f"{tag} full sampler variant vs plain (neutral greedy slots): "
+        f"{f['ms_per_step']:.3f} vs {g['ms_per_step']:.3f} ms/step "
+        f"({(f['ms_per_step'] / g['ms_per_step'] - 1) * 100:+.1f}%); "
+        f"{full_same} of {S_SLOTS} streams identical; first step's logits "
+        f"max abs err {max_err(f['logits'], g['logits']):.3e}")
     same = sum(a == b for a, b in zip(g["streams"], e["streams"]))
     agree = sum(x == y for a, b in zip(g["streams"], e["streams"])
                 for x, y in zip(a, b)) / (S_SLOTS * DECODE_TOKENS)
-    if not (g["active"].all() and e["active"].all()):
+    if not (g["active"].all() and e["active"].all() and f["active"].all()):
         raise AssertionError(f"{tag} the first burst did not decode all "
                              f"{S_SLOTS} slots: {g['active']} / {e['active']}")
     first = max_err(g["logits"], e["logits"])
@@ -1240,6 +1354,7 @@ def decode_phase(lm, card: str, config: str) -> dict:
         f"graph pool {gm['pool_bytes']} bytes")
     out = {"capture_s": gm["capture_seconds"], "pool_bytes": gm["pool_bytes"],
            "streams_identical": same, "token_agreement": agree,
+           "full_streams_identical": full_same,
            "first_step_logits_err": first}
     for way, r in runs.items():
         out[way] = {k: v for k, v in r.items()
@@ -1910,6 +2025,110 @@ def shape_witness(lm, runs, tag: str) -> dict:
     return out
 
 
+# ---------- phase 3e: context shift ----------
+
+SHIFT_CONTEXT = 1024         # the second engine's max_context
+SHIFT_PROMPT = 300           # prompt tokens
+SHIFT_TOKENS = 1600          # max_tokens: two shifts at context 1024
+
+
+def shift_phase(lm, card: str, config: str) -> dict:
+    """Phase 3e on the loaded model: a second engine over the same weights
+    (context SHIFT_CONTEXT, chunk 512, the configuration's KV) serves one
+    greedy request of SHIFT_PROMPT prompt tokens and SHIFT_TOKENS new
+    ones (ignore_eos), which crosses the cache edge: it must finish with
+    "length" after SHIFT_TOKENS tokens and shift at least twice, counted
+    from the packed_prefill dispatches beyond its first pack. The launch
+    counters are zeroed just before the request and read just after: the
+    decode kernel runs 32 x decode steps and K2 32 x packs, all through
+    the graphs. Each shift's stall is the host-clock time from the event
+    holding the trigger token to the one holding the next token (the
+    re-prefill's first), beside the median time between the request's
+    other events (one decode burst each)."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from localai_tpu_torch.engine.engine import Engine, GenRequest
+    from localai_tpu_torch.engine.sampling import SamplingParamsHost
+    from localai_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    tag = f"[shift {config}]"
+    n_layers = LLAMA31_8B["num_hidden_layers"]
+    dk = DECODE_KERNEL[config]
+    head = "A long story about a lighthouse keeper and the sea. "
+    prompt = lm.tokenizer.encode((head * 8)[:SHIFT_PROMPT])
+    assert len(prompt) == SHIFT_PROMPT, len(prompt)
+    eng = Engine(lm.cfg, lm.engine.params, lm.tokenizer, dataclasses.replace(
+        lm.engine.ecfg, max_context=SHIFT_CONTEXT, prefill_chunk=512),
+        device=DEV).start()
+    try:
+        triggers = []                         # n_decoded at each shift
+        shift = eng._context_shift
+
+        def spy(slot, s, token_id):
+            triggers.append(s.n_decoded)
+            return shift(slot, s, token_id)
+
+        eng._context_shift = spy
+        m0 = eng.metrics()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.monotonic()
+        out = eng.submit(GenRequest(prompt_ids=prompt, max_new_tokens=SHIFT_TOKENS,
+                                    ignore_eos=True,
+                                    params=SamplingParamsHost(temperature=0.0)))
+        events, last = [], None               # (arrival, tokens so far)
+        n = 0
+        while (ev := out.get(timeout=600)) is not None:
+            if ev.error:
+                raise AssertionError(f"{tag} {ev.error}")
+            n += len(ev.token_ids or [ev.token_id])
+            events.append((time.monotonic(), n))
+            last = ev
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        launched = dict(LAUNCHES)
+        m1 = eng.metrics()
+    finally:
+        eng.shutdown()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    packs = m1["packed_prefill"]["dispatches"] - m0["packed_prefill"]["dispatches"]
+    steps = m1["decode"]["steps"] - m0["decode"]["steps"]
+    shifts = packs - 1                        # the prompt fits one pack
+    if (last.finish_reason != "length" or last.completion_tokens != SHIFT_TOKENS
+            or n != SHIFT_TOKENS):
+        raise AssertionError(f"{tag} finished {last.finish_reason!r} after "
+                             f"{last.completion_tokens} tokens ({n} streamed)")
+    if shifts < 2 or len(triggers) != shifts:
+        raise AssertionError(f"{tag} {shifts} shifts by the pack count "
+                             f"({packs} packs), {len(triggers)} shift calls")
+    k2 = launched["ragged_prefill_attention"] + launched["ragged_prefill_attention_int8"]
+    if launched[dk] != n_layers * steps or k2 != n_layers * packs:
+        raise AssertionError(f"{tag} {dk} launched {launched[dk]} times over "
+                             f"{steps} steps, K2 / K2-int8 {k2} over {packs} packs")
+    stalls = []
+    for k in triggers:                        # the trigger is token k (1-based)
+        i = next(j for j, (_t, c) in enumerate(events) if c >= k)
+        stalls.append((events[i + 1][0] - events[i][0]) * 1e3)
+    gaps = [(b[0] - a[0]) * 1e3 for a, b in zip(events, events[1:])]
+    burst_ms = statistics.median(gaps)
+    log(f"{tag} {card}: context {SHIFT_CONTEXT}, {SHIFT_PROMPT}-token prompt, "
+        f"{SHIFT_TOKENS} greedy tokens in {wall:.2f} s: finish "
+        f"{last.finish_reason}, {shifts} shifts at tokens {triggers} "
+        f"({packs} packs, {steps} decode steps); stall of each shift (host "
+        f"clock, trigger token's event to the next token's): "
+        f"{', '.join(f'{x:.2f}' for x in stalls)} ms; median time between "
+        f"the request's events {burst_ms:.2f} ms; {dk} {launched[dk]} = "
+        f"{n_layers} x {steps}, K2 {k2} = {n_layers} x {packs}")
+    return {"shifts": shifts, "triggers": triggers, "stall_ms": stalls,
+            "between_events_ms": burst_ms, "packs": packs, "steps": steps,
+            "seconds": wall}
+
+
 # ---------- phase 4 ----------
 
 def decode_cost(lengths, elt, cache_elt=None, scales=False, table=True):
@@ -2292,6 +2511,9 @@ def main():
                       "card": card}), flush=True)
     print(json.dumps({"prefill": {c: shapes[c]["prefill"] for c in shapes},
                       "card": card}), flush=True)
+    print(json.dumps({"context_shift": {c: shapes[c]["shift"] for c in shapes
+                                        if shapes[c]["shift"]},
+                      "card": card}), flush=True)
     for c in shapes:
         p = shapes[c]["prefill"]
         tr = p["trace"].get("graph")
@@ -2307,7 +2529,8 @@ def main():
         busy = {w: (f"{d[w]['trace']['busy_share'] * 100:.1f}%" if d[w]["trace"]
                     else "not measured") for w in ("graph", "eager")}
         log(f"[decode] {card}: {c}: graph {d['graph']['ms_per_step']:.3f} ms/step "
-            f"(busy {busy['graph']}) vs eager {d['eager']['ms_per_step']:.3f} "
+            f"(busy {busy['graph']}), full sampler {d['full']['ms_per_step']:.3f}, "
+            f"vs eager {d['eager']['ms_per_step']:.3f} "
             f"(busy {busy['eager']}); capture {d['capture_s']:.2f} s, pool "
             f"{d['pool_bytes'] / 1e6:.1f} MB")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -7,9 +7,11 @@ config.json-only dir with explicit random weights) plus serving knobs
 into a started Engine; ``quantization``, ``kv_cache_dtype`` and
 ``kv_layout`` take the JAX package's names and values. ``build_request``
 maps OpenAI-style request overrides onto a GenRequest with the JAX
-package's defaults
-(temperature 0.8, top_k 40, top_p 0.95, max_tokens 256); sampling knobs
-this slice does not implement are refused, never silently ignored.
+package's defaults (temperature 0.8, top_k 40, top_p 0.95, max_tokens
+256, repeat_last_n 64, mirostat tau 5 / eta 0.1) and its runner's rules,
+every sampling knob of the JAX sampler included: typical_p, the repeat /
+presence / frequency penalties, mirostat and logit_bias. ``grammar`` is
+not served yet and is refused, never silently ignored.
 """
 
 from __future__ import annotations
@@ -40,10 +42,8 @@ KV_CACHE_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
                    "float32": torch.float32, "f32": torch.float32,
                    "int8": torch.int8, "q8_0": torch.int8}
 
-# OpenAI / LocalAI sampling knobs not ported yet, with their neutral values
-_UNSUPPORTED = {"repeat_penalty": (0, 1.0), "presence_penalty": (0, 0.0),
-                "frequency_penalty": (0, 0.0), "typical_p": (1.0, 0),
-                "mirostat": (0,), "logit_bias": ({},), "grammar": ("",)}
+# request knobs not ported yet, with their neutral values
+_UNSUPPORTED = {"grammar": ("",)}
 
 
 @dataclasses.dataclass
@@ -144,12 +144,26 @@ def build_request(lm: LoadedModel, prompt: str, overrides: dict,
     for k, neutral in _UNSUPPORTED.items():
         if k in o and o[k] is not None and o[k] not in neutral:
             raise ValueError(f"{k} is not supported by this server yet")
+    def num(key, default, cast=float):
+        return cast(o[key]) if o.get(key) is not None else default
+
+    typical_p = num("typical_p", 1.0)
+    repeat_penalty = num("repeat_penalty", 1.0)
     sp = SamplingParamsHost(
-        temperature=float(o["temperature"]) if o.get("temperature") is not None else 0.8,
-        top_k=int(o["top_k"]) if o.get("top_k") is not None else 40,
-        top_p=float(o["top_p"]) if o.get("top_p") is not None else 0.95,
-        min_p=float(o.get("min_p") or 0.0),
-        seed=int(o["seed"]) if o.get("seed") is not None else -1)
+        temperature=num("temperature", 0.8), top_k=num("top_k", 40, int),
+        top_p=num("top_p", 0.95), min_p=num("min_p", 0.0),
+        typical_p=typical_p if typical_p > 0 else 1.0,
+        repeat_penalty=repeat_penalty if repeat_penalty > 0 else 1.0,
+        # llama.cpp: -1 = the whole window, 0 = the default 64
+        repeat_last_n=num("repeat_last_n", 64, int) or 64,
+        presence_penalty=num("presence_penalty", 0.0),
+        frequency_penalty=num("frequency_penalty", 0.0),
+        mirostat=num("mirostat", 0, int),
+        mirostat_tau=num("mirostat_tau", 0.0) or 5.0,
+        mirostat_eta=num("mirostat_eta", 0.0) or 0.1,
+        seed=num("seed", -1, int),
+        logit_bias={int(k): float(v)
+                    for k, v in (o.get("logit_bias") or {}).items()})
     stop = o.get("stop") or []
     if isinstance(stop, str):
         stop = [stop]

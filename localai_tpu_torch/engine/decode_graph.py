@@ -1,4 +1,4 @@
-"""The decode burst's step as one captured CUDA graph (counterpart of
+"""The decode burst's step as captured CUDA graphs (counterpart of
 localai_tpu/engine/engine.py::_decode_burst_body / _make_scan_step, the
 JAX engine's compiled ``lax.scan`` over a burst).
 
@@ -12,23 +12,31 @@ JAX engine's compiled ``lax.scan`` over a burst).
     step    [1] int64     the row of ``out`` the next step writes
 
 and ONE step that updates it in place (``step_body``): ``decode_step`` ->
-``SlotSampler.sample_all`` -> ``tokens = where(active, ids, tokens)``,
-``lengths += active`` -> row ``step`` of ``out`` -> ``step += 1``, the
-arithmetic of the eager per-step loop (``eager_burst``). Nothing in it
-builds a tensor from host data, syncs or branches on a device value, so
-on CUDA it is captured once (``capture``, at ``Engine.start``, on the
-engine's thread, as the JAX engine precompiles its bursts) and a burst of
-n steps is n replays of that graph followed by one host read of ``out``.
-One step replayed n times needs one capture and one memory pool where a
-graph per burst length would need one each; a replay costs the host tens
-of microseconds against a step of milliseconds.
+``SlotSampler.sample_all`` (which also moves the active slots' penalty
+rings, mirostat mu and RNG counters) -> ``tokens = where(active, ids,
+tokens)``, ``lengths += active`` -> row ``step`` of ``out`` -> ``step +=
+1``, the arithmetic of the eager per-step loop (``eager_burst``). The
+step comes in the JAX engine's two sampler variants (its precompiled
+flags (False, False, False) and (True, True, True)): plain and ``full``
+(penalties, typical-p, mirostat; sampling.py). The engine picks the full
+one when any active slot uses one of those (``SlotSampler.full_needed``;
+a mixed set runs the full one, as in JAX). Nothing in a step builds a
+tensor from host data, syncs or branches on a device value, so on CUDA
+each variant is captured once (``capture``, at ``Engine.start``, on the
+engine's thread, as the JAX engine precompiles its bursts), both in ONE
+memory pool over the same static buffers, and a burst of n steps is n
+replays of one graph followed by one host read of ``out``. One step
+replayed n times needs one capture where a graph per burst length would
+need one each; a replay costs the host tens of microseconds against a
+step of milliseconds. A shared pool is safe: the two graphs never run
+at once, and what the host reads (``out``) is a static buffer.
 
 On CPU tensors ``run`` calls the same step body eagerly: that is the
 plain version the tests check, not a fallback. On CUDA there is no path
 back to an eager loop: a burst before capture, or a failed capture or
-replay, raises. ``eager_burst`` (the loop the engine ran before the
-graph) stays as the reference that chip_smoke.py and the card tests hold
-the graph against; serving never selects it.
+replay of either variant, raises. ``eager_burst`` (the loop the engine
+ran before the graph) stays as the reference that chip_smoke.py and the
+card tests hold the graphs against; serving never selects it.
 
 Kernel launch counts (ops/kernels::LAUNCHES) are taken in Python by the
 wrappers, which a replay does not run: ``capture`` takes back what the
@@ -72,35 +80,38 @@ class DecodeGraph:
                                device=dev)
         self.step = torch.zeros(1, dtype=torch.int64, device=dev)
         self.logits: Optional[torch.Tensor] = None   # the last step's [S, V]
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.launches: dict = {}      # LAUNCHES added per replay
-        self.capture_seconds = 0.0    # warm-up + capture, host wall
-        self.pool_bytes = 0           # memory_reserved growth of the capture
+        self.graphs: dict = {}        # full (bool) -> CUDAGraph
+        self.launches: dict = {}      # full -> LAUNCHES added per replay
+        self._logits: dict = {}       # full -> its logits (in the pool)
+        self.capture_seconds = 0.0    # warm-ups + captures, host wall
+        self.pool_bytes = 0           # memory_reserved growth of the captures
 
-    def step_body(self):
-        """One decode step on the static buffers, in place."""
+    def step_body(self, full: bool = False) -> torch.Tensor:
+        """One decode step on the static buffers, in place, with the plain
+        or the ``full`` sampler. Returns the logits [S, V]."""
         active = self.active
         logits = llama.decode_step(self.params, self.cfg, self.tokens,
                                    self.lengths, self.ck, self.cv,
                                    active=active)
-        ids, lps = self.sampler.sample_all(logits, active)
+        ids, lps = self.sampler.sample_all(logits, active, full=full)
         self.tokens.copy_(torch.where(active, ids, self.tokens))
         self.lengths.add_(active.to(torch.int32))
         row = torch.stack([ids.to(torch.float64), lps.to(torch.float64)])
         self.out.index_copy_(0, self.step, row[None])
         self.step.add_(1)
-        self.logits = logits
+        return logits
 
     def _reset(self):
         for t in (self.tokens, self.lengths, self.active, self.step):
             t.zero_()
 
     def capture(self):
-        """Warm up and capture ``step_body`` (CUDA only). Every slot is
-        inactive throughout, so the warm-up steps write their KV rows to
-        the cache's scratch page / slot and advance no sampler counter:
-        the committed cache and the sampler state are left as they were.
-        Raises on any capture error."""
+        """Warm up and capture ``step_body`` in both variants (CUDA only),
+        in one memory pool. Every slot is inactive throughout, so the
+        warm-up steps write their KV rows to the cache's scratch page /
+        slot and move no sampler state (counter, ring, mu): the committed
+        cache and the sampler are left as they were. Raises on any
+        capture error."""
         if self.device.type != "cuda":
             raise ValueError(f"capture needs a CUDA device, not {self.device}")
         t0 = time.monotonic()
@@ -109,44 +120,56 @@ class DecodeGraph:
             stream = torch.cuda.Stream(self.device)
             stream.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(stream):
-                for _ in range(WARMUP_STEPS):
-                    self.step.zero_()
-                    self.step_body()
+                for full in (False, True):
+                    for _ in range(WARMUP_STEPS):
+                        self.step.zero_()
+                        self.step_body(full)
             torch.cuda.current_stream(self.device).wait_stream(stream)
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(self.device)
-            graph = torch.cuda.CUDAGraph()
-            before = dict(LAUNCHES)
-            self.step.zero_()
-            try:
-                with torch.cuda.graph(graph, stream=stream):
-                    self.step_body()
-            finally:
-                # the wrappers counted their launches while capturing;
-                # nothing ran: take the counts back, replays add them
-                delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
-                for k, n in delta.items():
-                    LAUNCHES[k] -= n
+            pool = torch.cuda.graph_pool_handle()
+            for full in (False, True):
+                graph = torch.cuda.CUDAGraph()
+                before = dict(LAUNCHES)
+                self.step.zero_()
+                try:
+                    with torch.cuda.graph(graph, pool=pool, stream=stream):
+                        logits = self.step_body(full)
+                finally:
+                    # the wrappers counted their launches while capturing;
+                    # nothing ran: take the counts back, replays add them
+                    delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+                    for k, n in delta.items():
+                        LAUNCHES[k] -= n
+                self.graphs[full] = graph
+                self.launches[full] = {k: n for k, n in delta.items() if n}
+                self._logits[full] = logits
             self._reset()
             torch.cuda.synchronize(self.device)
             self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        self.launches = {k: n for k, n in delta.items() if n}
-        self.graph = graph
         self.capture_seconds = time.monotonic() - t0
 
+    def free(self):
+        """Drop the graphs and the pool's tensors (a shut-down engine)."""
+        self.graphs.clear()
+        self.launches.clear()
+        self._logits.clear()
+        self.logits = None
+
     def run(self, tokens: np.ndarray, lengths: np.ndarray, active: np.ndarray,
-            n_steps: int) -> np.ndarray:
+            n_steps: int, full: bool = False) -> np.ndarray:
         """A burst of ``n_steps`` from the host's per-slot tokens, lengths
-        and active mask: one copy in, the steps (graph replays on CUDA,
-        the step body on the CPU), one copy out. Returns [n_steps, 2, S]
-        float64 (ids, logprobs)."""
+        and active mask, with the plain or the ``full`` sampler: one copy
+        in, the steps (graph replays on CUDA, the step body on the CPU),
+        one copy out. Returns [n_steps, 2, S] float64 (ids, logprobs)."""
         if not 1 <= n_steps <= self.out.shape[0]:
             raise ValueError(f"burst of {n_steps} steps; the buffer holds "
                              f"{self.out.shape[0]}")
-        if self.device.type == "cuda" and self.graph is None:
-            raise RuntimeError("decode graph not captured (Engine.start "
-                               "captures it on the card)")
+        graph = self.graphs.get(full)
+        if self.device.type == "cuda" and graph is None:
+            raise RuntimeError(f"decode graph (full={full}) not captured "
+                               f"(Engine.start captures both on the card)")
         host = np.stack([np.asarray(tokens, np.int64),
                          np.asarray(lengths, np.int64),
                          np.asarray(active, np.int64)])
@@ -156,23 +179,24 @@ class DecodeGraph:
         self.active.copy_(staged[2] != 0)
         self.step.zero_()
         for _ in range(n_steps):
-            if self.graph is None:
-                self.step_body()
+            if graph is None:
+                self.logits = self.step_body(full)
             else:
-                self.graph.replay()
-                for k, n in self.launches.items():
+                graph.replay()
+                for k, n in self.launches[full].items():
                     LAUNCHES[k] += n
+                self.logits = self._logits[full]
         return self.out[:n_steps].to("cpu", copy=True).numpy()   # ONE sync
 
 
 def eager_burst(params: dict, cfg: llama.LlamaConfig, cache_k: dict,
                 cache_v: dict, sampler, tokens: np.ndarray,
                 lengths: np.ndarray, active: np.ndarray,
-                n_steps: int) -> np.ndarray:
+                n_steps: int, full: bool = False) -> np.ndarray:
     """The eager per-step loop the engine ran before the graph (the
-    reference ``DecodeGraph`` is held against): fresh device tensors per
-    step, the sampler over host row lists. Same result layout as
-    ``DecodeGraph.run``."""
+    reference ``DecodeGraph`` is held against, variant by variant): fresh
+    device tensors per step, the sampler over host row lists. Same result
+    layout as ``DecodeGraph.run``."""
     dev = sampler.device
     tok = torch.from_numpy(np.asarray(tokens, np.int64).copy()).to(dev)
     lens = torch.from_numpy(np.asarray(lengths, np.int32).copy()).to(dev)
@@ -184,7 +208,7 @@ def eager_burst(params: dict, cfg: llama.LlamaConfig, cache_k: dict,
     for _ in range(n_steps):
         logits = llama.decode_step(params, cfg, tok, lens, cache_k, cache_v,
                                    active=act)
-        ids, lps = sampler.sample(logits, rows, draw=draw)
+        ids, lps = sampler.sample(logits, rows, draw=draw, full=full)
         tok = torch.where(act, ids, tok)
         lens = lens + act.to(lens.dtype)
         out.append(torch.stack([ids.to(torch.float64), lps.to(torch.float64)]))

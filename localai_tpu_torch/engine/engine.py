@@ -52,12 +52,29 @@ What this slice keeps of the JAX engine, with the same knob names:
     stay in the slot's block. ``kv_prefix_cache=False`` reuses nothing
     (every prompt is prefilled whole, as before this existed).
 
+  * the JAX sampler's whole surface (engine/sampling.py): temperature,
+    top-k / top-p / min-p, typical-p, the repeat / presence / frequency
+    penalties over a per-slot penalty ring, logit bias and mirostat v2,
+    installed at admission (the ring seeded with the prompt tail, the
+    bias row written or cleared, mu = 2 * tau). A burst runs the decode
+    graph's plain variant unless an active slot uses penalties,
+    typical-p or mirostat, then the full one; packs always sample with
+    the full sampler (the JAX engine's two burst variants and its packed
+    prefill);
+  * CONTEXT SHIFT (``context_shift``, on by default as in the JAX
+    engine): a slot whose next token would reach the cache edge keeps
+    the last ``max_context // 2`` tokens of its history, re-prefills
+    them from row 0 (paged: its committed pages enter the prefix cache
+    first, the table is released, and the kept window goes through the
+    admission tiers) and keeps generating; its penalty ring restarts
+    from the kept window, its RNG counter and mirostat mu carry on. With
+    ``context_shift=False`` such a slot finishes with "length".
+
 Prefill and decode run as separate ticks (the JAX engine's
 ``prefill_packed_fuse="0"``); greedy output does not depend on that.
-Left for later slices: the host tier of prefix reuse (kv_offload),
-context shift (a slot at the cache edge finishes with "length"), the
-snap-back window, speculation, grammar, penalties, preemption,
-self-extend and the replica pool.
+Left for later slices: the host tier of prefix reuse (kv_offload), the
+snap-back window, speculation, grammar, preemption, self-extend and the
+replica pool.
 """
 
 from __future__ import annotations
@@ -117,6 +134,9 @@ class EngineConfig:
     # the fewest reusable rows for a tier-2 share or a tier-3 hit to beat
     # a clean prefill
     kv_prefix_cache_min_rows: int = 16
+    # at the cache edge re-prefill the last max_context // 2 tokens and
+    # keep generating; False finishes the request with "length"
+    context_shift: bool = True
 
 
 @dataclasses.dataclass
@@ -223,9 +243,9 @@ class Engine:
         if self._reuse and self._pool is not None:
             self._pcache = PrefixPageCache(
                 build_scope("llama", model_cfg, pg, self.cache_dtype), pg)
-        # per slot, the tokens whose KV rows the slot holds (reuse only):
-        # a running request's prompt + emitted tokens, trimmed to the
-        # committed rows at release
+        # per slot, the tokens whose KV rows the slot holds: a running
+        # request's prompt + emitted tokens (a context shift's history);
+        # with reuse, trimmed to the committed rows at release
         self._cache_tokens: list = [[] for _ in range(S)]
         self._reuse_stats = {"reused_rows": 0, "cow_clones": 0}
         self.ck, self.cv = llama.init_cache(
@@ -235,7 +255,7 @@ class Engine:
             # ONE device page table, rewritten in place (_commit_ptab): the
             # captured decode step reads it where it lies
             self.cv["ptab"] = self.ck["ptab"]
-        self.sampler = sampling.SlotSampler(S, self.device)
+        self.sampler = sampling.SlotSampler(S, model_cfg.vocab_size, self.device)
         self._graph = DecodeGraph(params, model_cfg, self.ck, self.cv,
                                   self.sampler, S, self.ecfg.decode_burst,
                                   self.device)
@@ -274,8 +294,9 @@ class Engine:
         self._pack_stats = {"dispatches": 0, "tokens": 0, "segments": 0,
                             "pad_tokens": 0, "continued": 0,
                             "kernel_fallback": 0, "seconds": 0.0}
-        self._decode_stats = {"bursts": 0, "steps": 0, "tokens": 0,
-                              "seconds": 0.0}
+        # full_steps: steps of the full sampler variant
+        self._decode_stats = {"bursts": 0, "steps": 0, "full_steps": 0,
+                              "tokens": 0, "seconds": 0.0}
 
     # ---------- lifecycle ----------
 
@@ -304,7 +325,7 @@ class Engine:
             if not self._thread.is_alive():
                 # free the graphs and their pools (an engine thread still
                 # running may replay them)
-                self._graph.graph = None
+                self._graph.free()
                 self._pgraph.free()
             self._thread = None
         err = StreamEvent(token_id=-1, text="", logprob=0.0,
@@ -363,7 +384,7 @@ class Engine:
                "cache_dtype": str(self.cache_dtype).replace("torch.", ""),
                "packed_prefill": dict(self._pack_stats),
                "decode": dict(self._decode_stats),
-               "decode_graph": {"captured": self._graph.graph is not None,
+               "decode_graph": {"captured": sorted(self._graph.graphs),
                                 "capture_seconds": self._graph.capture_seconds,
                                 "pool_bytes": self._graph.pool_bytes},
                "prefill_graph": {"captured": sorted(self._pgraph.graphs),
@@ -390,8 +411,8 @@ class Engine:
     # ---------- engine loop ----------
 
     def _capture(self):
-        """Capture the decode step and every (bucket, continued) prefill
-        graph (CUDA only; engine thread)."""
+        """Capture the decode step's two variants and every (bucket,
+        continued) prefill graph (CUDA only; engine thread)."""
         self._graph.capture()
         self._pgraph.capture()
 
@@ -482,7 +503,7 @@ class Engine:
         slot, common = self._pick_slot(ids)
         # a short accidental match (a shared BOS or first word) is not
         # worth the continued prefill it forces (the JAX engine's guard)
-        if common < 16:
+        if common < 16 or not self._reuse:
             common = 0
         if self._pool is not None and self._reuse:
             try:
@@ -496,12 +517,13 @@ class Engine:
                 raise
         self.sampler.set_slot(slot, req.params,
                               fallback_seed=zlib.crc32(req.request_id.encode()))
+        # the penalty window covers the prompt tail (reused rows included)
+        self.sampler.set_ring(slot, ids)
         s = _Slot(req, IncrementalDetokenizer(self.tokenizer), len(ids))
         s.pending = ids[common:]
         s.written = s.committed = s.reused = common
         self._reuse_stats["reused_rows"] += common
-        if self._reuse:
-            self._cache_tokens[slot] = list(ids)
+        self._cache_tokens[slot] = list(ids)
         self.slots[slot] = s
         self._prefill_queue.append(slot)
 
@@ -702,7 +724,8 @@ class Engine:
                 self._prefill_queue.remove(slot)
                 s.phase = "decode"
                 s.cache_len = s.written
-                s.t_first_token = t1
+                if not s.t_first_token:   # a shift's re-prefill keeps it
+                    s.t_first_token = t1
                 self.lengths[slot] = s.written
                 self.cur_tokens[slot] = int(ids_np[b])
                 self._emit(slot, int(ids_np[b]), float(lps_np[b]))
@@ -762,30 +785,35 @@ class Engine:
         ids_np = host[:, 0].astype(np.int64)
         lps_np = host[:, 1]
         snaps = [(i, self.slots[i]) for i in decoding]
-        self._decode_stats["bursts"] += 1
-        self._decode_stats["steps"] += n_steps
-        self._decode_stats["seconds"] += time.monotonic() - t0
+        st = self._decode_stats
+        st["bursts"] += 1
+        st["steps"] += n_steps
+        st["full_steps"] += n_steps * self.sampler.full_needed(active_np)
+        st["seconds"] += time.monotonic() - t0
         self._sink = {}
         try:
             for j in range(n_steps):
                 for i, snap in snaps:
-                    if self.slots[i] is not snap:
-                        continue          # finished earlier in this burst
+                    # finished, or context-shifted, earlier in this burst
+                    if self.slots[i] is not snap or snap.phase != "decode":
+                        continue
                     # step j wrote the row of the slot's previous token
                     snap.committed = min(snap.committed + 1, snap.cache_len)
                     self._emit(i, int(ids_np[j, i]), float(lps_np[j, i]))
         finally:
             self._flush_sink()
         for i, snap in snaps:
-            if self.slots[i] is snap:
+            if self.slots[i] is snap and snap.phase == "decode":
                 self.lengths[i] += n_steps
                 self.cur_tokens[i] = int(ids_np[-1, i])
         return True
 
     def _burst(self, n_steps: int, active: np.ndarray) -> np.ndarray:
         """The burst's device work: graph replays on the card, the same
-        step body eagerly on the CPU (decode_graph.DecodeGraph.run)."""
-        return self._graph.run(self.cur_tokens, self.lengths, active, n_steps)
+        step body eagerly on the CPU (decode_graph.DecodeGraph.run), in
+        the full sampler variant when an active slot needs it."""
+        return self._graph.run(self.cur_tokens, self.lengths, active, n_steps,
+                               full=self.sampler.full_needed(active))
 
     def _burst_eager(self, n_steps: int, active: np.ndarray) -> np.ndarray:
         """The eager per-step loop (decode_graph.eager_burst), the
@@ -793,7 +821,8 @@ class Engine:
         serving never calls it."""
         return eager_burst(self.params, self.cfg, self.ck, self.cv,
                            self.sampler, self.cur_tokens, self.lengths,
-                           active, n_steps)
+                           active, n_steps,
+                           full=self.sampler.full_needed(active))
 
     # ---------- emission ----------
 
@@ -803,32 +832,36 @@ class Engine:
             out.put(evs[0] if len(evs) == 1 else _merge_events(evs))
 
     def _emit(self, slot: int, token_id: int, logprob: float):
-        """Emit one token of a slot: EOS / max-tokens / cache-edge / stop
-        sequences finish the request and release the slot."""
+        """Emit one token of a slot: EOS / max-tokens / stop sequences
+        finish the request and release the slot; at the cache edge the
+        slot shifts its context (or, without context_shift, finishes)."""
         s = self.slots[slot]
         s.n_decoded += 1
         self._decode_stats["tokens"] += 1
         finish = None
+        edge = s.cache_len + 1 >= self.ecfg.max_context - 1
         if token_id in self.eos_ids and not s.req.ignore_eos:
             finish = "stop"
             delta = s.held_text + s.detok.flush()
         elif (s.n_decoded >= s.req.max_new_tokens
-              or s.cache_len + 1 >= self.ecfg.max_context - 1):
+              or (edge and not self.ecfg.context_shift)):
             finish = "length"
             delta = s.held_text + s.detok.push(token_id) + s.detok.flush()
         else:
             delta = s.held_text + s.detok.push(token_id)
             s.held_text = ""
+            # stop sequences apply at a shift's trigger token too
             if s.req.stop_sequences:
                 cut = self._check_stops(s, delta)
                 if cut is not None:
                     delta, finish = cut, "stop"
                 elif delta:
                     delta, s.held_text = self._holdback(s, delta)
-        if finish is None:
+        if finish is None and edge:
+            self._context_shift(slot, s, token_id)
+        elif finish is None:
             s.cache_len += 1      # this token's KV is written by the next step
-            if self._reuse:
-                self._cache_tokens[slot].append(token_id)
+            self._cache_tokens[slot].append(token_id)
         ev = StreamEvent(token_id=token_id, text=delta, logprob=logprob,
                          finish_reason=finish, prompt_tokens=s.prompt_len,
                          completion_tokens=s.n_decoded)
@@ -854,6 +887,36 @@ class Engine:
             self._sink.setdefault(key, (s.req.out, []))[1].append(ev)
         else:
             s.req.out.put(ev)
+
+    def _context_shift(self, slot: int, s: _Slot, token_id: int):
+        """The cache is full mid-generation: keep the last max_context // 2
+        tokens of the history (the trigger token included), re-prefill
+        them into the slot from row 0 and keep generating (the JAX
+        engine's ``_context_shift``, without its window and self-extend
+        branches). Paged, the committed pages enter the prefix cache (when
+        on) and the table is released: the re-prefill allocates anew and
+        never rewrites a page another slot or the cache reads; with reuse
+        the kept window goes through the admission tiers. The penalty ring
+        restarts from the kept window; the RNG counter and mu carry on."""
+        history = self._cache_tokens[slot] + [token_id]
+        new_ids = history[-max(self.ecfg.max_context // 2, 1):]
+        if self._pool is not None:
+            if self._pcache is not None:
+                self._pcache.insert(self._pool, slot,
+                                    self._cache_tokens[slot][:s.committed])
+            self._pool.release(slot, 0)
+        s.phase = "prefill"
+        s.pending = list(new_ids)
+        s.written = s.cache_len = s.committed = 0
+        self._cache_tokens[slot] = list(new_ids)
+        if self._pcache is not None:
+            reused = self._paged_admission(slot, new_ids, 0)
+            s.pending = new_ids[reused:]
+            s.written = s.committed = s.reused = reused
+            self._reuse_stats["reused_rows"] += reused
+        self.lengths[slot] = 0
+        self.sampler.set_ring(slot, new_ids)
+        self._prefill_queue.append(slot)
 
     def _check_stops(self, s: _Slot, delta: str) -> Optional[str]:
         """If a stop sequence completes in emitted+delta text, return the
@@ -885,7 +948,8 @@ class Engine:
         past a stop are not among them): paged, their full pages enter the
         prefix cache while the table still pins them, and the table keeps
         the pages covering them for the slot's own next request."""
-        toks = self._cache_tokens[slot][:self.slots[slot].committed]
+        toks = (self._cache_tokens[slot][:self.slots[slot].committed]
+                if self._reuse else [])
         self._cache_tokens[slot] = toks
         if self._pool is not None:
             if self._pcache is not None:

@@ -17,8 +17,11 @@ float64 (ids, logprobs), and ONE body per (bucket, continued)
 (``body``): ``llama.ragged_prefill`` over the buffer's views (kernel K2,
 or K2-int8 for a continued pack over int8 pages; W8 / W4 at M = bucket),
 then ``SlotSampler.sample_rows``, which samples every segment's first
-token on the device and advances only the final, non-greedy rows'
-counters, then the ids and logprobs into ``out``. Nothing in it builds a
+token on the device with the full sampler (the JAX ``_packed_prefill_body``
+always does: no flags dimension), gathering each segment's parameters,
+penalty ring, bias row and mirostat mu at its slot, and writes back only
+the final rows' state (the first token into the ring, mu, the counters of
+the non-greedy rows), then the ids and logprobs into ``out``. Nothing in it builds a
 tensor from host data, syncs or branches on a device value (``continued``
 is a Python bool of the graph, never read off seg_start), so on CUDA
 ``capture`` (at ``Engine.start``, on the engine's thread, after the
@@ -138,7 +141,7 @@ class PrefillGraph:
     def capture(self):
         """Warm up and capture ``body`` for every (bucket, continued)
         (CUDA only), all in one memory pool. Every warm-up pack is all
-        pads: its rows go to the scratch page, no counter advances, and
+        pads: its rows go to the scratch page, no sampler state moves, and
         it runs every kernel variant and plan the capture records (K2
         fresh and continued, K2-int8 on an int8 cache, W8 / W4 at M =
         bucket, the dequantize scratch of a tied table). Raises on any

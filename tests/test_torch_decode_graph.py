@@ -80,7 +80,7 @@ def test_counter_rng_matches_numpy_bit_for_bit(case):
                          2 ** 31, 2 ** 32 - 1], np.int64)
         seed, counter = (a.ravel() for a in np.meshgrid(vals, vals))
     else:       # through the sampler's per-slot state, after set_slot
-        sm = sampling.SlotSampler(6, "cpu")
+        sm = sampling.SlotSampler(6, 40, "cpu")
         for s in range(6):
             sm.set_slot(s, sampling.SamplingParamsHost(seed=[7, 7, 0, 2 ** 40 + 3,
                                                              -1, 123][s]),
@@ -116,7 +116,7 @@ def test_counter_rng_draws_are_uniform(axis):
 def test_inactive_or_greedy_row_keeps_its_counter():
     rng = np.random.default_rng(2)
     logits = torch.from_numpy(rng.normal(size=(4, 40)).astype(np.float32))
-    sm = sampling.SlotSampler(4, "cpu")
+    sm = sampling.SlotSampler(4, 40, "cpu")
     for s in range(4):
         sm.set_slot(s, sampling.SamplingParamsHost(
             temperature=0.0 if s == 3 else 1.0, top_k=0, top_p=1.0, seed=s),
@@ -138,7 +138,7 @@ def test_sample_all_equals_the_list_path():
     on a copy of the same state: ids, logprobs and counters."""
     rng = np.random.default_rng(4)
     logits = torch.from_numpy(rng.normal(size=(5, 300)).astype(np.float32) * 3)
-    a, b = sampling.SlotSampler(5, "cpu"), sampling.SlotSampler(5, "cpu")
+    a, b = sampling.SlotSampler(5, 300, "cpu"), sampling.SlotSampler(5, 300, "cpu")
     for sm in (a, b):
         for s, (t, k, p, mp) in enumerate([(0.0, 40, 0.95, 0.0), (0.7, 40, 0.9, 0.0),
                                            (1.3, 0, 1.0, 0.05), (1.0, 5, 0.5, 0.0),
@@ -203,7 +203,7 @@ def _small(kind: str, device, head_dim: int = 8, seed: int = 0,
 
     llama.ragged_prefill(params, cfg, t(tokens), t(positions), *(t(r) for r in tab),
                          t(seg_of), ck, cv, continued=False)
-    sampler = sampling.SlotSampler(S, device)
+    sampler = sampling.SlotSampler(S, cfg.vocab_size, device)
     for s in range(S):
         sampler.set_slot(s, sampling.SamplingParamsHost(
             temperature=1.0 if s == 1 else 0.0, top_k=0, top_p=1.0, seed=77),
@@ -223,9 +223,11 @@ def _clone(x):
 
 def _twin(cfg, params, ck, cv, sampler, device):
     """An independent copy of the caches and the sampler state."""
-    sm = sampling.SlotSampler(S, device)
-    for name in ("temperature", "top_k", "top_p", "min_p", "greedy", "seed",
-                 "counter"):
+    sm = sampling.SlotSampler(S, cfg.vocab_size, device)
+    for name in sampling.PARAMS:
+        sm.p[name].copy_(sampler.p[name])
+    sm.host = {k: v.copy() for k, v in sampler.host.items()}
+    for name in ("ring", "ring_pos", "bias", "mu", "seed", "counter"):
         getattr(sm, name).copy_(getattr(sampler, name))
     return _clone(ck), _clone(cv), sm
 
@@ -276,7 +278,7 @@ def _assert_same(outs, state_a, state_b, active_only=True):
 def test_static_buffer_bursts_equal_the_per_step_loop(kind, n_steps):
     outs, a, b, graph, _cfg = _burst_pair(kind, "cpu", (n_steps, n_steps))
     _assert_same(outs, a, b)
-    assert graph.graph is None            # the CPU runs the body eagerly
+    assert not graph.graphs               # the CPU runs the body eagerly
     assert a[2].counter.tolist()[1] == 2 * n_steps    # the sampled slot drew
     assert a[2].counter.tolist()[0] == 0              # greedy: no draws
 
@@ -390,7 +392,7 @@ def test_graph_replays_equal_the_eager_loop_on_the_card(card, kind, dtype):
     ck2, cv2, sm2 = _twin(cfg, params, ck, cv, sampler, "cuda")
     graph = dg.DecodeGraph(params, cfg, ck, cv, sampler, S, 16, "cuda")
     graph.capture()
-    assert graph.graph is not None and graph.launches
+    assert sorted(graph.graphs) == [False, True] and all(graph.launches.values())
     active = np.array([True, True, True, False])
     outs = {"graph": [], "eager": []}
     for side in ("graph", "eager"):
@@ -417,7 +419,7 @@ def test_capture_runs_under_sync_debug_error(card):
         graph.capture()
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert graph.graph is not None and graph.pool_bytes > 0
+    assert sorted(graph.graphs) == [False, True] and graph.pool_bytes > 0
 
 
 @pytest.mark.cuda
@@ -470,7 +472,7 @@ def test_dequant_scratch_is_grown_before_capture_and_kept(card):
     outs = []
     for eager in (False, True):
         ck, cv = llama.init_cache(cfg, S, C, PG, device="cuda")
-        sm = sampling.SlotSampler(S, "cuda")
+        sm = sampling.SlotSampler(S, cfg.vocab_size, "cuda")
         lens, tok = np.array([0, 0, 0, 0], np.int32), np.array([3, 4, 5, 6], np.int32)
         act = np.array([True, True, True, True])
         if eager:

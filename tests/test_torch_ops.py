@@ -297,8 +297,11 @@ def test_filter_window_matches_jax():
     j_idx, j_masked, j_vals = jsamp.filter_window(
         jnp.asarray(logits), sp, None, None, jnp.zeros((R, V), jnp.float32),
         use_penalties=False, use_typical=False, use_mirostat=False)
+    sm = tsamp.SlotSampler(R, V, "cpu")
+    sm.p.update(temperature=_t(temperature), top_k=_t(top_k).long(),
+                top_p=_t(top_p), min_p=_t(min_p))
     t_idx, t_masked, t_vals = tsamp.filter_window(
-        _t(logits), _t(temperature), _t(top_k).long(), _t(top_p), _t(min_p))
+        _t(logits), sm.p, sm.ring, sm.ring_pos, sm.bias, full=False)
     np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
     jm = np.asarray(j_masked)
     tm = t_masked.numpy()
@@ -316,7 +319,7 @@ def test_sampler_greedy_and_seeded_draws():
     row = rng.normal(size=(1, 50)).astype(np.float32)
     logits = _t(np.concatenate([rng.normal(size=(1, 50)).astype(np.float32),
                                 row, row]))
-    sm = SlotSampler(3, "cpu")
+    sm = SlotSampler(3, 50, "cpu")
     sm.set_slot(0, SamplingParamsHost(temperature=0.0), 1)
     for s in (1, 2):
         sm.set_slot(s, SamplingParamsHost(temperature=1.0, top_k=0,

@@ -153,7 +153,7 @@ def _caches(cfg, kind: str, device):
 
 
 def _sampler(device, sampled=(1,)):
-    sm = tsamp.SlotSampler(S, device)
+    sm = tsamp.SlotSampler(S, 96, device)
     for s in range(S):
         sm.set_slot(s, tsamp.SamplingParamsHost(
             temperature=1.0 if s in sampled else 0.0, top_k=0, top_p=1.0,
@@ -255,7 +255,7 @@ def test_sample_rows_equals_the_list_sampler():
     rng = np.random.default_rng(8)
     R, SL = 6, 5
     logits = torch.from_numpy(rng.normal(size=(R, 300)).astype(np.float32) * 3)
-    a, b = tsamp.SlotSampler(SL, "cpu"), tsamp.SlotSampler(SL, "cpu")
+    a, b = tsamp.SlotSampler(SL, 300, "cpu"), tsamp.SlotSampler(SL, 300, "cpu")
     for sm in (a, b):
         for s, (t, k, p) in enumerate([(0.0, 40, 0.95), (0.7, 0, 1.0),
                                        (1.3, 20, 0.8), (1.0, 0, 1.0),
@@ -476,4 +476,4 @@ def test_engine_captures_every_pair_and_serves_packs_as_replays(card, kind):
         assert LAUNCHES[k2] == cfg.num_layers * (2 if kind == "int8" else 3)
     finally:
         e.shutdown()
-    assert not e._pgraph.graphs and e._graph.graph is None
+    assert not e._pgraph.graphs and not e._graph.graphs

@@ -6,12 +6,15 @@ Pins: /readyz and /v1/models; /v1/completions and /v1/chat/completions,
 streamed and not, with usage counts; greedy text equal to the JAX
 Engine's on the same rendered prompt (the chat prompt rendered as the
 JAX package's default chat template renders it; the prompt tokenized by
-the port exactly as the JAX backend's HF tokenizer does); knobs this
-slice does not serve are a 400, never silently ignored.
+the port exactly as the JAX backend's HF tokenizer does); the JAX
+sampler's knobs (penalties, logit_bias, typical_p, mirostat) are served,
+greedy penalized / biased text equal to the JAX Engine's; a knob the
+port does not serve (grammar) is a 400, never silently ignored.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import threading
 import urllib.error
@@ -197,9 +200,75 @@ def test_echo_prepends_the_prompt_as_the_jax_runner(served, route, stream):
     assert text == (gen if stream else prompt + gen)
 
 
+@pytest.mark.parametrize("stream", [False, True])
+def test_penalized_biased_greedy_text_matches_jax(served, stream):
+    """Repeat / presence / frequency penalties and a logit_bias (string
+    keys, as JSON carries them) through the server: the JAX Engine's
+    greedy text under the same parameters, and never the banned token."""
+    base, _lm, je, hf_tok = served
+    plain_ids = [ev.token_id for ev in je.generate(jeng.GenRequest(
+        prompt_ids=hf_tok.encode(PROMPT), max_new_tokens=16, ignore_eos=True,
+        params=jsamp.SamplingParamsHost(temperature=0.0)))]
+    banned = max(set(plain_ids), key=plain_ids.count)
+    knobs = {"repeat_penalty": 1.3, "presence_penalty": 0.6,
+             "frequency_penalty": 0.4}
+    body = {"model": "tiny", "prompt": PROMPT, "max_tokens": 16,
+            "temperature": 0, "ignore_eos": True, "stream": stream,
+            "logit_bias": {str(banned): -100, "70": 2.5}, **knobs}
+    status, raw = _post(base + "/v1/completions", body)
+    assert status == 200
+    text = ("".join(c["choices"][0]["text"] for c in _sse(raw)) if stream
+            else json.loads(raw)["choices"][0]["text"])
+    params = jsamp.SamplingParamsHost(
+        temperature=0.0, logit_bias={banned: -100.0, 70: 2.5}, **knobs)
+    evs = list(je.generate(jeng.GenRequest(
+        prompt_ids=hf_tok.encode(PROMPT), max_new_tokens=16, ignore_eos=True,
+        params=params)))
+    assert text == "".join(ev.text for ev in evs)
+    ids = [ev.token_id for ev in evs]
+    assert banned not in ids and ids != plain_ids
+
+
+@pytest.mark.parametrize("knob", [{"repeat_penalty": 1.1}, {"presence_penalty": 0.5},
+                                  {"frequency_penalty": 0.5}, {"typical_p": 0.5},
+                                  {"mirostat": 2}, {"logit_bias": {"65": -100}}])
+def test_sampler_knobs_are_served(served, knob):
+    base, *_ = served
+    status, raw = _post(base + "/v1/chat/completions", {
+        "model": "tiny", "messages": MESSAGES, "max_tokens": 6, "seed": 3,
+        "ignore_eos": True, **knob})
+    assert status == 200
+    assert json.loads(raw)["usage"]["completion_tokens"] == 6
+
+
+def test_build_request_maps_every_sampling_field_as_the_jax_runner():
+    """The JAX defaults and runner rules: typical_p / repeat_penalty <= 0
+    -> 1, repeat_last_n 0 -> 64 (-1 kept), zero mirostat tau / eta ->
+    5 / 0.1, logit_bias keys -> int."""
+    from localai_tpu_torch.backend.runner import LoadedModel, build_request
+
+    class Tok:
+        def encode(self, text):
+            return [5, 6]
+
+    lm = LoadedModel("t", "", None, Tok(), None)
+    p = build_request(lm, "x", {}).params
+    assert dataclasses.asdict(p) == dataclasses.asdict(jsamp.SamplingParamsHost())
+    p = build_request(lm, "x", {
+        "typical_p": 0, "repeat_penalty": -1, "repeat_last_n": 0,
+        "mirostat": 2, "mirostat_tau": 0, "mirostat_eta": 0,
+        "presence_penalty": 0.5, "frequency_penalty": 0.25,
+        "logit_bias": {"12": -100, 13: 2}}).params
+    assert (p.typical_p, p.repeat_penalty, p.repeat_last_n) == (1.0, 1.0, 64)
+    assert (p.mirostat, p.mirostat_tau, p.mirostat_eta) == (2, 5.0, 0.1)
+    assert (p.presence_penalty, p.frequency_penalty) == (0.5, 0.25)
+    assert p.logit_bias == {12: -100.0, 13: 2.0}
+    assert build_request(lm, "x", {"repeat_last_n": -1}).params.repeat_last_n == -1
+
+
 def test_unsupported_knob_and_bad_request_are_400(served):
     base, *_ = served
-    for body in ({"model": "tiny", "prompt": "x", "repeat_penalty": 1.3},
+    for body in ({"model": "tiny", "prompt": "x", "grammar": "root ::= \"a\""},
                  {"model": "tiny", "messages": []},
                  {"model": "nope", "prompt": "x"}):
         with pytest.raises(urllib.error.HTTPError) as ei:
