@@ -64,7 +64,9 @@ Phases, each raising on failure (no phase swallows an error):
   3. serving  the port's HTTP server (stdlib) with a Llama-3.1-8B-shaped
               config-only model dir, full width and depth: random bf16
               weights from a seed, 8 slots, context 4096, prefill_chunk 512,
-              in five configurations, one after the other:
+              the engine's loop at its defaults (pipeline_depth 2, the
+              split fused tick; phases 3b-3f run on it or on engines
+              with its knobs), in five configurations, one after the other:
                 paged    bf16 KV, page 64 (the default path): K1 + K2;
                 int8     kv_cache_dtype int8, page 64: K3 + K2-int8 (and
                          K2 for fresh packs), no K1;
@@ -108,7 +110,9 @@ Phases, each raising on failure (no phase swallows an error):
               selects).
               Each way: decode ms/step as the median over the bursts of 16
               steps with all 8 slots active (at least 10; host wall of the
-              burst: copy in, 16 steps, copy out), the median host time
+              burst, waited for: copy in, 16 steps, copy out; the first
+              step's logits come from a 1-step probe on the chained state,
+              which it then restores), the median host time
               between bursts, a torch.profiler trace of one such burst (CUDA
               kernels per step, the device's busy share of the burst window,
               its idle gaps, the 10 longest kernels by total time),
@@ -188,6 +192,36 @@ Phases, each raising on failure (no phase swallows an error):
               graphs. Prints each shift's stall (host clock, from the event
               holding the trigger token to the one holding the next) and a
               {"context_shift": ...} JSON line before the kernels line.
+  3f. pipeline for paged and w8kv8, right after 3e on the same loaded
+              model (pipeline_phase): the pipelined loop (the defaults:
+              pipeline_depth 2, prefill_packed_fuse "auto" = the split
+              fused tick) against the synchronous one (pipeline_depth 1,
+              "0"), each on an engine of its own over the same weights.
+              (a) byte gate: 8 greedy requests queued before the loop
+              admits any (prompts of 30-1500 tokens, max_tokens 41-300,
+              none a multiple of 16, two stopping on EOS at their first
+              token by a +100 logit_bias): tokens identical request by
+              request between the two loops, each request ends as it
+              must, two bursts were in flight at the defaults, no page in
+              use at idle. (b) mixed traffic: 4 long generations decode
+              while 4 prompts of 1500 tokens arrive 100 ms apart; every
+              completion_tokens == max_tokens, no page in use at idle;
+              from the first arrival to the end the card runs under
+              torch.profiler (started and stopped on the engine thread):
+              the device's busy share, its idle gaps over 20 us (count,
+              ms) classed by the work on their two sides (decode->decode:
+              between bursts; pack->pack: between a prompt's packs; the
+              mixed classes), the arrivals' TTFT (host clock). (c) dedup,
+              on the pipelined engine with nothing retained: 4 prompts of
+              1500 tokens whose last token differs (the control, first),
+              then 4 identical ones; the identical group packs 1500 + 3
+              tokens, each sibling reuses 1499 rows, the leader's full
+              prompt pages carry >= 2 references after the fork, and each
+              sibling's tokens equal the leader's or its first-token
+              logits lie within 2e-2 relative L2 of the leader's (the
+              count is printed); both groups' TTFT and the packs' device
+              ms (CUDA events). A {"pipeline": ...} JSON line before the
+              kernels line holds it all.
   4. kernels  one JSON line {"kernels": [...]}: for each of the eight kernels,
               launches during its serving configuration (K5 has no serving
               path: its launches are those of phases 2 and 4), parity
@@ -1097,13 +1131,14 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
         prefill = prefill_phase(lm, card, config)
         prefix = prefix_phase(lm, card, config) if config in PREFIX_K2 else None
         shift = shift_phase(lm, card, config) if config in PREFIX_K2 else None
+        pipeline = pipeline_phase(lm, card, config) if config in PREFIX_K2 else None
         return launches, {"prompt_lens": prompt_lens, "n_long": n_long,
                           "ttft_ms": ttft_ms, "decode_tok_s": decode_tok_s,
                           "step_ms": step_ms, "pack_ms": pack_ms,
                           "pad_tokens": pk["pad_tokens"],
                           "gb": gb, "peak_gb": peak_gb, "weight_gb": weight_gb,
                           "decode": decode, "prefill": prefill, "prefix": prefix,
-                          "shift": shift, "banned": banned}
+                          "shift": shift, "pipeline": pipeline, "banned": banned}
     finally:
         server.shutdown()
         server.server_close()
@@ -1211,9 +1246,9 @@ def decode_phase(lm, card: str, config: str) -> dict:
     runs = {}
 
     def full_burst(n_steps, active):
-        """The full sampler variant's graph on the same (neutral) slots."""
-        return eng._graph.run(eng.cur_tokens, eng.lengths, active, n_steps,
-                              full=True)
+        """The full sampler variant's graph on the same (neutral) slots,
+        from the loaded (chained) state."""
+        return eng._graph.replay(n_steps, full=True)
 
     for way in ("graph", "full", "eager"):
         fn = {"graph": eng._burst, "full": full_burst,
@@ -1224,17 +1259,17 @@ def decode_phase(lm, card: str, config: str) -> dict:
                   way=way, gaps=gaps):
             if not probe:                 # the first step's logits, once
                 probe["active"] = active.copy()
+                g = eng._graph            # the loaded (chained) burst state
                 if way != "eager":
-                    eng._graph.run(eng.cur_tokens, eng.lengths, active, 1,
-                                   full=way == "full")
-                    probe["logits"] = eng._graph.logits.float().clone()
+                    saved = (g.tokens.clone(), g.lengths.clone())
+                    g.replay(1, full=way == "full").wait()
+                    probe["logits"] = g.logits.float().clone()
+                    g.tokens.copy_(saved[0])
+                    g.lengths.copy_(saved[1])
                 else:
-                    dev = eng.device
                     probe["logits"] = llama.decode_step(
-                        eng.params, eng.cfg,
-                        torch.from_numpy(eng.cur_tokens.astype(np.int64)).to(dev),
-                        torch.from_numpy(eng.lengths.copy()).to(dev), eng.ck, eng.cv,
-                        active=torch.from_numpy(active.copy()).to(dev)).float()
+                        eng.params, eng.cfg, g.tokens, g.lengths, eng.ck, eng.cv,
+                        active=g.active).float()
                 probe["steps"] = 1
             full = n_steps == 16 and int(active.sum()) == S_SLOTS
             traced = full and sum(r[3] for r in rec) == PROFILED_BURST and not prof_box
@@ -1246,9 +1281,11 @@ def decode_phase(lm, card: str, config: str) -> dict:
                                          ProfilerActivity.CUDA]) as prof:
                     with record_function(ANNOTATION):
                         host = fn(n_steps, active)
+                        host.wait()
                 prof_box["prof"], prof_box["steps"] = prof, n_steps
             else:
                 host = fn(n_steps, active)
+                host.wait()
             end = time.perf_counter()
             rec.append((n_steps, int(active.sum()), end - t, full and not traced, end))
             return host
@@ -1422,7 +1459,7 @@ def prefill_phase(lm, card: str, config: str) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from localai_tpu_torch.engine.prefill_graph import new_pack, split_pack
+    from localai_tpu_torch.engine.prefill_graph import n_finals, new_pack, split_pack
     from localai_tpu_torch.engine.sampling import SamplingParamsHost
     from localai_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
@@ -1473,7 +1510,8 @@ def prefill_phase(lm, card: str, config: str) -> dict:
             for continued, segs in ((False, fresh), (True, cont)):
                 host = pack(bucket, segs, starts)
                 reset_launches()
-                g_out = eng._prefill_pack(bucket, continued, host)
+                g_out = eng._prefill_pack(bucket, continued, host).wait()[
+                    :, :n_finals(host, bucket, S_SLOTS)]
                 g_logits = eng._pgraph.logits[:len(segs)].float().clone()
                 torch.cuda.synchronize()
                 g_launch = dict(LAUNCHES)
@@ -1491,13 +1529,14 @@ def prefill_phase(lm, card: str, config: str) -> dict:
                         f"K2 launches in the replay {k2} (expected {n_layers})")
                 # both write the same rows from the same inputs, so the
                 # repeats are idempotent
-                g_ms = [timed(lambda: eng._prefill_pack(bucket, continued, host))
+                g_ms = [timed(lambda: eng._prefill_pack(bucket, continued,
+                                                        host).wait())
                         for _ in range(PREFILL_REPS)]
                 e_ms = [timed(lambda: eng._prefill_eager(bucket, continued, host))
                         for _ in range(PREFILL_REPS)]
                 if (bucket, continued) == TRACED_PACK:
                     for way, fn in (("graph", lambda: eng._prefill_pack(
-                            bucket, continued, host)),
+                            bucket, continued, host).wait()),
                                     ("eager", lambda: eng._prefill_eager(
                                         bucket, continued, host))):
                         torch.cuda.synchronize()
@@ -1615,6 +1654,7 @@ def prefix_sequence(lm, eng, tag: str, config: str, trace: bool = False,
 
     from localai_tpu_torch.api.openai_routes import render_chat
     from localai_tpu_torch.backend import runner
+    from localai_tpu_torch.engine.prefill_graph import n_finals
     from localai_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
     tok = lm.tokenizer
@@ -1641,13 +1681,23 @@ def prefix_sequence(lm, eng, tag: str, config: str, trace: bool = False,
         return req
 
     firsts: dict = {}        # first-token logits of turns 2 and 3
+    box: dict = {}           # turn 2's traced window (``trace``)
     run_pack = eng._prefill_pack
 
     def pack_probe(bucket, continued, host, run_pack=run_pack):
         out = run_pack(bucket, continued, host)
-        key = firsts.pop("next", None) if out.shape[1] else None
+        finals = n_finals(host, bucket, S_SLOTS)
+        key = firsts.pop("next", None) if finals else None
         if key:                # the first pack that samples a first token
             firsts[key] = eng._pgraph.logits[0].float().clone()
+        if finals and "open" in box and "prof" not in box:
+            # the traced window ends when this pack's first tokens land,
+            # before a fused tick's burst is dispatched behind it
+            out.wait()
+            box["open"][1].__exit__(None, None, None)
+            torch.cuda.synchronize()
+            box["open"][0].__exit__(None, None, None)
+            box["prof"] = box["open"][0]
         return out
 
     eng._prefill_pack = pack_probe
@@ -1694,9 +1744,8 @@ def prefix_sequence(lm, eng, tag: str, config: str, trace: bool = False,
     m0 = eng.metrics()
     torch.cuda.synchronize()
     reset_launches()
-    box: dict = {}
     if trace:
-        prefill = eng._prefill_step
+        prefill = eng._dispatch_prefill
 
         def traced(prefill=prefill, box=box):
             if "prof" in box or not eng._prefill_queue:
@@ -1707,20 +1756,15 @@ def prefix_sequence(lm, eng, tag: str, config: str, trace: bool = False,
                                record_function(ANNOTATION))
                 for ctx in box["open"]:
                     ctx.__enter__()
-            ran = prefill()
-            if not eng._prefill_queue:      # the pack that sampled the first token
-                for ctx in reversed(box["open"]):
-                    ctx.__exit__(None, None, None)
-                box["prof"] = box["open"][0]
-            return ran
+            return prefill()      # pack_probe closes the window
 
-        eng._prefill_step = traced
+        eng._dispatch_prefill = traced
     firsts["next"] = "turn2"
     try:
         turn2, ttft2, last = run(request(p2, TURN_NEW))
     finally:
         if trace:
-            del eng._prefill_step
+            del eng._dispatch_prefill
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     m1 = eng.metrics()
@@ -2129,6 +2173,404 @@ def shift_phase(lm, card: str, config: str) -> dict:
             "seconds": wall}
 
 
+# ---------- phase 3f: the pipelined loop ----------
+
+# the synchronous loop the pipelined one is held against
+PIPE_SYNC = {"pipeline_depth": 1, "prefill_packed_fuse": "0"}
+# (a) byte gate: (prompt tokens, max_tokens, EOS forced by logit_bias)
+PIPE_GATE = [(30, 41, False), (1500, 300, False), (200, 95, True),
+             (700, 153, False), (64, 250, False), (1100, 77, True),
+             (450, 203, False), (90, 121, False)]
+# (b) mixed traffic: MIX_LONG generations decode while MIX_ARRIVALS long
+# prompts arrive MIX_SPACING_S apart
+MIX_LONG, MIX_LONG_PROMPT, MIX_LONG_TOKENS = 4, 100, 120
+MIX_ARRIVALS, MIX_PROMPT, MIX_TOKENS, MIX_SPACING_S = 4, 1500, 24, 0.1
+# (c) dedup: DEDUP_N identical requests against DEDUP_N whose last prompt
+# token differs; first-token logits held to phase 3c's tolerance
+DEDUP_N, DEDUP_PROMPT, DEDUP_TOKENS = 4, 1500, 32
+
+
+def pipe_requests(specs, eos):
+    """Greedy GenRequests for (prompt ids, max_tokens, EOS forced): a forced
+    one sets logit_bias +100 on EOS and stops on it."""
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.engine.sampling import SamplingParamsHost
+
+    return [GenRequest(prompt_ids=list(p), max_new_tokens=n, ignore_eos=not forced,
+                       params=SamplingParamsHost(temperature=0.0, logit_bias=(
+                           {eos: 100.0} if forced else {})))
+            for p, n, forced in specs]
+
+
+def collect(reqs, outs, tag):
+    """Reader threads (not started) for the requests' streams. Each fills
+    its entry of the returned list with ids, finish, completion_tokens,
+    reused rows and TTFT (host clock, submit to first event), and sets its
+    Event at the first event."""
+    res = [None] * len(outs)
+    firsts = [threading.Event() for _ in outs]
+
+    def read(i, req, out):
+        ids, last, t_first = [], None, None
+        while (ev := out.get(timeout=600)) is not None:
+            if ev.error:
+                res[i] = AssertionError(f"{tag} request {i}: {ev.error}")
+                firsts[i].set()
+                return
+            if t_first is None:
+                t_first = time.monotonic()
+                firsts[i].set()
+            ids.extend(ev.token_ids or [ev.token_id])
+            last = ev
+        res[i] = {"rid": req.request_id, "ids": ids, "finish": last.finish_reason,
+                  "completion_tokens": last.completion_tokens,
+                  "reused": last.timings["reused_prompt_tokens"],
+                  "ttft_ms": (t_first - req.t_submit) * 1e3}
+
+    threads = [threading.Thread(target=read, args=(i, r, o), daemon=True)
+               for i, (r, o) in enumerate(zip(reqs, outs))]
+    return res, threads, firsts
+
+
+def finish(res, threads, tag):
+    for t in threads:
+        t.join(timeout=900)
+    for r in res:
+        if not isinstance(r, dict):
+            raise r or AssertionError(f"{tag} a request did not end")
+    return res
+
+
+def run_together(eng, reqs, tag):
+    """Queue every request before the loop admits any (admission held),
+    then let it run; the per-request results once all ended."""
+    gate = threading.Event()
+    admit = eng._admit
+    eng._admit = lambda admit=admit, gate=gate: gate.is_set() and admit()
+    try:
+        res, threads, _f = collect(reqs, [eng.submit(r) for r in reqs], tag)
+        for t in threads:
+            t.start()
+        gate.set()
+        eng._wake.set()
+        return finish(res, threads, tag)
+    finally:
+        del eng._admit
+
+
+def idle_metrics(eng, tag):
+    """The engine's metrics once nothing is in flight; no slot may stay
+    taken and no page in use."""
+    t_end = time.monotonic() + 30
+    while eng.metrics()["pipeline"]["inflight"] and time.monotonic() < t_end:
+        time.sleep(0.01)
+    m = eng.metrics()
+    if m["active_slots"] or m["pipeline"]["inflight"] or m.get("pages_in_use", 0):
+        raise AssertionError(f"{tag} not idle after the run: {m['active_slots']} "
+                             f"slots, {m['pipeline']['inflight']} bursts in flight, "
+                             f"{m.get('pages_in_use')} pages in use")
+    return m
+
+
+def trace_gaps(prof):
+    """Over a torch.profiler trace's ANNOTATION window: the device's busy
+    share (the union of kernel, copy and memset intervals) of the window
+    and of the span from its first to its last device activity (the
+    window's lead-in and tail, host time at its two ends, apart), and its
+    idle gaps over 20 us, each classed by the work on its two sides, told apart
+    by their attention kernel (K2 in a pack, the decode kernel in a burst):
+    "decode->decode" (between bursts), "pack->pack" (between a prompt's
+    packs) and the mixed classes. None without device activity."""
+    from torch.autograd import DeviceType
+
+    evs = list(prof.events())
+    win = [e for e in evs if e.name == ANNOTATION and e.device_type == DeviceType.CPU]
+    if not win:
+        return None
+    t0, t1 = win[0].time_range.start, win[0].time_range.end
+    dev = sorted((max(e.time_range.start, t0), min(e.time_range.end, t1), e.name)
+                 for e in evs if e.device_type == DeviceType.CUDA
+                 and e.name != ANNOTATION and e.time_range.end > t0
+                 and e.time_range.start < t1)
+    if not dev:
+        return None
+    busy, cur_s, cur_e = 0.0, dev[0][0], dev[0][1]
+    kind, pending, classes = None, [], {}
+    for a, b, name in dev:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            if a - cur_e > 20:
+                pending.append((kind, a - cur_e))
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+        k = ("pack" if "ragged_prefill" in name
+             else "decode" if "_split_kernel" in name else None)
+        if k is not None:
+            for before, g in pending:
+                c = classes.setdefault(f"{before}->{k}", [0, 0.0])
+                c[0] += 1
+                c[1] += g / 1e3
+            pending, kind = [], k
+    busy += cur_e - cur_s
+    span = cur_e - dev[0][0]
+    return {"window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
+            "busy_share": busy / max(1e-9, t1 - t0),
+            "span_ms": span / 1e3, "span_busy_share": busy / max(1e-9, span),
+            "lead_in_ms": (dev[0][0] - t0) / 1e3, "tail_ms": (t1 - cur_e) / 1e3,
+            "gaps_over_20us": {c: {"count": n, "ms": ms}
+                               for c, (n, ms) in sorted(classes.items())}}
+
+
+def mixed_run(eng, gen, tag):
+    """(b): MIX_LONG generations decode; once all have their first token,
+    MIX_ARRIVALS long prompts arrive MIX_SPACING_S apart. From the first
+    arrival until every request ended the card runs under torch.profiler,
+    started and stopped on the engine thread. Every request must end with
+    completion_tokens == max_tokens."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    vocab = LLAMA31_8B["vocab_size"]
+    gc.collect()              # no collection of earlier traces in the TTFTs
+    longs = pipe_requests([(gen.integers(1000, vocab, MIX_LONG_PROMPT).tolist(),
+                            MIX_LONG_TOKENS, False) for _ in range(MIX_LONG)], 0)
+    arrivals = pipe_requests([(gen.integers(1000, vocab, MIX_PROMPT).tolist(),
+                               MIX_TOKENS, False) for _ in range(MIX_ARRIVALS)], 0)
+    res_l, th_l, first_l = collect(longs, [eng.submit(r) for r in longs], tag)
+    for t in th_l:
+        t.start()
+    for f in first_l:
+        f.wait(timeout=600)
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]),
+           record_function(ANNOTATION))
+    on_engine_thread(eng, lambda: [c.__enter__() for c in ctx])
+    res_a, th_a = [], []
+    for r in arrivals:           # each read from its submit on
+        res, th, _f = collect([r], [eng.submit(r)], tag)
+        th[0].start()
+        res_a.append(res)
+        th_a += th
+        time.sleep(MIX_SPACING_S)
+    for t in th_a:
+        t.join(timeout=900)
+    res_a = finish([r[0] for r in res_a], [], tag)
+    finish(res_l, th_l, tag)
+
+    def stop():
+        ctx[1].__exit__(None, None, None)
+        torch.cuda.synchronize()
+        ctx[0].__exit__(None, None, None)
+
+    on_engine_thread(eng, stop)
+    bad = [(r["completion_tokens"], len(r["ids"]), want) for r, want in
+           [(r, MIX_LONG_TOKENS) for r in res_l] + [(r, MIX_TOKENS) for r in res_a]
+           if r["completion_tokens"] != want or len(r["ids"]) != want]
+    if bad:
+        raise AssertionError(f"{tag} completion_tokens != max_tokens: {bad}")
+    m = idle_metrics(eng, tag)
+    return {"ttft_ms": [r["ttft_ms"] for r in res_a], "trace": trace_gaps(ctx[0]),
+            "pipeline": m["pipeline"]}
+
+
+def dedup_run(eng, gen, tag):
+    """(c): the control group (DEDUP_N prompts whose last token differs),
+    then the identical group, each queued together on the engine with
+    nothing retained (forget_retained), so only the fork can reuse rows.
+    Per group: pack tokens, reused rows, TTFTs (host clock), the packs'
+    device ms (CUDA events around each pack) and each request's
+    first-token logits; for the identical group, the fewest references
+    on the leader's full prompt pages right after its siblings forked."""
+    import torch
+
+    from localai_tpu_torch.engine.prefill_graph import split_pack
+
+    vocab = LLAMA31_8B["vocab_size"]
+    base = gen.integers(1000, vocab, DEDUP_PROMPT).tolist()
+    groups = {"control": [base[:-1] + [1000 + i] for i in range(DEDUP_N)],
+              "dedup": [list(base) for _ in range(DEDUP_N)]}
+    out = {}
+    for name, prompts in groups.items():
+        on_engine_thread(eng, lambda: forget_retained(eng))
+        gc.collect()          # no collection of earlier traces in the TTFTs
+        logits, events, refs = {}, [], []
+
+        def pack_probe(bucket, continued, host, run_pack=eng._prefill_pack):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            f = run_pack(bucket, continued, host)
+            b.record()
+            events.append((a, b))
+            v = split_pack(host, bucket, S_SLOTS)
+            for r in range(int(v["final_mask"].sum())):
+                s = eng.slots[int(v["seg_slots"][r])]
+                logits[s.req.request_id] = eng._pgraph.logits[r].float().clone()
+            return f
+
+        def fork_probe(leader, lsnap, fork=eng._process_fork_waiters):
+            waited = lsnap in eng._fork_waiters
+            fork(leader, lsnap)
+            if waited and eng._pool is not None and eng.slots[leader] is lsnap:
+                full = eng._pool.ptab[leader, :(DEDUP_PROMPT - 1) // PG]
+                refs.append(min(int(eng._pool.refs[p]) for p in full))
+
+        eng._prefill_pack, eng._process_fork_waiters = pack_probe, fork_probe
+        m0 = eng.metrics()
+        try:
+            res = run_together(eng, pipe_requests(
+                [(p, DEDUP_TOKENS, False) for p in prompts], 0), f"{tag} {name}")
+        finally:
+            del eng._prefill_pack, eng._process_fork_waiters
+        torch.cuda.synchronize()
+        m1 = idle_metrics(eng, f"{tag} {name}")
+        out[name] = {
+            "pack_tokens": m1["packed_prefill"]["tokens"] - m0["packed_prefill"]["tokens"],
+            "packs": m1["packed_prefill"]["dispatches"] - m0["packed_prefill"]["dispatches"],
+            "reused": [r["reused"] for r in res], "ttft_ms": [r["ttft_ms"] for r in res],
+            "prefill_device_ms": sum(a.elapsed_time(b) for a, b in events),
+            "ids": [r["ids"] for r in res],
+            "logits": [logits[r["rid"]] for r in res],
+            "completion_tokens": [r["completion_tokens"] for r in res],
+            "fork": {k: m1["fork"][k] - m0["fork"][k] for k in m1["fork"]},
+            "refs": refs}
+    return out
+
+
+def pipeline_phase(lm, card: str, config: str) -> dict:
+    """Phase 3f on the loaded model (module doc): the pipelined loop (the
+    defaults: pipeline_depth 2, the split fused tick) against the
+    synchronous one (pipeline_depth 1, prefill_packed_fuse "0"), each on
+    an engine of its own over the same weights, one after the other: (a)
+    the byte gate, (b) mixed traffic under torch.profiler, and on the
+    pipelined engine (c) in-flight prefill dedup."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from localai_tpu_torch.engine.engine import Engine
+
+    tag = f"[pipeline {config}]"
+    eos = lm.tokenizer.eos_token_id
+    vocab = LLAMA31_8B["vocab_size"]
+    gen = np.random.default_rng(SEED + 13)
+    gate_specs = [(gen.integers(1000, vocab, n).tolist(), k, forced)
+                  for n, k, forced in PIPE_GATE]
+    runs = {}
+    for way, knobs in (("sync", PIPE_SYNC), ("pipe", {})):
+        eng = Engine(lm.cfg, lm.engine.params, lm.tokenizer,
+                     dataclasses.replace(lm.engine.ecfg, **knobs), device=DEV).start()
+        try:
+            t0 = time.monotonic()
+            m0 = eng.metrics()
+            gate = run_together(eng, pipe_requests(gate_specs, eos), f"{tag} {way}")
+            m1 = idle_metrics(eng, f"{tag} {way}")
+            r = {"gate": gate, "gate_s": time.monotonic() - t0,
+                 "gate_pipeline": m1["pipeline"],
+                 "gate_packs": m1["packed_prefill"]["dispatches"]
+                 - m0["packed_prefill"]["dispatches"]}
+            r["mixed"] = mixed_run(eng, np.random.default_rng(SEED + 17),
+                                   f"{tag} {way} mixed")
+            if way == "pipe":
+                r["dedup"] = dedup_run(eng, np.random.default_rng(SEED + 19),
+                                       f"{tag} dedup")
+            runs[way] = r
+        finally:
+            eng.shutdown()
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    sync, pipe = runs["sync"], runs["pipe"]
+    # (a) identical greedy tokens, request by request; every request ends
+    # as it must; two bursts were in flight at the defaults, one at depth 1
+    for way in ("sync", "pipe"):
+        for (n, k, forced), r in zip(PIPE_GATE, runs[way]["gate"]):
+            want = ("stop", 1) if forced else ("length", k)
+            if (r["finish"], r["completion_tokens"]) != want:
+                raise AssertionError(f"{tag} {way}: a {n}-token request ended "
+                                     f"{r['finish']!r} after {r['completion_tokens']} "
+                                     f"tokens, expected {want}")
+    same = [a["ids"] == b["ids"] for a, b in zip(sync["gate"], pipe["gate"])]
+    if not all(same):
+        raise AssertionError(f"{tag} greedy tokens differ between depth 1 / \"0\" "
+                             f"and the defaults, request by request: {same}")
+    if (pipe["gate_pipeline"]["max_inflight"] != 2
+            or sync["gate_pipeline"]["max_inflight"] != 1):
+        raise AssertionError(f"{tag} bursts in flight: defaults "
+                             f"{pipe['gate_pipeline']}, depth 1 {sync['gate_pipeline']}")
+    log(f"{tag} {card}: (a) {len(PIPE_GATE)} requests queued together (prompts "
+        f"{[n for n, _k, _f in PIPE_GATE]} tokens, max_tokens "
+        f"{[k for _n, k, _f in PIPE_GATE]}, 2 stopped on EOS by logit_bias): greedy "
+        f"tokens identical request by request at depth 1 / \"0\" and at the "
+        f"defaults; {sync['gate_packs']} vs {pipe['gate_packs']} packs; wall "
+        f"{sync['gate_s']:.2f} vs {pipe['gate_s']:.2f} s (host clock); defaults' "
+        f"loop {json.dumps(pipe['gate_pipeline'])}; no page in use at idle")
+    for way in ("sync", "pipe"):
+        mx = runs[way]["mixed"]
+        tr = mx["trace"]
+        log(f"{tag} {card}: (b) {way}: {MIX_ARRIVALS} x {MIX_PROMPT}-token arrivals "
+            f"{MIX_SPACING_S * 1e3:.0f} ms apart over {MIX_LONG} decoding requests: "
+            f"arrivals' TTFT {', '.join(f'{t:.1f}' for t in mx['ttft_ms'])} ms (host "
+            f"clock, submit to first token); "
+            + (f"device busy {tr['device_busy_ms']:.1f} ms = "
+               f"{tr['span_busy_share'] * 100:.1f}% of the {tr['span_ms']:.1f} ms "
+               f"from the first to the last device activity "
+               f"({tr['busy_share'] * 100:.1f}% of the {tr['window_ms']:.1f} ms "
+               f"traced window: {tr['lead_in_ms']:.1f} ms lead-in, "
+               f"{tr['tail_ms']:.1f} ms tail); idle gaps over 20 us by the work "
+               f"on their sides {json.dumps(tr['gaps_over_20us'])}" if tr else
+               "the profiler recorded no device activity (not measured)")
+            + f"; completion_tokens == max_tokens for all; loop "
+              f"{json.dumps(mx['pipeline'])}")
+    # (c)
+    dd, ctl = pipe["dedup"]["dedup"], pipe["dedup"]["control"]
+    want_tokens = DEDUP_PROMPT + DEDUP_N - 1
+    if (dd["pack_tokens"] != want_tokens
+            or sorted(dd["reused"]) != [0] + [DEDUP_PROMPT - 1] * (DEDUP_N - 1)):
+        raise AssertionError(f"{tag} dedup: pack tokens {dd['pack_tokens']} "
+                             f"(expected {want_tokens}), reused rows {dd['reused']} "
+                             f"(expected one 0, the rest {DEDUP_PROMPT - 1})")
+    if ctl["pack_tokens"] != DEDUP_N * DEDUP_PROMPT or any(ctl["reused"]):
+        raise AssertionError(f"{tag} control: pack tokens {ctl['pack_tokens']}, "
+                             f"reused rows {ctl['reused']}")
+    if dd["fork"]["forked"] != DEDUP_N - 1 or not dd["refs"] or min(dd["refs"]) < 2:
+        raise AssertionError(f"{tag} dedup: fork {dd['fork']}, references on the "
+                             f"leader's prompt pages after the fork {dd['refs']}")
+    lead = dd["reused"].index(0)
+    ref = dd["logits"][lead]
+    sibs = [i for i in range(DEDUP_N) if i != lead]
+    same_ids = sum(dd["ids"][i] == dd["ids"][lead] for i in sibs)
+    errs = [float((dd["logits"][i] - ref).norm() / ref.norm()) for i in sibs]
+    bad = [(i, e) for i, e in zip(sibs, errs)
+           if dd["ids"][i] != dd["ids"][lead] and not e <= PREFIX_LOGITS_RTOL]
+    if bad or not all(bool(torch.isfinite(x).all()) for x in dd["logits"]):
+        raise AssertionError(f"{tag} dedup: siblings whose tokens differ from the "
+                             f"leader's and whose first-token logits lie beyond "
+                             f"{PREFIX_LOGITS_RTOL} relative L2: {bad}")
+    log(f"{tag} {card}: (c) {DEDUP_N} identical {DEDUP_PROMPT}-token greedy "
+        f"requests: {dd['pack_tokens']} pack tokens in {dd['packs']} packs, reused "
+        f"rows {dd['reused']}, fork {json.dumps(dd['fork'])}, fewest references on "
+        f"the leader's prompt pages after the fork {min(dd['refs'])}; "
+        f"{same_ids} of {DEDUP_N - 1} siblings' tokens equal the leader's, their "
+        f"first-token logits vs the leader's relative L2 "
+        f"{', '.join(f'{e:.3e}' for e in errs)} (tol {PREFIX_LOGITS_RTOL}); TTFT "
+        f"{', '.join(f'{t:.1f}' for t in dd['ttft_ms'])} ms, packs' device time "
+        f"{dd['prefill_device_ms']:.2f} ms; control (last token differs): "
+        f"{ctl['pack_tokens']} pack tokens in {ctl['packs']} packs, TTFT "
+        f"{', '.join(f'{t:.1f}' for t in ctl['ttft_ms'])} ms, packs' device time "
+        f"{ctl['prefill_device_ms']:.2f} ms")
+    out = {way: {"gate_s": r["gate_s"], "gate_packs": r["gate_packs"],
+                 "gate_pipeline": r["gate_pipeline"], "mixed": r["mixed"]}
+           for way, r in runs.items()}
+    out["gate_identical"] = sum(same)
+    out["dedup"] = {name: {k: v for k, v in g.items() if k not in ("ids", "logits")}
+                    for name, g in pipe["dedup"].items()}
+    out["dedup"]["siblings_same_tokens"] = same_ids
+    out["dedup"]["sibling_logits_rel_l2"] = errs
+    return out
+
+
 # ---------- phase 4 ----------
 
 def decode_cost(lengths, elt, cache_elt=None, scales=False, table=True):
@@ -2513,6 +2955,9 @@ def main():
                       "card": card}), flush=True)
     print(json.dumps({"context_shift": {c: shapes[c]["shift"] for c in shapes
                                         if shapes[c]["shift"]},
+                      "card": card}), flush=True)
+    print(json.dumps({"pipeline": {c: shapes[c]["pipeline"] for c in shapes
+                                   if shapes[c]["pipeline"]},
                       "card": card}), flush=True)
     for c in shapes:
         p = shapes[c]["prefill"]

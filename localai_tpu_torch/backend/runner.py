@@ -96,8 +96,11 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
     before any weight is loaded: an unknown quantization raises
     ValueError (serving dense weights instead would fake the memory
     saving); int8 KV with the contiguous layout raises
-    NotImplementedError. A GPTQ / AWQ dir with no quantization loads as
-    int8."""
+    NotImplementedError. ``engine_knobs`` are EngineConfig fields with the
+    JAX engine's names (prefill_chunk, decode_burst, pipeline_depth,
+    prefill_packed_fuse, ...), checked before loading too
+    (``EngineConfig.check``). A GPTQ / AWQ dir with no quantization loads
+    as int8."""
     dev = resolve_device(device)
     if dtype == "int8":
         dtype, quantization = "bfloat16", quantization or "int8"
@@ -112,6 +115,12 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
         raise NotImplementedError(
             "kv_cache_dtype int8 with kv_layout contiguous is not ported; "
             "use kv_layout paged (or auto) for an int8 cache")
+    # engine knobs are checked here too, before any weight is loaded
+    # (an unknown prefill_packed_fuse, a pipeline_depth below 1)
+    ecfg = EngineConfig(num_slots=num_slots, max_context=context_size,
+                        cache_dtype=cache_dtype, kv_layout=kv_layout,
+                        **engine_knobs)
+    ecfg.check()
     with open(os.path.join(model_dir, "config.json")) as f:
         hf = json.load(f)
     cfg = LlamaConfig.from_hf_config(hf, dtype=DTYPES[dtype])
@@ -126,9 +135,6 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
             f"no .safetensors in {model_dir}; pass random_weights=SEED "
             f"(CLI: --random-weights SEED) to serve random weights")
     tok = load_tokenizer(model_dir)
-    ecfg = EngineConfig(num_slots=num_slots, max_context=context_size,
-                        cache_dtype=cache_dtype, kv_layout=kv_layout,
-                        **engine_knobs)
     engine = Engine(cfg, params, tok, ecfg, device=dev).start()
     quantized = isinstance(params.get("embed"), dict)
     return LoadedModel(name or os.path.basename(os.path.normpath(model_dir)),

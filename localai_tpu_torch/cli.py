@@ -5,6 +5,7 @@
         [--dtype bfloat16] [--quantization int8|int4] \\
         [--kv-cache-dtype int8] [--kv-layout contiguous] \\
         [--kv-page-size 64] [--prefill-chunk 512] [--decode-burst 16] \\
+        [--pipeline-depth 2] [--prefill-packed-fuse auto] \\
         [--random-weights SEED] [--device cuda]
 
 serves one model over the OpenAI-compatible HTTP routes until
@@ -43,6 +44,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="max prompt tokens per slot per prefill tick")
     r.add_argument("--decode-burst", type=int, default=16,
                    help="decode steps per host sync")
+    r.add_argument("--pipeline-depth", type=int, default=2,
+                   help="decode bursts in flight (1 waits for every burst)")
+    r.add_argument("--prefill-packed-fuse", default="auto",
+                   help="auto (= split) | split | 1 | 0: chain a decode "
+                        "burst behind a pack with final segments")
     r.add_argument("--random-weights", type=int, default=None, metavar="SEED",
                    help="serve random weights from SEED for a config-only dir")
     r.add_argument("--device", default="cuda")
@@ -64,7 +70,9 @@ def main(argv=None) -> int:
                     kv_cache_dtype=args.kv_cache_dtype, kv_layout=args.kv_layout,
                     kv_page_size=args.kv_page_size,
                     prefill_chunk=args.prefill_chunk,
-                    decode_burst=args.decode_burst)
+                    decode_burst=args.decode_burst,
+                    pipeline_depth=args.pipeline_depth,
+                    prefill_packed_fuse=args.prefill_packed_fuse)
     app = App({lm.name: lm})
     server = make_server(app, host or "127.0.0.1", int(port))
     logging.getLogger(__name__).info("serving %s on http://%s:%d", lm.name,

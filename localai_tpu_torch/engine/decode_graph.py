@@ -29,14 +29,32 @@ replays of one graph followed by one host read of ``out``. One step
 replayed n times needs one capture where a graph per burst length would
 need one each; a replay costs the host tens of microseconds against a
 step of milliseconds. A shared pool is safe: the two graphs never run
-at once, and what the host reads (``out``) is a static buffer.
+at once (one stream), and what the host reads (``out``) is a static
+buffer.
 
-On CPU tensors ``run`` calls the same step body eagerly: that is the
+CHAINED BURSTS (the JAX engine's chain and override set, ``_override``
+/ ``_compose_overrides``): a burst starts from the previous burst's final
+``tokens`` and ``lengths``, which are already in the static buffers, so
+the engine can dispatch burst N+1 before it has read burst N. ``load``
+overwrites only the rows the host changed since (one [4, S] host array
+copied in stream order: the active mask, an override mask, and the
+overriding tokens and lengths; ``torch.where`` applies them on the
+device), and ``fold`` writes a pack's sampled first tokens and lengths
+into the finals' rows on the device (the split fused tick, the JAX
+``_split_head_body``'s fold), with no host data at all. ``replay`` then
+runs the steps and starts the copy of ``out`` to the host (a
+transfer.Fetch), without waiting. ``step`` and ``out`` are reused by the
+next burst: that burst's replays come after this one's copy in stream
+order. ``run`` is the synchronous form (every row loaded from the host,
+the steps, the wait) that the graph / eager parity checks use.
+
+On CPU tensors ``replay`` calls the same step body eagerly: that is the
 plain version the tests check, not a fallback. On CUDA there is no path
 back to an eager loop: a burst before capture, or a failed capture or
 replay of either variant, raises. ``eager_burst`` (the loop the engine
 ran before the graph) stays as the reference that chip_smoke.py and the
-card tests hold the graphs against; serving never selects it.
+card tests hold the graphs against (``eager`` runs it from the chained
+buffers); serving never selects it.
 
 Kernel launch counts (ops/kernels::LAUNCHES) are taken in Python by the
 wrappers, which a replay does not run: ``capture`` takes back what the
@@ -52,6 +70,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from localai_tpu_torch.engine.transfer import Fetch, to_device
 from localai_tpu_torch.models import llama
 from localai_tpu_torch.ops.kernels import LAUNCHES
 
@@ -79,6 +98,9 @@ class DecodeGraph:
         self.out = torch.zeros((max_steps, 2, S), dtype=torch.float64,
                                device=dev)
         self.step = torch.zeros(1, dtype=torch.int64, device=dev)
+        # load's staged host rows: active, override mask, tokens, lengths
+        self.stage = torch.zeros((4, S), dtype=torch.int64, device=dev)
+        self._slots = torch.arange(S, device=dev)
         self.logits: Optional[torch.Tensor] = None   # the last step's [S, V]
         self.graphs: dict = {}        # full (bool) -> CUDAGraph
         self.launches: dict = {}      # full -> LAUNCHES added per replay
@@ -102,7 +124,7 @@ class DecodeGraph:
         return logits
 
     def _reset(self):
-        for t in (self.tokens, self.lengths, self.active, self.step):
+        for t in (self.tokens, self.lengths, self.active, self.step, self.stage):
             t.zero_()
 
     def capture(self):
@@ -157,12 +179,38 @@ class DecodeGraph:
         self._logits.clear()
         self.logits = None
 
-    def run(self, tokens: np.ndarray, lengths: np.ndarray, active: np.ndarray,
-            n_steps: int, full: bool = False) -> np.ndarray:
-        """A burst of ``n_steps`` from the host's per-slot tokens, lengths
-        and active mask, with the plain or the ``full`` sampler: one copy
-        in, the steps (graph replays on CUDA, the step body on the CPU),
-        one copy out. Returns [n_steps, 2, S] float64 (ids, logprobs)."""
+    def load(self, host: np.ndarray):
+        """Chain the next burst onto the device state: ``host`` [4, S]
+        int64 holds the active mask, the override mask, and the tokens and
+        lengths of the overridden rows (the other rows keep the previous
+        burst's). One copy in, in stream order; nothing waits."""
+        to_device(self.stage, host)
+        self.active.copy_(self.stage[0] != 0)
+        ov = self.stage[1] != 0
+        self.tokens.copy_(torch.where(ov, self.stage[2], self.tokens))
+        self.lengths.copy_(torch.where(ov, self.stage[3].to(torch.int32),
+                                       self.lengths))
+
+    def fold(self, pack: dict, ids: torch.Tensor):
+        """The split fused tick's hand-over, on the device: each final
+        segment of ``pack`` (prefill_graph.split_pack views of a device
+        pack buffer) gives its slot's token (its sampled first token, from
+        ``ids`` [R]) and length (seg_start + seg_len); pad and non-final
+        rows change nothing."""
+        hit = ((pack["seg_slots"].to(torch.int64)[:, None] == self._slots[None, :])
+               & (pack["final_mask"] != 0)[:, None])                  # [R, S]
+        fin = hit.any(dim=0)
+        tok = (hit * ids.to(torch.int64)[:, None]).sum(dim=0)
+        end = (pack["seg_start"] + pack["seg_len"]).to(torch.int64)
+        self.tokens.copy_(torch.where(fin, tok, self.tokens))
+        self.lengths.copy_(torch.where(fin, (hit * end[:, None]).sum(dim=0).to(
+            torch.int32), self.lengths))
+
+    def replay(self, n_steps: int, full: bool = False) -> Fetch:
+        """``n_steps`` steps from the chained state, with the plain or the
+        ``full`` sampler (graph replays on CUDA, the step body on the
+        CPU), then the copy of their [n_steps, 2, S] float64 ids and
+        logprobs to the host, started and not waited for."""
         if not 1 <= n_steps <= self.out.shape[0]:
             raise ValueError(f"burst of {n_steps} steps; the buffer holds "
                              f"{self.out.shape[0]}")
@@ -170,13 +218,6 @@ class DecodeGraph:
         if self.device.type == "cuda" and graph is None:
             raise RuntimeError(f"decode graph (full={full}) not captured "
                                f"(Engine.start captures both on the card)")
-        host = np.stack([np.asarray(tokens, np.int64),
-                         np.asarray(lengths, np.int64),
-                         np.asarray(active, np.int64)])
-        staged = torch.from_numpy(host).to(self.device)    # one copy in
-        self.tokens.copy_(staged[0])
-        self.lengths.copy_(staged[1])
-        self.active.copy_(staged[2] != 0)
         self.step.zero_()
         for _ in range(n_steps):
             if graph is None:
@@ -186,7 +227,31 @@ class DecodeGraph:
                 for k, n in self.launches[full].items():
                     LAUNCHES[k] += n
                 self.logits = self._logits[full]
-        return self.out[:n_steps].to("cpu", copy=True).numpy()   # ONE sync
+        return Fetch(self.out[:n_steps])
+
+    def eager(self, n_steps: int, full: bool = False) -> np.ndarray:
+        """The eager per-step loop (``eager_burst``) from the chained state,
+        its final tokens and lengths written back as a replay leaves them:
+        the reference serving never selects. Syncs."""
+        tok = self.tokens.cpu().numpy()
+        lens = self.lengths.cpu().numpy()
+        act = self.active.cpu().numpy()
+        out = eager_burst(self.params, self.cfg, self.ck, self.cv, self.sampler,
+                          tok, lens, act, n_steps, full=full)
+        to_device(self.tokens, np.where(act, out[-1, 0].astype(np.int64), tok))
+        to_device(self.lengths, (lens + act * n_steps).astype(np.int32))
+        return out
+
+    def run(self, tokens: np.ndarray, lengths: np.ndarray, active: np.ndarray,
+            n_steps: int, full: bool = False) -> np.ndarray:
+        """A burst from the host's per-slot tokens, lengths and active mask
+        (every row loaded), with the plain or the ``full`` sampler, waited
+        for. Returns [n_steps, 2, S] float64 (ids, logprobs)."""
+        S = self.tokens.shape[0]
+        self.load(np.stack([np.asarray(active, np.int64), np.ones(S, np.int64),
+                            np.asarray(tokens, np.int64),
+                            np.asarray(lengths, np.int64)]))
+        return self.replay(n_steps, full).wait()
 
 
 def eager_burst(params: dict, cfg: llama.LlamaConfig, cache_k: dict,

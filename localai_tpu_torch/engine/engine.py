@@ -70,15 +70,51 @@ What this slice keeps of the JAX engine, with the same knob names:
     from the kept window, its RNG counter and mirostat mu carry on. With
     ``context_shift=False`` such a slot finishes with "length".
 
-Prefill and decode run as separate ticks (the JAX engine's
-``prefill_packed_fuse="0"``); greedy output does not depend on that.
+  * THE PIPELINED LOOP (the JAX engine's default loop, with its knobs
+    and defaults): a pack or a burst is DISPATCHED (device work and the
+    copy of its results to pinned host memory queued on the engine
+    thread's one CUDA stream, nothing waited for; engine/transfer.py)
+    into a FIFO and PROCESSED later, in dispatch order (its tokens read
+    and emitted). Up to ``pipeline_depth`` bursts (default 2) are in
+    flight: the loop processes the oldest only when the pipeline is full
+    or it can dispatch nothing more, so the host emits burst N while
+    burst N+1 runs. Burst N+1 starts from burst N's final tokens and
+    lengths on the device (decode_graph.py's chained state); the host
+    overrides only the rows it changed since (``_override``: slots a
+    processed pack activated). A slot's steps in flight count against its
+    budget and the cache edge (``_inflight_vec``); a slot that finished,
+    shifted or was cancelled in burst N has already ridden N+1, whose
+    tokens for it are dropped (the snapshot test and ``_Burst.skip``),
+    and its rows past ``committed`` are never reused. On the CPU a
+    dispatch has finished when it returns, but it is processed by the
+    same FIFO rule, so the tests see the same hazards as the card.
+    ``prefill_packed_fuse`` (the JAX values; "auto" = "split"): a pack
+    with final segments, while the pipeline has room and a full burst
+    is runnable, is followed on the device, with no host sync between,
+    by the fold of its first tokens into the decode state and a burst
+    of ``decode_burst`` steps (the split fused tick); the first tokens
+    are emitted when their own copy lands, while the burst still runs
+    ("split"), or with the burst ("1"); "0" keeps packs and bursts
+    apart. ``pipeline_depth=1`` with ``"0"`` is the loop before this
+    slice: each pack and each burst is waited for in its own tick;
+  * IN-FLIGHT PREFILL DEDUP (the JAX engine's fork): requests admitted
+    together with the same prompt and ``min(max_new_tokens,
+    max_context // 4)`` prefill once. The first is the leader; each other
+    one (a sibling) installs its sampling state and waits ("fork_wait")
+    until the leader's final pack is processed, then takes the leader's
+    first ``len(prompt) - 1`` rows (paged: its pages shared, the boundary
+    page cloned; contiguous: the rows copied) and prefills only the last
+    prompt token to sample its own first token. A leader cancelled,
+    failed or gone before that downgrades its siblings to full prefills.
+
 Left for later slices: the host tier of prefix reuse (kv_offload), the
-snap-back window, speculation, grammar, preemption, self-extend and the
-replica pool.
+snap-back window, speculation, grammar, preemption, self-extend, the
+emitter thread and the replica pool.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import queue
@@ -89,16 +125,16 @@ import zlib
 from typing import Any, Iterator, Optional
 
 import numpy as np
-import torch
 
 from localai_tpu_torch import resolve_device
 from localai_tpu_torch.engine import sampling
-from localai_tpu_torch.engine.decode_graph import DecodeGraph, eager_burst
+from localai_tpu_torch.engine.decode_graph import DecodeGraph
 from localai_tpu_torch.engine.detok import IncrementalDetokenizer
 from localai_tpu_torch.engine.paging import PagePool, PoolExhausted
 from localai_tpu_torch.engine.prefill_graph import (
     PrefillGraph, eager_pack, new_pack, split_pack)
 from localai_tpu_torch.engine.prefix_cache import PrefixPageCache, build_scope
+from localai_tpu_torch.engine.transfer import Fetch, to_device
 from localai_tpu_torch.models import llama
 from localai_tpu_torch.ops import kvcache
 from localai_tpu_torch.ops.ragged_prefill import kernel_supports
@@ -106,6 +142,8 @@ from localai_tpu_torch.ops.ragged_prefill import kernel_supports
 log = logging.getLogger(__name__)
 
 KV_LAYOUTS = ("auto", "paged", "contiguous")   # auto = paged
+# prefill_packed_fuse values (the JAX engine's): auto = split
+PACKED_FUSE = ("auto", "0", "1", "split")
 
 
 @dataclasses.dataclass
@@ -137,6 +175,30 @@ class EngineConfig:
     # at the cache edge re-prefill the last max_context // 2 tokens and
     # keep generating; False finishes the request with "length"
     context_shift: bool = True
+    # decode bursts in flight (module doc): 2 processes burst N while N+1
+    # runs on the card; 1 waits for every burst
+    pipeline_depth: int = 2
+    # PACKED_FUSE (module doc): "split" (= "auto") chains a burst behind a
+    # pack with final segments and emits their first tokens while it
+    # runs; "1" emits them with the burst; "0" dispatches apart
+    prefill_packed_fuse: str = "auto"
+
+    def check(self):
+        """Refuse values the engine does not take (ValueError), before
+        anything is loaded: the loop knobs, as the JAX model config
+        refuses a prefill_packed_fuse outside its set, and the layout."""
+        if str(self.prefill_packed_fuse) not in PACKED_FUSE:
+            raise ValueError(f"prefill_packed_fuse must be "
+                             f"{'|'.join(PACKED_FUSE)}, got "
+                             f"{self.prefill_packed_fuse!r}")
+        if (not isinstance(self.pipeline_depth, int)
+                or isinstance(self.pipeline_depth, bool)
+                or self.pipeline_depth < 1):
+            raise ValueError(f"pipeline_depth must be an int >= 1, got "
+                             f"{self.pipeline_depth!r}")
+        if self.kv_layout not in KV_LAYOUTS:
+            raise ValueError(f"kv_layout must be {'|'.join(KV_LAYOUTS)}, got "
+                             f"{self.kv_layout!r}")
 
 
 @dataclasses.dataclass
@@ -206,12 +268,49 @@ class _Slot:
         self.t_first_token = 0.0
         self.n_decoded = 0
         self.t_prefill_ms = 0.0
-        self.phase = "prefill"   # "prefill" -> "decode"
+        # "prefill" -> "decode"; a fork sibling starts in "fork_wait"
+        self.phase = "prefill"
         self.pending: list = []  # prompt tokens not yet prefilled
         self.written = 0         # cache rows holding this request's tokens
         self.cache_len = 0       # rows the next decode step writes at
         self.committed = 0       # rows whose KV write has run
         self.reused = 0          # prompt rows reused from earlier requests
+
+
+class _Pack:
+    """A dispatched pack with final segments, awaiting its first tokens
+    (the JAX engine's _PendingPrefill). ``group``: the finals' (slot,
+    _Slot) in pack row order. A ``split`` pack is the head of a fused
+    tick: its slots were switched to decode at dispatch and ``burst`` is
+    the burst chained behind it."""
+    __slots__ = ("group", "fetch", "t0", "split", "burst", "processed")
+
+    def __init__(self, group, fetch: Fetch, t0: float, split: bool = False):
+        self.group = group
+        self.fetch = fetch
+        self.t0 = t0
+        self.split = split
+        self.burst = None
+        self.processed = False
+
+
+class _Burst:
+    """A dispatched decode burst awaiting processing (the JAX engine's
+    _Burst). ``slots``: the (slot, _Slot) it decodes, snapshotted at
+    dispatch; ``group`` / ``head``: a fused tick's finals and its pack;
+    ``skip``: slots whose tokens in it must be dropped (context-shifted
+    after the dispatch)."""
+    __slots__ = ("n_steps", "slots", "fetch", "group", "head", "skip", "t0")
+
+    def __init__(self, n_steps: int, slots: list, fetch: Fetch, t0: float,
+                 group=(), head: Optional[_Pack] = None):
+        self.n_steps = n_steps
+        self.slots = slots
+        self.fetch = fetch
+        self.t0 = t0
+        self.group = list(group)
+        self.head = head
+        self.skip: set = set()
 
 
 class Engine:
@@ -225,9 +324,7 @@ class Engine:
         self.params = params
         self.tokenizer = tokenizer
         S, C = self.ecfg.num_slots, self.ecfg.max_context
-        if self.ecfg.kv_layout not in KV_LAYOUTS:
-            raise ValueError(f"kv_layout must be {'|'.join(KV_LAYOUTS)}, got "
-                             f"{self.ecfg.kv_layout!r}")
+        self.ecfg.check()
         self.kv_layout = ("contiguous" if self.ecfg.kv_layout == "contiguous"
                           else "paged")
         self.cache_dtype = self.ecfg.cache_dtype or model_cfg.dtype
@@ -287,10 +384,32 @@ class Engine:
                                     self.sampler, S, C, self._pack_buckets,
                                     self.device)
         self._sink: Optional[dict] = None   # per-slot event coalescing
+        # the pipelined loop (module doc): dispatched _Pack / _Burst items
+        # in dispatch order; slots whose decode state the next burst takes
+        # from the host mirrors; fork siblings by their leader's _Slot
+        self._fifo: collections.deque = collections.deque()
+        self._override: set = set()
+        self._fork_waiters: dict = {}
+        self._fuse = {"0": "off", "1": "mono"}.get(
+            str(self.ecfg.prefill_packed_fuse), "split")
+        self._t_last_burst = 0.0
+        # max_inflight: the most bursts in flight at once; head_emits:
+        # first tokens a split head emitted before its burst was read
+        # (head_emits_running: while the card still ran it); dropped_steps:
+        # slot-steps computed for a slot that had finished, shifted or
+        # been cancelled
+        self._pipe_stats = {"max_inflight": 0, "head_emits": 0,
+                            "head_emits_running": 0, "dropped_steps": 0}
+        # siblings: requests that waited on a leader; forked: those that
+        # took its rows (rows_shared in all); downgraded: full prefills
+        self._fork_stats = {"siblings": 0, "forked": 0, "downgraded": 0,
+                            "rows_shared": 0}
         # counters exposed by metrics(); pad_tokens counts the bucket's pad
         # rows; kernel_fallback counts packs whose head shapes the K2
-        # kernel cannot take — it must stay 0 ("seconds": host wall time
-        # of the ticks, device sync included)
+        # kernel cannot take — it must stay 0 ("seconds", host wall: a
+        # pack's dispatch, and for one with finals until its first tokens
+        # were read; a burst's dispatch until it was read, less the
+        # overlap with the burst read before it)
         self._pack_stats = {"dispatches": 0, "tokens": 0, "segments": 0,
                             "pad_tokens": 0, "continued": 0,
                             "kernel_fallback": 0, "seconds": 0.0}
@@ -328,6 +447,8 @@ class Engine:
                 self._graph.free()
                 self._pgraph.free()
             self._thread = None
+        self._fifo.clear()
+        self._fork_waiters.clear()
         err = StreamEvent(token_id=-1, text="", logprob=0.0,
                           finish_reason="stop", error="engine shut down")
         for i, s in enumerate(self.slots):
@@ -391,6 +512,10 @@ class Engine:
                                  "buckets": list(self._pack_buckets),
                                  "capture_seconds": self._pgraph.capture_seconds,
                                  "pool_bytes": self._pgraph.pool_bytes}}
+        out["pipeline"] = {"depth": self.ecfg.pipeline_depth,
+                           "fuse": self._fuse, "inflight": self._n_inflight(),
+                           **self._pipe_stats}
+        out["fork"] = dict(self._fork_stats)
         out["prompt_tokens_reused"] = self._reuse_stats["reused_rows"]
         if self._pool is not None:
             pool = self._pool
@@ -427,18 +552,28 @@ class Engine:
             ready.set()
         while not self._stop:
             try:
-                self._reap_cancelled()
-                admitted = self._admit()
-                prefilled = self._prefill_step()
-                decoded = self._decode_burst()
-                if not (admitted or prefilled or decoded):
+                if not self._tick():
                     self._wake.wait(timeout=0.5)
                     self._wake.clear()
             except Exception as e:   # the loop must survive: fail the requests
                 self._fail_active(e)
 
+    def _tick(self) -> bool:
+        """One iteration of the loop (the JAX engine's tick): admit,
+        dispatch a pack and a burst (neither waits), then process what the
+        FIFO rule allows. False when nothing happened (idle)."""
+        self._reap_cancelled()
+        admitted = self._admit()
+        prefilled = self._dispatch_prefill()
+        dispatched = self._dispatch_decode()
+        drained = self._drain_fifo(can_feed=prefilled or dispatched)
+        return admitted or prefilled or dispatched or drained
+
     def _fail_active(self, e: Exception):
         log.exception("engine step failed")
+        self._fifo.clear()
+        self._override.clear()
+        self._fork_waiters.clear()
         for i, s in enumerate(self.slots):
             if s is not None:
                 s.req.out.put(StreamEvent(
@@ -459,39 +594,62 @@ class Engine:
             if s is not None and s.req.request_id in ids:
                 self._release_slot(i)
                 s.req.out.put(None)
+                # a cancelled leader must not strand its fork siblings
+                self._process_fork_waiters(i, s)
         with self._queue.mutex:
             queued = {r.request_id for r in self._queue.queue}
         with self._cancel_lock:
             self._cancelled -= ids - queued
 
     def _admit(self) -> bool:
-        admitted = False
-        while None in self.slots:
+        """Admit queued requests into the free slots. Requests admitted
+        together with the same prompt and min(max_new_tokens,
+        max_context // 4) prefill once (the JAX engine's key): the first
+        is their leader, the others fork its rows (module doc)."""
+        batch = []
+        free = sum(1 for s in self.slots if s is None)
+        while len(batch) < free:
             try:
-                req = self._queue.get_nowait()
+                batch.append(self._queue.get_nowait())
             except queue.Empty:
                 break
-            with self._cancel_lock:
-                cancelled = req.request_id in self._cancelled
-                self._cancelled.discard(req.request_id)
-            if cancelled:                   # cancelled while queued
-                req.out.put(None)
-                continue
-            try:
-                self._start_request(req)
-            except Exception as e:          # the JAX engine's admission handler
-                log.exception("admission failed")
-                req.out.put(StreamEvent(
-                    token_id=-1, text="", logprob=0.0, finish_reason="stop",
-                    error=f"{type(e).__name__}: {e}"))
-                req.out.put(None)
-                continue
-            admitted = True
+        leaders: dict = {}
+        admitted = False
+        for req in batch:
+            admitted |= self._admit_one(req, leaders)
         return admitted
 
-    def _start_request(self, req: GenRequest):
+    def _admit_one(self, req: GenRequest, leaders: dict) -> bool:
+        """Admit one popped request as a leader or a fork sibling; an
+        admission that raises errors that request alone (the JAX engine's
+        admission handler). True when a slot was taken."""
+        with self._cancel_lock:
+            cancelled = req.request_id in self._cancelled
+            self._cancelled.discard(req.request_id)
+        if cancelled:                   # cancelled while queued
+            req.out.put(None)
+            return False
+        key = (tuple(int(t) for t in req.prompt_ids),
+               min(req.max_new_tokens, self.ecfg.max_context // 4))
+        try:
+            if key in leaders:
+                self._start_fork_sibling(req, *leaders[key])
+            else:
+                slot, ids, s = self._start_request(req)
+                leaders[key] = (slot, s, ids)
+        except Exception as e:
+            log.exception("admission failed")
+            req.out.put(StreamEvent(
+                token_id=-1, text="", logprob=0.0, finish_reason="stop",
+                error=f"{type(e).__name__}: {e}"))
+            req.out.put(None)
+            return False
+        return True
+
+    def _start_request(self, req: GenRequest) -> tuple:
         """Install a request in a free slot and queue its prompt for packed
-        prefill. No model compute happens here."""
+        prefill. No model compute happens here. Returns (slot, the prompt
+        ids as kept, its _Slot)."""
         C = self.ecfg.max_context
         ids = [int(t) for t in req.prompt_ids]
         # keep the prompt tail (the JAX engine's truncation rule)
@@ -515,17 +673,76 @@ class Engine:
                 self._pool.release(slot, 0)
                 self._cache_tokens[slot] = []
                 raise
-        self.sampler.set_slot(slot, req.params,
-                              fallback_seed=zlib.crc32(req.request_id.encode()))
-        # the penalty window covers the prompt tail (reused rows included)
-        self.sampler.set_ring(slot, ids)
-        s = _Slot(req, IncrementalDetokenizer(self.tokenizer), len(ids))
+        s = self._install(slot, req, ids)
         s.pending = ids[common:]
         s.written = s.committed = s.reused = common
         self._reuse_stats["reused_rows"] += common
         self._cache_tokens[slot] = list(ids)
-        self.slots[slot] = s
         self._prefill_queue.append(slot)
+        return slot, ids, s
+
+    def _install(self, slot: int, req: GenRequest, ids: list) -> _Slot:
+        """Seat a request in ``slot``: its sampling state, its penalty ring
+        (seeded with the prompt tail, reused rows included) and its
+        _Slot."""
+        self.sampler.set_slot(slot, req.params,
+                              fallback_seed=zlib.crc32(req.request_id.encode()))
+        self.sampler.set_ring(slot, ids)
+        s = _Slot(req, IncrementalDetokenizer(self.tokenizer), len(ids))
+        self.slots[slot] = s
+        return s
+
+    def _start_fork_sibling(self, req: GenRequest, leader: int, lsnap: _Slot,
+                            ids: list):
+        """Admit a request whose prompt is the in-flight ``leader``'s: its
+        sampling state is installed, its slot's retained rows dropped
+        (the fork shares into an empty table, or the downgrade prefills
+        from row 0, and those pages may be shared: never overwritten), and
+        it prefills nothing until the leader's final pack is processed
+        (``_process_fork_waiters``; the JAX engine's
+        ``_start_fork_sibling``)."""
+        slot, _common = self._pick_slot(ids)
+        s = self._install(slot, req, ids)
+        s.phase = "fork_wait"
+        if self._pool is not None:
+            self._pool.release(slot, 0)
+        self._cache_tokens[slot] = []
+        self._fork_waiters.setdefault(lsnap, []).append((slot, s, ids))
+        self._fork_stats["siblings"] += 1
+
+    def _process_fork_waiters(self, leader: int, lsnap: _Slot):
+        """The leader ``lsnap`` (in ``leader``) had its final pack
+        processed, or was cancelled or failed: each sibling still waiting
+        takes the leader's first len(ids) - 1 rows (paged: shared, the
+        boundary page cloned; contiguous: copied) and queues its last
+        prompt token, whose pack samples its own first token. A leader
+        that is not decoding its prompt any more downgrades its siblings
+        to full prefills (the JAX engine's ``_process_fork_waiters``)."""
+        for sib, s, ids in self._fork_waiters.pop(lsnap, ()):
+            if self.slots[sib] is not s:
+                continue                # cancelled while it waited
+            ok = (self.slots[leader] is lsnap and lsnap.phase == "decode"
+                  and len(ids) > 1
+                  and self._cache_tokens[leader][:len(ids)] == ids)
+            n = 0
+            if ok:
+                n = len(ids) - 1
+                if self._pool is not None:
+                    self._pool.release(sib, 0)
+                    n = self._share_prefix(leader, sib, n)
+                else:
+                    kvcache.copy_rows(self.ck, leader, sib, n)
+                    kvcache.copy_rows(self.cv, leader, sib, n)
+                self._fork_stats["forked"] += 1
+                self._fork_stats["rows_shared"] += n
+                self._reuse_stats["reused_rows"] += n
+            else:
+                self._fork_stats["downgraded"] += 1
+            s.pending = ids[n:]
+            s.written = s.committed = s.reused = n
+            s.phase = "prefill"
+            self._cache_tokens[sib] = list(ids)
+            self._prefill_queue.append(sib)
 
     def _pick_slot(self, ids: list) -> tuple:
         """The free slot with the longest cached common prefix; on ties the
@@ -653,15 +870,24 @@ class Engine:
 
     def _commit_ptab(self):
         """Copy the host page table into the one device table, in place
-        (K and V share it). A plain copy: every pack and burst syncs the
-        host at its end, so no pending read sees the table change."""
+        (K and V share it), in stream order and without waiting: packs and
+        bursts still in flight read the table as it was when they were
+        dispatched, later ones read this (engine/transfer.py)."""
         if self._pool is not None and self._pool.dirty:
-            self.ck["ptab"].copy_(torch.from_numpy(self._pool.ptab))
+            to_device(self.ck["ptab"], self._pool.ptab)
             self._pool.dirty = False
 
-    def _prefill_step(self) -> bool:
-        """ONE ragged packed-prefill dispatch for this tick (see module doc).
-        Final segments go first so output row b is segment b."""
+    # ---------- packed prefill ----------
+
+    def _dispatch_prefill(self, fuse: bool = True) -> bool:
+        """Dispatch ONE ragged packed prefill for this tick (module doc).
+        Final segments go first, so output row b is segment b. Non-final
+        segments count as committed at once (their rows are written in
+        stream order before anything that reads them); the finals go into
+        the FIFO as a _Pack, processed when their first tokens land. With
+        ``fuse`` and the JAX rule (a fuse mode, a free pipeline place and
+        a full burst runnable), the pack is a fused tick's head
+        (``_dispatch_fused``)."""
         S, C = self.ecfg.num_slots, self.ecfg.max_context
         budget = self._pack_budget
         segs = []                     # (slot, snapshot, take, final)
@@ -684,7 +910,6 @@ class Engine:
         if self._pool is not None:
             for slot, s, take, _f in segs:
                 self._ensure_pages(slot, s.written + take)
-        self._commit_ptab()
 
         bucket = next(b for b in self._pack_buckets if total <= b)
         host = new_pack(bucket, S, C)
@@ -708,37 +933,58 @@ class Engine:
         st["continued"] += int(continued)
         st["kernel_fallback"] += int(not kernel_supports(
             cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim_))
-        firsts = self._prefill_pack(bucket, continued, host)    # [2, finals]
-        finals = [(slot, s) for slot, s, _t, f in segs if f]
-        ids_np, lps_np = firsts[0].astype(np.int64), firsts[1]
+        infl = self._inflight_vec()
+        finals = [(s.written + take, s.req.max_new_tokens)
+                  for _sl, s, take, f in segs if f]
+        if (fuse and finals and self._fuse != "off"
+                and self._n_inflight() < self.ecfg.pipeline_depth
+                and self._pick_burst(infl, finals) == self.ecfg.decode_burst):
+            self._dispatch_fused(segs, bucket, continued, host, infl, t0)
+            return True
+        self._commit_ptab()
+        fetch = self._prefill_pack(bucket, continued, host)
+        group = self._advance(segs, t0)
+        if not group:
+            st["seconds"] += time.monotonic() - t0
+            return True
+        self._fifo.append(_Pack(group, fetch, t0))
+        if self.ecfg.pipeline_depth == 1:
+            self._drain_all()         # the synchronous loop: finals now
+        return True
+
+    def _advance(self, segs: list, t0: float) -> list:
+        """A dispatched pack's bookkeeping: each segment's rows move from
+        pending to written; a non-final one counts them committed; the
+        finals leave the prefill queue. Returns the finals' (slot,
+        _Slot)."""
         t1 = time.monotonic()
-        st["seconds"] += t1 - t0
+        group = []
         for slot, s, take, final in segs:
             s.pending = s.pending[take:]
             s.written += take
-            s.committed = s.written
-            s.t_prefill_ms += (t1 - t0) * 1e3
-        self._sink = {}
-        try:
-            for b, (slot, s) in enumerate(finals):
+            if final:
                 self._prefill_queue.remove(slot)
-                s.phase = "decode"
-                s.cache_len = s.written
-                if not s.t_first_token:   # a shift's re-prefill keeps it
-                    s.t_first_token = t1
-                self.lengths[slot] = s.written
-                self.cur_tokens[slot] = int(ids_np[b])
-                self._emit(slot, int(ids_np[b]), float(lps_np[b]))
-        finally:
-            self._flush_sink()
-        return True
+                group.append((slot, s))
+            else:
+                s.committed = s.written
+                s.t_prefill_ms += (t1 - t0) * 1e3
+        return group
+
+    def _prefill_step(self) -> bool:
+        """One pack, never fused, processed (with whatever else is in
+        flight) before it returns: a tick of the synchronous loop, for
+        callers that drive the engine tick by tick."""
+        ran = self._dispatch_prefill(fuse=False)
+        self._drain_all()
+        return ran
 
     def _prefill_pack(self, bucket: int, continued: bool,
-                      host: np.ndarray) -> np.ndarray:
+                      host: np.ndarray) -> Fetch:
         """The pack's device work: a graph replay on the card, the same
-        padded body eagerly on the CPU (prefill_graph.PrefillGraph.run).
-        Returns the finals' [2, n] first-token ids and logprobs."""
-        return self._pgraph.run(bucket, continued, host)
+        padded body eagerly on the CPU (prefill_graph.PrefillGraph.
+        dispatch). Returns the Fetch of the [2, S] first-token ids and
+        logprobs (rows [0, n_finals) are the finals')."""
+        return self._pgraph.dispatch(bucket, continued, host)
 
     def _prefill_eager(self, bucket: int, continued: bool, host: np.ndarray,
                        exact: bool = False):
@@ -750,79 +996,265 @@ class Engine:
                           self.sampler, host, bucket, self.ecfg.num_slots,
                           continued, exact=exact)
 
-    def _pick_burst(self, decoding: list) -> int:
+    def _process_pack(self, item: _Pack):
+        """A pack's first tokens have landed: emit them. Plain packs switch
+        their finals to decode here (the next burst takes their state from
+        the host: ``_override``); a split head's finals switched at
+        dispatch, and the burst chained behind it carries their state.
+        Then the finals' fork siblings resolve."""
+        firsts = item.fetch.wait()
+        ids, lps = firsts[0].astype(np.int64), firsts[1]
+        if item.split:
+            item.processed = True
+        running = item.burst is not None and not item.burst.fetch.done()
+        t1 = time.monotonic()
+        if not item.split:
+            self._pack_stats["seconds"] += t1 - item.t0
+        self._sink = {}
+        try:
+            for b, (slot, s) in enumerate(item.group):
+                if self.slots[slot] is not s:
+                    continue              # cancelled while in flight
+                s.committed = s.written
+                if not item.split:
+                    s.phase = "decode"
+                    s.cache_len = s.written
+                    self.lengths[slot] = s.written
+                    self.cur_tokens[slot] = int(ids[b])
+                    self._override.add(slot)
+                elif item.burst in self._fifo:
+                    self._pipe_stats["head_emits"] += 1
+                    self._pipe_stats["head_emits_running"] += int(running)
+                s.t_prefill_ms += (t1 - item.t0) * 1e3
+                if not s.t_first_token:   # a shift's re-prefill keeps it
+                    s.t_first_token = t1
+                self._emit(slot, int(ids[b]), float(lps[b]))
+        finally:
+            self._flush_sink()
+        for slot, s in item.group:
+            self._process_fork_waiters(slot, s)
+
+    # ---------- decode ----------
+
+    def _n_inflight(self) -> int:
+        """Bursts dispatched and not processed (a snapshot of the FIFO,
+        so metrics() may call it from another thread)."""
+        return sum(isinstance(x, _Burst) for x in list(self._fifo))
+
+    def _inflight_vec(self) -> list:
+        """Per slot, the tokens already dispatched and not processed: the
+        steps of the bursts it rides, plus a fused tick's first token
+        until its head is processed (the JAX engine's ``_inflight_vec``)."""
+        n = [0] * self.ecfg.num_slots
+        for b in self._fifo:
+            if not isinstance(b, _Burst):
+                continue
+            head = int(b.head is not None and not b.head.processed)
+            gset = {i for i, _s in b.group}
+            for i, _s in b.slots:
+                if i not in b.skip:
+                    n[i] += b.n_steps + (head if i in gset else 0)
+        return n
+
+    def _pick_burst(self, infl: list, extra=()) -> int:
         """Steps in the next burst: a power of two <= decode_burst, clamped
-        so no slot reaches the cache edge mid-burst and no burst outlasts
-        every slot's remaining token budget."""
+        so no slot reaches the cache edge inside it, and no burst outlasts
+        every slot's remaining token budget, counting the steps already in
+        flight. ``extra``: (rows, max_new_tokens) of a fused tick's finals
+        (their first token comes from the pack)."""
         cap = self.ecfg.decode_burst
         budget = 1
-        for i in decoding:
-            s = self.slots[i]
-            cap = min(cap, max(1, self.ecfg.max_context - 2 - s.cache_len))
-            budget = max(budget, s.req.max_new_tokens - s.n_decoded)
+        for i, s in enumerate(self.slots):
+            if s is None or s.phase != "decode":
+                continue
+            cap = min(cap, max(1, self.ecfg.max_context - 2 - s.cache_len - infl[i]))
+            budget = max(budget, s.req.max_new_tokens - s.n_decoded - infl[i])
+        for rows, max_new in extra:
+            cap = min(cap, max(1, self.ecfg.max_context - 2 - rows))
+            budget = max(budget, max_new - 1)
         cap = min(cap, budget)
         k = 1
         while k * 2 <= cap:
             k *= 2
         return k
 
-    def _decode_burst(self) -> bool:
-        """Dispatch one decode burst, sync its tokens once, emit them."""
-        S, C = self.ecfg.num_slots, self.ecfg.max_context
-        decoding = [i for i, s in enumerate(self.slots)
-                    if s is not None and s.phase == "decode"]
-        if not decoding:
+    def _dispatch_decode(self) -> bool:
+        """Dispatch the next decode burst if the pipeline has room and a
+        decoding slot has budget beyond its steps in flight (a slot whose
+        steps in flight cover its max_new_tokens sits this burst out)."""
+        if self._n_inflight() >= self.ecfg.pipeline_depth:
+            return False
+        infl = self._inflight_vec()
+        included = [i for i, s in enumerate(self.slots)
+                    if s is not None and s.phase == "decode"
+                    and s.req.max_new_tokens - s.n_decoded - infl[i] > 0]
+        if not included:
             return False
         t0 = time.monotonic()
-        n_steps = self._pick_burst(decoding)
+        n_steps = self._pick_burst(infl)
         if self._pool is not None:
-            for i in decoding:
-                self._ensure_pages(i, min(C, int(self.lengths[i]) + n_steps + 2))
+            C = self.ecfg.max_context
+            for i in included:
+                self._ensure_pages(i, min(C, int(self.lengths[i]) + infl[i]
+                                          + n_steps + 2))
         self._commit_ptab()
-        active_np = np.zeros((S,), np.bool_)
-        active_np[decoding] = True
-        host = self._burst(n_steps, active_np)          # [K, 2, S]: ONE sync
-        ids_np = host[:, 0].astype(np.int64)
-        lps_np = host[:, 1]
-        snaps = [(i, self.slots[i]) for i in decoding]
+        self._fifo.append(self._dispatch_burst(n_steps, included, t0))
+        return True
+
+    def _dispatch_fused(self, segs: list, bucket: int, continued: bool,
+                        host: np.ndarray, infl: list, t0: float):
+        """The split fused tick (the JAX engine's
+        ``_dispatch_packed_split``): the pack, then on the device with no
+        host sync between, its finals' first tokens and lengths folded
+        into the decode state and a burst of decode_burst steps over the
+        finals and every decoding slot with budget left. The finals switch
+        to decode now. "split" queues the pack as the burst's head, so its
+        first tokens are emitted when their copy lands, while the burst
+        runs; "1" emits them with the burst."""
+        K, C = self.ecfg.decode_burst, self.ecfg.max_context
+        group = self._advance(segs, t0)
+        for slot, s in group:
+            s.phase = "decode"
+            s.cache_len = s.written
+            self.lengths[slot] = s.written
+        gset = {slot for slot, _s in group}
+        others = [i for i, s in enumerate(self.slots)
+                  if s is not None and s.phase == "decode" and i not in gset
+                  and s.req.max_new_tokens - s.n_decoded - infl[i] > 0]
+        if self._pool is not None:
+            for slot, s in group:
+                self._ensure_pages(slot, min(C, s.written + K + 2))
+            for i in others:
+                self._ensure_pages(i, min(C, int(self.lengths[i]) + infl[i] + K + 2))
+        self._commit_ptab()
+        head = _Pack(group, self._prefill_pack(bucket, continued, host), t0,
+                     split=True)
+        b = self._dispatch_burst(K, sorted(gset) + others, t0, head=head,
+                                 fold=bucket)
+        head.burst = b
+        if self._fuse == "split":
+            self._fifo.append(head)
+        self._fifo.append(b)
+        self._pack_stats["seconds"] += time.monotonic() - t0
+
+    def _dispatch_burst(self, n_steps: int, included: list, t0: float,
+                        head: Optional[_Pack] = None,
+                        fold: Optional[int] = None) -> _Burst:
+        """Chain one burst onto the device state: the active mask and the
+        overridden rows loaded, a fused tick's finals folded in from the
+        ``fold`` bucket's pack, the steps dispatched. Returns its
+        _Burst."""
+        S = self.ecfg.num_slots
+        active = np.zeros((S,), np.bool_)
+        active[included] = True
+        rows = np.zeros((4, S), np.int64)
+        rows[0] = active
+        rows[1, sorted(self._override)] = 1
+        rows[2], rows[3] = self.cur_tokens, self.lengths
+        self._override.clear()
+        self._graph.load(rows)
+        if fold is not None:
+            self._graph.fold(split_pack(self._pgraph.buf[fold], fold, S),
+                             self._pgraph.out[fold][0])
+        fetch = self._burst(n_steps, active)
         st = self._decode_stats
         st["bursts"] += 1
         st["steps"] += n_steps
-        st["full_steps"] += n_steps * self.sampler.full_needed(active_np)
-        st["seconds"] += time.monotonic() - t0
+        st["full_steps"] += n_steps * self.sampler.full_needed(active)
+        b = _Burst(n_steps, [(i, self.slots[i]) for i in included], fetch, t0,
+                   group=head.group if head is not None else (), head=head)
+        ps = self._pipe_stats
+        ps["max_inflight"] = max(ps["max_inflight"], self._n_inflight() + 1)
+        return b
+
+    def _decode_burst(self) -> bool:
+        """One burst, processed (with whatever else is in flight) before
+        it returns: a tick of the synchronous loop, for callers that
+        drive the engine tick by tick."""
+        ran = self._dispatch_decode()
+        self._drain_all()
+        return ran
+
+    def _burst(self, n_steps: int, active: np.ndarray) -> Fetch:
+        """The burst's device work from the loaded state: graph replays on
+        the card, the same step body eagerly on the CPU
+        (decode_graph.DecodeGraph.replay), in the full sampler variant
+        when an active slot needs it. Returns the Fetch of its [K, 2, S]
+        ids and logprobs."""
+        return self._graph.replay(n_steps, full=self.sampler.full_needed(active))
+
+    def _burst_eager(self, n_steps: int, active: np.ndarray) -> Fetch:
+        """The eager per-step loop from the loaded state
+        (decode_graph.DecodeGraph.eager), the reference chip_smoke.py and
+        the card tests hold the graph against; serving never calls it."""
+        return Fetch.of(self._graph.eager(
+            n_steps, full=self.sampler.full_needed(active)))
+
+    # ---------- the FIFO ----------
+
+    def _drain_fifo(self, can_feed: bool) -> bool:
+        """Process dispatched work in dispatch order. An item whose results
+        have landed is processed (on the CPU a pack at once; a burst never
+        early, so a burst is processed only as on a busy card); otherwise
+        the oldest is waited for only when the pipeline is full or nothing
+        more could be dispatched (``can_feed`` False), and at most one
+        burst is waited for per call, so the loop dispatches again between
+        waits (the JAX engine's ``_drain_fifo``)."""
+        progressed = waited = False
+        cuda = self.device.type == "cuda"
+        while self._fifo:
+            item = self._fifo[0]
+            burst = isinstance(item, _Burst)
+            if not ((cuda or not burst) and item.fetch.done()):
+                if waited or (can_feed and self._n_inflight()
+                              < self.ecfg.pipeline_depth):
+                    break
+                waited = burst
+            self._fifo.popleft()
+            if burst:
+                self._process_burst(item)
+            else:
+                self._process_pack(item)
+            progressed = True
+        return progressed
+
+    def _drain_all(self):
+        """Process everything in flight."""
+        while self._fifo:
+            self._drain_fifo(can_feed=False)
+
+    def _process_burst(self, b: _Burst):
+        """Read a burst's tokens and emit them step by step. A slot
+        released, context-shifted or re-admitted since the dispatch gets
+        nothing (its steps are dropped); the others advance their host
+        mirrors. A "1" fused tick's head is processed first."""
+        if b.head is not None and not b.head.processed:
+            self._process_pack(b.head)
+        host = b.fetch.wait()                            # [K, 2, S]
+        ids_np = host[:, 0].astype(np.int64)
+        lps_np = host[:, 1]
+        t1 = time.monotonic()
+        self._decode_stats["seconds"] += t1 - max(b.t0, self._t_last_burst)
+        self._t_last_burst = t1
+        dropped = 0
         self._sink = {}
         try:
-            for j in range(n_steps):
-                for i, snap in snaps:
-                    # finished, or context-shifted, earlier in this burst
-                    if self.slots[i] is not snap or snap.phase != "decode":
+            for j in range(b.n_steps):
+                for i, snap in b.slots:
+                    if (i in b.skip or self.slots[i] is not snap
+                            or snap.phase != "decode"):
+                        dropped += 1      # finished / shifted / replaced
                         continue
                     # step j wrote the row of the slot's previous token
                     snap.committed = min(snap.committed + 1, snap.cache_len)
                     self._emit(i, int(ids_np[j, i]), float(lps_np[j, i]))
         finally:
             self._flush_sink()
-        for i, snap in snaps:
-            if self.slots[i] is snap and snap.phase == "decode":
-                self.lengths[i] += n_steps
+        self._pipe_stats["dropped_steps"] += dropped
+        for i, snap in b.slots:
+            if i not in b.skip and self.slots[i] is snap and snap.phase == "decode":
+                self.lengths[i] += b.n_steps
                 self.cur_tokens[i] = int(ids_np[-1, i])
-        return True
-
-    def _burst(self, n_steps: int, active: np.ndarray) -> np.ndarray:
-        """The burst's device work: graph replays on the card, the same
-        step body eagerly on the CPU (decode_graph.DecodeGraph.run), in
-        the full sampler variant when an active slot needs it."""
-        return self._graph.run(self.cur_tokens, self.lengths, active, n_steps,
-                               full=self.sampler.full_needed(active))
-
-    def _burst_eager(self, n_steps: int, active: np.ndarray) -> np.ndarray:
-        """The eager per-step loop (decode_graph.eager_burst), the
-        reference chip_smoke.py and the card tests hold the graph against;
-        serving never calls it."""
-        return eager_burst(self.params, self.cfg, self.ck, self.cv,
-                           self.sampler, self.cur_tokens, self.lengths,
-                           active, n_steps,
-                           full=self.sampler.full_needed(active))
 
     # ---------- emission ----------
 
@@ -917,6 +1349,11 @@ class Engine:
         self.lengths[slot] = 0
         self.sampler.set_ring(slot, new_ids)
         self._prefill_queue.append(slot)
+        # the bursts in flight sampled this slot's next tokens from the
+        # discarded context: drop them
+        for b in self._fifo:
+            if isinstance(b, _Burst):
+                b.skip.add(slot)
 
     def _check_stops(self, s: _Slot, delta: str) -> Optional[str]:
         """If a stop sequence completes in emitted+delta text, return the

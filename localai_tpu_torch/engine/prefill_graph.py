@@ -28,17 +28,18 @@ is a Python bool of the graph, never read off seg_start), so on CUDA
 decode graph) warms every pair up on an all-pad pack, which writes only
 the cache's scratch page and advances no counter, and then captures it.
 A pack is then one copy in (the staged host array into the bucket's
-buffer), one replay and one copy out (``run``).
+buffer), one replay and one copy out (``dispatch``; none of them waits
+for the card, engine/transfer.py; ``run`` waits).
 
 Memory: every pair's graph allocates from ONE shared pool
 (``torch.cuda.graph_pool_handle``). A shared pool is safe only if no
 graph's output outlives the next replay of any of them: the outputs the
 host reads (``out``) and the inputs are static buffers allocated before
-capture, outside the pool, and the host reads ``out`` before it replays
-the next pack. ``logits`` (the last pack's [S, V] rows, kept for probes)
+capture, outside the pool, and the copy of ``out`` to the host runs in
+stream order before the next pack's replay. ``logits`` (the last pack's [S, V] rows, kept for probes)
 lies in the pool and is valid only until the next replay.
 
-On CPU tensors ``run`` calls the same padded body eagerly: that is the
+On CPU tensors ``dispatch`` calls the same padded body eagerly: that is the
 plain version the tests hold against the JAX Engine, not a fallback. On
 CUDA there is no path back to an eager pack: a pack whose (bucket,
 continued) has no graph raises, and ``Engine.start`` re-raises a failed
@@ -61,6 +62,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from localai_tpu_torch.engine.transfer import Fetch, to_device
 from localai_tpu_torch.models import llama
 from localai_tpu_torch.ops.kernels import LAUNCHES
 
@@ -189,18 +191,20 @@ class PrefillGraph:
         self._logits.clear()
         self.logits = None
 
-    def run(self, bucket: int, continued: bool, host: np.ndarray) -> np.ndarray:
-        """One pack from its staged host array (``new_pack`` layout): one
-        copy in, the body (a graph replay on CUDA, eagerly on the CPU), one
-        copy out. Returns [2, n_finals] float64: the final segments' first
-        token ids and logprobs."""
+    def dispatch(self, bucket: int, continued: bool, host: np.ndarray) -> Fetch:
+        """One pack from its staged host array (``new_pack`` layout): the
+        copy in (in stream order, from a pinned copy of ``host``), the
+        body (a graph replay on CUDA, eagerly on the CPU), and the copy of
+        ``out[bucket]`` (the first token ids and logprobs [2, S]; rows [0,
+        n_finals) are the finals') to the host, started and not waited
+        for."""
         key = (bucket, continued)
         graph = self.graphs.get(key)
         if self.device.type == "cuda" and graph is None:
             raise RuntimeError(f"no prefill graph for bucket {bucket}, "
                                f"continued={continued} (Engine.start captures "
                                f"{len(self.buckets) * 2} on the card)")
-        self.buf[bucket].copy_(torch.from_numpy(host))             # one copy in
+        to_device(self.buf[bucket], host)
         if graph is None:
             self.logits = self.body(bucket, continued)
         else:
@@ -208,8 +212,13 @@ class PrefillGraph:
             for k, n in self.launches[key].items():
                 LAUNCHES[k] += n
             self.logits = self._logits[key]
+        return Fetch(self.out[bucket])
+
+    def run(self, bucket: int, continued: bool, host: np.ndarray) -> np.ndarray:
+        """``dispatch``, waited for: [2, n_finals] float64, the final
+        segments' first token ids and logprobs."""
         n = n_finals(host, bucket, self.S)
-        return self.out[bucket][:, :n].to("cpu", copy=True).numpy()   # ONE sync
+        return self.dispatch(bucket, continued, host).wait()[:, :n]
 
 
 def eager_pack(params: dict, cfg: llama.LlamaConfig, cache_k: dict,

@@ -42,6 +42,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from localai_tpu_torch.engine.transfer import to_device
+
 SORT_K = 256  # candidate window (cap for top_k)
 RING_N = 256  # penalty ring capacity (cap for repeat_last_n)
 _LN2 = math.log(2.0)
@@ -122,8 +124,8 @@ def set_slot_ring(ring: torch.Tensor, pos: torch.Tensor, slot: int, token_ids):
     tail = [int(t) for t in token_ids][-RING_N:]
     row = np.full((RING_N,), -1, np.int64)
     row[:len(tail)] = tail
-    ring[slot].copy_(torch.from_numpy(row))
-    pos[slot] = len(tail)
+    to_device(ring[slot], row)
+    pos[slot].fill_(len(tail))
 
 
 def update_ring(ring: torch.Tensor, pos: torch.Tensor, ids: torch.Tensor,
@@ -283,24 +285,27 @@ class SlotSampler:
         """Install one request's parameters, its bias row (or clear the row
         a previous request set: the JAX ``_bias_dirty``), mu = 2 * tau,
         seed its generator and reset its counter. The ring is seeded
-        apart (``set_ring``)."""
+        apart (``set_ring``). Every write is a device op in stream order,
+        none waits for the card (``fill_`` takes the value as a kernel
+        argument, where ``t[slot] = v`` would copy it in and wait): it
+        lands after the bursts the slot's previous request still rides."""
         for name, v in slot_values(p).items():
             self.host[name][slot] = v
-            self.p[name][slot] = v
-        self.mu[slot] = 2.0 * (p.mirostat_tau if p.mirostat_tau > 0 else 5.0)
+            self.p[name][slot].fill_(v)
+        self.mu[slot].fill_(2.0 * (p.mirostat_tau if p.mirostat_tau > 0 else 5.0))
         if p.logit_bias:
             row = np.zeros((self.bias.shape[1],), np.float32)
             for tok, b in p.logit_bias.items():
                 if 0 <= int(tok) < row.shape[0]:
                     row[int(tok)] = float(b)
-            self.bias[slot].copy_(torch.from_numpy(row))
+            to_device(self.bias[slot], row)
             self._bias_dirty[slot] = True
         elif self._bias_dirty[slot]:
             self.bias[slot].zero_()
             self._bias_dirty[slot] = False
         seed = p.seed if p.seed is not None and p.seed >= 0 else fallback_seed
-        self.seed[slot] = int(seed) & _M32
-        self.counter[slot] = 0
+        self.seed[slot].fill_(int(seed) & _M32)
+        self.counter[slot].zero_()
 
     def set_ring(self, slot: int, token_ids):
         """Seed (or, at a context shift, restart) a slot's penalty ring

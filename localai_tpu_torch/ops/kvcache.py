@@ -283,6 +283,15 @@ def clone_page(cache: dict, src: int, dst: int) -> dict:
     return cache
 
 
+def copy_rows(cache: dict, src: int, dst: int, n: int) -> dict:
+    """Contiguous layout: copy rows [0, n) of slot ``src`` over slot
+    ``dst``'s in every layer, in place (a fork sibling takes its leader's
+    prompt rows: the JAX engine's ``_get_fork_fn``)."""
+    rows = cache["rows"]
+    rows[:, dst, :n].copy_(rows[:, src, :n])
+    return cache
+
+
 def from_jax(jcache, device="cuda") -> dict:
     """A JAX package cache as numpy leaves (paged {"pages", "ptab"[,
     "scales"]} or a contiguous [L, S, C, KV, hd] array) -> this layout,

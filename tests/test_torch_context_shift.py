@@ -78,7 +78,7 @@ def tiny(tmp_path_factory):
 def jax_engine(tiny, reuse: bool, **knobs):
     jcfg, jparams, _tc, _tp = tiny
     je = jeng.Engine(jcfg, jparams, _Tok(), jeng.EngineConfig(
-        **EC, kv_prefix_cache=reuse, kv_offload=False, prefill_packed_fuse="0",
+        **EC, kv_prefix_cache=reuse, kv_offload=False,
         draft="0", **knobs))
     if not reuse:
         pick = je._pick_slot

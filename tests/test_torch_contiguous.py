@@ -265,7 +265,7 @@ def test_contiguous_engine_greedy_tokens_byte_identical_to_jax(tiny):
     je = jeng.Engine(jcfg, jparams, _Tok(), jeng.EngineConfig(
         num_slots=4, max_context=128, prefill_buckets=(16,),
         prefill_chunk=16, cache_dtype=jnp.float32, kv_layout="contiguous",
-        kv_prefix_cache=False, kv_offload=False, prefill_packed_fuse="0",
+        kv_prefix_cache=False, kv_offload=False,
         draft="0"))
     te = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         num_slots=4, max_context=128, prefill_chunk=16, decode_burst=16,

@@ -27,14 +27,17 @@ On the card (``cuda`` marker; skips here), small f32 models with head_dim
 + int8 KV, int4 weights): the graph's greedy and seeded-sampled tokens
 equal the eager loop's byte for byte, its kernel launch counts are the
 layers x steps the replays ran, capture runs under
-``torch.cuda.set_sync_debug_mode("error")``, and an Engine captures at
-start and serves through replays; ``clone_page`` on the card equals the
+``torch.cuda.set_sync_debug_mode("error")``, an Engine captures at start
+and serves through replays, and its pipelined loop serves a fork group
+and a logit bias under that mode; ``clone_page`` on the card equals the
 plain copy, scales included. On the card's machine (no JAX):
 
     python -m pytest --noconftest tests/test_torch_decode_graph.py -q -m cuda
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import pytest
@@ -423,6 +426,57 @@ def test_capture_runs_under_sync_debug_error(card):
 
 
 @pytest.mark.cuda
+def test_engine_loop_never_waits_for_the_stream(card):
+    """The pipelined loop (depth 2, the split fused tick) with a fork
+    group (a shared prefix and its boundary-page clone) and a logit bias
+    (a bias row copied in) serves under torch.cuda.set_sync_debug_mode
+    "error": no op on the engine thread waits for the whole stream (a
+    pageable copy, .item(), a boolean mask); it waits only on one
+    dispatch's event."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+
+    class _Tok:
+        eos_token_id = 1
+
+        def decode(self, ids, **kw):
+            return "".join(chr(97 + (i % 26)) for i in ids)
+
+    cfg, params, *_ = _small("paged", "cuda", head_dim=128)
+    e = Engine(cfg, params, _Tok(), EngineConfig(
+        num_slots=4, max_context=128, prefill_chunk=16, kv_page_size=16,
+        decode_burst=16), device="cuda").start()
+    prompt = list(range(2, 42))
+    reqs = [GenRequest(prompt_ids=list(prompt), max_new_tokens=21, ignore_eos=True,
+                       params=sampling.SamplingParamsHost(temperature=0.0))
+            for _ in range(3)]
+    reqs.append(GenRequest(prompt_ids=list(range(50, 70)), max_new_tokens=9,
+                           ignore_eos=True, params=sampling.SamplingParamsHost(
+                               temperature=0.0, logit_bias={7: 5.0})))
+    # all four are admitted together (one fork group), under the mode
+    gate, admit = threading.Event(), e._admit
+    e._admit = lambda: gate.is_set() and admit()
+    outs = [e.submit(r) for r in reqs]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gate.set()
+        e._wake.set()
+        finals = []
+        for o in outs:
+            evs = []
+            while (ev := o.get(timeout=300)) is not None:
+                evs.append(ev)
+            finals.append(evs[-1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        e.shutdown()
+    assert all(f.error is None for f in finals), [f.error for f in finals]
+    assert [f.completion_tokens for f in finals] == [21, 21, 21, 9]
+    m = e.metrics()
+    assert m["fork"]["forked"] == 2 and m["pipeline"]["max_inflight"] == 2
+    assert m["pages_in_use"] == 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ("paged", "contig"))
 def test_engine_captures_at_start_and_serves_through_replays(card, kind):
     from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
@@ -535,7 +589,8 @@ def test_replays_after_splice_and_replace_read_the_new_table(device, kind):
         tok, lens = e.cur_tokens.copy(), e.lengths.copy()
         ck2, cv2, sm2 = _twin(cfg, params, e.ck, e.cv, e.sampler, device)
         ref = dg.eager_burst(params, cfg, ck2, cv2, sm2, tok, lens, active, n)
-        got = graph_burst(n, active)
+        fetch = graph_burst(n, active)
+        got = fetch.wait()
         cols = np.flatnonzero(active)
         np.testing.assert_array_equal(got[:, :, cols], ref[:, :, cols])
         for x, y in ((e.ck, ck2), (e.cv, cv2)):
@@ -544,7 +599,7 @@ def test_replays_after_splice_and_replace_read_the_new_table(device, kind):
                     assert torch.equal(x[k][:, :-1], y[k][:, :-1]), k
         m = e.metrics()["prefix_cache"]
         seen.append((m["hits"], m["cow_clones"]))
-        return got
+        return fetch
 
     e._burst = both
     rng = np.random.default_rng(3)

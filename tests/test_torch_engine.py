@@ -3,8 +3,9 @@ plus the port's packaging rules.
 
   * greedy tokens are byte-identical to the JAX Engine (paged KV, page
     16, packed prefill with prefill_chunk 16 so the long prompts are
-    split into continued packs, prefill_packed_fuse "0", no prefix cache /
-    host tier / speculation, float32) for a concurrent mix with more
+    split into continued packs, both engines at their pipelined
+    defaults, no prefix cache / host tier / speculation, float32) for a
+    concurrent mix with more
     requests than slots, EOS-terminated and length-terminated requests, a
     prompt longer than the context (head truncation) and max_tokens 1;
   * the page allocator copy keeps its invariants;
@@ -66,7 +67,7 @@ def engines(tmp_path_factory):
         num_slots=4, max_context=128, prefill_buckets=(16,),
         prefill_chunk=16, cache_dtype=jnp.float32, kv_layout="paged",
         kv_page_size=16, kv_prefix_cache=False, kv_offload=False,
-        prefill_packed_fuse="0", draft="0"))
+        draft="0"))
     te = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         num_slots=4, max_context=128, prefill_chunk=16, kv_page_size=16,
         decode_burst=16), device="cpu")

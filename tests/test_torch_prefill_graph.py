@@ -18,7 +18,7 @@ exact):
   * on the tiny f32 checkpoint, request by request, the greedy tokens,
     the ``packed_prefill`` dispatches / tokens / ``pad_tokens`` and
     ``reused_prompt_tokens`` equal the JAX Engine's (prefix reuse on,
-    ``prefill_packed_fuse="0"``), paged, int8 KV and contiguous.
+    ``prefill_packed_fuse="0"`` on both), paged, int8 KV and contiguous.
 
 On the card (``cuda`` marker; skips here), small hd-128 models: every
 (bucket, continued) replay equals the eager pack at the same bucket bit
@@ -114,7 +114,7 @@ def test_pack_buckets_equal_the_jax_engine(tiny, buckets, chunk, budget, context
         num_slots=2, max_context=context, prefill_buckets=buckets,
         prefill_chunk=chunk, prefill_token_budget=budget,
         cache_dtype=jnp.float32, kv_page_size=16, kv_offload=False,
-        prefill_packed_fuse="0", draft="0"))
+        draft="0"))
     try:
         want = je._pack_buckets
     finally:
@@ -336,7 +336,8 @@ def test_engine_matches_the_jax_engine_request_by_request(tiny, layout):
         kv_prefix_cache=True, kv_offload=False, prefill_packed_fuse="0",
         draft="0"))
     te = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
-        **EC, decode_burst=16, kv_prefix_cache=True, **tk), device="cpu")
+        **EC, decode_burst=16, kv_prefix_cache=True, prefill_packed_fuse="0",
+        **tk), device="cpu")
     je.start()
     te.start()
     try:
@@ -454,13 +455,13 @@ def test_engine_captures_every_pair_and_serves_packs_as_replays(card, kind):
         assert m["captured"] == [(b, c) for b in (8, 16, 32) for c in (False, True)]
         assert m["capture_seconds"] > 0 and m["pool_bytes"] > 0
         replays = []
-        run = e._pgraph.run
+        run = e._pgraph.dispatch
 
         def counted(bucket, continued, host):
             replays.append((bucket, continued))
             return run(bucket, continued, host)
 
-        e._pgraph.run = counted
+        e._pgraph.dispatch = counted
         reset_launches()
         _text, events = e.generate_text(teng.GenRequest(
             prompt_ids=list(range(2, 42)), max_new_tokens=4, ignore_eos=True,

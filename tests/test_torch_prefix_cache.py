@@ -95,7 +95,7 @@ def jax_engine(tiny, reuse: bool, cache_dtype=jnp.float32, layout="paged",
     je = jeng.Engine(jcfg, jparams, _Tok(), jeng.EngineConfig(
         num_slots=S, max_context=C, prefill_buckets=(16,), prefill_chunk=16,
         cache_dtype=cache_dtype, kv_layout=layout, kv_page_size=PG,
-        kv_prefix_cache=reuse, kv_offload=False, prefill_packed_fuse="0",
+        kv_prefix_cache=reuse, kv_offload=False,
         draft="0", kv_prefix_cache_min_rows=min_rows))
     if not reuse:
         pick = je._pick_slot

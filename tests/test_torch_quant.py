@@ -315,7 +315,7 @@ def test_quantized_engine_greedy_tokens_byte_identical_to_jax(tiny, bits, kv):
         num_slots=4, max_context=128, prefill_buckets=(16,),
         prefill_chunk=16, cache_dtype=jdt, kv_layout="paged",
         kv_page_size=16, kv_prefix_cache=False, kv_offload=False,
-        prefill_packed_fuse="0", draft="0"))
+        draft="0"))
     te = teng.Engine(tcfg, tq, _Tok(), teng.EngineConfig(
         num_slots=4, max_context=128, prefill_chunk=16, kv_page_size=16,
         decode_burst=16, cache_dtype=tdt, kv_layout="paged"), device="cpu")

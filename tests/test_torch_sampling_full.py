@@ -332,7 +332,7 @@ def engines(tmp_path_factory):
     je = jeng.Engine(jcfg, jparams, _Tok(), jeng.EngineConfig(
         num_slots=4, max_context=C, prefill_buckets=(16, 32), prefill_chunk=32,
         cache_dtype=jnp.float32, kv_layout="paged", kv_page_size=16,
-        kv_prefix_cache=False, kv_offload=False, prefill_packed_fuse="0",
+        kv_prefix_cache=False, kv_offload=False,
         draft="0"))
     te = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         num_slots=4, max_context=C, prefill_buckets=(16, 32), prefill_chunk=32,

@@ -55,7 +55,7 @@ def served(tmp_path_factory):
     je = jeng.Engine(jcfg, jparams, hf_tok, jeng.EngineConfig(
         num_slots=4, max_context=256, prefill_buckets=(16,), prefill_chunk=16,
         cache_dtype=jnp.float32, kv_layout="paged", kv_page_size=16,
-        kv_prefix_cache=False, kv_offload=False, prefill_packed_fuse="0",
+        kv_prefix_cache=False, kv_offload=False,
         draft="0"))
     je.start()
     yield f"http://127.0.0.1:{server.server_address[1]}", lm, je, hf_tok
