@@ -78,7 +78,12 @@ Phases, each raising on failure (no phase swallows an error):
               The first three keep bf16 weights and launch no W8 / W4; the
               quantized ones are quantized from the seed's float32 draws
               as they are drawn. Each prints the card memory and the
-              weights' bytes after load.
+              weights' bytes after load, and (memory_phase) the memory after
+              load without the host tier: an unstarted engine with
+              kv_offload on and one with it off are built beside the loaded
+              one and their allocations measured (they differ in the KV
+              pool alone: the default pool cut, 512 -> 384 pages where
+              paged).
               Each: one short warm-up request (so no configuration's
               numbers carry the process's first-use costs), then three chat
               requests (one streamed) and one /v1/completions request with
@@ -139,8 +144,9 @@ Phases, each raising on failure (no phase swallows an error):
   3c. prefix  for paged and w8kv8, right after 3d on the same loaded model
               (prefix_phase): device-tier prefix reuse. Engines over the
               same weights, one after the other: kv_prefix_cache on, off,
-              on with the pool cut to 96 pages, and (after the traced
-              pair below) off with prefill_chunk 256. Each runs turn 1
+              on with the pool cut to 96 pages and the host tier off (the
+              device tier's eviction path), and (after the traced pair
+              below) off with prefill_chunk 256. Each runs turn 1
               (a 1536-token chat prompt = 24 pages = three prefill chunks,
               32 greedy tokens, ignore_eos), then 8 unrelated ~600-token
               requests admitted together (every slot is taken, turn 1's
@@ -181,7 +187,32 @@ Phases, each raising on failure (no phase swallows an error):
               then its last pack, and a cold run whose last pack has the
               reuse run's shape (30 / 388 rows); it prints their pairwise
               errors.
-  3e. shift   for paged and w8kv8, right after 3c on the same loaded
+  3g. host    for paged and w8kv8, right after 3c on the same loaded
+              model (host_tier_phase): the host tier (kv_offload, on by
+              default) on 3c's sequence. (a) pressure at the defaults:
+              the 96-page pool with the host tier on; before turn 2 (the
+              offload worker drained) the links the wave evicted are in
+              the host tier; turn 2 reuses >= 1536 rows, restoring them;
+              the pages it reused are byte-equal to the on run's turn 1
+              pages and its greedy tokens equal the on run's exactly
+              (the same pack shape). (b) evict-all: the pool is the most
+              pages the wave's tables held in the on run, so the wave
+              evicts every one of turn 1's 24 pages: none is on the card
+              before turn 2, all 24 are in the host tier and turn 2
+              restores all 24, with the on run's tokens. Turn 2's TTFT
+              (host clock) against 3c's off and on runs; in turn 2's
+              admission, the host ms in HostPageStore.get (CRC
+              included), the restore upload's device ms (CUDA events)
+              and host ms, the pages offloaded meanwhile; the offload
+              worker's ms per page after its copies landed (CRC,
+              insert) and the store's stats(). (c) reload: an
+              engine runs turn 1 and the wave with kv_host_store_path
+              set (under the git-ignored build/) and saves at shutdown;
+              a fresh engine loads the file and serves turn 2 alone:
+              it restores all 24 pages, with evict-all's tokens. A
+              {"host_tier": ...} JSON line before the kernels line holds
+              it all, with every configuration's memory after load.
+  3e. shift   for paged and w8kv8, right after 3g on the same loaded
               model (shift_phase): context shift at Llama-3.1-8B width and
               depth. A second engine over the same weights (context 1024,
               chunk 512) serves one greedy request with a 300-token prompt
@@ -986,6 +1017,7 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
         f"{m['cache_dtype']}: loaded in {time.monotonic() - t0:.1f} s; weights "
         f"{weight_gb:.3f} GB (10^9 bytes); memory_allocated after load "
         f"{gb:.3f} GB ({gb_before:.3f} GB before the load)")
+    memory = memory_phase(lm, card, config, gb)
     app = App({lm.name: lm})
     server = make_server(app, "127.0.0.1", 0)
     th = threading.Thread(target=server.serve_forever, daemon=True)
@@ -1129,7 +1161,11 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
         prompt_lens = [len(lm.tokenizer.encode(render_chat(c))) for c in chats]
         decode = decode_phase(lm, card, config)
         prefill = prefill_phase(lm, card, config)
-        prefix = prefix_phase(lm, card, config) if config in PREFIX_K2 else None
+        prefix = host = None
+        if config in PREFIX_K2:
+            prefix, runs3c = prefix_phase(lm, card, config)
+            host = host_tier_phase(lm, card, config, runs3c)
+            del runs3c
         shift = shift_phase(lm, card, config) if config in PREFIX_K2 else None
         pipeline = pipeline_phase(lm, card, config) if config in PREFIX_K2 else None
         return launches, {"prompt_lens": prompt_lens, "n_long": n_long,
@@ -1138,7 +1174,8 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
                           "pad_tokens": pk["pad_tokens"],
                           "gb": gb, "peak_gb": peak_gb, "weight_gb": weight_gb,
                           "decode": decode, "prefill": prefill, "prefix": prefix,
-                          "shift": shift, "pipeline": pipeline, "banned": banned}
+                          "shift": shift, "pipeline": pipeline, "host": host,
+                          "memory": memory, "banned": banned}
     finally:
         server.shutdown()
         server.server_close()
@@ -1634,7 +1671,8 @@ def page_bytes(eng, pages) -> list:
 
 
 def prefix_sequence(lm, eng, tag: str, config: str, trace: bool = False,
-                    turn1_ref=None) -> dict:
+                    turn1_ref=None, before_turn2=None, after_turn2=None,
+                    upto: str = "turn3") -> dict:
     """Turn 1, 8 unrelated requests admitted together (every slot, turn 1's
     too), turn 2 = turn 1's prompt + its output + TURN2_EXTRA tokens, on
     ``eng`` (requests built by the runner, submitted to the engine, each
@@ -1648,7 +1686,11 @@ def prefix_sequence(lm, eng, tag: str, config: str, trace: bool = False,
     pages turn 2 reused are compared after turn 2 with ``turn1_ref`` (an
     earlier run's copy; this run's own by default), and every copy-on-write
     clone is compared with its source on the engine thread as it is made,
-    the source kept for the checks after turn 3."""
+    the source kept for the checks after turn 3. The most pages the
+    running requests' tables held during the wave is "wave_peak_pages".
+    ``before_turn2`` / ``after_turn2`` (callables) run just before turn 2
+    is submitted and just after it ended; ``upto="wave"`` stops after the
+    wave (turn 1's prompt and tokens)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1718,6 +1760,15 @@ def prefix_sequence(lm, eng, tag: str, config: str, trace: bool = False,
     gate = threading.Event()
     admit = eng._admit
     eng._admit = lambda admit=admit, gate=gate: gate.is_set() and admit()
+    peak = [0]
+    ensure = eng._ensure_pages
+
+    def ensure_probe(slot, rows, ensure=ensure):
+        ensure(slot, rows)
+        peak[0] = max(peak[0], sum(int(eng._pool.owned[i])
+                                   for i, sl in enumerate(eng.slots) if sl is not None))
+
+    eng._ensure_pages = ensure_probe
     try:
         outs = []
         for i in range(UNRELATED):
@@ -1740,7 +1791,16 @@ def prefix_sequence(lm, eng, tag: str, config: str, trace: bool = False,
             unrelated.append(ids)
     finally:
         del eng._admit
+        del eng._ensure_pages
+    if upto == "wave":
+        del eng._prefill_pack
+        if eng._pcache is not None:
+            del eng._clone_page
+        return {"p1": p1, "turn1": turn1, "unrelated": unrelated,
+                "wave_peak_pages": peak[0]}
     p2 = p1 + turn1 + tok.encode("\nuser: " + ("And what about turn two? " * 5)[:TURN2_EXTRA - 7])
+    if before_turn2 is not None:
+        before_turn2()
     m0 = eng.metrics()
     torch.cuda.synchronize()
     reset_launches()
@@ -1768,6 +1828,8 @@ def prefix_sequence(lm, eng, tag: str, config: str, trace: bool = False,
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     m1 = eng.metrics()
+    if after_turn2 is not None:
+        after_turn2()
     spliced = None           # (pages turn 2 reused, their bytes == turn 1's)
     if eng._pcache is not None:
         ref = turn1_ref if turn1_ref is not None else turn1_pages
@@ -1839,14 +1901,17 @@ def prefix_sequence(lm, eng, tag: str, config: str, trace: bool = False,
             "turn1_pages": turn1_pages, "spliced": spliced,
             "turn3_clone_checks": clone_checks,
             "clones_equal_at_clone": clone_checks_all,
+            "wave_peak_pages": peak[0], "m0": m0, "m1": m1,
             "trace": trace_split(box["prof"], pk["dispatches"]) if trace else None}
 
 
 def prefix_phase(lm, card: str, config: str) -> dict:
     """Phase 3c on the loaded model (module doc): the sequence on an engine
     with kv_prefix_cache on, one with it off, one with the pool cut to
-    PRESSURE_PAGES, then on and off again with turn 2's prefill traced,
-    then off with prefill_chunk RECHUNK, one after the other."""
+    PRESSURE_PAGES and the host tier off (the device tier's eviction path),
+    then on and off again with turn 2's prefill traced, then off with
+    prefill_chunk RECHUNK, one after the other. Returns (the phase's
+    summary, the runs: phase 3g reads them)."""
     import dataclasses
 
     import torch
@@ -1857,7 +1922,7 @@ def prefix_phase(lm, card: str, config: str) -> dict:
     runs = {}
     for name, knobs in (("on", {"kv_prefix_cache": True}),
                         ("off", {"kv_prefix_cache": False}),
-                        ("pressure", {"kv_prefix_cache": True,
+                        ("pressure", {"kv_prefix_cache": True, "kv_offload": False,
                                       "kv_pool_pages": PRESSURE_PAGES}),
                         ("on_traced", {"kv_prefix_cache": True}),
                         ("off_traced", {"kv_prefix_cache": False}),
@@ -1994,7 +2059,7 @@ def prefix_phase(lm, card: str, config: str) -> dict:
     out["first_token_same"] = same_first
     out["cold_top2_margin"] = margins
     out["shape_witness"] = shape_witness(lm, runs, tag)
-    return out
+    return out, runs
 
 
 def shape_witness(lm, runs, tag: str) -> dict:
@@ -2066,6 +2131,285 @@ def shape_witness(lm, runs, tag: str) -> dict:
         del eng
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------- phase 3g: the host tier ----------
+
+
+def memory_phase(lm, card: str, config: str, gb: float) -> dict:
+    """Card memory after load with the host tier (the default, measured
+    at load: ``gb``) and without it: an unstarted Engine of each kind is
+    built beside the loaded one and its allocation measured; the two
+    differ only in the KV pool (the default pool cut), so memory after
+    load without the tier is ``gb`` less the first plus the second."""
+    import dataclasses
+
+    import torch
+
+    from localai_tpu_torch.engine.engine import Engine
+
+    out = {}
+    for name, on in (("on", True), ("off", False)):
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        eng = Engine(lm.cfg, lm.engine.params, lm.tokenizer,
+                     dataclasses.replace(lm.engine.ecfg, kv_offload=on),
+                     device=DEV)
+        torch.cuda.synchronize()
+        out[name] = {"engine_gb": (torch.cuda.memory_allocated() - before) / 1e9,
+                     "pages": eng.metrics().get("pages_total")}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["after_load_on_gb"] = gb
+    out["after_load_off_gb"] = gb - out["on"]["engine_gb"] + out["off"]["engine_gb"]
+    out["freed_gb"] = out["off"]["engine_gb"] - out["on"]["engine_gb"]
+    paged = lm.engine.kv_layout == "paged"
+    if paged != (out["freed_gb"] > 0) or (paged and out["on"]["pages"] * 4
+                                         != out["off"]["pages"] * 3):
+        raise AssertionError(f"[memory {config}] the default pool cut: {out}")
+    log(f"[memory {config}] {card}: memory_allocated after load {gb:.3f} GB with "
+        f"the host tier (pool {out['on']['pages']} pages), "
+        f"{out['after_load_off_gb']:.3f} GB without (pool {out['off']['pages']}): "
+        f"{out['freed_gb']:.3f} GB freed (engine state {out['on']['engine_gb']:.3f} "
+        f"vs {out['off']['engine_gb']:.3f} GB, measured on unstarted engines)")
+    return out
+
+
+def serve_one(lm, eng, ids, n: int, tag: str) -> tuple:
+    """One greedy request (ignore_eos) submitted to ``eng``: (tokens, TTFT
+    ms on the host clock from submit, the last event)."""
+    from localai_tpu_torch.backend import runner
+
+    req = runner.build_request(lm, "", {"ignore_eos": True, "temperature": 0,
+                                        "max_tokens": n})
+    req.prompt_ids = list(ids)
+    t0, t_first, out_ids, last = time.monotonic(), None, [], None
+    out = eng.submit(req)
+    while (ev := out.get(timeout=300)) is not None:
+        if ev.error:
+            raise AssertionError(f"{tag}: {ev.error}")
+        t_first = t_first or time.monotonic()
+        out_ids.extend(ev.token_ids or [ev.token_id])
+        last = ev
+    return out_ids, (t_first - t0) * 1e3, last
+
+
+def host_probe(eng) -> dict:
+    """Time an engine's host-tier calls, on its thread, while ``st["on"]``:
+    host ms in HostPageStore.get (the CRC included), host ms in
+    _upload_pages (staging into pinned memory, queueing the copies) with
+    CUDA events around each upload, and host ms in _dispatch_offload
+    (the gather of the evicted pages on the card queued)."""
+    import torch
+
+    st = {"on": False, "gets": 0, "get_ms": 0.0, "uploads": [],
+          "upload_host_ms": 0.0, "offloaded": 0, "offload_host_ms": 0.0}
+    get, upload, offload = (eng._hstore.get, eng._upload_pages,
+                            eng._dispatch_offload)
+
+    def get_probe(key):
+        t = time.perf_counter()
+        e = get(key)
+        if st["on"]:
+            st["gets"] += 1
+            st["get_ms"] += (time.perf_counter() - t) * 1e3
+        return e
+
+    def upload_probe(pages, hits):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        a.record()
+        upload(pages, hits)
+        b.record()
+        if st["on"]:
+            st["upload_host_ms"] += (time.perf_counter() - t) * 1e3
+            st["uploads"].append((a, b, len(hits)))
+
+    def offload_probe(victims):
+        t = time.perf_counter()
+        offload(victims)
+        if st["on"]:
+            st["offloaded"] += len(victims)
+            st["offload_host_ms"] += (time.perf_counter() - t) * 1e3
+
+    eng._hstore.get = get_probe
+    eng._upload_pages = upload_probe
+    eng._dispatch_offload = offload_probe
+    return st
+
+
+def probe_result(st) -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    return {"gets": st["gets"], "get_ms": st["get_ms"],
+            "uploaded_pages": sum(n for _a, _b, n in st["uploads"]),
+            "upload_ms": sum(a.elapsed_time(b) for a, b, _n in st["uploads"]),
+            "upload_host_ms": st["upload_host_ms"],
+            "offloaded_pages": st["offloaded"],
+            "offload_host_ms": st["offload_host_ms"]}
+
+
+def host_tier_phase(lm, card: str, config: str, runs: dict) -> dict:
+    """Phase 3g on the loaded model (module doc), after 3c, whose runs
+    ``runs`` it reads: the 96-page pressure run at the defaults (host tier
+    on), the evict-all run (a pool the wave alone fills), and the reload
+    (the store saved at shutdown, a fresh engine restoring turn 2 from
+    the file)."""
+    import dataclasses
+
+    import torch
+
+    from localai_tpu_torch.engine.engine import Engine
+
+    tag = f"[host {config}]"
+    on, off = runs["on"], runs["off"]
+    chain = (TURN1_TOKENS + TURN_NEW - 1) // PG          # turn 1's full pages
+    evict_all = on["wave_peak_pages"]
+    store_dir = os.path.join(ROOT, "build", "chip_smoke", "host_store")
+    os.makedirs(store_dir, exist_ok=True)
+    path = os.path.join(store_dir, f"{config}.npz")
+    if os.path.exists(path):
+        os.remove(path)
+
+    def engine(**knobs):
+        return Engine(lm.cfg, lm.engine.params, lm.tokenizer,
+                      dataclasses.replace(lm.engine.ecfg, **knobs),
+                      device=DEV).start()
+
+    out = {"chain_pages": chain, "evict_all_pool": evict_all}
+    for name, pages in (("pressure", PRESSURE_PAGES), ("evict_all", evict_all)):
+        eng = engine(kv_pool_pages=pages)
+        st = host_probe(eng)
+        before = {}
+
+        def turn2_starts(eng=eng, st=st, before=before):
+            eng._offloader.join()            # the wave's offloads landed
+            p1 = on["p1"]
+            before["device_links"] = len(chain_pages(eng, p1))
+            before["host_links"] = sum(eng._hstore.contains(k) for k in
+                                       list(eng._pcache.chain_keys(p1))[:chain])
+            st["on"] = True
+
+        def turn2_ends(st=st):
+            st["on"] = False
+
+        t0 = time.monotonic()
+        try:
+            r = prefix_sequence(lm, eng, f"{tag} {name}", config,
+                                turn1_ref=on["turn1_pages"],
+                                before_turn2=turn2_starts, after_turn2=turn2_ends)
+            eng._offloader.join()
+            m = eng.metrics()
+        finally:
+            eng.shutdown()
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        kv0, kv1 = r["m0"]["kv_offload"], r["m1"]["kv_offload"]
+        res = {"reused": r["reused"], "ttft_ms": r["ttft_ms"], "packs": r["packs"],
+               "pack_ms": r["pack_ms"], "turn2_same_as_on": r["turn2"] == on["turn2"],
+               "spliced": list(r["spliced"]), **before,
+               "turn2_restored_pages": kv1["restored_pages"] - kv0["restored_pages"],
+               "turn2_restores": kv1["restores"] - kv0["restores"],
+               "turn2": probe_result(st), "kv_offload": m["kv_offload"],
+               "worker": m["kv_offload_worker"], "evicted_pages":
+               m["prefix_cache"]["evicted_pages"], "turn1": r["turn1"],
+               "turn2_tokens": r["turn2"], "p2": r["p2"]}
+        w = res["worker"]
+        res["worker_ms_per_page"] = w["seconds"] / max(1, w["pages"]) * 1e3
+        out[name] = res
+        log(f"{tag} {name}: sequence done in {time.monotonic() - t0:.1f} s")
+        if (r["reused"] < chain * PG or not r["spliced"][1]
+                or r["spliced"][0] != r["reused"] // PG or not res["turn2_same_as_on"]
+                or res["turn2_restored_pages"] <= 0):
+            raise AssertionError(f"{tag} {name}: turn 2 reused {r['reused']} rows "
+                                 f"(>= {chain * PG}), restored "
+                                 f"{res['turn2_restored_pages']} pages, reused pages "
+                                 f"{r['spliced']} (count, equal to turn 1's), tokens "
+                                 f"equal to the on run's: {res['turn2_same_as_on']}")
+    ea = out["evict_all"]
+    if (ea["device_links"] != 0 or ea["host_links"] != chain
+            or ea["turn2_restored_pages"] != chain):
+        raise AssertionError(f"{tag} evict_all: before turn 2 {ea['device_links']} "
+                             f"links on the card, {ea['host_links']} in the host "
+                             f"tier; turn 2 restored {ea['turn2_restored_pages']} "
+                             f"(expected 0, {chain}, {chain})")
+    # reload: engine A runs turn 1 and the wave and saves at shutdown;
+    # engine B loads the file and serves turn 2 alone
+    eng = engine(kv_pool_pages=evict_all, kv_host_store_path=path)
+    try:
+        ra = prefix_sequence(lm, eng, f"{tag} reload A", config, upto="wave")
+    finally:
+        t0 = time.perf_counter()
+        eng.shutdown()
+        save_s = time.perf_counter() - t0
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    file_mb = os.path.getsize(path) / 1e6
+    t0 = time.perf_counter()
+    eng = engine(kv_pool_pages=evict_all, kv_host_store_path=path)
+    start_s = time.perf_counter() - t0
+    try:
+        loaded = eng.metrics()["kv_offload"]["pages"]
+        turn2, ttft, last = serve_one(lm, eng, ea["p2"], TURN_NEW, f"{tag} reload B")
+        mb = eng.metrics()["kv_offload"]
+    finally:
+        eng.shutdown()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.remove(path)
+    out["reload"] = {"loaded_pages": loaded, "file_mb": file_mb,
+                     "shutdown_save_s": save_s, "start_load_s": start_s,
+                     "ttft_ms": ttft, "reused": last.timings["reused_prompt_tokens"],
+                     "restored_pages": mb["restored_pages"],
+                     "turn2_same_as_evict_all": turn2 == ea["turn2_tokens"]}
+    rl = out["reload"]
+    if (ra["turn1"] != ea["turn1"] or loaded < chain or rl["restored_pages"] != chain
+            or not rl["turn2_same_as_evict_all"]):
+        raise AssertionError(f"{tag} reload: A's turn 1 as evict_all's "
+                             f"{ra['turn1'] == ea['turn1']}, {loaded} pages loaded, "
+                             f"{rl['restored_pages']} restored (expected {chain}), "
+                             f"turn 2 as evict_all's {rl['turn2_same_as_evict_all']}")
+    pr = out["pressure"]
+    log(f"{tag} {card}: pressure ({PRESSURE_PAGES} pages, host tier on): before turn "
+        f"2 {pr['device_links']} of turn 1's {chain} links on the card, "
+        f"{pr['host_links']} in the host tier; turn 2 reused {pr['reused']} rows, "
+        f"{pr['turn2_restored_pages']} pages restored, pages byte-equal to turn 1's, "
+        f"tokens equal to the on run's; TTFT {pr['ttft_ms']:.2f} ms (on "
+        f"{on['ttft_ms']:.2f}, off {off['ttft_ms']:.2f}); in turn 2's admission: "
+        f"{pr['turn2']['gets']} gets {pr['turn2']['get_ms']:.2f} ms host (CRC "
+        f"included), upload {pr['turn2']['upload_ms']:.2f} ms device (CUDA events) / "
+        f"{pr['turn2']['upload_host_ms']:.2f} ms host, {pr['turn2']['offloaded_pages']} "
+        f"pages offloaded in {pr['turn2']['offload_host_ms']:.2f} ms host")
+    log(f"{tag} {card}: evict-all ({evict_all} pages, the wave's peak): all {chain} "
+        f"links offloaded, turn 2 restored {ea['turn2_restored_pages']}: TTFT "
+        f"{ea['ttft_ms']:.2f} ms vs {off['ttft_ms']:.2f} off (cold prefill) and "
+        f"{on['ttft_ms']:.2f} on (device tier, nothing evicted); {ea['packs']} "
+        f"pack(s) at {ea['pack_ms']:.2f} ms; {ea['turn2']['gets']} gets "
+        f"{ea['turn2']['get_ms']:.2f} ms host (CRC included), upload "
+        f"{ea['turn2']['upload_ms']:.2f} ms device (CUDA events) / "
+        f"{ea['turn2']['upload_host_ms']:.2f} ms host for "
+        f"{ea['turn2']['uploaded_pages']} pages; {ea['turn2']['offloaded_pages']} "
+        f"pages offloaded during turn 2 in {ea['turn2']['offload_host_ms']:.2f} ms "
+        f"host; tokens equal to the on run's")
+    log(f"{tag} {card}: offload worker {ea['worker']['pages']} pages in "
+        f"{ea['worker']['batches']} batches, {ea['worker_ms_per_page']:.3f} ms per "
+        f"page after the copies landed (CRC, insert; pressure run "
+        f"{pr['worker_ms_per_page']:.3f}); evict-all stats {json.dumps(ea['kv_offload'])}")
+    log(f"{tag} {card}: reload: A saved {file_mb:.1f} MB at shutdown in "
+        f"{save_s:.2f} s; B started (graphs captured, file loaded) in {start_s:.2f} s "
+        f"with {loaded} pages; B's turn 2 reused {rl['reused']} rows, restored "
+        f"{rl['restored_pages']} pages, TTFT {rl['ttft_ms']:.2f} ms, tokens equal to "
+        f"evict-all's")
+    for name in ("pressure", "evict_all"):
+        for k in ("turn1", "turn2_tokens", "p2"):
+            del out[name][k]
     return out
 
 
@@ -2958,6 +3302,10 @@ def main():
                       "card": card}), flush=True)
     print(json.dumps({"pipeline": {c: shapes[c]["pipeline"] for c in shapes
                                    if shapes[c]["pipeline"]},
+                      "card": card}), flush=True)
+    print(json.dumps({"host_tier": {c: shapes[c]["host"] for c in shapes
+                                    if shapes[c]["host"]},
+                      "memory": {c: shapes[c]["memory"] for c in shapes},
                       "card": card}), flush=True)
     for c in shapes:
         p = shapes[c]["prefill"]

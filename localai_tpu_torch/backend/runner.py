@@ -4,8 +4,9 @@ process split, which comes with a later slice).
 
 ``load_model`` turns a model dir (HF config.json + safetensors, or a
 config.json-only dir with explicit random weights) plus serving knobs
-into a started Engine; ``quantization``, ``kv_cache_dtype`` and
-``kv_layout`` take the JAX package's names and values. ``build_request``
+into a started Engine; ``quantization``, ``kv_cache_dtype``,
+``kv_layout`` and the host tier's ``kv_offload``, ``kv_host_pool_mb`` and
+``kv_host_store`` take the JAX package's names and values. ``build_request``
 maps OpenAI-style request overrides onto a GenRequest with the JAX
 package's defaults (temperature 0.8, top_k 40, top_p 0.95, max_tokens
 256, repeat_last_n 64, mirostat tau 5 / eta 0.1) and its runner's rules,
@@ -41,6 +42,11 @@ KV_CACHE_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
                    "float16": None, "f16": None,
                    "float32": torch.float32, "f32": torch.float32,
                    "int8": torch.int8, "q8_0": torch.int8}
+
+# kv_offload values that turn the host tier off / on (the JAX runner's
+# option parsing: only the off words turn it off)
+_OFF = ("0", "false", "off", "no")
+_ON = ("", "1", "true", "on", "yes")
 
 # request knobs not ported yet, with their neutral values
 _UNSUPPORTED = {"grammar": ("",)}
@@ -79,11 +85,38 @@ def kv_cache_dtype_of(name: str, model_dtype: torch.dtype):
     return dt
 
 
+def kv_offload_of(value) -> bool:
+    """The ``kv_offload`` option: a bool, or 0/false/off/no (off) and
+    1/true/on/yes or empty (on); anything else raises ValueError."""
+    if isinstance(value, bool):
+        return value
+    key = str(value).strip().lower()
+    if key in _OFF or key in _ON:
+        return key not in _OFF
+    raise ValueError(f"kv_offload {value!r}: expected one of "
+                     f"{'|'.join(_ON[1:] + _OFF)}")
+
+
+def host_store_path(model_dir: str, path: str) -> str:
+    """The ``kv_host_store`` option as a path: a relative one lands under
+    ``<model dir>/prompt_cache/`` (created), as in the JAX runner; "" =
+    no persistence."""
+    if not path:
+        return ""
+    if not os.path.isabs(path):
+        base = os.path.join(model_dir, "prompt_cache")
+        os.makedirs(base, exist_ok=True)
+        path = os.path.join(base, path)
+    return path
+
+
 def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
                context_size: int = 2048, dtype: str = "bfloat16",
                random_weights: Optional[int] = None, device="cuda",
                kv_cache_dtype: str = "", kv_layout: str = "auto",
-               quantization: str = "", **engine_knobs) -> LoadedModel:
+               quantization: str = "", kv_offload=True,
+               kv_host_pool_mb: int = 256, kv_host_store: str = "",
+               **engine_knobs) -> LoadedModel:
     """Load a model dir into a started Engine on ``device``.
 
     ``random_weights`` (a seed) serves random weights for a dir that holds
@@ -96,11 +129,13 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
     before any weight is loaded: an unknown quantization raises
     ValueError (serving dense weights instead would fake the memory
     saving); int8 KV with the contiguous layout raises
-    NotImplementedError. ``engine_knobs`` are EngineConfig fields with the
-    JAX engine's names (prefill_chunk, decode_burst, pipeline_depth,
-    prefill_packed_fuse, ...), checked before loading too
-    (``EngineConfig.check``). A GPTQ / AWQ dir with no quantization loads
-    as int8."""
+    NotImplementedError. The host tier: ``kv_offload`` (``kv_offload_of``:
+    0 / false / off / no turn it off), ``kv_host_pool_mb`` (>= 1) and
+    ``kv_host_store`` (``host_store_path``). ``engine_knobs`` are
+    EngineConfig fields with the JAX engine's names (prefill_chunk,
+    decode_burst, pipeline_depth, prefill_packed_fuse, kv_prefetch_ahead,
+    ...), checked before loading too (``EngineConfig.check``). A GPTQ /
+    AWQ dir with no quantization loads as int8."""
     dev = resolve_device(device)
     if dtype == "int8":
         dtype, quantization = "bfloat16", quantization or "int8"
@@ -119,8 +154,10 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
     # (an unknown prefill_packed_fuse, a pipeline_depth below 1)
     ecfg = EngineConfig(num_slots=num_slots, max_context=context_size,
                         cache_dtype=cache_dtype, kv_layout=kv_layout,
-                        **engine_knobs)
+                        kv_offload=kv_offload_of(kv_offload),
+                        kv_host_pool_mb=kv_host_pool_mb, **engine_knobs)
     ecfg.check()
+    ecfg.kv_host_store_path = host_store_path(model_dir, kv_host_store)
     with open(os.path.join(model_dir, "config.json")) as f:
         hf = json.load(f)
     cfg = LlamaConfig.from_hf_config(hf, dtype=DTYPES[dtype])

@@ -6,6 +6,7 @@
         [--kv-cache-dtype int8] [--kv-layout contiguous] \\
         [--kv-page-size 64] [--prefill-chunk 512] [--decode-burst 16] \\
         [--pipeline-depth 2] [--prefill-packed-fuse auto] \\
+        [--kv-offload 1] [--kv-host-pool-mb 256] [--kv-host-store PATH] \\
         [--random-weights SEED] [--device cuda]
 
 serves one model over the OpenAI-compatible HTTP routes until
@@ -49,6 +50,15 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--prefill-packed-fuse", default="auto",
                    help="auto (= split) | split | 1 | 0: chain a decode "
                         "burst behind a pack with final segments")
+    r.add_argument("--kv-offload", default="1",
+                   help="the host tier of prefix reuse: 1 (default) | 0 "
+                        "(also true/false, on/off, yes/no)")
+    r.add_argument("--kv-host-pool-mb", type=int, default=256,
+                   help="the host tier's budget in MiB (>= 1)")
+    r.add_argument("--kv-host-store", default="",
+                   help="save the host tier here at shutdown and load it at "
+                        "start; a relative path lands under "
+                        "<model>/prompt_cache/")
     r.add_argument("--random-weights", type=int, default=None, metavar="SEED",
                    help="serve random weights from SEED for a config-only dir")
     r.add_argument("--device", default="cuda")
@@ -72,7 +82,10 @@ def main(argv=None) -> int:
                     prefill_chunk=args.prefill_chunk,
                     decode_burst=args.decode_burst,
                     pipeline_depth=args.pipeline_depth,
-                    prefill_packed_fuse=args.prefill_packed_fuse)
+                    prefill_packed_fuse=args.prefill_packed_fuse,
+                    kv_offload=args.kv_offload,
+                    kv_host_pool_mb=args.kv_host_pool_mb,
+                    kv_host_store=args.kv_host_store)
     app = App({lm.name: lm})
     server = make_server(app, host or "127.0.0.1", int(port))
     logging.getLogger(__name__).info("serving %s on http://%s:%d", lm.name,

@@ -107,9 +107,33 @@ What this slice keeps of the JAX engine, with the same knob names:
     prompt token to sample its own first token. A leader cancelled,
     failed or gone before that downgrades its siblings to full prefills.
 
-Left for later slices: the host tier of prefix reuse (kv_offload), the
-snap-back window, speculation, grammar, preemption, self-extend, the
-emitter thread and the replica pool.
+  * THE HOST TIER of prefix reuse (``kv_offload``, on by default as in
+    the JAX engine; engine/kv_offload.py), paged with the prefix cache
+    only. When ``_reclaim_pages`` evicts a retained chain, each page the
+    host store does not hold yet is gathered on the card into a fresh
+    tensor in stream order, before any later pack or burst can reuse the
+    page (``_dispatch_offload``); an offload worker thread, in dispatch
+    order, copies that snapshot page by page to pinned host memory,
+    waits for the copy and inserts the pages into the store (CRC at
+    insert), the pinned copies kept as their content: pinning memory,
+    waiting and the CRC stay off the engine thread. At admission the
+    chain walk goes on past the device pages into the host store
+    (``_paged_admission``): the hits (CRC checked on the engine thread)
+    are copied straight from that pinned memory into newly allocated
+    pages, spliced into the table and re-indexed in the prefix cache
+    (``_restore_offloaded``). A queued request's host links are uploaded
+    ahead of its admission into detached pages (``_prefetch_tick``,
+    ``kv_prefetch_ahead`` requests deep), which its admission claims.
+    The store is byte-budgeted (``kv_host_pool_mb``), saved at
+    ``shutdown`` and loaded at start when ``kv_host_store_path`` is set.
+    With the tier on, a default pool of at least 64 pages is cut to
+    three quarters (the JAX rule). An offload still in the worker when a
+    request arrives is not found (a shorter reuse, never a wrong one),
+    as with the JAX sync worker. The port has no device reset:
+    ``_fail_active`` keeps the pool and drops the prefetched pages.
+
+Left for later slices: the snap-back window, speculation, grammar,
+preemption, self-extend, the emitter thread and the replica pool.
 """
 
 from __future__ import annotations
@@ -125,16 +149,19 @@ import zlib
 from typing import Any, Iterator, Optional
 
 import numpy as np
+import torch
 
 from localai_tpu_torch import resolve_device
 from localai_tpu_torch.engine import sampling
 from localai_tpu_torch.engine.decode_graph import DecodeGraph
 from localai_tpu_torch.engine.detok import IncrementalDetokenizer
+from localai_tpu_torch.engine.kv_offload import HostPageStore, PrefetchPipeline
 from localai_tpu_torch.engine.paging import PagePool, PoolExhausted
 from localai_tpu_torch.engine.prefill_graph import (
     PrefillGraph, eager_pack, new_pack, split_pack)
 from localai_tpu_torch.engine.prefix_cache import PrefixPageCache, build_scope
-from localai_tpu_torch.engine.transfer import Fetch, to_device
+from localai_tpu_torch.engine.transfer import (
+    Fetch, numpy_of, pages_to_device, pages_to_host, tensor_of, to_device)
 from localai_tpu_torch.models import llama
 from localai_tpu_torch.ops import kvcache
 from localai_tpu_torch.ops.ragged_prefill import kernel_supports
@@ -182,11 +209,23 @@ class EngineConfig:
     # pack with final segments and emits their first tokens while it
     # runs; "1" emits them with the burst; "0" dispatches apart
     prefill_packed_fuse: str = "auto"
+    # the host tier (module doc; needs the paged layout and
+    # kv_prefix_cache): evicted chains are offloaded to host RAM and
+    # restored at admission; False = the device tier alone
+    kv_offload: bool = True
+    # the host tier's byte budget in MiB (past it: LRU, host -> gone)
+    kv_host_pool_mb: int = 256
+    # save the host tier here at shutdown and load it at start ("" = no)
+    kv_host_store_path: str = ""
+    # queued requests whose host links the prefetch tick uploads ahead of
+    # their admission; 0 = restore at admission only
+    kv_prefetch_ahead: int = 2
 
     def check(self):
         """Refuse values the engine does not take (ValueError), before
         anything is loaded: the loop knobs, as the JAX model config
-        refuses a prefill_packed_fuse outside its set, and the layout."""
+        refuses a prefill_packed_fuse outside its set, the layout and the
+        host tier's budget and prefetch depth."""
         if str(self.prefill_packed_fuse) not in PACKED_FUSE:
             raise ValueError(f"prefill_packed_fuse must be "
                              f"{'|'.join(PACKED_FUSE)}, got "
@@ -199,6 +238,10 @@ class EngineConfig:
         if self.kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout must be {'|'.join(KV_LAYOUTS)}, got "
                              f"{self.kv_layout!r}")
+        for name, low in (("kv_host_pool_mb", 1), ("kv_prefetch_ahead", 0)):
+            v = getattr(self, name)
+            if not isinstance(v, int) or isinstance(v, bool) or v < low:
+                raise ValueError(f"{name} must be an int >= {low}, got {v!r}")
 
 
 @dataclasses.dataclass
@@ -313,6 +356,130 @@ class _Burst:
         self.skip: set = set()
 
 
+def _host_pages(rows) -> list:
+    """Per page, the pinned host copy of gathered pages (transfer.
+    pages_to_host; int8: a {"q", "s"} dict per page)."""
+    if isinstance(rows, dict):
+        leaves = {k: pages_to_host(t) for k, t in rows.items()}
+        return [{k: leaves[k][i] for k in leaves}
+                for i in range(len(next(iter(leaves.values()))))]
+    return pages_to_host(rows)
+
+
+def _numpy_page(page):
+    """A host page's numpy view (int8: per leaf; bf16 as uint16)."""
+    if isinstance(page, dict):
+        return {k: numpy_of(t) for k, t in page.items()}
+    return numpy_of(page)
+
+
+def _tensor_page(arrays):
+    """A host page as CPU tensors over its arrays (no copy)."""
+    if isinstance(arrays, dict):
+        return {k: tensor_of(a) for k, a in arrays.items()}
+    return tensor_of(arrays)
+
+
+class _PendingOffload:
+    """Evicted pages gathered on the card, awaiting their copy to the host
+    (the JAX engine's): the offload worker copies each page into a pinned
+    host tensor of its own, on the engine's stream, waits for the copies,
+    then puts each page into the host store, its arrays views of those
+    tensors. The gathered rows are a snapshot no later dispatch writes,
+    so the copies may queue behind anything. ``metas``: (key, parent,
+    depth) per page; ``k`` / ``v``: the gathered [L, n, ...] rows
+    (gather_pages); ``stream``: the engine's CUDA stream (None on the
+    CPU)."""
+
+    __slots__ = ("metas", "k", "v", "stream", "store")
+
+    def __init__(self, metas, k, v, stream, store: HostPageStore):
+        self.metas = metas
+        self.k = k
+        self.v = v
+        self.stream = stream
+        self.store = store
+
+    def run(self, stats: dict):
+        if self.stream is not None:
+            with torch.cuda.stream(self.stream):
+                k, v = _host_pages(self.k), _host_pages(self.v)
+                event = torch.cuda.Event()
+                event.record()
+            event.synchronize()
+        else:
+            k, v = _host_pages(self.k), _host_pages(self.v)
+        self.k = self.v = None          # the snapshot on the card goes
+        t0 = time.perf_counter()
+        for (key, parent, depth), kp, vp in zip(self.metas, k, v):
+            self.store.put(key, parent, depth, _numpy_page(kp), _numpy_page(vp),
+                           src=(kp, vp))
+        stats["batches"] += 1
+        stats["pages"] += len(self.metas)
+        stats["seconds"] += time.perf_counter() - t0
+
+
+class _PendingPrefetch:
+    """A prefetch upload in flight (the JAX engine's): the worker waits
+    for the event recorded after it, then retires the store's inflight
+    count."""
+
+    __slots__ = ("event", "store")
+
+    def __init__(self, event, store: HostPageStore):
+        self.event = event
+        self.store = store
+
+    def run(self, stats: dict):
+        if self.event is not None:
+            self.event.synchronize()
+        self.store.note_prefetch_done()
+
+
+class _OffloadWorker:
+    """The host tier's worker thread (the JAX sync worker's offload
+    branch): runs _PendingOffload / _PendingPrefetch items one at a time,
+    in dispatch order, so the engine thread never waits for a device ->
+    host copy or spends a CRC on an insert. A failed item is logged and
+    only loses its copy. ``stats``: batches, pages and the host seconds
+    spent after the copies landed (the CRC and the insert)."""
+
+    def __init__(self):
+        self._q: "queue.Queue" = queue.Queue()
+        self._thread: Optional[threading.Thread] = None
+        self.stats = {"batches": 0, "pages": 0, "seconds": 0.0}
+
+    def put(self, item):
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._run, name="kv-offload",
+                                            daemon=True)
+            self._thread.start()
+        self._q.put(item)
+
+    def join(self):
+        """Wait until every item queued so far has run."""
+        self._q.join()
+
+    def close(self):
+        """Run what is queued, then stop the thread."""
+        if self._thread is not None:
+            self._q.put(None)
+            self._thread.join(timeout=120)
+            self._thread = None
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:
+                    return
+                item.run(self.stats)
+            except Exception:   # a lost copy: the chain re-prefills later
+                log.exception("kv page offload failed")
+            finally:
+                self._q.task_done()
+
+
 class Engine:
     """Owns the model state on one device and a background loop thread."""
 
@@ -334,12 +501,35 @@ class Engine:
             pg = max(1, min(self.ecfg.kv_page_size, C))
             while C % pg:         # the page size must divide the context
                 pg -= 1
-            self._pool = PagePool(S, C, pg, self.ecfg.kv_pool_pages)
+            pool_pages = self.ecfg.kv_pool_pages
+            full = S * (C // pg)
+            if (pool_pages == 0 and self.ecfg.kv_prefix_cache
+                    and self.ecfg.kv_offload and full >= 64):
+                # the JAX rule: with the host tier absorbing evictions a
+                # serving-sized default pool shrinks by a quarter; pools
+                # under 64 pages keep the full reservation
+                pool_pages = max(full * 3 // 4, S + C // pg)
+            self._pool = PagePool(S, C, pg, pool_pages)
         self._reuse = bool(self.ecfg.kv_prefix_cache)
         self._pcache: Optional[PrefixPageCache] = None
+        self._hstore: Optional[HostPageStore] = None
+        self._prefetch: Optional[PrefetchPipeline] = None
+        self._offloader = _OffloadWorker()
         if self._reuse and self._pool is not None:
-            self._pcache = PrefixPageCache(
-                build_scope("llama", model_cfg, pg, self.cache_dtype), pg)
+            scope = build_scope("llama", model_cfg, pg, self.cache_dtype)
+            self._pcache = PrefixPageCache(scope, pg)
+            if self.ecfg.kv_offload:
+                # the scope doubles as the saved file's model check
+                self._hstore = HostPageStore(scope, pg,
+                                             self.ecfg.kv_host_pool_mb)
+                path = self.ecfg.kv_host_store_path
+                if path:
+                    n = self._hstore.load(path)
+                    if n:
+                        log.info("kv host store: reloaded %d offloaded pages "
+                                 "from %s", n, path)
+                if self.ecfg.kv_prefetch_ahead > 0:
+                    self._prefetch = PrefetchPipeline()
         # per slot, the tokens whose KV rows the slot holds: a running
         # request's prompt + emitted tokens (a context shift's history);
         # with reuse, trimmed to the committed rows at release
@@ -463,6 +653,10 @@ class Engine:
                 break
             req.out.put(err)
             req.out.put(None)
+        # the offloads in flight land in the store before it is saved
+        self._offloader.close()
+        if self._hstore is not None and self.ecfg.kv_host_store_path:
+            self._hstore.save(self.ecfg.kv_host_store_path)
 
     def cancel(self, request_id: str):
         """Cancel a queued or running request (the JAX engine's
@@ -523,7 +717,8 @@ class Engine:
             # slot's retained rows and the prefix cache's are not in use,
             # so this is 0 at idle unless a page leaked
             out["pages_in_use"] = pool.pages_beyond(
-                [i for i, s in enumerate(self.slots) if s is None])
+                [i for i, s in enumerate(self.slots) if s is None],
+                extra=self._prefetched_pages())
             out["pages_total"] = pool.num_pages
             out["kv_pages_free"] = pool.free_pages
             out["kv_pages_retained"] = pool.retained_pages
@@ -531,15 +726,49 @@ class Engine:
             if self._pcache is not None:
                 out["prefix_cache"] = {**self._pcache.stats(),
                                        "cow_clones": self._reuse_stats["cow_clones"]}
+            if self._hstore is not None:
+                out["kv_pages_offloaded"] = self._hstore.pages
+                out["kv_offload"] = self._hstore.stats()
+                out["kv_offload_worker"] = dict(self._offloader.stats)
         return out
+
+    def _prefetched_pages(self) -> list:
+        """The detached pages the prefetch pipeline holds (a snapshot, so
+        metrics() may call it from another thread)."""
+        if self._prefetch is None:
+            return []
+        return [rec[0] for rec in list(self._prefetch.pages.values())]
 
     # ---------- engine loop ----------
 
     def _capture(self):
         """Capture the decode step's two variants and every (bucket,
-        continued) prefill graph (CUDA only; engine thread)."""
+        continued) prefill graph (CUDA only; engine thread), then pin the
+        host tier's memory."""
         self._graph.capture()
         self._pgraph.capture()
+        if self._hstore is not None:
+            self._reserve_pinned()
+
+    def _reserve_pinned(self):
+        """Pin host memory for offloaded pages once, at start: blocks the
+        size of one page's leaves, for twice the host tier's budget (the
+        store's pages plus as many again copied out before the inserts
+        evict the store back under its budget), allocated and freed at
+        once into PyTorch's caching host allocator, which hands them out
+        again to the offload worker's page copies (transfer.pages_to_host).
+        Pinning new memory is slow (it is page-locked, PERF.md §6), and
+        every graph capture empties that cache, so this runs after the
+        captures."""
+        leaves = [(c[k].shape[:1] + c[k].shape[2:], c[k].dtype)
+                  for c in (self.ck, self.cv) for k in ("pages", "scales")
+                  if k in c]
+        page_bytes = sum(torch.Size(sh).numel() * torch.empty(0, dtype=dt).element_size()
+                         for sh, dt in leaves)
+        n = 2 * self._hstore.budget_bytes // page_bytes
+        blocks = [torch.empty(sh, dtype=dt, pin_memory=True)
+                  for _ in range(n) for sh, dt in leaves]
+        del blocks
 
     def _run(self, ready: threading.Event, failed: list):
         try:
@@ -564,6 +793,10 @@ class Engine:
         FIFO rule allows. False when nothing happened (idle)."""
         self._reap_cancelled()
         admitted = self._admit()
+        if self._prefetch is not None:
+            # the host links of requests still queued upload now, ahead
+            # of their admission, overlapping the work dispatched below
+            self._prefetch_tick()
         prefilled = self._dispatch_prefill()
         dispatched = self._dispatch_decode()
         drained = self._drain_fifo(can_feed=prefilled or dispatched)
@@ -574,6 +807,7 @@ class Engine:
         self._fifo.clear()
         self._override.clear()
         self._fork_waiters.clear()
+        self._drop_prefetched()
         for i, s in enumerate(self.slots):
             if s is not None:
                 s.req.out.put(StreamEvent(
@@ -665,7 +899,8 @@ class Engine:
             common = 0
         if self._pool is not None and self._reuse:
             try:
-                common = self._paged_admission(slot, ids, common)
+                common = self._paged_admission(slot, ids, common,
+                                               rid=req.request_id)
             except Exception:
                 # the table may hold another prompt's shared or spliced
                 # pages now (PoolExhausted for a clone): the slot forgets
@@ -762,14 +997,20 @@ class Engine:
 
     # ---------- prefix reuse (paged) ----------
 
-    def _paged_admission(self, slot: int, ids: list, common: int) -> int:
+    def _paged_admission(self, slot: int, ids: list, common: int,
+                         rid: str = "") -> int:
         """Paged prefix reuse at admission: the rows reusable from the
         best of three tiers (module doc). Tier 1, ``common``, is the
         slot's own retained rows. Tier 2 shares another slot's rows that
         are read-only for it (the committed prompt rows of a running slot,
         the retained rows of a free one). Tier 3 splices a retained chain
-        of the prefix cache. Tiers 2 and 3 need kv_prefix_cache_min_rows
-        rows. The first page this request writes is cloned if shared."""
+        of the prefix cache; with the host tier on, the chain walk goes on
+        past the device pages (the JAX engine's two-tier walk): first the
+        prefetched links while they continue the chain, then host-store
+        hits, restored into new pages (``_restore_offloaded``). Tiers 2
+        and 3 need kv_prefix_cache_min_rows rows. The first page this
+        request writes is cloned if shared. ``rid``: the request's id, for
+        the late-prefetch count."""
         pool = self._pool
         min_rows = max(1, self.ecfg.kv_prefix_cache_min_rows)
         cap = len(ids) - 1              # leave >= 1 token to prefill
@@ -784,15 +1025,65 @@ class Engine:
             if n > best_rows:
                 best_src, best_rows = j, n
         cached_pages = self._pcache.match(ids, pool.max_pages)
-        cached_rows = min(len(cached_pages) * pool.page_size, cap)
+        host_hits: list = []
+        pre_keys: list = []
+        pf = self._prefetch
+        if self._hstore is not None:
+            # the device tier is prefix-closed (eviction cascades), so the
+            # host tier can only continue the chain past its pages
+            want = min(pool.max_pages, cap // pool.page_size + 1)
+            for i, key in enumerate(self._pcache.chain_keys(ids)):
+                if i < len(cached_pages):
+                    continue
+                if len(cached_pages) + len(pre_keys) + len(host_hits) >= want:
+                    break
+                if pf is not None and not host_hits and key in pf.pages:
+                    pre_keys.append(key)
+                    continue
+                e = self._hstore.get(key)
+                if e is None:
+                    break
+                host_hits.append(e)
+        cached_rows = min((len(cached_pages) + len(pre_keys) + len(host_hits))
+                          * pool.page_size, cap)
         if cached_rows >= min_rows and cached_rows > max(common, best_rows):
             pool.release(slot, 0)
             pool.splice(slot, cached_pages)
+            n_pre = 0
+            for key in pre_keys:
+                rec = pf.claim(key)
+                if rec is None:
+                    break
+                # the pipeline's detached reference goes to the table; the
+                # attach re-enters the link in the device tier
+                pool.adopt(slot, rec[0])
+                self._pcache.attach(pool, key, rec[1], rec[0], rec[2])
+                n_pre += 1
+            if n_pre:
+                self._hstore.note_prefetch_hit(n_pre)
+            if n_pre < len(pre_keys):
+                host_hits = []          # the chain has a hole past the claim
+            restored = 0
+            if host_hits:
+                restored = self._restore_offloaded(slot, host_hits)
+                if pf is not None and rid in pf.seen_rids:
+                    # scanned by the prefetch tick, restored here anyway
+                    self._hstore.note_prefetch_late(restored)
+            cached_rows = min((len(cached_pages) + n_pre + restored)
+                              * pool.page_size, cap)
+            if cached_rows == 0:
+                self._pcache.note_miss()
+                return 0
             # a retained page back in a table has refs >= 2 (table + hold),
             # so the guard clones the page the prefill writes first
             self._cow_guard(slot, cached_rows)
             self._pcache.note_hit(cached_rows)
             return cached_rows
+        if (self._hstore is not None and not host_hits and not pre_keys
+                and len(ids) // pool.page_size > len(cached_pages)):
+            # the host tier was consulted past the device chain and had
+            # nothing usable
+            self._hstore.note_miss()
         self._pcache.note_miss()
         if best_rows > common and best_rows >= min_rows:
             pool.release(slot, 0)
@@ -854,8 +1145,174 @@ class Engine:
             if s is None and i not in protect and self._pool.owned[i]:
                 self._pool.release(i, 0)
                 self._cache_tokens[i] = []
+        if (self._prefetch is not None and len(self._prefetch)
+                and self._pool.free_pages < need_free):
+            # pressure outranks speculation: prefetched pages (their rows
+            # are still in the host tier) go before retained chains
+            self._drop_prefetched()
         if self._pcache is not None:
-            self._pcache.evict(self._pool, need_free)
+            victims: list = []
+            on_evict = None
+            if self._hstore is not None:
+                # each evicted page the store lacks is collected while its
+                # id still names its rows; the gather is dispatched below,
+                # before anything can reuse the freed pages
+                def on_evict(e, victims=victims):
+                    if not self._hstore.contains(e.key):
+                        victims.append((e.key, e.parent, e.depth, e.page))
+            self._pcache.evict(self._pool, need_free, on_evict)
+            if victims:
+                self._dispatch_offload(victims)
+
+    def _drop_prefetched(self):
+        """Give back every page the prefetch pipeline holds, counted as
+        wasted (the pool-pressure raid, a failure)."""
+        if self._prefetch is None:
+            return
+        drained = self._prefetch.drain()
+        for _key, rec in drained:
+            self._pool.unref_detached(rec[0])
+        if drained:
+            self._hstore.note_prefetch_wasted(len(drained))
+
+    # ---------- the host tier ----------
+
+    def _dispatch_offload(self, victims: list):
+        """Offload evicted pages ((key, parent, depth, page) each): ONE
+        gather of their rows into a fresh device tensor, queued on the
+        stream now, so it reads the pages before any later pack or burst
+        rewrites them. The offload worker copies that snapshot to pinned
+        host memory and puts the pages into the host store: pinning host
+        memory is slow, and stays off the engine thread."""
+        pages = [v[3] for v in victims]
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+        self._offloader.put(_PendingOffload(
+            [(key, parent, depth) for key, parent, depth, _p in victims],
+            kvcache.gather_pages(self.ck, pages),
+            kvcache.gather_pages(self.cv, pages), stream, self._hstore))
+
+    def _upload_pages(self, pages: list, host_hits: list):
+        """Copy host-tier entries into device pages (same order): each
+        page copied from its pinned host tensors without waiting for the
+        stream (transfer.pages_to_device), then scattered in place; in
+        stream order the rows are there before any later pack or burst
+        reads them."""
+        n = len(host_hits)
+        for j, (cache, leaf) in enumerate(((self.ck, "k"), (self.cv, "v"))):
+            host = [e.src[j] if e.src is not None
+                    else _tensor_page(getattr(e, leaf)) for e in host_hits]
+            if isinstance(host[0], dict):
+                dev = {x: pages_to_device([h[x] for h in host], self.device)
+                       for x in host[0]}
+            else:
+                dev = pages_to_device(host, self.device)
+            kvcache.scatter_pages(cache, pages[:n], dev)
+
+    def _restore_offloaded(self, slot: int, host_hits: list) -> int:
+        """Restore host-tier hits into new pages appended to the slot's
+        table (dispatch, then splice: the upload is queued, the table
+        edit is host work). Each page re-enters the prefix cache (refs >=
+        2, so the first prefill write clones). Under pool pressure a
+        partial allocation restores a shorter chain from the root; it
+        never fails the admission. Returns the pages restored."""
+        pool = self._pool
+        pages = pool.alloc_many(len(host_hits))
+        if len(pages) < len(host_hits):
+            self._reclaim_pages(slot, len(host_hits) - len(pages))
+            pages.extend(pool.alloc_many(len(host_hits) - len(pages)))
+        host_hits = host_hits[:len(pages)]
+        if not host_hits:
+            return 0
+        n = len(host_hits)
+        self._upload_pages(pages, host_hits)
+        for e, p in zip(host_hits, pages):
+            pool.adopt(slot, p)
+            self._pcache.attach(pool, e.key, e.parent, p, e.depth)
+        self._hstore.note_restore(n)
+        return n
+
+    def _prefetch_tick(self):
+        """Prefetch-ahead (the JAX engine's, without the window): for the
+        first ``kv_prefetch_ahead`` queued requests not scanned yet,
+        upload the host-tier links their admission will restore into
+        detached pages now. Speculation never evicts: it stops at the
+        pool's free headroom."""
+        pf = self._prefetch
+        pf.tick += 1
+        expired = pf.expire()
+        if expired:
+            for _key, rec in expired:
+                self._pool.unref_detached(rec[0])
+            self._hstore.note_prefetch_wasted(len(expired))
+        ahead = max(1, int(self.ecfg.kv_prefetch_ahead))
+        with self._queue.mutex:
+            reqs = list(self._queue.queue)[:ahead]
+        if not reqs:
+            return
+        pool = self._pool
+        pg = pool.page_size
+        C = self.ecfg.max_context
+        budget = 4 * ahead * 8                   # pages per tick
+        for req in reqs:
+            if budget <= 0:
+                break
+            rid = req.request_id
+            if rid in pf.seen_rids:
+                continue
+            pf.seen_rids.add(rid)
+            ids = [int(t) for t in req.prompt_ids]
+            # _start_request's truncation: keys past it would never admit
+            max_prompt = C - 1 - min(req.max_new_tokens, C // 4)
+            if len(ids) > max_prompt:
+                ids = ids[-max_prompt:]
+            n_links = (len(ids) - 1) // pg
+            if n_links <= 0:
+                continue
+            keys = []
+            for i, key in enumerate(self._pcache.chain_keys(ids)):
+                if i >= n_links:
+                    break
+                keys.append(key)
+            d = 0                                # device-resident depth
+            while d < len(keys) and self._pcache.contains(keys[d]):
+                d += 1
+            n_avail = d
+            while n_avail < len(keys) and (
+                    keys[n_avail] in pf.pages
+                    or self._hstore.contains_any(keys[n_avail])):
+                n_avail += 1
+            if n_avail <= d:
+                continue
+            fetch = [i for i in range(d, n_avail)
+                     if keys[i] not in pf.pages][:budget]
+            if not fetch:
+                continue
+            if pool.free_pages < len(fetch) + 4:
+                break                            # headroom: truth first
+            ents = []
+            for i in fetch:
+                e = self._hstore.get(keys[i])
+                if e is None:
+                    break                        # a hole since the probe
+                ents.append(e)
+            if not ents:
+                continue
+            pages = pool.alloc_many(len(ents))
+            if len(pages) < len(ents):
+                for p in pages:
+                    pool.unref_detached(p)
+                break
+            self._upload_pages(pages, ents)
+            for e, p in zip(ents, pages):
+                pf.register(e.key, e.parent, p, e.depth)
+            self._hstore.note_prefetch_issued(len(ents))
+            budget -= len(ents)
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
+            self._offloader.put(_PendingPrefetch(event, self._hstore))
 
     def _ensure_pages(self, slot: int, rows: int):
         """Lazy page allocation; under pool pressure reclaim and retry once
@@ -1342,7 +1799,8 @@ class Engine:
         s.written = s.cache_len = s.committed = 0
         self._cache_tokens[slot] = list(new_ids)
         if self._pcache is not None:
-            reused = self._paged_admission(slot, new_ids, 0)
+            reused = self._paged_admission(slot, new_ids, 0,
+                                           rid=s.req.request_id)
             s.pending = new_ids[reused:]
             s.written = s.committed = s.reused = reused
             self._reuse_stats["reused_rows"] += reused

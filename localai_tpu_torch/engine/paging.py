@@ -94,14 +94,17 @@ class PagePool:
         """Pages some slot table (or a detached clone) references."""
         return int(((self.refs > 0) & (self.refs > self.held)).sum())
 
-    def pages_beyond(self, idle_slots) -> int:
-        """Pages referenced beyond the prefix cache's holds and the tables
-        of ``idle_slots``: the running requests' pages, plus any reference
-        nothing accounts for (a detached page never adopted, a count never
-        dropped). 0 when every slot is idle and nothing leaked."""
+    def pages_beyond(self, idle_slots, extra=()) -> int:
+        """Pages referenced beyond the prefix cache's holds, the tables of
+        ``idle_slots`` and one reference per page in ``extra`` (detached
+        pages a caller owns: the host tier's prefetched pages): the
+        running requests' pages, plus any reference nothing accounts for
+        (a detached page never adopted, a count never dropped). 0 when
+        every slot is idle and nothing leaked."""
         known = self.held.copy()
         for s in idle_slots:
             np.add.at(known, self.ptab[s, :int(self.owned[s])], 1)
+        np.add.at(known, np.asarray(list(extra), np.int64), 1)
         return int((self.refs > known).sum())
 
     def slot_rows_capacity(self, slot: int) -> int:

@@ -21,7 +21,10 @@ build_scope, without the replica-pool callbacks and the auditor).
     LRU-first (ties: the deepest link first), removal cascades to the
     descendants (an orphan is unreachable), and each ``drop`` frees its
     page once nothing else references it. Eviction never touches a live
-    slot, so reclaim cannot deadlock.
+    slot, so reclaim cannot deadlock. With the host tier on, ``evict``'s
+    ``on_evict`` hook hands each removed entry to the engine, which
+    offloads its page (engine/kv_offload.py); a restored page re-enters
+    this index through ``attach``.
 
 Entries are one page each, so the index is bounded by the pool: pool
 pressure is the only capacity limit. Single-threaded: the engine thread
@@ -79,6 +82,11 @@ class PrefixPageCache:
     def pages(self) -> list:
         """The physical pages held, one per entry."""
         return [e.page for e in self._entries.values()]
+
+    def contains(self, key: bytes) -> bool:
+        """Membership without an LRU touch (the prefetch planner skips
+        links already on the device without promoting them)."""
+        return key in self._entries
 
     # ---------- the hash chain ----------
 
@@ -138,10 +146,15 @@ class PrefixPageCache:
             pages.append(e.page)
         return pages
 
-    def evict(self, pool, need_free: int) -> int:
+    def evict(self, pool, need_free: int, on_evict=None) -> int:
         """Drop entries LRU-first until the pool has ``need_free`` free
         pages or the index is empty. Ties drop the deepest link first, and
-        removal cascades to descendants. Returns the entries dropped."""
+        removal cascades to descendants. Returns the entries dropped.
+
+        ``on_evict(entry)`` is the host tier's handoff: called for every
+        removed entry BEFORE its pool reference drops, while the page id
+        still names its rows (the engine gathers the victims' pages for
+        the offload before anything can reuse them)."""
         if not self._entries or pool.free_pages >= need_free:
             return 0
         victims = sorted(self._entries.values(),
@@ -152,11 +165,11 @@ class PrefixPageCache:
                 break
             if e.key not in self._entries:
                 continue    # already cascaded away
-            dropped += self._remove_tree(pool, e.key)
+            dropped += self._remove_tree(pool, e.key, on_evict)
         self.evicted_pages += dropped
         return dropped
 
-    def _remove_tree(self, pool, key: bytes) -> int:
+    def _remove_tree(self, pool, key: bytes, on_evict=None) -> int:
         n = 0
         stack = [key]
         while stack:
@@ -170,6 +183,8 @@ class PrefixPageCache:
                 kids.discard(k)
                 if not kids:
                     del self._children[e.parent]
+            if on_evict is not None:
+                on_evict(e)
             pool.drop(e.page)
             n += 1
         return n

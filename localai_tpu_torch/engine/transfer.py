@@ -17,7 +17,20 @@ never copies that way:
     also in stream order, and records a CUDA event after the copy;
     ``done`` asks whether the event fired, ``wait`` blocks on it alone
     (the counterpart of the JAX engine's sync worker reading one
-    dispatch's results in order) and returns the host array.
+    dispatch's results in order) and returns the host array. bfloat16,
+    which numpy lacks, comes back as its uint16 bit patterns
+    (``numpy_of``), the form the host tier (engine/kv_offload.py) keeps.
+  * The host tier (engine/kv_offload.py) moves whole KV pages:
+    ``pages_to_host`` copies each page of a gathered [L, n, ...] tensor
+    into a pinned host tensor of its own, in stream order, which the tier
+    then keeps as the page's content (one page is one caching-allocator
+    block, freed alone when the page leaves the tier);
+    ``pages_to_device`` copies n host pages back into one [L, n, ...]
+    tensor on the card with ``non_blocking=True``, straight from those
+    pinned tensors (a page without one, loaded from a file, is pinned
+    first). The caching host allocator records an event on each source
+    block, so a page evicted from the tier while its copy is queued is
+    not handed out again before the copy ran.
 
 On CPU tensors both are plain copies: the work they follow has already
 run, and a Fetch holds its own copy, since the source buffer is static
@@ -30,6 +43,55 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+
+def numpy_of(t: torch.Tensor) -> np.ndarray:
+    """The numpy view of a CPU tensor; bfloat16 as its uint16 bit
+    patterns."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def tensor_of(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over host array ``a`` (no copy; uint16 as bfloat16)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def pages_to_host(rows: torch.Tensor) -> list:
+    """The n pages [L, ...] of ``rows`` [L, n, ...] as n host tensors: on
+    CUDA each copied into a pinned tensor of its own without waiting for
+    the stream (record an event after them to know when they landed); on
+    the CPU contiguous copies."""
+    out = []
+    for i in range(rows.shape[1]):
+        page = rows[:, i]
+        if rows.is_cuda:
+            h = torch.empty(page.shape, dtype=page.dtype, pin_memory=True)
+            h.copy_(page, non_blocking=True)
+            out.append(h)
+        else:
+            out.append(page.clone())
+    return out
+
+
+def pages_to_device(pages: list, device: torch.device) -> torch.Tensor:
+    """n host pages [L, ...] (tensors) as ONE new tensor [L, n, ...] on
+    ``device``: on CUDA each page copied in without waiting for the
+    stream, from its pinned memory (a pageable page is pinned first); on
+    the CPU the stacked pages."""
+    if device.type != "cuda":
+        return torch.stack(pages, dim=1)
+    first = pages[0]
+    out = torch.empty((first.shape[0], len(pages)) + tuple(first.shape[1:]),
+                      dtype=first.dtype, device=device)
+    for i, page in enumerate(pages):
+        src = page if page.is_pinned() else page.pin_memory()
+        out[:, i].copy_(src, non_blocking=True)
+    return out
 
 
 def to_device(dst: torch.Tensor, src: np.ndarray):
@@ -71,7 +133,8 @@ class Fetch:
         return self.event is None or self.event.query()
 
     def wait(self) -> np.ndarray:
-        """Block until the copy has landed; the host array."""
+        """Block until the copy has landed; the host array (bfloat16 as
+        uint16, ``numpy_of``)."""
         if self.event is not None:
             self.event.synchronize()
-        return self.host.numpy()
+        return numpy_of(self.host)

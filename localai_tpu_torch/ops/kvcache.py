@@ -45,7 +45,11 @@ without a host sync to filter the rows.
 Unlike JAX's functional updates, the scatters here write into the store
 in place; the pool is the largest buffer on the card and is never copied.
 ``clone_page`` (the copy-on-write primitive of prefix reuse) copies one
-physical page over every layer in place in the same way.
+physical page over every layer in place in the same way, and
+``scatter_pages`` (the host tier's restore) writes whole pages in place;
+``gather_pages`` (its offload) reads them into a fresh tensor. Both keep
+the cache's representation (int8 pages with their scales) and take real
+page ids only, never the scratch page.
 
 PAGE IDENTITY (the cross-release prefix cache, engine/prefix_cache.py):
 a full page is named by a chained block hash over token ids,
@@ -280,6 +284,49 @@ def clone_page(cache: dict, src: int, dst: int) -> dict:
     st[:, dst].copy_(st[:, src])
     if is_quant(cache):
         cache["scales"][:, dst].copy_(cache["scales"][:, src])
+    return cache
+
+
+def _page_index(cache: dict, page_ids) -> torch.Tensor:
+    """Host page ids as an int64 index on the store's device, each checked
+    to be a real page (< n_pages: never the scratch page, never padding).
+    On CUDA the ids go through a pinned buffer without waiting for the
+    stream (engine/transfer.py's rule)."""
+    ids = np.asarray(page_ids, np.int64).reshape(-1)
+    n = cache["pages"].shape[1] - 1
+    if ids.size == 0 or ids.min() < 0 or ids.max() >= n:
+        raise ValueError(f"page ids {ids.tolist()} outside the {n} pages")
+    t = torch.from_numpy(ids)
+    dev = cache["pages"].device
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t
+
+
+def gather_pages(cache: dict, page_ids):
+    """Whole physical pages [L, n, page_size, KV, hd] of a paged cache, a
+    fresh tensor (int8: {"q": rows, "s": scales [L, n, page_size, KV]}):
+    the offload's read, dtype-preserving, so the host tier keeps the
+    device representation. ``page_ids``: host ints, real pages only."""
+    idx = _page_index(cache, page_ids)
+    rows = cache["pages"].index_select(1, idx)
+    if is_quant(cache):
+        return {"q": rows, "s": cache["scales"].index_select(1, idx)}
+    return rows
+
+
+def scatter_pages(cache: dict, page_ids, rows) -> dict:
+    """Write whole pages back, IN PLACE (the captured decode and prefill
+    graphs read ``pages`` and ``scales`` where they lie): the restore,
+    gather_pages' inverse. ``rows`` in gather_pages' form, on the cache's
+    device; int8 scales are copied, never requantized. ``page_ids``: host
+    ints, real pages only."""
+    idx = _page_index(cache, page_ids)
+    if is_quant(cache):
+        cache["pages"].index_copy_(1, idx, rows["q"])
+        cache["scales"].index_copy_(1, idx, rows["s"])
+    else:
+        cache["pages"].index_copy_(1, idx, rows.to(cache["pages"].dtype))
     return cache
 
 

@@ -95,8 +95,8 @@ def jax_engine(tiny, reuse: bool, **knobs):
 def port_engine(tiny, reuse: bool, **knobs):
     _jc, _jp, tcfg, tparams = tiny
     return teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
-        **EC, decode_burst=16, kv_prefix_cache=reuse, **knobs),
-        device="cpu").start()
+        **EC, decode_burst=16, kv_prefix_cache=reuse, kv_offload=False,
+        **knobs), device="cpu").start()
 
 
 def submit(e, prompt, n, stop=(), **params):

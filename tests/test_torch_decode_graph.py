@@ -429,7 +429,9 @@ def test_capture_runs_under_sync_debug_error(card):
 def test_engine_loop_never_waits_for_the_stream(card):
     """The pipelined loop (depth 2, the split fused tick) with a fork
     group (a shared prefix and its boundary-page clone) and a logit bias
-    (a bias row copied in) serves under torch.cuda.set_sync_debug_mode
+    (a bias row copied in), then the host tier (a wave that needs the
+    whole pool offloads the fork group's retained chain, and the prompt
+    sent again restores it) serves under torch.cuda.set_sync_debug_mode
     "error": no op on the engine thread waits for the whole stream (a
     pageable copy, .item(), a boolean mask); it waits only on one
     dispatch's event."""
@@ -456,24 +458,43 @@ def test_engine_loop_never_waits_for_the_stream(card):
     gate, admit = threading.Event(), e._admit
     e._admit = lambda: gate.is_set() and admit()
     outs = [e.submit(r) for r in reqs]
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        gate.set()
-        e._wake.set()
+    rng = np.random.default_rng(3)
+
+    def finals_of(outs):
         finals = []
         for o in outs:
             evs = []
             while (ev := o.get(timeout=300)) is not None:
                 evs.append(ev)
             finals.append(evs[-1])
+        return finals
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gate.set()
+        e._wake.set()
+        finals = finals_of(outs)
+        # 4 x (100 + 20) rows take all 32 pages: every retained chain is
+        # evicted, the prompt's two full pages offloaded
+        finals += finals_of([e.submit(GenRequest(
+            prompt_ids=rng.integers(2, 96, size=100).tolist(), max_new_tokens=20,
+            ignore_eos=True, params=sampling.SamplingParamsHost(temperature=0.0)))
+            for _ in range(4)])
+        e._offloader.join()
+        offloaded = e.metrics()["kv_offload"]["offloaded_pages"]
+        finals += finals_of([e.submit(GenRequest(
+            prompt_ids=prompt + [3, 4, 5], max_new_tokens=5, ignore_eos=True,
+            params=sampling.SamplingParamsHost(temperature=0.0)))])
     finally:
         torch.cuda.set_sync_debug_mode(0)
         e.shutdown()
     assert all(f.error is None for f in finals), [f.error for f in finals]
-    assert [f.completion_tokens for f in finals] == [21, 21, 21, 9]
+    assert [f.completion_tokens for f in finals] == [21, 21, 21, 9] + [20] * 4 + [5]
     m = e.metrics()
     assert m["fork"]["forked"] == 2 and m["pipeline"]["max_inflight"] == 2
     assert m["pages_in_use"] == 0
+    assert offloaded >= 2 and m["kv_offload"]["restores"] == 1
+    assert finals[-1].timings["reused_prompt_tokens"] == 32
 
 
 @pytest.mark.cuda

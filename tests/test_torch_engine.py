@@ -70,7 +70,7 @@ def engines(tmp_path_factory):
         draft="0"))
     te = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         num_slots=4, max_context=128, prefill_chunk=16, kv_page_size=16,
-        decode_burst=16), device="cpu")
+        decode_burst=16, kv_offload=False), device="cpu")
     je.start()
     te.start()
     yield je, te

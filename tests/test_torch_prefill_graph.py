@@ -121,8 +121,8 @@ def test_pack_buckets_equal_the_jax_engine(tiny, buckets, chunk, budget, context
         je.shutdown()
     te = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         num_slots=2, max_context=context, prefill_buckets=buckets,
-        prefill_chunk=chunk, prefill_token_budget=budget, kv_page_size=16),
-        device="cpu")
+        prefill_chunk=chunk, prefill_token_budget=budget, kv_page_size=16,
+        kv_offload=False), device="cpu")
     assert te._pack_buckets == tuple(want)
     assert te.metrics()["prefill_graph"]["buckets"] == list(want)
     assert sorted(te._pgraph.buf) == list(want)
@@ -337,7 +337,7 @@ def test_engine_matches_the_jax_engine_request_by_request(tiny, layout):
         draft="0"))
     te = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         **EC, decode_burst=16, kv_prefix_cache=True, prefill_packed_fuse="0",
-        **tk), device="cpu")
+        kv_offload=False, **tk), device="cpu")
     je.start()
     te.start()
     try:

@@ -112,7 +112,7 @@ def jax_engine(tiny, reuse: bool, cache_dtype=jnp.float32, layout="paged",
 def port_engine(tiny, reuse: bool, **knobs):
     _jcfg, _jp, tcfg, tparams = tiny
     kw = dict(num_slots=S, max_context=C, prefill_chunk=16, kv_page_size=PG,
-              decode_burst=16, kv_prefix_cache=reuse)
+              decode_burst=16, kv_prefix_cache=reuse, kv_offload=False)
     kw.update(knobs)
     return teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(**kw),
                        device="cpu").start()

@@ -336,7 +336,8 @@ def engines(tmp_path_factory):
         draft="0"))
     te = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         num_slots=4, max_context=C, prefill_buckets=(16, 32), prefill_chunk=32,
-        kv_page_size=16, decode_burst=8, kv_prefix_cache=False), device="cpu")
+        kv_page_size=16, decode_burst=8, kv_prefix_cache=False,
+        kv_offload=False), device="cpu")
     je.start()
     te.start()
     yield je, te

@@ -44,7 +44,8 @@ def served(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("tiny_server"))
     hf = write_tiny_checkpoint(d)
     lm = load_model(d, "tiny", num_slots=4, context_size=256, dtype="float32",
-                    device="cpu", prefill_chunk=16, kv_page_size=16)
+                    device="cpu", prefill_chunk=16, kv_page_size=16,
+                    kv_offload=False)
     app = App({"tiny": lm})
     server = make_server(app, "127.0.0.1", 0)
     th = threading.Thread(target=server.serve_forever, daemon=True)
