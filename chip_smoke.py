@@ -253,6 +253,40 @@ Phases, each raising on failure (no phase swallows an error):
               count is printed); both groups' TTFT and the packs' device
               ms (CUDA events). A {"pipeline": ...} JSON line before the
               kernels line holds it all.
+  3h. lifecycle for paged and w8kv8, right after 3f on the same loaded
+              model (lifecycle_phase): admission control, deadlines, the
+              stall watchdog and the priority scheduler, through the HTTP
+              server of an engine over the same weights with
+              max_queued_requests 4. (a) shed: 8 requests of 400 tokens
+              hold the slots, 12 chat requests arrive at once (half
+              streamed): exactly 4 queue (then run) and 8 are answered 429
+              with Retry-After; submit -> shed event (us) and the 429's
+              HTTP time. (b) priority: 8 low requests (600-token prompts,
+              300 tokens) decode, then a 1500-token chat arrives with 64
+              tokens at low (it waits for a slot: the unpreempted
+              reference), high and normal (both outrank low, so each
+              preempts a low slot): its TTFT; per victim the pause ->
+              resume time, the rows its resume reused (all its committed
+              full pages, through the device-tier splice: checked), the
+              resume -> next token time, its full 300 tokens (no token
+              lost or repeated) and how many equal the unpreempted run's
+              (bf16: printed, not a byte gate). (e) deadlines:
+              request_timeout_ms 200 with 2000 tokens -> 504 and no page in
+              use after; a request queued past max_queue_wait_ms 100 behind
+              8 decodes -> 429. (d) stall: dispatch_stall_ms 300 and a GPU
+              sleep of ~1 s enqueued on the engine's stream ahead of one
+              burst (a hook of this script, stall_once): that request gets
+              503, the dispatch -> abort time is printed, and a request
+              sent after the sleep has run gets the greedy tokens the
+              loaded engine (the same configuration) gives the same
+              prompt (a byte gate). (c) pool pressure, on an engine with
+              96 pages: 6 low requests (600 + 300) decode, then 2 high
+              ones (1500 + 64) arrive; every request completes (with
+              preempt off, as before the scheduler, PoolExhausted fails
+              them all: tests/test_torch_scheduler.py); preemptions,
+              resumes, re-prefills, rows restored at resume and host-tier
+              pages restored. A {"lifecycle": ...} JSON line before the
+              kernels line holds it all.
   4. kernels  one JSON line {"kernels": [...]}: for each of the eight kernels,
               launches during its serving configuration (K5 has no serving
               path: its launches are those of phases 2 and 4), parity
@@ -1168,6 +1202,7 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
             del runs3c
         shift = shift_phase(lm, card, config) if config in PREFIX_K2 else None
         pipeline = pipeline_phase(lm, card, config) if config in PREFIX_K2 else None
+        lifecycle = lifecycle_phase(lm, card, config) if config in PREFIX_K2 else None
         return launches, {"prompt_lens": prompt_lens, "n_long": n_long,
                           "ttft_ms": ttft_ms, "decode_tok_s": decode_tok_s,
                           "step_ms": step_ms, "pack_ms": pack_ms,
@@ -1175,6 +1210,7 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
                           "gb": gb, "peak_gb": peak_gb, "weight_gb": weight_gb,
                           "decode": decode, "prefill": prefill, "prefix": prefix,
                           "shift": shift, "pipeline": pipeline, "host": host,
+                          "lifecycle": lifecycle,
                           "memory": memory, "banned": banned}
     finally:
         server.shutdown()
@@ -2915,6 +2951,449 @@ def pipeline_phase(lm, card: str, config: str) -> dict:
     return out
 
 
+# ---------- phase 3h: the request lifecycle ----------
+
+LC_QUEUE = 4                    # (a) max_queued_requests
+LC_HOLD = (32, 400)             # (a), (e) the 8 requests holding the slots
+LC_BURST = 12                   # (a) requests sent at once
+LC_LOW = (600, 300)             # (b), (c) the low requests
+LC_ARRIVAL = (1500, 64)         # (b), (c) the arrival / the high requests
+LC_POOL = 96                    # (c) pages
+LC_STALL_MS = 300               # (d) dispatch_stall_ms
+LC_TIMEOUT = (200, 2000)        # (e) request_timeout_ms, max_tokens
+LC_QWAIT_MS = 100               # (e) max_queue_wait_ms
+
+
+def http_any(url: str, body: dict, timeout=600):
+    """(status, headers, body) of a POST, error statuses included: the
+    JSON object, or for a stream answered 200 its SSE chunks."""
+    import urllib.error
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, headers, raw = r.status, dict(r.headers), r.read().decode()
+    except urllib.error.HTTPError as e:
+        status, headers, raw = e.code, dict(e.headers), e.read().decode()
+    if body.get("stream") and status == 200:
+        return status, headers, [json.loads(ln[6:]) for ln in raw.splitlines()
+                                 if ln.startswith("data: ") and ln[6:] != "[DONE]"]
+    return status, headers, json.loads(raw)
+
+
+def lc_reader(out):
+    """A thread filling a dict with a stream's ids, its last event, its
+    first event's time and its error."""
+    res = {"ids": [], "last": None, "t_first": None, "error": None}
+
+    def read():
+        while (ev := out.get(timeout=900)) is not None:
+            res["t_first"] = res["t_first"] or time.monotonic()
+            res["ids"].extend(ev.token_ids or ([ev.token_id] if ev.token_id >= 0 else []))
+            res["last"] = ev
+            res["error"] = res["error"] or ev.error
+        res["done"] = True
+
+    th = threading.Thread(target=read, daemon=True)
+    th.start()
+    return res, th
+
+
+def lc_hold(eng, reqs, tag):
+    """Submit ``reqs`` past the queue bound (lifted meanwhile: the knob is
+    read at each submit) and wait until they all run."""
+    maxq, eng.ecfg.max_queued_requests = eng.ecfg.max_queued_requests, 0
+    try:
+        outs = [eng.submit(r) for r in reqs]
+    finally:
+        eng.ecfg.max_queued_requests = maxq
+    lc_wait(lambda: eng.num_active == len(reqs) and eng._queue.empty(), tag,
+            f"{len(reqs)} running")
+    return outs
+
+
+def lc_wait(cond, tag, what, timeout=300):
+    t_end = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > t_end:
+            raise AssertionError(f"{tag} timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def stall_once(eng):
+    """Make the engine's next burst late on the card: a GPU sleep of about
+    1 s enqueued on its stream just ahead of the burst (engine thread), so
+    the burst's event fires that much later. A hook of this script only."""
+    import torch
+
+    burst = eng._burst
+
+    def late(n_steps, active):
+        del eng._burst
+        torch.cuda._sleep(int(torch.cuda.get_device_properties(0).clock_rate * 1e3))
+        return burst(n_steps, active)
+
+    eng._burst = late
+
+
+def lc_shed(eng, url, greedy, prompt, tag):
+    """(a) 8 decodes hold the slots; LC_BURST requests arrive at once
+    (half streamed): LC_QUEUE queue, the rest are answered 429."""
+    m0 = eng.metrics()["lifecycle"]
+    holds = [greedy(prompt(LC_HOLD[0]), LC_HOLD[1]) for _ in range(8)]
+    outs = lc_hold(eng, holds, tag)
+    shed_us, shed = [], eng._shed
+
+    def spy(req, reason):
+        shed(req, reason)
+        shed_us.append((time.monotonic() - req.t_submit) * 1e6)
+
+    eng._shed = spy
+    res = [None] * LC_BURST
+
+    def post(i):
+        t0 = time.monotonic()
+        st, h, _b = http_any(url, {"messages": [{"role": "user", "content": f"q {i}"}],
+                                   "max_tokens": 8, "temperature": 0,
+                                   "ignore_eos": True, "stream": i % 2 == 1})
+        res[i] = (st, h.get("Retry-After"), (time.monotonic() - t0) * 1e3)
+
+    threads = [threading.Thread(target=post, args=(i,), daemon=True)
+               for i in range(LC_BURST)]
+    try:
+        for t in threads:
+            t.start()
+        lc_wait(lambda: len(shed_us) >= LC_BURST - LC_QUEUE, tag, "the sheds", 60)
+        queued = eng.metrics()["queued"]
+    finally:
+        del eng._shed
+        for r in holds:
+            eng.cancel(r.request_id)
+    for t in threads:
+        t.join(timeout=300)
+    for o in outs:
+        while o.get(timeout=300) is not None:
+            pass
+    statuses = sorted(r[0] for r in res if r)
+    n_shed = eng.metrics()["lifecycle"]["requests_shed"] - m0["requests_shed"]
+    want = [200] * LC_QUEUE + [429] * (LC_BURST - LC_QUEUE)
+    bad_ra = [r for r in res if r and r[0] == 429 and not (r[1] and int(r[1]) >= 1)]
+    if statuses != want or queued != LC_QUEUE or n_shed != len(want) - LC_QUEUE or bad_ra:
+        raise AssertionError(f"{tag} (a) statuses {statuses}, {queued} queued, "
+                             f"{n_shed} shed, 429s without Retry-After {bad_ra}")
+    ms429 = sorted(r[2] for r in res if r[0] == 429)
+    return {"queued": queued, "shed": n_shed, "shed_us": sorted(shed_us),
+            "http_429_ms": ms429}
+
+
+def lc_priority(eng, chat, greedy, prompt, text, tag):
+    """(b) 8 low requests fill the slots; a 1500-token arrival at high,
+    normal (both outrank low: they preempt) and low (it waits), each on a
+    fresh round of the same low requests (low first: the unpreempted
+    reference)."""
+    import torch
+
+    low_prompts = [prompt(LC_LOW[0]) for _ in range(8)]
+    arrival = text(LC_ARRIVAL[0])
+    rounds = {}
+    for cls in ("low", "high", "normal"):
+        on_engine_thread(eng, lambda: forget_retained(eng))
+        m0 = eng.metrics()["scheduler"]
+        pauses, resumes, emits = [], [], {}
+        pre, start_resume, emit = eng._preempt_slot, eng._start_resume, eng._emit
+
+        def spy_pre(slot, why="priority"):
+            s = eng.slots[slot]
+            pauses.append({"rid": s.req.request_id, "n_decoded": s.n_decoded,
+                           "committed": s.committed, "t": time.monotonic()})
+            return pre(slot, why)
+
+        def spy_resume(entry):
+            slot = start_resume(entry)
+            resumes.append({"rid": entry.req.request_id, "slot": slot,
+                            "reused": eng.slots[slot].reused,
+                            "history": len(entry.ids), "t": time.monotonic(),
+                            "parked_ms": (time.monotonic() - entry.t_parked) * 1e3})
+            emits[slot] = None
+            return slot
+
+        def spy_emit(slot, token_id, logprob):
+            if slot in emits and emits[slot] is None:
+                emits[slot] = time.monotonic()
+            return emit(slot, token_id, logprob)
+
+        eng._preempt_slot, eng._start_resume, eng._emit = spy_pre, spy_resume, spy_emit
+        try:
+            reqs = [greedy(p, LC_LOW[1], "low") for p in low_prompts]
+            gate = threading.Event()
+            admit = eng._admit
+            eng._admit = lambda admit=admit: gate.is_set() and admit()
+            maxq, eng.ecfg.max_queued_requests = eng.ecfg.max_queued_requests, 0
+            readers = [lc_reader(eng.submit(r)) for r in reqs]
+            eng.ecfg.max_queued_requests = maxq
+            gate.set()
+            del eng._admit
+            eng._wake.set()
+            lc_wait(lambda: all(r[0]["t_first"] for r in readers), tag, "8 lows")
+            t0 = time.monotonic()
+            chunks, t_first, _t = http_stream(chat, {
+                "messages": [{"role": "user", "content": arrival}],
+                "max_tokens": LC_ARRIVAL[1], "temperature": 0,
+                "ignore_eos": True, "stream": True, "priority": cls})
+            ttft_ms = (t_first - t0) * 1e3     # the role chunk: the first token
+            for _r, th in readers:
+                th.join(timeout=900)
+            torch.cuda.synchronize()
+        finally:
+            del eng._preempt_slot, eng._start_resume, eng._emit
+        bad = [(i, r["error"], len(r["ids"])) for i, (r, _t) in enumerate(readers)
+               if r["error"] or len(r["ids"]) != LC_LOW[1]
+               or r["last"].completion_tokens != LC_LOW[1]]
+        got = chunks[-1]["usage"]["completion_tokens"]
+        m1 = eng.metrics()["scheduler"]
+        n_pre = m1["preemptions"] - m0["preemptions"]
+        # a low arrival waits for a slot (it may age past
+        # priority_aging_ms and preempt; printed, not required)
+        if bad or got != LC_ARRIVAL[1] or (n_pre == 0 and cls != "low"):
+            raise AssertionError(f"{tag} (b) {cls}: lows {bad}, arrival {got} tokens, "
+                                 f"{n_pre} preemptions")
+        rids = [r.request_id for r in reqs]
+        victims = []
+        for p in pauses:
+            i = rids.index(p["rid"])
+            rs = next(x for x in resumes if x["rid"] == p["rid"])
+            # the device-tier splice gives back every committed full page
+            want = min((p["committed"] // PG) * PG, rs["history"] - 1)
+            if rs["reused"] != want:
+                raise AssertionError(f"{tag} (b) {cls}: the resume reused "
+                                     f"{rs['reused']} rows, {want} committed")
+            ref = rounds.get("low", {}).get("ids", [None] * 8)[i]
+            victims.append({
+                "request": i, "paused_at_token": p["n_decoded"],
+                "pause_to_resume_ms": (rs["t"] - p["t"]) * 1e3,
+                "parked_ms": rs["parked_ms"], "reused_rows": rs["reused"],
+                "committed_rows": p["committed"],
+                "resume_to_token_ms": (emits[rs["slot"]] - rs["t"]) * 1e3,
+                "tokens": len(readers[i][0]["ids"]),
+                "match_unpreempted": None if ref is None else sum(
+                    a == b for a, b in zip(readers[i][0]["ids"], ref)),
+                "prefix_match": None if ref is None else next(
+                    (k for k, (a, b) in enumerate(zip(readers[i][0]["ids"], ref))
+                     if a != b), len(ref))})
+        rounds[cls] = {"ttft_ms": ttft_ms, "preemptions": n_pre,
+                       "resumes": m1["resumes"] - m0["resumes"],
+                       "victims": victims,
+                       "ids": [r["ids"] for r, _t in readers]}
+    for r in rounds.values():
+        del r["ids"]
+    return rounds
+
+
+def lc_deadlines(eng, url, greedy, prompt, tag):
+    """(e) a request past request_timeout_ms mid-decode: 504, its slot and
+    pages released; a request queued past max_queue_wait_ms: 429."""
+    body = {"messages": [{"role": "user", "content": "a long answer"}],
+            "temperature": 0, "ignore_eos": True}
+    eng.ecfg.request_timeout_ms = LC_TIMEOUT[0]
+    t0 = time.monotonic()
+    try:
+        st, _h, err = http_any(url, {**body, "max_tokens": LC_TIMEOUT[1]})
+    finally:
+        eng.ecfg.request_timeout_ms = 0
+    t504 = (time.monotonic() - t0) * 1e3
+    m = idle_metrics(eng, tag)
+    if st != 504 or err["error"]["type"] != "deadline_exceeded":
+        raise AssertionError(f"{tag} (e) request_timeout_ms: {st} {err}")
+    holds = [greedy(prompt(LC_HOLD[0]), LC_HOLD[1]) for _ in range(8)]
+    outs = lc_hold(eng, holds, tag)
+    eng.ecfg.max_queue_wait_ms = LC_QWAIT_MS
+    t0 = time.monotonic()
+    try:
+        st2, h2, err2 = http_any(url, {**body, "max_tokens": 8})
+    finally:
+        eng.ecfg.max_queue_wait_ms = 0
+        for r in holds:
+            eng.cancel(r.request_id)
+    t429 = (time.monotonic() - t0) * 1e3
+    for o in outs:
+        while o.get(timeout=300) is not None:
+            pass
+    idle_metrics(eng, tag)
+    if st2 != 429 or "max_queue_wait_ms" not in err2["error"]["message"]:
+        raise AssertionError(f"{tag} (e) max_queue_wait_ms: {st2} {err2}")
+    return {"timeout_http_ms": t504, "timeout_pages_in_use": m["pages_in_use"],
+            "queue_wait_http_ms": t429, "retry_after": h2.get("Retry-After")}
+
+
+def lc_stall(lm, eng, url, greedy, prompt, tag):
+    """(d) a real device stall under dispatch_stall_ms = LC_STALL_MS: the
+    stalled burst's request gets a 503; a request sent after the sleep has
+    run is served, with the greedy tokens of the loaded engine (the same
+    configuration) on the same prompt."""
+    probe = prompt(40)
+
+    def ids_of(events):
+        return [t for e in events for t in (e.token_ids or [e.token_id])]
+
+    on_engine_thread(lm.engine, lambda: forget_retained(lm.engine))
+    want = ids_of(lm.engine.generate(greedy(probe, 32)))
+    aborts, handle = [], eng._handle_stall
+
+    def spy(item):
+        aborts.append((time.monotonic() - item.t0) * 1e3)
+        return handle(item)
+
+    eng.ecfg.dispatch_stall_ms = LC_STALL_MS
+    eng._handle_stall = spy
+    try:
+        stall_once(eng)
+        st, h, err = http_any(url, {"messages": [{"role": "user", "content": "stall"}],
+                                    "max_tokens": 64, "temperature": 0,
+                                    "ignore_eos": True})
+        time.sleep(1.5)                     # the GPU sleep has run
+    finally:
+        eng.ecfg.dispatch_stall_ms = 30000
+        del eng._handle_stall
+        eng.__dict__.pop("_burst", None)
+    on_engine_thread(eng, lambda: forget_retained(eng))
+    evs = list(eng.generate(greedy(probe, 32)))
+    got = ids_of(evs)
+    m = idle_metrics(eng, tag)
+    if (st != 503 or err["error"]["type"] != "backend_unavailable" or not aborts
+            or any(e.error for e in evs) or got != want):
+        raise AssertionError(f"{tag} (d) {st} {err}; aborts {aborts}; after the "
+                             f"stall {[e.error for e in evs if e.error]}, tokens "
+                             f"equal: {got == want}")
+    return {"dispatch_to_abort_ms": aborts, "http_status": st,
+            "retry_after": h.get("Retry-After"), "stalls": m["lifecycle"]["stalls"],
+            "after_tokens_equal": True}
+
+
+def lc_pressure(lm, greedy, prompt, tag):
+    """(c) a 96-page pool: 6 low requests decode, then 2 high ones arrive;
+    every request completes."""
+    import dataclasses
+
+    import torch
+
+    from localai_tpu_torch.engine.engine import Engine
+
+    eng = Engine(lm.cfg, lm.engine.params, lm.tokenizer,
+                 dataclasses.replace(lm.engine.ecfg, kv_pool_pages=LC_POOL),
+                 device=DEV).start()
+    try:
+        lows = [greedy(prompt(LC_LOW[0]), LC_LOW[1], "low") for _ in range(6)]
+        highs = [greedy(prompt(LC_ARRIVAL[0]), LC_ARRIVAL[1], "high") for _ in range(2)]
+        t0 = time.monotonic()
+        readers = [lc_reader(eng.submit(r)) for r in lows]
+        lc_wait(lambda: all(r[0]["t_first"] for r in readers), tag, "6 lows")
+        readers += [lc_reader(eng.submit(r)) for r in highs]
+        for _r, th in readers:
+            th.join(timeout=900)
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        m = idle_metrics(eng, tag)
+        bad = [(i, r["error"], len(r["ids"])) for i, (r, _t) in enumerate(readers)
+               if r["error"] or len(r["ids"]) != (LC_LOW[1] if i < 6 else LC_ARRIVAL[1])]
+        if bad or m["scheduler"]["preemptions"] < 1:
+            raise AssertionError(f"{tag} (c) failed requests {bad}; "
+                                 f"{m['scheduler']['preemptions']} preemptions")
+        sch = m["scheduler"]
+        return {"wall_s": wall, "completed": len(readers),
+                **{k: sch[k] for k in ("preemptions", "resumes", "resume_reprefills",
+                                       "resume_restore_rows")},
+                "restored_pages": m.get("kv_offload", {}).get("restored_pages"),
+                "evicted_pages": m.get("prefix_cache", {}).get("evicted_pages")}
+    finally:
+        eng.shutdown()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def lifecycle_phase(lm, card: str, config: str) -> dict:
+    """Phase 3h on the loaded model (module doc): (a) shed, (b) priority
+    preemption, (e) deadlines and (d) the stall watchdog on one engine with
+    max_queued_requests 4 behind the HTTP server, then (c) pool-pressure
+    preemption on a 96-page engine."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from localai_tpu_torch.api.app import App, make_server
+    from localai_tpu_torch.engine.engine import Engine, GenRequest
+    from localai_tpu_torch.engine.sampling import SamplingParamsHost
+
+    tag = f"[lifecycle {config}]"
+    vocab = LLAMA31_8B["vocab_size"]
+    gen = np.random.default_rng(SEED + 23)
+
+    def prompt(n):
+        return gen.integers(1000, vocab, n).tolist()
+
+    def text(n):
+        return "".join(chr(c) for c in gen.integers(97, 123, n))
+
+    def greedy(ids, n, priority=""):
+        return GenRequest(prompt_ids=list(ids), max_new_tokens=n, ignore_eos=True,
+                          priority=priority, params=SamplingParamsHost(temperature=0.0))
+
+    eng = Engine(lm.cfg, lm.engine.params, lm.tokenizer,
+                 dataclasses.replace(lm.engine.ecfg, max_queued_requests=LC_QUEUE),
+                 device=DEV).start()
+    app = App({lm.name: dataclasses.replace(lm, engine=eng)})
+    server = make_server(app, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    chat = base + "/v1/chat/completions"
+    out = {}
+    try:
+        out["shed"] = lc_shed(eng, chat, greedy, prompt, tag)
+        out["priority"] = lc_priority(eng, chat, greedy, prompt, text, tag)
+        out["deadline"] = lc_deadlines(eng, chat, greedy, prompt, tag)
+        out["stall"] = lc_stall(lm, eng, chat, greedy, prompt, tag)
+    finally:
+        server.shutdown()
+        server.server_close()
+        app.shutdown()
+        del eng, app
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["pressure"] = lc_pressure(lm, greedy, prompt, tag)
+    sh, pr, dl, st, pp = (out[k] for k in ("shed", "priority", "deadline", "stall",
+                                           "pressure"))
+    log(f"{tag} {card}: (a) {sh['shed']} of {LC_BURST} shed, {sh['queued']} queued; "
+        f"submit -> shed event {sh['shed_us'][len(sh['shed_us']) // 2]:.1f} us median "
+        f"(max {sh['shed_us'][-1]:.1f}); HTTP 429 in "
+        f"{sh['http_429_ms'][len(sh['http_429_ms']) // 2]:.2f} ms median")
+    for cls, r in pr.items():
+        v = r["victims"][0] if r["victims"] else None
+        log(f"{tag} {card}: (b) {LC_ARRIVAL[0]}-token arrival at {cls}: TTFT "
+            f"{r['ttft_ms']:.1f} ms, {r['preemptions']} preemptions"
+            + (f"; victim paused at token {v['paused_at_token']}, pause -> resume "
+               f"{v['pause_to_resume_ms']:.1f} ms, reused {v['reused_rows']} rows "
+               f"({v['committed_rows']} committed), resume -> next token "
+               f"{v['resume_to_token_ms']:.2f} ms, {v['tokens']} tokens, "
+               f"{v['match_unpreempted']} equal to the unpreempted run's "
+               f"(first {v['prefix_match']} in a row)" if v else ""))
+    log(f"{tag} {card}: (c) {LC_POOL}-page pool, 6 low + 2 high: all "
+        f"{pp['completed']} completed in {pp['wall_s']:.2f} s; {pp['preemptions']} "
+        f"preemptions, {pp['resumes']} resumes, {pp['resume_reprefills']} "
+        f"re-prefills, {pp['resume_restore_rows']} rows restored at resume, "
+        f"{pp['restored_pages']} pages restored from the host tier")
+    log(f"{tag} {card}: (d) stall at {LC_STALL_MS} ms: dispatch -> abort "
+        f"{', '.join(f'{a:.1f}' for a in st['dispatch_to_abort_ms'])} ms, HTTP "
+        f"{st['http_status']} (Retry-After {st['retry_after']}); the next request's "
+        f"tokens equal the loaded engine's")
+    log(f"{tag} {card}: (e) request_timeout_ms {LC_TIMEOUT[0]}: HTTP 504 after "
+        f"{dl['timeout_http_ms']:.1f} ms, {dl['timeout_pages_in_use']} pages in use "
+        f"after; max_queue_wait_ms {LC_QWAIT_MS}: HTTP 429 after "
+        f"{dl['queue_wait_http_ms']:.1f} ms")
+    return out
+
+
 # ---------- phase 4 ----------
 
 def decode_cost(lengths, elt, cache_elt=None, scales=False, table=True):
@@ -3302,6 +3781,9 @@ def main():
                       "card": card}), flush=True)
     print(json.dumps({"pipeline": {c: shapes[c]["pipeline"] for c in shapes
                                    if shapes[c]["pipeline"]},
+                      "card": card}), flush=True)
+    print(json.dumps({"lifecycle": {c: shapes[c]["lifecycle"] for c in shapes
+                                    if shapes[c]["lifecycle"]},
                       "card": card}), flush=True)
     print(json.dumps({"host_tier": {c: shapes[c]["host"] for c in shapes
                                     if shapes[c]["host"]},

@@ -6,16 +6,24 @@ JSON, submit requests to the model's engine and relay its output queue;
 they never touch a CUDA tensor — only the engine thread does. Routes live
 in api/openai_routes.py and return a ``Response``: a JSON body, or an
 iterator of SSE chunks streamed as ``data: ...`` lines ending with
-``data: [DONE]``.
+``data: [DONE]``. A lifecycle refusal (services/errors.py: shed 429,
+stall 503, deadline 504) is sent with its status, the JAX server's
+envelope and ``Retry-After`` when the engine gave a hint, as
+localai_tpu/api/app.py does; a stream is opened only after its first
+chunk, so a refusal before the first token gets its real status, and one
+after it ends the stream with the same envelope as an event.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Iterator, Optional
+
+from localai_tpu_torch.services.errors import ServingError
 
 log = logging.getLogger(__name__)
 
@@ -38,6 +46,15 @@ class Response:
 
 def error_body(message: str, status: int, etype: str) -> dict:
     return {"error": {"code": status, "message": message, "type": etype}}
+
+
+def serving_error_body(e: ServingError) -> dict:
+    """A ServingError as the JAX server's envelope: its status and type,
+    plus its retryability and retry-after hint (``body_extra``)."""
+    body = {"message": str(e), "type": e.etype, "param": None,
+            "code": e.status}
+    body.update(e.body_extra())
+    return {"error": body}
 
 
 class App:
@@ -83,13 +100,25 @@ def _handler(app: App):
         def log_message(self, fmt, *args):
             log.debug("%s " + fmt, self.address_string(), *args)
 
-        def _send_json(self, status: int, obj):
+        def _send_json(self, status: int, obj, headers=()):
             data = json.dumps(obj).encode()
             self.send_response(status)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(data)))
+            for k, v in headers:
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(data)
+
+        def _send_serving_error(self, e: ServingError):
+            # a lifecycle refusal (shed / deadline / stall): its status,
+            # one warning (no traceback: an overload is expected), and
+            # Retry-After when the engine gave a hint
+            log.warning("serving error: %s -> %d %s: %s", self.path, e.status,
+                        e.etype, e)
+            headers = ([("Retry-After", str(math.ceil(e.retry_after_s)))]
+                       if e.retry_after_s else [])
+            self._send_json(e.status, serving_error_body(e), headers)
 
         def _write_event(self, obj):
             self.wfile.write(b"data: " + json.dumps(obj).encode() + b"\n\n")
@@ -112,6 +141,10 @@ def _handler(app: App):
                     try:
                         c = next(chunks)
                     except StopIteration:
+                        break
+                    except ServingError as e:   # headers are out: in-stream
+                        log.warning("stream ended by %s: %s", e.etype, e)
+                        self._write_event(serving_error_body(e))
                         break
                     except Exception as e:   # headers are out: report in-stream
                         log.exception("stream failed")
@@ -143,6 +176,8 @@ def _handler(app: App):
                     self._send_json(resp.status, resp.body)
             except ApiError as e:
                 self._send_json(e.status, error_body(str(e), e.status, e.etype))
+            except ServingError as e:
+                self._send_serving_error(e)
             except ValueError as e:
                 self._send_json(400, error_body(str(e), 400,
                                                 "invalid_request_error"))
@@ -171,10 +206,16 @@ def _handler(app: App):
     return Handler
 
 
+class _Server(ThreadingHTTPServer):
+    # the listen backlog: the standard library's 5 drops the connects of a
+    # burst of arrivals beyond it, which the client retries a second
+    # later (a shed then takes ~1 s instead of ~20 ms); 128 is aiohttp's
+    request_queue_size = 128
+    daemon_threads = True
+
+
 def make_server(app: App, host: str = "127.0.0.1", port: int = 8080
                 ) -> ThreadingHTTPServer:
     """A bound server; run it with ``serve_forever()`` (port 0 picks a
     free port: ``server.server_address``)."""
-    server = ThreadingHTTPServer((host, port), _handler(app))
-    server.daemon_threads = True
-    return server
+    return _Server((host, port), _handler(app))

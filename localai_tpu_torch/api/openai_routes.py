@@ -8,7 +8,10 @@ the text alone, as its ``PredictStream`` does.
 Chat prompts render with the JAX package's default chat-message template
 (templates/prompts.py DEFAULT_CHAT_MESSAGE, "{Role}: {Content}", messages
 joined by "\\n", as api/chatflow.py does), written in plain Python; model
-YAML templates and jinja come with a later slice.
+YAML templates and jinja come with a later slice. A chat request whose
+``tools`` / ``functions`` survive its ``tool_choice`` is refused with a
+400 (tool calls need grammar), never answered in free text; "none" is
+served. ``priority`` picks the request's scheduling class.
 """
 
 from __future__ import annotations
@@ -25,7 +28,10 @@ from localai_tpu_torch.backend import runner
 _OVERRIDE_KEYS = ("temperature", "top_k", "top_p", "min_p", "seed",
                   "presence_penalty", "frequency_penalty", "repeat_penalty",
                   "typical_p", "mirostat", "logit_bias", "ignore_eos",
-                  "grammar")
+                  "grammar",
+                  # the scheduling class (high | normal | low); the engine
+                  # maps an unknown value to the model's default
+                  "priority")
 
 
 def _overrides_from(body: dict) -> dict:
@@ -37,6 +43,20 @@ def _overrides_from(body: dict) -> dict:
     if stop:
         o["stop"] = [stop] if isinstance(stop, str) else list(stop)
     return o
+
+
+def _functions_from(body: dict) -> list:
+    """The functions a chat request declares (``functions``, or the
+    function entries of ``tools``) that survive its ``tool_choice`` /
+    ``function_call``: "none" declares them but forbids calling them, as
+    in the JAX route."""
+    tools = body.get("tools") or []
+    functions = body.get("functions") or [
+        t.get("function") for t in tools
+        if isinstance(t, dict) and t.get("type") == "function"]
+    if (body.get("tool_choice") or body.get("function_call")) == "none":
+        return []
+    return functions
 
 
 def _usage(prompt_tokens: int, completion_tokens: int) -> dict:
@@ -124,6 +144,11 @@ def chat_completions(app: App, body: dict) -> Response:
         raise ApiError("messages is required")
     prompt = render_chat(messages)
     overrides = _overrides_from(body)
+    functions = _functions_from(body)
+    if functions:
+        # tool calls need grammar-constrained decoding, which the port
+        # does not serve yet: build_request refuses them (400)
+        overrides["functions"] = functions
     created = int(time.time())
     cmpl_id = f"chatcmpl-{secrets.token_hex(12)}"
     rid = uuid.uuid4().hex

@@ -11,8 +11,15 @@ maps OpenAI-style request overrides onto a GenRequest with the JAX
 package's defaults (temperature 0.8, top_k 40, top_p 0.95, max_tokens
 256, repeat_last_n 64, mirostat tau 5 / eta 0.1) and its runner's rules,
 every sampling knob of the JAX sampler included: typical_p, the repeat /
-presence / frequency penalties, mirostat and logit_bias. ``grammar`` is
-not served yet and is refused, never silently ignored.
+presence / frequency penalties, mirostat and logit_bias, and the
+request's ``priority``. ``grammar`` and tool / function calls are not
+served yet and are refused, never silently ignored. The lifecycle and
+scheduler knobs (max_queued_requests, max_queue_wait_ms,
+request_timeout_ms, dispatch_stall_ms, preempt, priority_weights,
+max_preemptions, resume_reserve_pages, priority, priority_aging_ms) are
+``load_model`` options under their JAX names; ``stream`` turns the
+engine's shed / timeout / stall events into the 429 / 504 / 503 errors of
+services/errors.py.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ from localai_tpu_torch.engine.engine import (
 from localai_tpu_torch.engine.sampling import SamplingParamsHost
 from localai_tpu_torch.engine.tokenizer import load_tokenizer
 from localai_tpu_torch.models.llama import LlamaConfig
+from localai_tpu_torch.services.errors import (
+    BackendUnavailableError, DeadlineExceededError, OverloadedError)
 
 DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
           "float32": torch.float32, "f32": torch.float32}
@@ -43,13 +52,24 @@ KV_CACHE_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
                    "float32": torch.float32, "f32": torch.float32,
                    "int8": torch.int8, "q8_0": torch.int8}
 
-# kv_offload values that turn the host tier off / on (the JAX runner's
-# option parsing: only the off words turn it off)
+# on/off option values (kv_offload, preempt; the JAX runner's option
+# parsing: only the off words turn one off)
 _OFF = ("0", "false", "off", "no")
 _ON = ("", "1", "true", "on", "yes")
 
-# request knobs not ported yet, with their neutral values
-_UNSUPPORTED = {"grammar": ("",)}
+# request knobs not ported yet: (what the refusal names, neutral values);
+# ``functions``: the chat route's tools / functions that survived
+# tool_choice
+_UNSUPPORTED = {"grammar": ("grammar", ("",)),
+                "functions": ("tools / functions (tool calls)", ([],))}
+
+# the engine's lifecycle failure kinds -> the errors the HTTP layer
+# renders as 429 / 504 / 503, with the retry-after hint the JAX server
+# gives when the engine's is 0 (its runner's _EVENT_STATUS mapping, then
+# services/errors.py::wrap_backend_error)
+_EVENT_ERRORS = {"shed": (OverloadedError, 1.0),
+                 "timeout": (DeadlineExceededError, 0.0),
+                 "stall": (BackendUnavailableError, 1.0)}
 
 
 @dataclasses.dataclass
@@ -85,16 +105,20 @@ def kv_cache_dtype_of(name: str, model_dtype: torch.dtype):
     return dt
 
 
-def kv_offload_of(value) -> bool:
-    """The ``kv_offload`` option: a bool, or 0/false/off/no (off) and
-    1/true/on/yes or empty (on); anything else raises ValueError."""
+def bool_option(value, name: str = "kv_offload") -> bool:
+    """An on/off option (``kv_offload``, ``preempt``): a bool, or
+    0/false/off/no (off) and 1/true/on/yes or empty (on); anything else
+    raises ValueError."""
     if isinstance(value, bool):
         return value
     key = str(value).strip().lower()
     if key in _OFF or key in _ON:
         return key not in _OFF
-    raise ValueError(f"kv_offload {value!r}: expected one of "
+    raise ValueError(f"{name} {value!r}: expected one of "
                      f"{'|'.join(_ON[1:] + _OFF)}")
+
+
+kv_offload_of = bool_option
 
 
 def host_store_path(model_dir: str, path: str) -> str:
@@ -129,12 +153,13 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
     before any weight is loaded: an unknown quantization raises
     ValueError (serving dense weights instead would fake the memory
     saving); int8 KV with the contiguous layout raises
-    NotImplementedError. The host tier: ``kv_offload`` (``kv_offload_of``:
+    NotImplementedError. The host tier: ``kv_offload`` (``bool_option``:
     0 / false / off / no turn it off), ``kv_host_pool_mb`` (>= 1) and
     ``kv_host_store`` (``host_store_path``). ``engine_knobs`` are
     EngineConfig fields with the JAX engine's names (prefill_chunk,
     decode_burst, pipeline_depth, prefill_packed_fuse, kv_prefetch_ahead,
-    ...), checked before loading too (``EngineConfig.check``). A GPTQ /
+    the lifecycle and scheduler knobs, ...; ``preempt`` parsed as
+    ``kv_offload``), checked before loading too (``EngineConfig.check``). A GPTQ /
     AWQ dir with no quantization loads as int8."""
     dev = resolve_device(device)
     if dtype == "int8":
@@ -150,11 +175,14 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
         raise NotImplementedError(
             "kv_cache_dtype int8 with kv_layout contiguous is not ported; "
             "use kv_layout paged (or auto) for an int8 cache")
+    if "preempt" in engine_knobs:
+        engine_knobs["preempt"] = bool_option(engine_knobs["preempt"], "preempt")
     # engine knobs are checked here too, before any weight is loaded
-    # (an unknown prefill_packed_fuse, a pipeline_depth below 1)
+    # (an unknown prefill_packed_fuse, a pipeline_depth below 1, a
+    # priority outside high | normal | low)
     ecfg = EngineConfig(num_slots=num_slots, max_context=context_size,
                         cache_dtype=cache_dtype, kv_layout=kv_layout,
-                        kv_offload=kv_offload_of(kv_offload),
+                        kv_offload=bool_option(kv_offload),
                         kv_host_pool_mb=kv_host_pool_mb, **engine_knobs)
     ecfg.check()
     ecfg.kv_host_store_path = host_store_path(model_dir, kv_host_store)
@@ -184,9 +212,9 @@ def build_request(lm: LoadedModel, prompt: str, overrides: dict,
     """OpenAI-style overrides -> GenRequest (raises ValueError on knobs
     this slice does not serve)."""
     o = overrides or {}
-    for k, neutral in _UNSUPPORTED.items():
+    for k, (what, neutral) in _UNSUPPORTED.items():
         if k in o and o[k] is not None and o[k] not in neutral:
-            raise ValueError(f"{k} is not supported by this server yet")
+            raise ValueError(f"{what} is not supported by this server yet")
     def num(key, default, cast=float):
         return cast(o[key]) if o.get(key) is not None else default
 
@@ -214,19 +242,25 @@ def build_request(lm: LoadedModel, prompt: str, overrides: dict,
         prompt_ids=lm.tokenizer.encode(prompt), params=sp,
         max_new_tokens=int(o.get("max_tokens") or 256),
         stop_sequences=list(stop), ignore_eos=bool(o.get("ignore_eos", False)),
-        request_id=request_id)
+        request_id=request_id, priority=str(o.get("priority") or ""))
 
 
 def stream(lm: LoadedModel, req: GenRequest) -> Iterator[StreamEvent]:
-    """Events of one request; an engine-side error raises RuntimeError.
-    Closed before the engine ended the request (its consumer went away),
-    it cancels the request, so the slot does not decode on to max_tokens
-    (the JAX backend's PredictStream cancels the same way)."""
+    """Events of one request. An engine-side error raises: a lifecycle
+    refusal (``error_kind`` shed / timeout / stall) as the matching
+    services/errors.py error (429 with the retry-after hint / 504 / 503),
+    anything else as RuntimeError. Closed before the engine ended the
+    request (its consumer went away), it cancels the request, so the slot
+    does not decode on to max_tokens (the JAX backend's PredictStream
+    cancels the same way)."""
     ended = False
     try:
         for ev in lm.engine.generate(req):
             ended = bool(ev.error or ev.finish_reason)
             if ev.error:
+                if ev.error_kind in _EVENT_ERRORS:
+                    err, retry_s = _EVENT_ERRORS[ev.error_kind]
+                    raise err(ev.error, retry_after_s=ev.retry_after_s or retry_s)
                 raise RuntimeError(ev.error)
             yield ev
         ended = True

@@ -7,6 +7,11 @@
         [--kv-page-size 64] [--prefill-chunk 512] [--decode-burst 16] \\
         [--pipeline-depth 2] [--prefill-packed-fuse auto] \\
         [--kv-offload 1] [--kv-host-pool-mb 256] [--kv-host-store PATH] \\
+        [--max-queued-requests 256] [--max-queue-wait-ms 0] \\
+        [--request-timeout-ms 0] [--dispatch-stall-ms 30000] \\
+        [--preempt 1] [--priority-weights 4:2:1] [--max-preemptions 2] \\
+        [--resume-reserve-pages 0] [--priority normal] \\
+        [--priority-aging-ms 4000] \\
         [--random-weights SEED] [--device cuda]
 
 serves one model over the OpenAI-compatible HTTP routes until
@@ -59,6 +64,33 @@ def build_parser() -> argparse.ArgumentParser:
                    help="save the host tier here at shutdown and load it at "
                         "start; a relative path lands under "
                         "<model>/prompt_cache/")
+    # the request lifecycle and the priority scheduler (the JAX names and
+    # defaults; engine/engine.py::EngineConfig)
+    r.add_argument("--max-queued-requests", type=int, default=256,
+                   help="shed (429) beyond this many queued requests; 0 = "
+                        "unbounded")
+    r.add_argument("--max-queue-wait-ms", type=int, default=0,
+                   help="shed queued requests older than this; 0 = off")
+    r.add_argument("--request-timeout-ms", type=int, default=0,
+                   help="per-request deadline (504); 0 = off")
+    r.add_argument("--dispatch-stall-ms", type=int, default=30000,
+                   help="abort (503) the requests of a pack or burst whose "
+                        "results are this late; 0 = wait for ever")
+    r.add_argument("--preempt", default="1",
+                   help="the preemptive priority scheduler: 1 (default) | 0 "
+                        "(strict FIFO)")
+    r.add_argument("--priority-weights", default="4:2:1",
+                   help="high:normal:low shares of the prefill budget")
+    r.add_argument("--max-preemptions", type=int, default=2)
+    r.add_argument("--resume-reserve-pages", type=int, default=0,
+                   help="pages held back from fresh admissions while "
+                        "preempted requests wait; 0 = autosized")
+    r.add_argument("--priority", default="normal",
+                   help="the class of a request that names none: high | "
+                        "normal | low")
+    r.add_argument("--priority-aging-ms", type=int, default=4000,
+                   help="queued work older than this ranks one class higher; "
+                        "0 = off")
     r.add_argument("--random-weights", type=int, default=None, metavar="SEED",
                    help="serve random weights from SEED for a config-only dir")
     r.add_argument("--device", default="cuda")
@@ -85,7 +117,17 @@ def main(argv=None) -> int:
                     prefill_packed_fuse=args.prefill_packed_fuse,
                     kv_offload=args.kv_offload,
                     kv_host_pool_mb=args.kv_host_pool_mb,
-                    kv_host_store=args.kv_host_store)
+                    kv_host_store=args.kv_host_store,
+                    max_queued_requests=args.max_queued_requests,
+                    max_queue_wait_ms=args.max_queue_wait_ms,
+                    request_timeout_ms=args.request_timeout_ms,
+                    dispatch_stall_ms=args.dispatch_stall_ms,
+                    preempt=args.preempt,
+                    priority_weights=args.priority_weights,
+                    max_preemptions=args.max_preemptions,
+                    resume_reserve_pages=args.resume_reserve_pages,
+                    priority=args.priority,
+                    priority_aging_ms=args.priority_aging_ms)
     app = App({lm.name: lm})
     server = make_server(app, host or "127.0.0.1", int(port))
     logging.getLogger(__name__).info("serving %s on http://%s:%d", lm.name,

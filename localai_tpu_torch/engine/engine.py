@@ -132,14 +132,66 @@ What this slice keeps of the JAX engine, with the same knob names:
     as with the JAX sync worker. The port has no device reset:
     ``_fail_active`` keeps the pool and drops the prefetched pages.
 
+  * THE REQUEST LIFECYCLE (the JAX engine's, with its knobs and
+    defaults). Admission control: ``submit`` sheds at a full queue
+    (``max_queued_requests``, 256): the newcomer, or with the scheduler
+    the longest-queued request of a class strictly below the newcomer's,
+    gets a "shed" event with a retry-after hint at once, from the
+    submitting thread. Deadlines: at each admission tick queued requests
+    past ``request_timeout_ms`` get a "timeout" event and those queued
+    longer than ``max_queue_wait_ms`` are shed (both off by default); a
+    running request past its deadline gets a "timeout" event and goes
+    through the cancel path, its slot and pages released as on a client
+    disconnect. The runner maps the kinds to 429 / 504 / 503.
+  * THE DISPATCH-STALL WATCHDOG (``dispatch_stall_ms``, 30000): no wait
+    for a pack's or a burst's results blocks for ever. The loop waits in
+    bounded steps (transfer.Fetch.wait) against the later of the item's
+    dispatch and the last landing it saw, and, when idle, checks the FIFO
+    head the same way. An item past the bound aborts its own requests
+    alone with a "stall" event (``_handle_stall``), leaves the FIFO, and
+    its slots and their fork waiters are released; every other slot keeps
+    serving. This is sound on the card because the loop runs every
+    dispatch on one CUDA stream: a late pack or burst still runs to its
+    end before anything dispatched after it, so the rows it writes into
+    the pages it held land before any later pack or burst can write or
+    read those pages for their next owner, and later bursts drop the
+    aborted slots' steps (their snapshots no longer match). If the card
+    is truly wedged, every later item stalls and is aborted the same way.
+  * THE PREEMPTIVE PRIORITY SCHEDULER (``preempt``, on by default;
+    engine/scheduler.py). Requests carry a class (high / normal / low,
+    ``priority`` the default); admission pops queued work in aged-rank
+    order (FIFO within a class, so single-class traffic admits as the
+    FIFO path does) and merges the resume queue in; traffic of more than
+    one class shares a pack's budget by deficit round-robin, and a burst
+    shrinks while a strictly higher class waits to prefill. Paged only:
+    a higher class that finds no free slot, or no page, PAUSES the
+    lowest-class slot (``_preempt_slot``): its committed rows enter the
+    prefix cache, its table is released, its steps in flight are
+    dropped, and the request parks with its streaming state. Resume is
+    plain re-admission of the whole history through ``_start_request``
+    (tiers 1-3 and the host tier splice or restore the retained rows; if
+    they are gone, a re-prefill of the identical history), with the
+    detokenizer, held text, counts, timings and mirostat mu grafted on.
+    On the contiguous layout nothing pauses. A request cancelled while
+    parked ends its stream and leaves the resume queue. Two departures
+    from the JAX engine, both where its PoolExhausted would fail every
+    running request: a parked request resumes only once the pool can hold
+    its history and next burst (``_resume_fits``; the JAX engine resumes
+    into any free slot, so after a pool-pressure pause the victim
+    re-admits at once into the pages its pause freed); and a decode slot
+    that needs a page that no reclaim and no lower class's pause can give
+    pauses itself while another request runs (``_ensure_pages``).
+
 Left for later slices: the snap-back window, speculation, grammar,
-preemption, self-extend, the emitter thread and the replica pool.
+self-extend, the emitter thread, the replica pool (live migration), the
+SLO engine and the stall's span-ring dump.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import json
 import logging
 import queue
 import threading
@@ -160,11 +212,16 @@ from localai_tpu_torch.engine.paging import PagePool, PoolExhausted
 from localai_tpu_torch.engine.prefill_graph import (
     PrefillGraph, eager_pack, new_pack, split_pack)
 from localai_tpu_torch.engine.prefix_cache import PrefixPageCache, build_scope
+from localai_tpu_torch.engine.scheduler import (
+    PRIORITY_CLASSES, PRIORITY_RANK, ResumeEntry, Scheduler, normalize_priority,
+    parse_priority_weights)
 from localai_tpu_torch.engine.transfer import (
-    Fetch, numpy_of, pages_to_device, pages_to_host, tensor_of, to_device)
+    Fetch, Stalled, numpy_of, pages_to_device, pages_to_host, tensor_of,
+    to_device)
 from localai_tpu_torch.models import llama
 from localai_tpu_torch.ops import kvcache
 from localai_tpu_torch.ops.ragged_prefill import kernel_supports
+from localai_tpu_torch.services.faults import FAULTS
 
 log = logging.getLogger(__name__)
 
@@ -220,12 +277,46 @@ class EngineConfig:
     # queued requests whose host links the prefetch tick uploads ahead of
     # their admission; 0 = restore at admission only
     kv_prefetch_ahead: int = 2
+    # --- the request lifecycle (module doc), the JAX names and defaults ---
+    # admission control: submit() sheds (a structured "shed" event, 429 at
+    # the HTTP layer) once this many requests wait for a slot; 0 = unbounded
+    max_queued_requests: int = 256
+    # queued requests that waited longer than this are shed at the next
+    # admission tick; 0 = off
+    max_queue_wait_ms: int = 0
+    # per-request deadline from submit(): an expired request gets a
+    # "timeout" event and is cancelled (slot and pages released); 0 = off
+    request_timeout_ms: int = 0
+    # the dispatch-stall watchdog: a pack or burst whose results have not
+    # landed this long after max(its dispatch, the last landing) aborts
+    # its own requests ("stall") and the engine keeps serving; 0 = wait
+    # for ever
+    dispatch_stall_ms: int = 30000
+    # --- the preemptive priority scheduler (engine/scheduler.py) ---
+    # priority-ordered admission, DRR prefill shares, shed fairness and
+    # (paged) preemption: a higher class that cannot be admitted, or
+    # cannot get pages, pauses the lowest-class slot, which resumes by
+    # re-admission; False = strict FIFO admission
+    preempt: bool = True
+    # DRR weights of the high:normal:low classes' prefill shares
+    priority_weights: str = "4:2:1"
+    # one request is never preempted more than this many times
+    max_preemptions: int = 2
+    # free pages held back from fresh admissions while preempted requests
+    # wait to resume; 0 = autosized from the preemption rate
+    resume_reserve_pages: int = 0
+    # the class of a request that names none (high | normal | low)
+    priority: str = "normal"
+    # queued / parked work older than this ranks one class higher; 0 = off
+    priority_aging_ms: int = 4000
 
     def check(self):
         """Refuse values the engine does not take (ValueError), before
         anything is loaded: the loop knobs, as the JAX model config
-        refuses a prefill_packed_fuse outside its set, the layout and the
-        host tier's budget and prefetch depth."""
+        refuses a prefill_packed_fuse outside its set, the layout, the
+        host tier's budget and prefetch depth, and the lifecycle and
+        scheduler knobs as the JAX model config checks them (non-negative
+        ints, a known default class, three positive weights)."""
         if str(self.prefill_packed_fuse) not in PACKED_FUSE:
             raise ValueError(f"prefill_packed_fuse must be "
                              f"{'|'.join(PACKED_FUSE)}, got "
@@ -238,10 +329,18 @@ class EngineConfig:
         if self.kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout must be {'|'.join(KV_LAYOUTS)}, got "
                              f"{self.kv_layout!r}")
-        for name, low in (("kv_host_pool_mb", 1), ("kv_prefetch_ahead", 0)):
+        for name, low in (("kv_host_pool_mb", 1), ("kv_prefetch_ahead", 0),
+                          ("max_queued_requests", 0), ("max_queue_wait_ms", 0),
+                          ("request_timeout_ms", 0), ("dispatch_stall_ms", 0),
+                          ("max_preemptions", 0), ("resume_reserve_pages", 0),
+                          ("priority_aging_ms", 0)):
             v = getattr(self, name)
             if not isinstance(v, int) or isinstance(v, bool) or v < low:
                 raise ValueError(f"{name} must be an int >= {low}, got {v!r}")
+        if str(self.priority).strip().lower() not in PRIORITY_RANK:
+            raise ValueError(f"priority must be {'|'.join(PRIORITY_CLASSES)}, "
+                             f"got {self.priority!r}")
+        parse_priority_weights(self.priority_weights)
 
 
 @dataclasses.dataclass
@@ -253,8 +352,13 @@ class GenRequest:
     stop_sequences: list = dataclasses.field(default_factory=list)
     ignore_eos: bool = False
     request_id: str = ""
+    # priority class (high | normal | low); "" = the engine's default
+    # (EngineConfig.priority); submit() normalizes it, an unknown value
+    # degrades to the default
+    priority: str = ""
     out: "queue.Queue" = None  # receives StreamEvent, then a None sentinel
-    t_submit: float = 0.0
+    t_submit: float = 0.0      # stamped by submit()
+    deadline: float = 0.0      # monotonic; stamped by submit() from request_timeout_ms
 
     def __post_init__(self):
         if not self.request_id:
@@ -277,6 +381,11 @@ class StreamEvent:
     # token_id/logprob above are the last member's
     token_ids: Optional[list] = None
     logprobs: Optional[list] = None
+    # the lifecycle's failure kind, set with ``error``: "shed" | "timeout"
+    # | "stall" (the runner maps it to 429 / 504 / 503)
+    error_kind: Optional[str] = None
+    # a crude client back-off hint (Retry-After at the HTTP layer)
+    retry_after_s: float = 0.0
 
 
 def _prefix_len(a: list, b: list) -> int:
@@ -300,7 +409,7 @@ class _Slot:
     __slots__ = ("req", "detok", "held_text", "prompt_len",
                  "t_start", "t_first_token", "n_decoded", "t_prefill_ms",
                  "phase", "pending", "written", "cache_len", "committed",
-                 "reused")
+                 "reused", "prio", "preempts")
 
     def __init__(self, req: GenRequest, detok, prompt_len: int):
         self.req = req
@@ -318,6 +427,18 @@ class _Slot:
         self.cache_len = 0       # rows the next decode step writes at
         self.committed = 0       # rows whose KV write has run
         self.reused = 0          # prompt rows reused from earlier requests
+        self.prio = PRIORITY_RANK.get(req.priority, PRIORITY_RANK["normal"])
+        self.preempts = 0        # times this request was paused
+
+
+class _DispatchStall(Exception):
+    """A dispatched pack or burst whose results did not land within
+    dispatch_stall_ms (``Engine._wait_ready``, ``_check_parked_stall``):
+    carries the item, so ``_handle_stall`` aborts exactly its requests."""
+
+    def __init__(self, item):
+        super().__init__("device dispatch stalled")
+        self.item = item
 
 
 class _Pack:
@@ -326,7 +447,8 @@ class _Pack:
     _Slot) in pack row order. A ``split`` pack is the head of a fused
     tick: its slots were switched to decode at dispatch and ``burst`` is
     the burst chained behind it."""
-    __slots__ = ("group", "fetch", "t0", "split", "burst", "processed")
+    __slots__ = ("group", "fetch", "t0", "split", "burst", "processed",
+                 "faults_seen")
 
     def __init__(self, group, fetch: Fetch, t0: float, split: bool = False):
         self.group = group
@@ -335,6 +457,7 @@ class _Pack:
         self.split = split
         self.burst = None
         self.processed = False
+        self.faults_seen = False   # the sync fault hooks ran (_sync_faults)
 
 
 class _Burst:
@@ -343,7 +466,8 @@ class _Burst:
     dispatch; ``group`` / ``head``: a fused tick's finals and its pack;
     ``skip``: slots whose tokens in it must be dropped (context-shifted
     after the dispatch)."""
-    __slots__ = ("n_steps", "slots", "fetch", "group", "head", "skip", "t0")
+    __slots__ = ("n_steps", "slots", "fetch", "group", "head", "skip", "t0",
+                 "faults_seen")
 
     def __init__(self, n_steps: int, slots: list, fetch: Fetch, t0: float,
                  group=(), head: Optional[_Pack] = None):
@@ -354,6 +478,7 @@ class _Burst:
         self.group = list(group)
         self.head = head
         self.skip: set = set()
+        self.faults_seen = False
 
 
 def _host_pages(rows) -> list:
@@ -606,6 +731,32 @@ class Engine:
         # full_steps: steps of the full sampler variant
         self._decode_stats = {"bursts": 0, "steps": 0, "full_steps": 0,
                               "tokens": 0, "seconds": 0.0}
+        # the request lifecycle (module doc): its counters (submit() runs
+        # on other threads, hence the lock); the last landing the loop saw
+        # (the stall watchdog measures from max(dispatch, this)); the idle
+        # wait, short enough for the watchdog's cadence
+        self._lc = {"requests_shed": 0, "requests_timed_out": 0, "stalls": 0,
+                    "preemptions": 0}
+        self._lc_lock = threading.Lock()
+        self._submit_lock = threading.Lock()
+        self._t_last_ready = 0.0
+        stall_s = self.ecfg.dispatch_stall_ms / 1e3
+        self._idle_wait_s = min(1.0, stall_s / 4) if stall_s > 0 else 1.0
+        # the scheduler (engine/scheduler.py); None = strict FIFO
+        self._default_prio = normalize_priority(self.ecfg.priority)
+        self._sched: Optional[Scheduler] = None
+        if self.ecfg.preempt:
+            self._sched = Scheduler(
+                parse_priority_weights(self.ecfg.priority_weights),
+                max_preemptions=self.ecfg.max_preemptions,
+                aging_ms=float(self.ecfg.priority_aging_ms))
+        # resume_reserve_pages autosize: EWMA of preemptions per minute x
+        # pages retained per preemption, the reserve when the knob is 0
+        self._preempt_marks: collections.deque = collections.deque(maxlen=256)
+        self._preempt_rate_ewma = 0.0
+        self._preempt_pages_ewma = 0.0
+        self._reserve_auto = 0
+        self._t_reserve_sample = time.monotonic()
 
     # ---------- lifecycle ----------
 
@@ -653,6 +804,9 @@ class Engine:
                 break
             req.out.put(err)
             req.out.put(None)
+        for entry in self._sched.drain_parked() if self._sched else ():
+            entry.req.out.put(err)
+            entry.req.out.put(None)
         # the offloads in flight land in the store before it is saved
         self._offloader.close()
         if self._hstore is not None and self.ecfg.kv_host_store_path:
@@ -662,18 +816,84 @@ class Engine:
         """Cancel a queued or running request (the JAX engine's
         ``cancel``). Thread-safe: it notes the id and wakes the loop. At the
         next step or burst boundary a running slot with that id is released
-        and its output queue gets the None sentinel; a queued request with
-        that id is dropped unadmitted (its queue gets only the sentinel). A
-        burst already on the device finishes first."""
+        and its output queue gets the None sentinel; a queued or parked
+        (preempted) request with that id is dropped (its queue gets only the
+        sentinel). A burst already on the device finishes first."""
         with self._cancel_lock:
             self._cancelled.add(request_id)
         self._wake.set()
 
     def submit(self, req: GenRequest) -> "queue.Queue":
+        """Queue a request (the JAX engine's ``submit``): its priority
+        normalized, its deadline stamped; at a full queue
+        (max_queued_requests) a structured "shed" event instead, to the
+        longest-queued request of a class strictly below the newcomer's
+        if the scheduler finds one, else to the newcomer."""
         req.t_submit = time.monotonic()
+        req.priority = normalize_priority(req.priority, self._default_prio)
+        with self._submit_lock:         # the bound holds for racing submits
+            return self._submit_locked(req)
+
+    def _submit_locked(self, req: GenRequest) -> "queue.Queue":
+        maxq = self.ecfg.max_queued_requests
+        if maxq > 0 and self._queue.qsize() >= maxq:
+            victim = None
+            if self._sched is not None:
+                with self._queue.mutex:
+                    queued = [(r.priority, r.t_submit, r)
+                              for r in self._queue.queue]
+                victim = self._sched.pick_shed_victim(
+                    PRIORITY_RANK[req.priority], queued)
+                if victim is not None and not self._pop_queued(victim):
+                    victim = None           # admitted meanwhile
+            if victim is None:
+                self._shed(req, f"server overloaded: {maxq} requests "
+                                f"already queued (max_queued_requests)")
+                return req.out
+            self._shed(victim,
+                       f"displaced by a {req.priority}-priority arrival "
+                       f"(queue full at {maxq}; longest-queued "
+                       f"{victim.priority} request shed)")
+        if self.ecfg.request_timeout_ms > 0:
+            req.deadline = req.t_submit + self.ecfg.request_timeout_ms / 1e3
         self._queue.put(req)
         self._wake.set()
         return req.out
+
+    def _retry_after_hint(self) -> float:
+        """A crude client back-off from the queue depth: about one
+        request per slot per second, at least 1 s (a monotone signal,
+        not a forecast)."""
+        return max(1.0, round(self._queue.qsize()
+                              / max(1, self.ecfg.num_slots), 1))
+
+    def _shed(self, req: GenRequest, reason: str):
+        with self._lc_lock:
+            self._lc["requests_shed"] += 1
+        req.out.put(StreamEvent(
+            token_id=-1, text="", logprob=0.0, finish_reason="stop",
+            error=reason, error_kind="shed",
+            retry_after_s=self._retry_after_hint()))
+        req.out.put(None)
+
+    def _timeout_event(self, req: GenRequest) -> StreamEvent:
+        with self._lc_lock:
+            self._lc["requests_timed_out"] += 1
+        return StreamEvent(
+            token_id=-1, text="", logprob=0.0, finish_reason="stop",
+            error=(f"request deadline exceeded "
+                   f"({self.ecfg.request_timeout_ms} ms)"),
+            error_kind="timeout")
+
+    def _pop_queued(self, req: GenRequest) -> bool:
+        """Take ``req`` out of the queue; False when it is gone already
+        (admitted, reaped or displaced meanwhile)."""
+        with self._queue.mutex:
+            try:
+                self._queue.queue.remove(req)
+                return True
+            except ValueError:
+                return False
 
     def generate(self, req: GenRequest) -> Iterator[StreamEvent]:
         out = self.submit(req)
@@ -711,6 +931,17 @@ class Engine:
                            **self._pipe_stats}
         out["fork"] = dict(self._fork_stats)
         out["prompt_tokens_reused"] = self._reuse_stats["reused_rows"]
+        # the lifecycle's counters and limits (the JAX engine's keys, less
+        # the stall ring dumps)
+        with self._lc_lock:
+            lc = dict(self._lc)
+        for k in ("max_queued_requests", "max_queue_wait_ms",
+                  "request_timeout_ms", "dispatch_stall_ms"):
+            lc[k] = getattr(self.ecfg, k)
+        lc["queue_limit_effective"] = self.ecfg.max_queued_requests
+        out["lifecycle"] = lc
+        out["queue_limit"] = self.ecfg.max_queued_requests
+        out["scheduler"] = self._scheduler_metrics()
         if self._pool is not None:
             pool = self._pool
             # the running requests' pages and any leaked reference: a free
@@ -731,6 +962,35 @@ class Engine:
                 out["kv_offload"] = self._hstore.stats()
                 out["kv_offload_worker"] = dict(self._offloader.stats)
         return out
+
+    def _scheduler_metrics(self) -> dict:
+        """``Scheduler.stats()`` plus the knobs, the reserve applied, and
+        the queued, active and parked requests per class (the JAX engine's
+        "scheduler" metrics); {"preempt": False} without the scheduler."""
+        if self._sched is None:
+            return {"preempt": False}
+        sch = self._sched.stats()
+        sch["preempt"] = True
+        sch["max_preemptions"] = self.ecfg.max_preemptions
+        sch["resume_reserve_pages"] = self.resume_reserve_effective
+        sch["resume_reserve_auto"] = self._reserve_auto
+        sch["preempt_rate_per_min"] = round(self._preempt_rate_ewma, 3)
+        queued_by = dict.fromkeys(PRIORITY_CLASSES, 0)
+        with self._queue.mutex:
+            for req in self._queue.queue:
+                queued_by[normalize_priority(req.priority,
+                                             self._default_prio)] += 1
+        active_by = dict.fromkeys(PRIORITY_CLASSES, 0)
+        for s in list(self.slots):
+            if s is not None:
+                active_by[PRIORITY_CLASSES[s.prio]] += 1
+        resume_by = dict.fromkeys(PRIORITY_CLASSES, 0)
+        for c in self._sched.resume_priorities():
+            resume_by[c] += 1
+        sch["queued_by_class"] = queued_by
+        sch["active_by_class"] = active_by
+        sch["resume_by_class"] = resume_by
+        return sch
 
     def _prefetched_pages(self) -> list:
         """The detached pages the prefetch pipeline holds (a snapshot, so
@@ -782,16 +1042,22 @@ class Engine:
         while not self._stop:
             try:
                 if not self._tick():
-                    self._wake.wait(timeout=0.5)
+                    # a dispatched item the loop is not waiting on may sit
+                    # in the FIFO while it idles: the watchdog covers it
+                    self._check_parked_stall()
+                    self._wake.wait(timeout=self._idle_wait_s)
                     self._wake.clear()
+            except _DispatchStall as st:
+                # abort only the stalled item's requests; the rest serve on
+                self._handle_stall(st.item)
             except Exception as e:   # the loop must survive: fail the requests
                 self._fail_active(e)
 
     def _tick(self) -> bool:
-        """One iteration of the loop (the JAX engine's tick): admit,
+        """One iteration of the loop (the JAX engine's tick): reap, admit,
         dispatch a pack and a burst (neither waits), then process what the
         FIFO rule allows. False when nothing happened (idle)."""
-        self._reap_cancelled()
+        self._autosize_reserve()
         admitted = self._admit()
         if self._prefetch is not None:
             # the host links of requests still queued upload now, ahead
@@ -817,9 +1083,12 @@ class Engine:
                 self._release_slot(i)
 
     def _reap_cancelled(self):
-        """Release the running slots cancel() named. An id that names no
-        slot and no queued request belongs to a request that already ended,
-        and is forgotten."""
+        """Release the running slots cancel() named, and end the streams
+        of the parked (preempted) requests it named, which leave the
+        resume queue (their retained rows stay in the prefix cache, like
+        any released slot's). An id that names no slot and no queued
+        request belongs to a request that already ended, and is
+        forgotten."""
         with self._cancel_lock:
             if not self._cancelled:
                 return
@@ -830,16 +1099,64 @@ class Engine:
                 s.req.out.put(None)
                 # a cancelled leader must not strand its fork siblings
                 self._process_fork_waiters(i, s)
+        if self._sched is not None and self._sched.resume_depth:
+            for rid in ids:
+                entry = self._sched.remove_parked(rid)
+                if entry is not None:
+                    entry.req.out.put(None)
         with self._queue.mutex:
             queued = {r.request_id for r in self._queue.queue}
         with self._cancel_lock:
             self._cancelled -= ids - queued
 
+    def _reap_expired(self):
+        """Deadlines and queue-wait shedding at the admission tick (the
+        JAX engine's ``_reap_expired``): queued casualties are failed at
+        once ("timeout" past request_timeout_ms, "shed" past
+        max_queue_wait_ms); a running request past its deadline gets its
+        "timeout" event and goes through cancel(), so its slot, pages and
+        fork waiters are released exactly as on a client disconnect."""
+        timeout_on = self.ecfg.request_timeout_ms > 0
+        qwait_s = self.ecfg.max_queue_wait_ms / 1e3
+        if not timeout_on and qwait_s <= 0:
+            return
+        now = time.monotonic()
+        with self._queue.mutex:
+            victims = [r for r in self._queue.queue
+                       if (timeout_on and r.deadline and now > r.deadline)
+                       or (qwait_s > 0 and now - r.t_submit > qwait_s)]
+            for r in victims:
+                self._queue.queue.remove(r)
+        for r in victims:
+            if timeout_on and r.deadline and now > r.deadline:
+                r.out.put(self._timeout_event(r))
+                r.out.put(None)
+            else:
+                self._shed(r, f"queued longer than max_queue_wait_ms "
+                              f"({self.ecfg.max_queue_wait_ms} ms)")
+        if not timeout_on:
+            return
+        with self._cancel_lock:
+            cancelled = set(self._cancelled)
+        for s in self.slots:
+            if (s is not None and s.req.deadline and now > s.req.deadline
+                    and s.req.request_id not in cancelled):
+                # decoding for a dead client: the error now, then the
+                # cancel path releases the slot and closes the stream
+                s.req.out.put(self._timeout_event(s.req))
+                self.cancel(s.req.request_id)
+
     def _admit(self) -> bool:
-        """Admit queued requests into the free slots. Requests admitted
-        together with the same prompt and min(max_new_tokens,
-        max_context // 4) prefill once (the JAX engine's key): the first
-        is their leader, the others fork its rows (module doc)."""
+        """Reap deadlines and cancellations, then admit queued requests
+        into the free slots: with the scheduler by ``_admit_sched``, else
+        in FIFO order. Requests admitted together with the same prompt
+        and min(max_new_tokens, max_context // 4) prefill once (the JAX
+        engine's key): the first is their leader, the others fork its
+        rows (module doc)."""
+        self._reap_expired()
+        self._reap_cancelled()
+        if self._sched is not None:
+            return self._admit_sched()
         batch = []
         free = sum(1 for s in self.slots if s is None)
         while len(batch) < free:
@@ -880,16 +1197,246 @@ class Engine:
             return False
         return True
 
-    def _start_request(self, req: GenRequest) -> tuple:
+    # ---------- the scheduler ----------
+
+    def _free_count(self) -> int:
+        return sum(1 for s in self.slots if s is None)
+
+    def _admit_sched(self) -> bool:
+        """Priority admission (the JAX engine's ``_admit_sched``): pop
+        queued work in aged-rank order (stable FIFO within a class, so
+        single-class traffic admits exactly as the FIFO path), merge the
+        resume queue in by effective class (parked work wins rank ties),
+        hold the resume reserve back from fresh admissions while preempted
+        work waits, and, when the best waiting request strictly outranks
+        an active slot and no slot is free, preempt that slot and admit
+        into it."""
+        sched = self._sched
+        if self._queue.empty() and sched.resume_depth == 0:
+            return False
+        admitted = False
+        leaders: dict = {}
+        reserve = self.resume_reserve_effective
+        # every pass admits, preempts (at most num_slots times) or breaks
+        guard = 2 * self.ecfg.num_slots + 8
+        while guard > 0:
+            guard -= 1
+            now = time.monotonic()
+            with self._queue.mutex:
+                entries = [(r.priority, r.t_submit, r) for r in self._queue.queue]
+            cand = sched.order_queued(entries) if entries else []
+            with self._cancel_lock:
+                cancelled = set(self._cancelled)
+            head = None
+            for r in cand:
+                if r.request_id not in cancelled:
+                    head = r
+                    break
+                # cancelled while queued: close the stream and move on
+                if self._pop_queued(r):
+                    with self._cancel_lock:
+                        self._cancelled.discard(r.request_id)
+                    r.out.put(None)
+            res = sched.peek_resume()
+            if head is None and res is None:
+                break
+            none = len(PRIORITY_CLASSES)
+            head_rank = (sched.effective_rank(head.priority, now - head.t_submit)
+                         if head is not None else none)
+            res_rank = (sched.effective_rank(res.priority, now - res.t_parked)
+                        if res is not None else none)
+            use_resume = res is not None and res_rank <= head_rank
+            if self._free_count() == 0:
+                victim = self._pick_victim(res_rank if use_resume else head_rank)
+                if victim is None:
+                    break
+                self._preempt_slot(victim, why="priority")
+                continue                # the freed slot admits next pass
+            if use_resume:
+                if not self._resume_fits(res):
+                    break               # parked until the pool can hold it
+                entry = sched.pop_resume()
+                try:
+                    self._start_resume(entry)
+                    admitted = True
+                except Exception:
+                    log.exception("resume admission failed; request re-parked")
+                    sched.requeue_front(entry)
+                    break
+            else:
+                if (reserve > 0 and self._pool is not None
+                        and sched.resume_depth > 0
+                        and self._pool.free_pages <= reserve):
+                    break               # the pages a parked resume needs
+                if not self._pop_queued(head):
+                    continue            # reaped or displaced meanwhile
+                admitted |= self._admit_one(head, leaders)
+        return admitted
+
+    def _resume_fits(self, entry: ResumeEntry) -> bool:
+        """Whether the pool can hold a parked request's history and its
+        next burst now: every page but those the running requests pin is
+        free or reclaimable (its own retained chain included). The JAX
+        engine resumes into any free slot; after a pool-pressure pause
+        that re-admission finds the pages its own pause freed taken, and
+        its PoolExhausted fails every running request. Here it waits in
+        the resume queue until capacity returns."""
+        pool = self._pool
+        if pool is None or all(s is None for s in self.slots):
+            return True     # nothing running would free pages: try now
+        need = pool.pages_for(min(self.ecfg.max_context,
+                                  len(entry.ids) + self.ecfg.decode_burst + 2))
+        idle = [i for i, s in enumerate(self.slots) if s is None]
+        pinned = pool.pages_beyond(idle, extra=self._prefetched_pages())
+        return pool.num_pages - pinned >= need
+
+    def _preempt_eligible(self, s: _Slot) -> bool:
+        """A slot that may pause: its state is rebuilt from tokens alone at
+        resume, so a fork sibling still waiting, a leader with waiters
+        attached and a cancelled request are not (the JAX engine's rule;
+        the port has no grammar, multimodal or prompt-cache slots)."""
+        with self._cancel_lock:
+            cancelled = s.req.request_id in self._cancelled
+        return (s.phase in ("prefill", "decode")
+                and s not in self._fork_waiters and not cancelled)
+
+    def _pick_victim(self, incoming_rank: int, decode_only: bool = False,
+                     keep=()) -> Optional[int]:
+        """The slot to pause for a request of ``incoming_rank``
+        (Scheduler.pick_victim over the eligible slots), or None. Paged
+        layouts only: a contiguous slot has no pages to retain. With
+        ``decode_only`` (mid-dispatch pool pressure) only decode slots,
+        and never those in ``keep`` (the dispatch being built)."""
+        if self._pool is None or self._sched is None:
+            return None
+        cands = [(i, PRIORITY_CLASSES[s.prio], s.t_start, s.preempts)
+                 for i, s in enumerate(self.slots)
+                 if s is not None and i not in keep
+                 and (not decode_only or s.phase == "decode")
+                 and self._preempt_eligible(s)]
+        return self._sched.pick_victim(incoming_rank, cands)
+
+    def _preempt_slot(self, slot: int, why: str = "priority"):
+        """Pause a running slot and park its request (the JAX engine's
+        ``_preempt_slot``). Its committed rows enter the prefix cache while
+        the table still pins them (under pressure they offload to the host
+        tier through the normal reclaim), then the whole table returns to
+        the pool. Tokens already emitted stay emitted; its steps in flight
+        are dropped (``_Burst.skip``, as for a context shift) and resume
+        re-computes from the last token kept. The mirostat mu is copied on
+        the card, in stream order (no wait)."""
+        s = self.slots[slot]
+        hist = list(self._cache_tokens[slot])        # prompt + emitted tokens
+        committed = min(s.committed, len(hist))
+        if self._pool is not None:
+            if self._pcache is not None:
+                self._pcache.insert(self._pool, slot, hist[:committed])
+            self._pool.release(slot, 0)
+        self._sched.park(ResumeEntry(
+            req=s.req, ids=hist, priority=s.req.priority,
+            n_decoded=s.n_decoded, prompt_len=s.prompt_len, detok=s.detok,
+            held_text=s.held_text, t_start=s.t_start,
+            t_first_token=s.t_first_token or None, t_prefill_ms=s.t_prefill_ms,
+            mu=self.sampler.mu[slot].clone(), preempt_count=s.preempts + 1))
+        # the reserve autosize's input: the preemption's time and pages
+        pages = committed // (self._pool.page_size if self._pool else 1)
+        self._preempt_marks.append(time.monotonic())
+        self._preempt_pages_ewma = (
+            float(pages) if len(self._preempt_marks) == 1
+            else 0.7 * self._preempt_pages_ewma + 0.3 * pages)
+        self.slots[slot] = None
+        self.lengths[slot] = 0
+        # the table is empty: its old prefix must not attract _pick_slot
+        self._cache_tokens[slot] = []
+        if slot in self._prefill_queue:
+            self._prefill_queue.remove(slot)
+        for b in self._fifo:
+            if isinstance(b, _Burst):
+                b.skip.add(slot)
+        with self._lc_lock:
+            self._lc["preemptions"] += 1
+        log.debug("preempt %s (%s) from slot %d: %d decoded, %d rows retained",
+                  s.req.request_id, why, slot, s.n_decoded, committed)
+
+    def _start_resume(self, entry: ResumeEntry) -> int:
+        """Re-admit a preempted request (the JAX engine's
+        ``_start_resume``): its whole history (prompt + emitted tokens)
+        goes back through ``_start_request``, whose tiers splice the
+        retained device chain or restore offloaded pages, or, when those
+        are gone, re-prefill it; the continuation is what a fresh
+        submission of that history computes. The streaming state carries
+        over, so the client sees one stream. Returns the slot."""
+        sched = self._sched
+        req = entry.req
+        req.prompt_ids = list(entry.ids)
+        slot, _ids, s = self._start_request(req, resume=entry)
+        sched.resumes += 1
+        sched.resume_restore_rows += s.reused
+        if s.reused == 0:
+            sched.resume_reprefills += 1
+        return slot
+
+    def _autosize_reserve(self):
+        """resume_reserve_pages autosize (the JAX engine's): with the knob
+        at 0, the reserve is EWMA(preemptions per minute) x EWMA(pages
+        retained per preemption), at most a quarter of the pool. Runs at
+        most every 0.5 s; an engine that never preempts stays at 0."""
+        if self._pool is None or self._sched is None:
+            return
+        now = time.monotonic()
+        dt = now - self._t_reserve_sample
+        if dt < 0.5:
+            return
+        self._t_reserve_sample = now
+        # marks inside a sliding 60 s window = preemptions per minute
+        inst = float(sum(1 for t in self._preempt_marks if t >= now - 60.0))
+        a = min(1.0, dt / 15.0)                 # a ~15 s time constant
+        self._preempt_rate_ewma = (1 - a) * self._preempt_rate_ewma + a * inst
+        if self.ecfg.resume_reserve_pages <= 0:
+            self._reserve_auto = self._auto_reserve()
+
+    def _auto_reserve(self) -> int:
+        cap = max(1, self._pool.num_pages // 4)
+        want = self._preempt_rate_ewma * max(1.0, self._preempt_pages_ewma)
+        return min(cap, int(round(want)))
+
+    @property
+    def resume_reserve_effective(self) -> int:
+        """The reserve _admit_sched applies: the knob when set, else the
+        autosized value."""
+        return self.ecfg.resume_reserve_pages or self._reserve_auto
+
+    def note_pool_resize(self, n_old: int, n_new: int):
+        """Rescale the preemption-rate EWMA when the number of engines
+        sharing the traffic changes from ``n_old`` to ``n_new`` (the JAX
+        engine's hook for its replica pool): the same load over more
+        engines preempts less on each, so the rate scales by old / new and
+        the auto reserve is recomputed now instead of drifting there."""
+        if n_old <= 0 or n_new <= 0 or n_old == n_new:
+            return
+        self._preempt_rate_ewma *= float(n_old) / float(n_new)
+        if (self._pool is not None and self._sched is not None
+                and self.ecfg.resume_reserve_pages <= 0):
+            self._reserve_auto = self._auto_reserve()
+
+    def _start_request(self, req: GenRequest,
+                       resume: Optional[ResumeEntry] = None) -> tuple:
         """Install a request in a free slot and queue its prompt for packed
         prefill. No model compute happens here. Returns (slot, the prompt
-        ids as kept, its _Slot)."""
+        ids as kept, its _Slot). With ``resume`` this is the preemption's
+        restore path: ``req.prompt_ids`` holds the whole history, which is
+        not truncated (only clamped below the cache edge), and the parked
+        streaming state is grafted onto the new _Slot."""
         C = self.ecfg.max_context
         ids = [int(t) for t in req.prompt_ids]
-        # keep the prompt tail (the JAX engine's truncation rule)
-        max_prompt = C - 1 - min(req.max_new_tokens, C // 4)
-        if len(ids) > max_prompt:
-            ids = ids[-max_prompt:]
+        if resume is not None:
+            if len(ids) > C - 1:
+                ids = ids[-(C - 1):]
+        else:
+            # keep the prompt tail (the JAX engine's truncation rule)
+            max_prompt = C - 1 - min(req.max_new_tokens, C // 4)
+            if len(ids) > max_prompt:
+                ids = ids[-max_prompt:]
         if not ids:
             ids = [getattr(self.tokenizer, "eos_token_id", 0) or 0]
         slot, common = self._pick_slot(ids)
@@ -913,6 +1460,15 @@ class Engine:
         s.written = s.committed = s.reused = common
         self._reuse_stats["reused_rows"] += common
         self._cache_tokens[slot] = list(ids)
+        if resume is not None:
+            s.detok, s.held_text = resume.detok, resume.held_text
+            s.n_decoded, s.prompt_len = resume.n_decoded, resume.prompt_len
+            s.t_start = resume.t_start
+            s.t_first_token = resume.t_first_token or 0.0
+            s.t_prefill_ms = resume.t_prefill_ms
+            s.preempts = resume.preempt_count
+            if resume.mu is not None:
+                self.sampler.mu[slot].copy_(resume.mu)
         self._prefill_queue.append(slot)
         return slot, ids, s
 
@@ -1314,15 +1870,44 @@ class Engine:
                 event.record()
             self._offloader.put(_PendingPrefetch(event, self._hstore))
 
-    def _ensure_pages(self, slot: int, rows: int):
-        """Lazy page allocation; under pool pressure reclaim and retry once
-        (PoolExhausted if the running requests alone fill the pool)."""
+    def _ensure_pages(self, slot: int, rows: int, keep=()):
+        """Lazy page allocation; under pool pressure reclaim and retry. With
+        the scheduler, if that is not enough, pause a decode slot of a
+        strictly lower class than this slot's (never one in ``keep``: the
+        dispatch being built) and reclaim again, its retained pages now
+        evictable (the JAX engine's pool-pressure preemption). Raises
+        PoolExhausted when even that leaves the pool short."""
+        if FAULTS.active and FAULTS.take("page_alloc_fail") is not None:
+            raise PoolExhausted("injected fault: page_alloc_fail")
         try:
             self._pool.ensure(slot, rows)
             return
         except PoolExhausted:
             pass
         self._reclaim_pages(slot, self._pool.pages_for(rows))
+        if self._sched is not None:
+            try:
+                self._pool.ensure(slot, rows)
+                return
+            except PoolExhausted:
+                pass
+            me = self.slots[slot]
+            victim = self._pick_victim(
+                me.prio if me is not None else PRIORITY_RANK["high"],
+                decode_only=True, keep=keep)
+            if victim is not None and victim != slot:
+                self._preempt_slot(victim, why="pool_pressure")
+                self._reclaim_pages(slot, self._pool.pages_for(rows))
+            elif (victim is None and me is not None and slot not in keep
+                  and me.phase == "decode" and self._preempt_eligible(me)
+                  and any(s is not None for i, s in enumerate(self.slots)
+                          if i != slot)):
+                # no lower class to pause: this decode slot pauses itself
+                # and resumes once the pool can hold it, where the JAX
+                # engine's PoolExhausted fails every running request; the
+                # caller drops it from the burst it builds
+                self._preempt_slot(slot, why="pool_pressure")
+                return
         self._pool.ensure(slot, rows)
 
     def _commit_ptab(self):
@@ -1347,6 +1932,17 @@ class Engine:
         (``_dispatch_fused``)."""
         S, C = self.ecfg.num_slots, self.ecfg.max_context
         budget = self._pack_budget
+        # weighted-fair packing: when slots of more than one class have
+        # prompt tokens pending, the scheduler's deficit round-robin caps
+        # each class's share of the budget; single-class packs are
+        # untouched
+        drr = None
+        sched = self._sched
+        if sched is not None:
+            pend = self._pending_by_class()
+            if sum(1 for n in pend if n > 0) > 1:
+                sched.begin_tick(budget, pend)
+                drr = pend
         segs = []                     # (slot, snapshot, take, final)
         total = 0
         for slot in self._prefill_queue:
@@ -1358,6 +1954,16 @@ class Engine:
             take = min(len(s.pending), self._chunk, budget - total)
             if take <= 0:
                 continue
+            if drr is not None:
+                # slack: budget no other class can use this tick, granted
+                # beyond the deficit so the walk stays work-conserving
+                r = s.prio
+                others = sum(min(sched.deficit(j), drr[j])
+                             for j in range(len(drr)) if j != r)
+                take = sched.take(r, take, max(0, (budget - total) - others))
+                if take <= 0:
+                    continue
+                drr[r] = max(0, drr[r] - take)
             segs.append((slot, s, take, take == len(s.pending)))
             total += take
         if not segs:
@@ -1409,6 +2015,15 @@ class Engine:
             self._drain_all()         # the synchronous loop: finals now
         return True
 
+    def _pending_by_class(self) -> list:
+        """Per class, the prompt tokens its prefilling slots could pack
+        this tick (chunk-capped, like the walk's own take)."""
+        pend = [0] * len(PRIORITY_CLASSES)
+        for s in self.slots:
+            if s is not None and s.phase == "prefill" and s.pending:
+                pend[s.prio] += min(len(s.pending), self._chunk)
+        return pend
+
     def _advance(self, segs: list, t0: float) -> list:
         """A dispatched pack's bookkeeping: each segment's rows move from
         pending to written; a non-final one counts them committed; the
@@ -1453,13 +2068,15 @@ class Engine:
                           self.sampler, host, bucket, self.ecfg.num_slots,
                           continued, exact=exact)
 
-    def _process_pack(self, item: _Pack):
+    def _process_pack(self, item: _Pack, blame=None):
         """A pack's first tokens have landed: emit them. Plain packs switch
         their finals to decode here (the next burst takes their state from
         the host: ``_override``); a split head's finals switched at
         dispatch, and the burst chained behind it carries their state.
-        Then the finals' fork siblings resolve."""
-        firsts = item.fetch.wait()
+        Then the finals' fork siblings resolve. ``blame``: the FIFO item a
+        stall of this pack aborts (a "1" fused tick's burst), else the
+        pack."""
+        firsts = self._wait_ready(item, blame)
         ids, lps = firsts[0].astype(np.int64), firsts[1]
         if item.split:
             item.processed = True
@@ -1530,6 +2147,20 @@ class Engine:
             cap = min(cap, max(1, self.ecfg.max_context - 2 - rows))
             budget = max(budget, max_new - 1)
         cap = min(cap, budget)
+        if self._sched is not None:
+            # while prompt work of a strictly higher class than every
+            # decoding slot waits, the burst shrinks to the decoding
+            # class's weighted share, so admission comes around sooner
+            pend = [0] * len(PRIORITY_CLASSES)
+            dec_rank = None
+            for s in self.slots:
+                if s is None:
+                    continue
+                if s.phase == "prefill" and s.pending:
+                    pend[s.prio] += 1
+                elif s.phase == "decode":
+                    dec_rank = s.prio if dec_rank is None else min(dec_rank, s.prio)
+            cap = self._sched.burst_share(dec_rank, pend, cap)
         k = 1
         while k * 2 <= cap:
             k *= 2
@@ -1552,8 +2183,12 @@ class Engine:
         if self._pool is not None:
             C = self.ecfg.max_context
             for i in included:
-                self._ensure_pages(i, min(C, int(self.lengths[i]) + infl[i]
-                                          + n_steps + 2))
+                if self.slots[i] is not None:   # not paused for pages here
+                    self._ensure_pages(i, min(C, int(self.lengths[i]) + infl[i]
+                                              + n_steps + 2))
+            included = [i for i in included if self.slots[i] is not None]
+            if not included:
+                return True
         self._commit_ptab()
         self._fifo.append(self._dispatch_burst(n_steps, included, t0))
         return True
@@ -1579,10 +2214,14 @@ class Engine:
                   if s is not None and s.phase == "decode" and i not in gset
                   and s.req.max_new_tokens - s.n_decoded - infl[i] > 0]
         if self._pool is not None:
+            # the pack is built: its finals may not pause for pages here
             for slot, s in group:
-                self._ensure_pages(slot, min(C, s.written + K + 2))
+                self._ensure_pages(slot, min(C, s.written + K + 2), keep=gset)
             for i in others:
-                self._ensure_pages(i, min(C, int(self.lengths[i]) + infl[i] + K + 2))
+                if self.slots[i] is not None:
+                    self._ensure_pages(i, min(C, int(self.lengths[i]) + infl[i]
+                                              + K + 2), keep=gset)
+            others = [i for i in others if self.slots[i] is not None]
         self._commit_ptab()
         head = _Pack(group, self._prefill_pack(bucket, continued, host), t0,
                      split=True)
@@ -1662,7 +2301,7 @@ class Engine:
         while self._fifo:
             item = self._fifo[0]
             burst = isinstance(item, _Burst)
-            if not ((cuda or not burst) and item.fetch.done()):
+            if not ((cuda or not burst) and self._landed(item)):
                 if waited or (can_feed and self._n_inflight()
                               < self.ecfg.pipeline_depth):
                     break
@@ -1680,14 +2319,98 @@ class Engine:
         while self._fifo:
             self._drain_fifo(can_feed=False)
 
+    # ---------- the dispatch-stall watchdog ----------
+
+    def _sync_faults(self, item):
+        """The JAX sync worker's fault hooks (services/faults.py), once per
+        pack or burst, when the loop first asks whether its results
+        landed: ``sync_delay_ms`` makes them land that much later (a late
+        CUDA event), ``sync_fail`` fails them."""
+        if item.faults_seen:
+            return
+        item.faults_seen = True
+        d = FAULTS.take("sync_delay_ms")
+        if d is not None:
+            item.fetch.t_due = time.monotonic() + int(d) / 1e3
+        if FAULTS.take("sync_fail") is not None:
+            item.fetch.err = RuntimeError("injected fault: sync_fail")
+
+    def _landed(self, item) -> bool:
+        """Whether a dispatched item's results have landed (no wait)."""
+        if FAULTS.active:
+            self._sync_faults(item)
+        return item.fetch.done()
+
+    def _wait_ready(self, item, blame=None) -> np.ndarray:
+        """Wait for a dispatched item's results, never for ever (the JAX
+        engine's ``_wait_ready``): past dispatch_stall_ms from the later
+        of its dispatch and the last landing seen (a deep pipeline whose
+        head is slow but landing is load, not a stall) it raises
+        _DispatchStall for ``blame`` (default: the item)."""
+        if FAULTS.active:
+            self._sync_faults(item)
+        try:
+            out = item.fetch.wait(max(item.t0, self._t_last_ready),
+                                  self.ecfg.dispatch_stall_ms / 1e3)
+        except Stalled:
+            raise _DispatchStall(blame or item) from None
+        self._t_last_ready = time.monotonic()
+        return out
+
+    def _check_parked_stall(self):
+        """The watchdog for the idle branch of the loop (the JAX engine's
+        ``_check_parked_stall``): the FIFO head is what the card should be
+        finishing now; if it has not landed within the bound, it stalled."""
+        stall_s = self.ecfg.dispatch_stall_ms / 1e3
+        if stall_s <= 0 or not self._fifo:
+            return
+        head = self._fifo[0]
+        if self._landed(head):
+            return
+        if time.monotonic() - max(head.t0, self._t_last_ready) > stall_s:
+            raise _DispatchStall(head)
+
+    def _handle_stall(self, item):
+        """Abort only the stalled item's requests (the JAX engine's
+        ``_handle_stall``, without its span-ring dump, which comes with
+        the observability slice): each gets a "stall" event, its slot is
+        released and its fork waiters resolved; the item leaves the FIFO.
+        The device state is kept: the other slots serve on (module doc)."""
+        pairs = item.slots if isinstance(item, _Burst) else item.group
+        stalled = [(i, snap) for i, snap in pairs if self.slots[i] is snap]
+        with self._lc_lock:
+            self._lc["stalls"] += 1
+        log.warning(json.dumps({
+            "event": "dispatch_stall",
+            "dispatch_stall_ms": self.ecfg.dispatch_stall_ms,
+            "item": type(item).__name__,
+            "requests": [snap.req.request_id for _, snap in stalled],
+            "slots": [i for i, _ in stalled],
+            "ring_dump": ""}))
+        try:
+            self._fifo.remove(item)
+        except ValueError:
+            pass
+        if isinstance(item, _Pack):
+            item.processed = True     # its chained burst must not wait on it
+        for i, snap in stalled:
+            snap.req.out.put(StreamEvent(
+                token_id=-1, text="", logprob=0.0, finish_reason="stop",
+                error=(f"device dispatch stalled > "
+                       f"{self.ecfg.dispatch_stall_ms} ms; request aborted"),
+                error_kind="stall"))
+            snap.req.out.put(None)
+            self._release_slot(i)
+            self._process_fork_waiters(i, snap)
+
     def _process_burst(self, b: _Burst):
         """Read a burst's tokens and emit them step by step. A slot
         released, context-shifted or re-admitted since the dispatch gets
         nothing (its steps are dropped); the others advance their host
         mirrors. A "1" fused tick's head is processed first."""
         if b.head is not None and not b.head.processed:
-            self._process_pack(b.head)
-        host = b.fetch.wait()                            # [K, 2, S]
+            self._process_pack(b.head, blame=b)
+        host = self._wait_ready(b)                       # [K, 2, S]
         ids_np = host[:, 0].astype(np.int64)
         lps_np = host[:, 1]
         t1 = time.monotonic()

@@ -15,9 +15,10 @@ never copies that way:
     before the copy has run.
   * ``Fetch`` copies a device tensor into a pinned buffer of its own,
     also in stream order, and records a CUDA event after the copy;
-    ``done`` asks whether the event fired, ``wait`` blocks on it alone
+    ``done`` asks whether the event fired, ``wait`` waits for it alone
     (the counterpart of the JAX engine's sync worker reading one
-    dispatch's results in order) and returns the host array. bfloat16,
+    dispatch's results in order), polling with a bound (the engine's
+    dispatch-stall watchdog: ``Stalled``), and returns the host array. bfloat16,
     which numpy lacks, comes back as its uint16 bit patterns
     (``numpy_of``), the form the host tier (engine/kv_offload.py) keeps.
   * The host tier (engine/kv_offload.py) moves whole KV pages:
@@ -39,6 +40,7 @@ and the next dispatch rewrites it before the host reads this one.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -105,14 +107,23 @@ def to_device(dst: torch.Tensor, src: np.ndarray):
         dst.copy_(t)
 
 
+class Stalled(TimeoutError):
+    """A Fetch did not land within the stall bound of ``Fetch.wait``."""
+
+
 class Fetch:
     """One device -> host copy in flight: a pinned host tensor and the
-    CUDA event recorded after the copy (module doc)."""
+    CUDA event recorded after the copy (module doc). ``t_due`` (monotonic
+    seconds) and ``err`` model a late or a failed copy for fault
+    injection (services/faults.py): the copy counts as landed no earlier
+    than ``t_due``, and ``wait`` raises ``err``."""
 
-    __slots__ = ("host", "event")
+    __slots__ = ("host", "event", "t_due", "err")
 
     def __init__(self, src: torch.Tensor):
         self.event: Optional[torch.cuda.Event] = None
+        self.t_due = 0.0
+        self.err: Optional[BaseException] = None
         if src.is_cuda:
             self.host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
             self.host.copy_(src, non_blocking=True)
@@ -126,15 +137,38 @@ class Fetch:
         """A Fetch that is already done, holding ``array``."""
         f = cls.__new__(cls)
         f.host, f.event = torch.from_numpy(np.asarray(array)), None
+        f.t_due, f.err = 0.0, None
         return f
 
     def done(self) -> bool:
         """Whether the copy has landed (without blocking)."""
+        if self.err is not None:
+            return True
+        if self.t_due and time.monotonic() < self.t_due:
+            return False
         return self.event is None or self.event.query()
 
-    def wait(self) -> np.ndarray:
-        """Block until the copy has landed; the host array (bfloat16 as
-        uint16, ``numpy_of``)."""
-        if self.event is not None:
-            self.event.synchronize()
+    def wait(self, since: float = 0.0, stall_s: float = 0.0) -> np.ndarray:
+        """Wait until the copy has landed; the host array (bfloat16 as
+        uint16, ``numpy_of``). With ``stall_s`` > 0 the wait never blocks
+        for ever: it polls ``done`` in short sleeps (20 us, doubling up to
+        0.5 ms, so a landing is seen within 0.5 ms and the wait leaves the
+        GIL to the other threads) and raises ``Stalled`` once ``stall_s``
+        seconds have passed since ``since`` (monotonic: the engine passes
+        the later of the dispatch and the last landing it saw). With
+        ``stall_s`` <= 0 it waits for the event alone, however long."""
+        if stall_s > 0:
+            step = 20e-6
+            while not self.done():
+                if time.monotonic() - since > stall_s:
+                    raise Stalled(f"no landing within {stall_s * 1e3:.0f} ms")
+                time.sleep(step)
+                step = min(2 * step, 5e-4)
+        else:
+            if self.t_due:
+                time.sleep(max(0.0, self.t_due - time.monotonic()))
+            if self.event is not None:
+                self.event.synchronize()
+        if self.err is not None:
+            raise self.err
         return numpy_of(self.host)

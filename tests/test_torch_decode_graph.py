@@ -29,8 +29,9 @@ equal the eager loop's byte for byte, its kernel launch counts are the
 layers x steps the replays ran, capture runs under
 ``torch.cuda.set_sync_debug_mode("error")``, an Engine captures at start
 and serves through replays, and its pipelined loop serves a fork group
-and a logit bias under that mode; ``clone_page`` on the card equals the
-plain copy, scales included. On the card's machine (no JAX):
+and a logit bias under that mode, as do a preempt / resume round and a
+real device stall aborted by the bounded wait; ``clone_page`` on the
+card equals the plain copy, scales included. On the card's machine (no JAX):
 
     python -m pytest --noconftest tests/test_torch_decode_graph.py -q -m cuda
 """
@@ -495,6 +496,76 @@ def test_engine_loop_never_waits_for_the_stream(card):
     assert m["pages_in_use"] == 0
     assert offloaded >= 2 and m["kv_offload"]["restores"] == 1
     assert finals[-1].timings["reused_prompt_tokens"] == 32
+
+
+@pytest.mark.cuda
+def test_preempt_resume_and_stall_never_wait_for_the_stream(card):
+    """Under torch.cuda.set_sync_debug_mode("error"), on one slot: a high
+    request preempts a low one mid-decode and both complete (the pause
+    copies the mirostat state on the card, the resume splices the retained
+    pages back); then a real device stall: a GPU sleep of about 1 s
+    enqueued on the engine's stream ahead of one burst makes that burst's
+    event late, the bounded wait (dispatch_stall_ms 300) aborts its
+    request with a "stall" event, and a request sent once the sleep has
+    run is served. No op on the engine thread waits for the whole
+    stream."""
+    import time
+
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+
+    class _Tok:
+        eos_token_id = 1
+
+        def decode(self, ids, **kw):
+            return "".join(chr(97 + (i % 26)) for i in ids)
+
+    cfg, params, *_ = _small("paged", "cuda", head_dim=128)
+    e = Engine(cfg, params, _Tok(), EngineConfig(
+        num_slots=1, max_context=128, prefill_chunk=16, kv_page_size=16,
+        decode_burst=16), device="cuda").start()
+
+    def req(prompt, n, priority=""):
+        return GenRequest(prompt_ids=list(prompt), max_new_tokens=n,
+                          ignore_eos=True, priority=priority,
+                          params=sampling.SamplingParamsHost(temperature=0.0))
+
+    def drain(out, first=None):
+        evs = [first] if first is not None else []
+        while (ev := out.get(timeout=300)) is not None:
+            evs.append(ev)
+        return evs
+
+    rate = torch.cuda.get_device_properties(0).clock_rate * 1e3   # kHz -> Hz
+    burst, armed = e._burst, []
+
+    def late_burst(n_steps, active):
+        if armed and armed.pop():
+            torch.cuda._sleep(int(rate))          # ~1 s of device time
+        return burst(n_steps, active)
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out_low = e.submit(req(range(2, 42), 60, "low"))
+        first = out_low.get(timeout=300)
+        high = drain(e.submit(req(range(60, 70), 8, "high")))
+        low = drain(out_low, first)
+        e.ecfg.dispatch_stall_ms = 300
+        e._burst = late_burst
+        armed.append(True)
+        stalled = drain(e.submit(req(range(80, 90), 40)))
+        time.sleep(1.5)                           # the sleep has run
+        after = drain(e.submit(req(range(80, 90), 8)))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        e.shutdown()
+    assert not any(ev.error for ev in high + low + after)
+    assert high[-1].completion_tokens == 8 and low[-1].completion_tokens == 60
+    assert after[-1].completion_tokens == 8
+    assert stalled[-1].error_kind == "stall"
+    m = e.metrics()
+    assert m["scheduler"]["preemptions"] == 1 and m["scheduler"]["resumes"] == 1
+    assert m["scheduler"]["resume_restore_rows"] > 0
+    assert m["lifecycle"]["stalls"] >= 1 and m["pages_in_use"] == 0
 
 
 @pytest.mark.cuda

@@ -214,6 +214,8 @@ bad = sorted(k for k in sys.modules
              or k == "localai_tpu" or k.startswith("localai_tpu."))
 print(len(names), bad)
 assert not bad, bad
+assert {"localai_tpu_torch.services.errors", "localai_tpu_torch.services.faults",
+        "localai_tpu_torch.engine.scheduler"} <= set(names), names
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=300)

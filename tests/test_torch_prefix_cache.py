@@ -139,6 +139,22 @@ def _drain(out, first=None):
             reused = ev.timings["reused_prompt_tokens"]
 
 
+def _submit_together(e, prompts, n):
+    """Submit ``prompts`` so the engine admits them in one pass: its
+    admission is held until all are queued. Without the hold a request
+    of the wave could finish and free its slot before the last one is
+    submitted (the submitting thread descheduled on a loaded host); that
+    request's slot pick then keeps the conversation's slot, and turn 3's
+    reuse changes with the host's timing."""
+    e._admit = lambda: False
+    try:
+        outs = [_submit(e, p, n) for p in prompts]
+    finally:
+        del e._admit                     # the class's method again
+    e._wake.set()
+    return outs
+
+
 def run_script(e, seed: int = 21) -> list:
     """The module doc's script on one engine: (ids, reused) per request,
     in script order. Prompts that continue a conversation are built from
@@ -155,7 +171,7 @@ def run_script(e, seed: int = 21) -> list:
     t2 = a + res[0][0] + draw(12)                        # 2
     res.append(_drain(_submit(e, t2, 6)))
     wave = [draw(n) for n in (34, 45, 38, 50)]           # 3
-    outs = [_submit(e, p, 6) for p in wave]
+    outs = _submit_together(e, wave, 6)
     res += [_drain(o) for o in outs]
     t3 = t2 + res[2][0] + draw(10)                       # 4
     res.append(_drain(_submit(e, t3, 5)))

@@ -9,7 +9,10 @@ JAX package's default chat template renders it; the prompt tokenized by
 the port exactly as the JAX backend's HF tokenizer does); the JAX
 sampler's knobs (penalties, logit_bias, typical_p, mirostat) are served,
 greedy penalized / biased text equal to the JAX Engine's; a knob the
-port does not serve (grammar) is a 400, never silently ignored.
+port does not serve (grammar) is a 400, never silently ignored, and so
+are tools / functions that survive tool_choice (tool calls need grammar),
+while tool_choice "none" is served as a plain chat, as the JAX route
+serves it.
 """
 
 from __future__ import annotations
@@ -277,6 +280,59 @@ def test_unsupported_knob_and_bad_request_are_400(served):
                           else "/v1/completions"), body)
         assert ei.value.code in (400, 404)
         assert "error" in json.loads(ei.value.read())
+
+
+TOOL = {"name": "get_weather", "description": "the weather in a city",
+        "parameters": {"type": "object",
+                       "properties": {"city": {"type": "string"}}}}
+
+
+@pytest.mark.parametrize("extra", [
+    {"tools": [{"type": "function", "function": TOOL}]},
+    {"tools": [{"type": "function", "function": TOOL}], "tool_choice": "auto"},
+    {"functions": [TOOL]},
+    {"functions": [TOOL], "function_call": {"name": "get_weather"}},
+], ids=["tools", "tool_choice_auto", "functions", "function_call"])
+@pytest.mark.parametrize("stream", [False, True])
+def test_tool_calls_are_refused_with_400(served, extra, stream):
+    """Tools / functions that survive tool_choice need tool calls, which
+    the port does not serve yet: a 400 before the engine sees the request,
+    never an answer in free text (the JAX route would constrain the
+    output to a tool call)."""
+    base, lm, *_ = served
+    before = lm.engine.metrics()["packed_prefill"]["dispatches"]
+    with pytest.raises(urllib.error.HTTPError) as ei:
+        _post(base + "/v1/chat/completions",
+              {"model": "tiny", "messages": MESSAGES, "max_tokens": 4,
+               "stream": stream, **extra})
+    assert ei.value.code == 400
+    err = json.loads(ei.value.read())["error"]
+    assert err["type"] == "invalid_request_error"
+    assert "tools / functions" in err["message"]
+    assert lm.engine.metrics()["packed_prefill"]["dispatches"] == before
+
+
+@pytest.mark.parametrize("choice", [{"tool_choice": "none"},
+                                    {"function_call": "none"}])
+def test_tool_choice_none_is_served_as_the_jax_route(served, choice):
+    """tool_choice / function_call "none": the tools are declared but must
+    not be called, so the JAX route drops them and answers as a plain
+    chat; the port gives the JAX Engine's greedy text."""
+    from localai_tpu_torch.api.openai_routes import render_chat
+
+    base, lm, je, hf_tok = served
+    key = "tools" if "tool_choice" in choice else "functions"
+    decl = ([{"type": "function", "function": TOOL}] if key == "tools"
+            else [TOOL])
+    status, raw = _post(base + "/v1/chat/completions",
+                        {"model": "tiny", "messages": MESSAGES, "max_tokens": 6,
+                         "temperature": 0, "ignore_eos": True, key: decl,
+                         **choice})
+    assert status == 200
+    out = json.loads(raw)
+    assert out["choices"][0]["finish_reason"] == "length"
+    assert out["choices"][0]["message"]["content"] == _jax_text(
+        je, hf_tok, render_chat(MESSAGES), 6)
 
 
 def test_app_shutdown_frees_the_model_without_the_cycle_collector(tmp_path):
