@@ -103,7 +103,15 @@ Phases, each raising on failure (no phase swallows an error):
               engine's prefill_buckets rule: 32, 128, 512, 1024 here) and
               replays the (bucket, continued) graph the engine captured at
               start: K2 + K2-int8 launches, counted through the replays,
-              must be 32 x the packs.
+              must be 32 x (the packs + the spec rounds). Speculation is at
+              its default (draft "auto" = n-gram self-speculation, n_draft
+              4): the greedy requests must take spec rounds (each round a
+              decode step, counted among the steps above, and a verify
+              pack of K2 / K2-int8); the penalized chat rides them as a
+              plain row. The phases below, up to 3h, measure plain
+              bursts: they run with speculation off (draft "0"), on the
+              loaded engine and on every engine built from its config;
+              3i turns it back on.
   3b. decode  right after each configuration's requests, on the same
               loaded model (decode_phase): 8 requests of 256 greedy tokens
               (ignore_eos, admission held until all 8 are queued, so they
@@ -118,7 +126,8 @@ Phases, each raising on failure (no phase swallows an error):
               burst, waited for: copy in, 16 steps, copy out; the first
               step's logits come from a 1-step probe on the chained state,
               which it then restores), the median host time
-              between bursts, a torch.profiler trace of one such burst (CUDA
+              between bursts, a torch.profiler trace of one such burst
+              (graph and eager; the full variant is timed only) (CUDA
               kernels per step, the device's busy share of the burst window,
               its idle gaps, the 10 longest kernels by total time),
               the decode kernel's launches = 32 x steps. Greedy streams
@@ -216,8 +225,8 @@ Phases, each raising on failure (no phase swallows an error):
               model (shift_phase): context shift at Llama-3.1-8B width and
               depth. A second engine over the same weights (context 1024,
               chunk 512) serves one greedy request with a 300-token prompt
-              and max_tokens 1600 (ignore_eos): it must finish "length"
-              after 1600 tokens and shift at least twice, counted from the
+              and max_tokens 1300 (ignore_eos): it must finish "length"
+              after 1300 tokens and shift at least twice, counted from the
               packed_prefill dispatches beyond its first pack; the decode
               kernel launches 32 x steps and K2 32 x packs through the
               graphs. Prints each shift's stall (host clock, from the event
@@ -287,6 +296,28 @@ Phases, each raising on failure (no phase swallows an error):
               resumes, re-prefills, rows restored at resume and host-tier
               pages restored. A {"lifecycle": ...} JSON line before the
               kernels line holds it all.
+  3i. spec    for paged and w8kv8, last, on the same loaded model
+              (spec_phase), speculation back at its default. (a) with
+              paged only, a small float32 model (head_dim 128) on the
+              card: greedy tokens with speculation equal draft "0"'s byte
+              for byte on paged, int8 KV and contiguous engines, and the
+              captured round equals its eager form
+              (DecodeGraph.spec_eager) from the same state: tokens and
+              n_out identical, logprobs within 1e-4. (b) 8 greedy requests
+              x 256 tokens admitted together, speculation off then on, on
+              two prompt sets: one phrase repeated (repetitive) and seeded
+              random ids: decode tok/s (host clock), ms per tick and per
+              round or step, acceptance_rate and accept_per_dispatch, the
+              share of identical tokens and the first divergence per
+              request (bf16: not a byte gate); one spec tick of the
+              repetitive run under torch.profiler (CUDA kernels per
+              round, busy share, top kernels). (c) the round's parts
+              alone, each captured as a graph of its own and timed with
+              CUDA events, 8 slots speculating over 1024 rows: propose,
+              the decode step, the verify forward (K2 / K2-int8 and the
+              products at M = 40), accept; against the whole round. A
+              {"spec": ...} JSON line before the kernels line holds it
+              all, with the serving run's spec counters.
   4. kernels  one JSON line {"kernels": [...]}: for each of the eight kernels,
               launches during its serving configuration (K5 has no serving
               path: its launches are those of phases 2 and 4), parity
@@ -302,8 +333,12 @@ Phases, each raising on failure (no phase swallows an error):
               route under "cuda_route"). K2's row also
               carries, under "fresh", the same numbers on a fresh
               512-token pack (mp = 0), the shape most of its serving
-              launches take. W8's and W4's rows time w_gate at decode M =
-              8, and carry lm_head at M = 8 and w_gate at M = 512 (the
+              launches take; K2's and K2-int8's rows carry under
+              "verify" the spec round's verify shape (8 segments of 5
+              tokens over 1024 committed rows each), its library call
+              one batched SDPA over the same rows. W8's and W4's rows
+              time w_gate at decode M = 8, and carry lm_head at M = 8 and
+              w_gate at M = 512 (the
               wide path) under "lm_head" and "wide", their library call
               the product with a dense bf16 weight of the same shape
               (what the bf16 model runs), and under "per_step" every
@@ -1019,6 +1054,14 @@ def http_stream(url: str, body: dict, timeout=600):
     return chunks, t_first, t_last
 
 
+def phase_timed(config: str, fn, *args):
+    """fn(*args), its host wall time logged."""
+    t = time.monotonic()
+    out = fn(*args)
+    log(f"[time] {config}: {fn.__name__} {time.monotonic() - t:.1f} s")
+    return out
+
+
 def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
     """One serving configuration over HTTP (see the module doc); returns
     (launches, shapes)."""
@@ -1153,6 +1196,10 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
         pk = {k: m1["packed_prefill"][k] - m0["packed_prefill"][k]
               for k in m1["packed_prefill"]}
         dec = {k: m1["decode"][k] - m0["decode"][k] for k in m1["decode"]}
+        spec = {k: m1["spec"][k] - m0["spec"][k] for k in SPEC_KEYS}
+        if spec["rounds"] <= 0 or dec["spec_rounds"] <= 0:
+            raise AssertionError(f"{tag} the greedy requests took no spec round "
+                                 f"(speculation is on by default): {spec}")
         if dec["full_steps"] <= 0:
             raise AssertionError(f"{tag} no decode step ran the full sampler "
                                  f"variant for the penalized chat: {dec}")
@@ -1168,7 +1215,7 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
             f"({pk['dispatches']} packs, {pk['tokens']} tokens); "
             f"{gb:.3f} GB allocated after load, peak {peak_gb:.3f} GB")
         log(f"{tag} packed prefill {json.dumps(pk)}; decode {json.dumps(dec)}; "
-            f"kernel launches {json.dumps(launches)}")
+            f"speculation {json.dumps(spec)}; kernel launches {json.dumps(launches)}")
         missing = [k for k in must if launches[k] <= 0]
         stray = [k for k in must_not if launches[k] != 0]
         if missing or stray:
@@ -1185,25 +1232,34 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
             raise AssertionError(f"{tag} {dk} launched {launches[dk]} times over "
                                  f"{dec['steps']} decode steps (graph replays), "
                                  f"expected {n_layers} x {dec['steps']}")
-        # every pack is a graph replay: K2 / K2-int8 once per layer per
-        # pack, counted through the replays
+        # every pack and every spec round's verify is a graph replay: K2 /
+        # K2-int8 once per layer per pack and per round, counted through
+        # the replays (a round's decode step counts among the steps above)
         k2 = launches["ragged_prefill_attention"] + launches["ragged_prefill_attention_int8"]
-        if k2 != n_layers * pk["dispatches"]:
+        if k2 != n_layers * (pk["dispatches"] + dec["spec_rounds"]):
             raise AssertionError(f"{tag} K2 / K2-int8 launched {k2} times over "
-                                 f"{pk['dispatches']} packs (graph replays), "
-                                 f"expected {n_layers} per pack")
+                                 f"{pk['dispatches']} packs and {dec['spec_rounds']} "
+                                 f"spec rounds (graph replays), expected "
+                                 f"{n_layers} per pack and per round")
         prompt_lens = [len(lm.tokenizer.encode(render_chat(c))) for c in chats]
-        decode = decode_phase(lm, card, config)
-        prefill = prefill_phase(lm, card, config)
-        prefix = host = None
+        # the phases that measure plain bursts (3b-3h) run with speculation
+        # off, on this engine and on every engine built from its config;
+        # 3i turns it back on
+        pin_speculation(lm.engine, False)
+        log(f"[time] {config}: load + serving {time.monotonic() - t0:.1f} s")
+        decode = phase_timed(config, decode_phase, lm, card, config)
+        prefill = phase_timed(config, prefill_phase, lm, card, config)
+        prefix = host = shift = pipeline = lifecycle = spec_out = None
         if config in PREFIX_K2:
-            prefix, runs3c = prefix_phase(lm, card, config)
-            host = host_tier_phase(lm, card, config, runs3c)
+            prefix, runs3c = phase_timed(config, prefix_phase, lm, card, config)
+            host = phase_timed(config, host_tier_phase, lm, card, config, runs3c)
             del runs3c
-        shift = shift_phase(lm, card, config) if config in PREFIX_K2 else None
-        pipeline = pipeline_phase(lm, card, config) if config in PREFIX_K2 else None
-        lifecycle = lifecycle_phase(lm, card, config) if config in PREFIX_K2 else None
-        return launches, {"prompt_lens": prompt_lens, "n_long": n_long,
+            shift = phase_timed(config, shift_phase, lm, card, config)
+            pipeline = phase_timed(config, pipeline_phase, lm, card, config)
+            lifecycle = phase_timed(config, lifecycle_phase, lm, card, config)
+            pin_speculation(lm.engine, True)
+            spec_out = phase_timed(config, spec_phase, lm, card, config)
+        return launches, {"spec": spec_out, "spec_serving": spec,"prompt_lens": prompt_lens, "n_long": n_long,
                           "ttft_ms": ttft_ms, "decode_tok_s": decode_tok_s,
                           "step_ms": step_ms, "pack_ms": pack_ms,
                           "pad_tokens": pk["pad_tokens"],
@@ -1345,7 +1401,10 @@ def decode_phase(lm, card: str, config: str) -> dict:
                         active=g.active).float()
                 probe["steps"] = 1
             full = n_steps == 16 and int(active.sum()) == S_SLOTS
-            traced = full and sum(r[3] for r in rec) == PROFILED_BURST and not prof_box
+            # the full variant is timed, not traced (its kernels are the
+            # plain step's plus the sampler's, PR 12)
+            traced = (full and way != "full" and not prof_box
+                      and sum(r[3] for r in rec) == PROFILED_BURST)
             t = time.perf_counter()
             if rec:                       # host time since the last burst ended
                 gaps.append(t - rec[-1][4])
@@ -1437,7 +1496,8 @@ def decode_phase(lm, card: str, config: str) -> dict:
                f"the first device activity; {tr['gaps_over_20us']} idle gaps over "
                f"20 us, {tr['gaps_over_20us_ms']:.3f} ms in all, longest "
                f"{tr['longest_gap_ms']:.3f} ms)" if split else
-               "trace: the profiler recorded no device activity (not measured)"))
+               ("not traced" if way == "full" else
+                "trace: the profiler recorded no device activity (not measured)")))
         if split:
             log(f"{tag} {way}: 10 longest kernels by total time in the traced "
                 f"burst: {json.dumps(split['top10'])}")
@@ -2453,7 +2513,8 @@ def host_tier_phase(lm, card: str, config: str, runs: dict) -> dict:
 
 SHIFT_CONTEXT = 1024         # the second engine's max_context
 SHIFT_PROMPT = 300           # prompt tokens
-SHIFT_TOKENS = 1600          # max_tokens: two shifts at context 1024
+SHIFT_TOKENS = 1300          # max_tokens: two shifts at context 1024 (the
+                             # second at token ~1233)
 
 
 def shift_phase(lm, card: str, config: str) -> dict:
@@ -3394,6 +3455,365 @@ def lifecycle_phase(lm, card: str, config: str) -> dict:
     return out
 
 
+# ---------- phase 3i: n-gram self-speculation ----------
+
+SPEC_TOKENS = 256            # max_tokens of each of the 8 requests
+SPEC_PHRASE = "The cat sat on the mat. "
+SPEC_KEYS = ("dispatches", "mixed_dispatches", "rounds", "proposed", "accepted",
+             "tokens")
+SPEC_TRACED_TICK = 3         # which spec tick of the repetitive run is traced
+SPEC_PART_ROWS = 1024        # committed rows of each slot in the round's split
+
+
+def pin_speculation(eng, on: bool):
+    """Speculation on (draft "auto", the default) or off ("0", the mode it
+    resolves to) for what an idle engine admits next, and in the config
+    later engines copy (dataclasses.replace(eng.ecfg, ...))."""
+    eng.ecfg.draft = "auto" if on else "0"
+    eng._spec_mode = "ngram" if on else "off"
+
+
+def spec_tiny_phase(card: str) -> dict:
+    """(a) On the card, a small f32 model (head_dim 128): greedy tokens with
+    speculation byte-identical to draft "0" on paged, int8 KV and
+    contiguous engines; the captured round against its eager form
+    (DecodeGraph.spec_eager) on the same chained state: tokens and n_out
+    identical, logprobs within 1e-4."""
+    import dataclasses
+
+    import torch
+
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+    from localai_tpu_torch.engine.sampling import SamplingParamsHost
+    from localai_tpu_torch.engine.weights import random_params
+    from localai_tpu_torch.models import llama
+
+    class Tok:
+        eos_token_id = 1
+
+        def decode(self, ids, **kw):
+            return "".join(chr(97 + (i % 26)) for i in ids)
+
+    cfg = llama.LlamaConfig(vocab_size=96, hidden_size=512, intermediate_size=1024,
+                            num_layers=2, num_heads=4, num_kv_heads=2, head_dim=128,
+                            rope_theta=500000.0, dtype=torch.float32)
+    params = random_params(cfg, SEED, device=DEV)
+    base = EngineConfig(num_slots=4, max_context=256, prefill_chunk=32,
+                        kv_page_size=16, decode_burst=16, kv_offload=False)
+    prompts = [[5, 6, 7, 8] * 8, list(range(10, 50)), [9, 9, 3] * 7, list(range(60, 71))]
+    out = {}
+    for kind, knobs in (("paged", {}), ("int8", {"cache_dtype": torch.int8}),
+                        ("contig", {"kv_layout": "contiguous"})):
+        streams = {}
+        # one engine, speculation on then off (the mode draft "0"
+        # resolves to), nothing retained between the two runs
+        e = Engine(cfg, params, Tok(), dataclasses.replace(base, **knobs),
+                   device=DEV).start()
+        try:
+            for draft in ("auto", "0"):
+                pin_speculation(e, draft == "auto")
+                on_engine_thread(e, lambda e=e: forget_retained(e))
+                outs = [e.submit(GenRequest(prompt_ids=list(p), max_new_tokens=60,
+                                            ignore_eos=True,
+                                            params=SamplingParamsHost(temperature=0.0)))
+                        for p in prompts]
+                ids = []
+                for o in outs:
+                    got = []
+                    while (ev := o.get(timeout=600)) is not None:
+                        if ev.error:
+                            raise AssertionError(f"[spec tiny {kind}] {ev.error}")
+                        got.extend(ev.token_ids or [ev.token_id])
+                    ids.append(got)
+                streams[draft] = (ids, dict(e.metrics()["spec"]))
+                if draft == "auto":
+                    err = on_engine_thread(e, lambda e=e: spec_graph_vs_eager(e))
+        finally:
+            e.shutdown()
+        (sid, st), (pid, pst) = streams["auto"], streams["0"]
+        if pst["rounds"] != st["rounds"]:
+            raise AssertionError(f"[spec tiny {kind}] spec rounds ran with "
+                                 f"speculation off: {pst} after {st}")
+        if sid != pid:
+            raise AssertionError(f"[spec tiny {kind}] greedy tokens with speculation "
+                                 f"differ from draft=0: {sid} vs {pid}")
+        if st["rounds"] <= 0:
+            raise AssertionError(f"[spec tiny {kind}] no spec round ran: {st}")
+        out[kind] = {"rounds": st["rounds"], "accepted": st["accepted"],
+                     "graph_vs_eager_logprob_err": err}
+        log(f"[spec tiny {kind}] {card}: f32 greedy tokens with speculation == "
+            f"draft=0 ({len(prompts)} x 60); {st['rounds']} rounds, "
+            f"{st['accepted']} of {st['proposed']} proposals accepted; captured "
+            f"round == eager form (tokens, n_out), logprob max err {err:.2e}")
+    return out
+
+
+def spec_graph_vs_eager(e) -> float:
+    """On an idle engine's thread: 3 slots decoding 2 rounds from the same
+    state through the captured round and through the eager form, the
+    state restored in between. Returns the logprobs' max abs error."""
+    import numpy as np
+    import torch
+
+    g = e._graph
+    samp = e.sampler
+    S = g.tokens.shape[0]
+    forget_retained(e)           # the rows written below are nobody's
+    if e._pool is not None:
+        for s in range(3):
+            e._pool.ensure(s, 64)
+    e._commit_ptab()
+    rows = np.stack([[1, 1, 1, 0], np.ones(S), [5, 9, 12, 0], [20, 24, 31, 0],
+                     [1, 1, 0, 0]]).astype(np.int64)
+    for s, h in enumerate(([5, 6, 7, 8] * 5, [9, 3, 9, 3] * 6, list(range(12, 43)))):
+        samp.set_ring(s, h)
+    saved = [t.clone() for t in (samp.ring, samp.ring_pos, samp.counter, samp.mu)]
+    g.load(rows)
+    got = g.spec_replay(2).wait()
+    for t, v in zip((samp.ring, samp.ring_pos, samp.counter, samp.mu), saved):
+        t.copy_(v)
+    g.load(rows)
+    ref = g.spec_eager(2)
+    W = g.spec_width
+    if not (np.array_equal(got[:, :W], ref[:, :W])
+            and np.array_equal(got[:, 2 * W], ref[:, 2 * W])):
+        raise AssertionError(f"spec round graph != eager: {got[:, :W]} vs {ref[:, :W]}")
+    err = float(np.abs(got[:, W:2 * W] - ref[:, W:2 * W]).max())
+    if err > 1e-4:
+        raise AssertionError(f"spec round graph vs eager logprobs err {err:.3e} > 1e-4")
+    for s in range(3):
+        if e._pool is not None:
+            e._pool.release(s, 0)
+        e._cache_tokens[s] = []
+    g.load(np.zeros((5, S), np.int64))
+    torch.cuda.synchronize()
+    return err
+
+
+def spec_run(lm, eng, prompts, spec: bool, tag: str, trace: bool = False) -> dict:
+    """8 greedy requests of SPEC_TOKENS tokens, admitted together, with
+    speculation on or off: streams, decode tok/s (tokens after each
+    request's first over the time from the last first token to the last
+    token, host clock), the ticks' host ms (Engine.metrics decode
+    seconds per tick and per round or step), the spec counters; with
+    ``trace``, one spec tick with all 8 slots under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.engine.sampling import SamplingParamsHost
+
+    pin_speculation(eng, spec)
+    prof_box, ticks = {}, [0]
+    tick = eng._spec_tick
+
+    def traced(n_rounds, active, tick=tick):
+        ticks[0] += 1
+        if trace and not prof_box and ticks[0] >= SPEC_TRACED_TICK \
+                and int(active.sum()) == S_SLOTS:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                with record_function(ANNOTATION):
+                    fetch = tick(n_rounds, active)
+                    fetch.wait()
+            prof_box["prof"], prof_box["rounds"] = prof, n_rounds
+            return fetch
+        return tick(n_rounds, active)
+
+    gate = threading.Event()
+    admit = eng._admit
+    fresh = [True]
+
+    def gated(admit=admit):
+        if not gate.is_set():
+            return False
+        if fresh:
+            fresh.clear()
+            forget_retained(eng)
+        return admit()
+
+    eng._admit = gated
+    eng._spec_tick = traced
+    try:
+        m0 = eng.metrics()
+        outs = [eng.submit(GenRequest(prompt_ids=list(p), max_new_tokens=SPEC_TOKENS,
+                                      ignore_eos=True,
+                                      params=SamplingParamsHost(temperature=0.0)))
+                for p in prompts]
+        n = len(outs)
+        streams, firsts, lasts, errors = [None] * n, [0.0] * n, [0.0] * n, []
+
+        def read(i):
+            ids = []
+            while (ev := outs[i].get(timeout=900)) is not None:
+                if ev.error:
+                    errors.append(ev.error)
+                firsts[i] = firsts[i] or time.monotonic()
+                ids.extend(ev.token_ids or [ev.token_id])
+            lasts[i] = time.monotonic()
+            streams[i] = ids
+
+        readers = [threading.Thread(target=read, args=(i,)) for i in range(n)]
+        for t in readers:
+            t.start()
+        gate.set()
+        eng._wake.set()
+        for t in readers:
+            t.join(timeout=900)
+        if errors or any(x is None for x in streams):
+            raise AssertionError(f"{tag}: {errors or 'a stream did not end'}")
+        torch.cuda.synchronize()
+        m1 = eng.metrics()
+    finally:
+        del eng._admit, eng._spec_tick
+    if any(len(s) != SPEC_TOKENS for s in streams):
+        raise AssertionError(f"{tag}: stream lengths {[len(s) for s in streams]}")
+    dec = {k: m1["decode"][k] - m0["decode"][k] for k in m1["decode"]}
+    sp = {k: m1["spec"][k] - m0["spec"][k] for k in SPEC_KEYS}
+    wall = max(lasts) - max(firsts)
+    r = {"tok_s": S_SLOTS * (SPEC_TOKENS - 1) / max(1e-9, wall),
+         "decode_wall_s": wall, "ticks": dec["bursts"],
+         "spec_ticks": dec["spec_ticks"], "rounds_or_steps": dec["steps"],
+         "ms_per_tick": dec["seconds"] / max(1, dec["bursts"]) * 1e3,
+         "ms_per_round_or_step": dec["seconds"] / max(1, dec["steps"]) * 1e3,
+         **sp,
+         "acceptance_rate": sp["accepted"] / sp["proposed"] if sp["proposed"] else 0.0,
+         "accept_per_dispatch": sp["tokens"] / sp["rounds"] if sp["rounds"] else 0.0,
+         "streams": streams}
+    if spec and sp["rounds"] <= 0:
+        raise AssertionError(f"{tag}: no spec round ran: {sp}")
+    if not spec and sp["dispatches"] != 0:
+        raise AssertionError(f"{tag}: speculation off, yet spec ticks ran: {sp}")
+    if trace:
+        if not prof_box:
+            raise AssertionError(f"{tag}: no spec tick with all {S_SLOTS} slots traced")
+        r["trace"] = trace_split(prof_box["prof"], prof_box["rounds"])
+        r["traced_rounds"] = prof_box["rounds"]
+    return r
+
+
+def round_parts(eng) -> dict:
+    """On an idle engine's thread: the spec round's parts timed alone, each
+    captured as a CUDA graph of its own and replayed under CUDA events
+    (timed_ms), 8 slots all speculating over SPEC_PART_ROWS committed
+    rows: propose (ngram_propose), the decode step (DecodeGraph.
+    spec_decode: every row masked, as when all 8 speculate), the verify
+    forward (spec_verify: K2 / K2-int8 and the products at M = 40) and
+    accept (greedy picks over the window, accept_greedy, ring pushes, the
+    output row), against the whole round's graph. The retained rows are
+    dropped first and the pages written here released after."""
+    import numpy as np
+    import torch
+
+    g = eng._graph
+    forget_retained(eng)
+    S = g.tokens.shape[0]
+    rows = SPEC_PART_ROWS
+    for s in range(S):
+        if eng._pool is not None:
+            eng._pool.ensure(s, rows + 256)
+    eng._commit_ptab()
+    rng = np.random.default_rng(SEED)
+    hi = min(1100, eng.cfg.vocab_size)
+    for s in range(S):
+        eng.sampler.set_ring(s, rng.integers(3, hi, 256).tolist())
+    g.load(np.stack([np.ones(S), np.ones(S), rng.integers(3, hi, S),
+                     np.full(S, rows), np.ones(S)]).astype(np.int64))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graphs, box = {}, {}
+    with torch.cuda.stream(stream):
+        box["drafts"] = g.spec_propose()
+        box["ids0"], box["lps0"] = g.spec_decode(False)
+        box["vlogits"] = g.spec_verify(box["drafts"])
+        g.step.zero_()
+        g.spec_accept(box["drafts"], box["vlogits"], box["ids0"], box["lps0"])
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    parts = {"propose": lambda: g.spec_propose(),
+             "decode_step": lambda: g.spec_decode(False),
+             "verify": lambda: g.spec_verify(box["drafts"]),
+             "accept": lambda: g.spec_accept(box["drafts"], box["vlogits"],
+                                             box["ids0"], box["lps0"])}
+    for name, fn in parts.items():
+        graph = torch.cuda.CUDAGraph()
+        g.step.zero_()
+        with torch.cuda.graph(graph, stream=stream):
+            fn()
+        graphs[name] = graph
+    ms = {}
+    for name, graph in graphs.items():
+        ms[name] = timed_ms(lambda graph=graph: (g.step.zero_(), graph.replay()))
+    whole = g.spec_graphs[False]
+    ms["round"] = timed_ms(lambda: (g.step.zero_(), whole.replay()))
+    graphs.clear()
+    box.clear()
+    for s in range(S):
+        if eng._pool is not None:
+            eng._pool.release(s, 0)
+        eng._cache_tokens[s] = []
+    g.load(np.zeros((5, S), np.int64))
+    torch.cuda.synchronize()
+    ms["parts_sum"] = sum(ms[k] for k in parts)
+    return ms
+
+
+def spec_phase(lm, card: str, config: str) -> dict:
+    """Phase 3i on the loaded model (module doc)."""
+    import numpy as np
+
+    eng = lm.engine
+    tag = f"[spec {config}]"
+    tiny = spec_tiny_phase(card) if config == "paged" else None
+    phrase_ids = lm.tokenizer.encode(SPEC_PHRASE * 24)
+    rng = np.random.default_rng(SEED)
+    sets = {
+        "repetitive": [phrase_ids[i:] + lm.tokenizer.encode(f" Line {i}.")
+                       for i in range(S_SLOTS)],
+        "random": [rng.integers(1000, 100000, 200).tolist() for _ in range(S_SLOTS)],
+    }
+    out = {"tiny_f32": tiny, "sets": {}}
+    for name, prompts in sets.items():
+        runs = {}
+        for spec in (False, True):
+            runs[spec] = spec_run(lm, eng, prompts, spec, f"{tag} {name}",
+                                  trace=spec and name == "repetitive")
+        s, p = runs[True], runs[False]
+        same = [sum(a == b for a, b in zip(x, y)) for x, y in
+                zip(s["streams"], p["streams"])]
+        first_div = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
+                     for x, y in zip(s["streams"], p["streams"])]
+        share = sum(same) / (S_SLOTS * SPEC_TOKENS)
+        for r in runs.values():
+            r.pop("streams")
+        out["sets"][name] = {"spec": s, "plain": p, "identical_share": share,
+                             "first_divergence": first_div,
+                             "speedup": s["tok_s"] / p["tok_s"]}
+        log(f"{tag} {card}: {name} prompts, 8 x {SPEC_TOKENS} greedy tokens: "
+            f"speculation {s['tok_s']:.1f} tok/s vs off {p['tok_s']:.1f} "
+            f"({s['tok_s'] / p['tok_s']:.3f}x); spec {s['ms_per_tick']:.2f} ms "
+            f"per tick, {s['ms_per_round_or_step']:.2f} ms per round ({s['ticks']} "
+            f"ticks, {s['spec_ticks']} spec); off {p['ms_per_tick']:.2f} ms per "
+            f"burst, {p['ms_per_round_or_step']:.3f} ms per step; acceptance "
+            f"{s['acceptance_rate']:.3f}, {s['accept_per_dispatch']:.3f} tokens "
+            f"per slot-round; identical tokens {share * 100:.1f}%, first "
+            f"divergence per request {first_div}")
+    tr = out["sets"]["repetitive"]["spec"].get("trace")
+    if tr:
+        log(f"{tag} {card}: one spec tick ({out['sets']['repetitive']['spec']['traced_rounds']}"
+            f" rounds, 8 slots) under torch.profiler: {tr['kernels_per_step']:.1f} "
+            f"CUDA kernels per round, busy {tr['busy_share'] * 100:.1f}% of "
+            f"{tr['window_ms']:.2f} ms; top kernels {json.dumps(tr['top10'])}")
+    parts = on_engine_thread(eng, lambda: round_parts(eng))
+    out["round_parts_ms"] = parts
+    log(f"{tag} {card}: the round's parts alone (graph replays, CUDA events, 8 "
+        f"slots speculating over {SPEC_PART_ROWS} rows): propose "
+        f"{parts['propose']:.3f} ms, decode step {parts['decode_step']:.3f}, "
+        f"verify {parts['verify']:.3f}, accept {parts['accept']:.3f} (sum "
+        f"{parts['parts_sum']:.3f}) vs the whole round {parts['round']:.3f} ms")
+    return out
+
+
 # ---------- phase 4 ----------
 
 def decode_cost(lengths, elt, cache_elt=None, scales=False, table=True):
@@ -3559,6 +3979,47 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
                 "shape": f"bf16 N=512 KV={KV} G={G} hd={HD} fresh segs={segs}",
                 "library": "SDPA, causal mask over the pack"}
 
+    def verify_prefill_row(quant, errs):
+        """K2 / K2-int8 at the spec round's verify shape: 8 segments of
+        5 tokens (the current token and 4 proposals), each over 1024
+        committed rows; the library call is one batched SDPA over each
+        slot's committed rows and its 5 keys."""
+        segs = [(s, 1024, 5) for s in range(S_SLOTS)]
+        N = 5 * S_SLOTS
+        a, kw, _real = prefill_inputs(N, segs, dt, SEED + 7,
+                                      cache_dtype=torch.int8 if quant else None)
+        q, ck, cv, pk, pv, ptab = a[:6]
+        fn = lambda: ragged_prefill_attention_paged(*a, G, **kw, continued=True)  # noqa: E731
+        plain = lambda: ragged_prefill_plain(*a, G, **kw, continued=True)        # noqa: E731
+        name = "ragged_prefill_attention_int8" if quant else "ragged_prefill_attention"
+        errs[name] = max(errs[name], check_close(
+            f"{name} at the verify shape", fn(), plain(), "bfloat16"))
+        slots = torch.arange(S_SLOTS, device=DEV)
+        kc = kvcache.gather_pool_rows(pk, ptab, slots)[:, :1024]
+        vc = kvcache.gather_pool_rows(pv, ptab, slots)[:, :1024]
+        if quant:
+            kc = (kc.float() * kvcache.gather_pool_rows(
+                kw["scales_k"], ptab, slots)[:, :1024, :, None]).to(dt)
+            vc = (vc.float() * kvcache.gather_pool_rows(
+                kw["scales_v"], ptab, slots)[:, :1024, :, None]).to(dt)
+        qb = q.reshape(S_SLOTS, 5, KV * G, HD).permute(0, 2, 1, 3)       # [B, H, 5, hd]
+        kb = torch.cat([kc, ck.reshape(S_SLOTS, 5, KV, HD)], 1)          # [B, 1029, KV, hd]
+        vb = torch.cat([vc, cv.reshape(S_SLOTS, 5, KV, HD)], 1)
+        kb = kb.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+        vb = vb.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+        kpos = torch.arange(1029, device=DEV)
+        mask = kpos[None, :] <= (1024 + torch.arange(5, device=DEV))[:, None]
+        return {"ms": timed_ms(fn), "plain_ms": timed_ms(plain),
+                "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
+                    qb, kb, vb, attn_mask=mask)),
+                **bound(*prefill_cost(N, segs, elt, cache_elt=1 if quant else None,
+                                      scales=quant), peak),
+                "shape": f"bf16 N={N} KV={KV} G={G} hd={HD} pg={PG} "
+                         f"{'int8 pages ' if quant else ''}verify segs={segs[:1]} x {S_SLOTS}",
+                "library": "SDPA batched over the 8 slots, committed rows "
+                           + ("dequantized to bf16 " if quant else "")
+                           + "+ the 5 keys, causal over them"}
+
     # K2 / K2-int8 at the serving continued pack: the long prompt's 3rd
     # chunk (512 tokens over 1024 committed rows), one segment
     for config, quant in (("paged", False), ("int8", True)):
@@ -3594,6 +4055,7 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
                     + (" (dequantized bf16 committed rows)" if quant else ""))
         if not quant:
             rows[-1]["fresh"] = fresh_prefill_row(errs)
+        rows[-1]["verify"] = verify_prefill_row(quant, errs)
 
     # K4 / K5 at the contiguous serving decode shape
     lengths = decode_lengths("contig")
@@ -3657,7 +4119,7 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
             log(f"[kernels] {card}: {r['name']} share of a {r['config']} decode "
                 f"step ~ {n_layers * r['ms'] / sh['step_ms'] * 100:.1f}% "
                 f"({n_layers} layers x {r['ms']:.4f} ms / {sh['step_ms']:.2f} ms)")
-        for x in (r, r.get("fresh"), r.get("lm_head"), r.get("wide")):
+        for x in (r, r.get("fresh"), r.get("verify"), r.get("lm_head"), r.get("wide")):
             if x:
                 log(f"[kernels] {card}: {r['name']} {x['ms']:.4f} ms (plain "
                     f"{x['plain_ms']:.4f}, library {x['library_ms']:.4f}, bound "
@@ -3756,6 +4218,7 @@ def quant_rows(rows, profiled, add, errs, shapes, dt, elt, peak):
 
 
 def main():
+    t_main = time.monotonic()
     card = setup()
     from localai_tpu_torch.ops.kernels import LAUNCHES
 
@@ -3785,6 +4248,10 @@ def main():
     print(json.dumps({"lifecycle": {c: shapes[c]["lifecycle"] for c in shapes
                                     if shapes[c]["lifecycle"]},
                       "card": card}), flush=True)
+    print(json.dumps({"spec": {c: shapes[c]["spec"] for c in shapes
+                               if shapes[c]["spec"]},
+                      "serving": {c: shapes[c]["spec_serving"] for c in shapes},
+                      "card": card}), flush=True)
     print(json.dumps({"host_tier": {c: shapes[c]["host"] for c in shapes
                                     if shapes[c]["host"]},
                       "memory": {c: shapes[c]["memory"] for c in shapes},
@@ -3808,6 +4275,7 @@ def main():
             f"vs eager {d['eager']['ms_per_step']:.3f} "
             f"(busy {busy['eager']}); capture {d['capture_s']:.2f} s, pool "
             f"{d['pool_bytes'] / 1e6:.1f} MB")
+    log(f"[time] whole run {time.monotonic() - t_main:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

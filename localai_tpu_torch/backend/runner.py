@@ -19,7 +19,10 @@ request_timeout_ms, dispatch_stall_ms, preempt, priority_weights,
 max_preemptions, resume_reserve_pages, priority, priority_aging_ms) are
 ``load_model`` options under their JAX names; ``stream`` turns the
 engine's shed / timeout / stall events into the 429 / 504 / 503 errors of
-services/errors.py.
+services/errors.py. Speculation takes the JAX options and parsing:
+``draft`` (auto | model | ngram | 0 / off / none / false), ``n_draft`` (0
+turns it off) and ``spec_ngram``; a draft model (``draft_model``) is not
+served yet and is refused before any weight is loaded.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch
 from localai_tpu_torch import resolve_device
 from localai_tpu_torch.engine import weights
 from localai_tpu_torch.engine.engine import (
-    KV_LAYOUTS, Engine, EngineConfig, GenRequest, StreamEvent)
+    DRAFT_MODES, KV_LAYOUTS, Engine, EngineConfig, GenRequest, StreamEvent)
 from localai_tpu_torch.engine.sampling import SamplingParamsHost
 from localai_tpu_torch.engine.tokenizer import load_tokenizer
 from localai_tpu_torch.models.llama import LlamaConfig
@@ -134,12 +137,30 @@ def host_store_path(model_dir: str, path: str) -> str:
     return path
 
 
+def spec_options(draft="auto", n_draft=4, spec_ngram=3) -> dict:
+    """The speculation options as the JAX runner parses them: ``draft``
+    lower-cased and stripped, ``n_draft`` an int (0 turns speculation
+    off), ``spec_ngram`` an int; an unknown draft word or a value that is
+    not an int raises ValueError (EngineConfig.check refuses the rest)."""
+    d = str(draft if draft is not None else "auto").strip().lower() or "auto"
+    if d not in DRAFT_MODES:
+        raise ValueError(f"draft {draft!r}: expected one of "
+                         f"{'|'.join(DRAFT_MODES)}")
+    try:
+        return {"draft": d, "n_draft": int(str(n_draft).strip()),
+                "spec_ngram": int(str(spec_ngram).strip())}
+    except ValueError:
+        raise ValueError(f"n_draft {n_draft!r} / spec_ngram {spec_ngram!r}: "
+                         f"expected ints") from None
+
+
 def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
                context_size: int = 2048, dtype: str = "bfloat16",
                random_weights: Optional[int] = None, device="cuda",
                kv_cache_dtype: str = "", kv_layout: str = "auto",
                quantization: str = "", kv_offload=True,
                kv_host_pool_mb: int = 256, kv_host_store: str = "",
+               draft="auto", n_draft=4, spec_ngram=3, draft_model: str = "",
                **engine_knobs) -> LoadedModel:
     """Load a model dir into a started Engine on ``device``.
 
@@ -159,8 +180,10 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
     EngineConfig fields with the JAX engine's names (prefill_chunk,
     decode_burst, pipeline_depth, prefill_packed_fuse, kv_prefetch_ahead,
     the lifecycle and scheduler knobs, ...; ``preempt`` parsed as
-    ``kv_offload``), checked before loading too (``EngineConfig.check``). A GPTQ /
-    AWQ dir with no quantization loads as int8."""
+    ``kv_offload``), checked before loading too (``EngineConfig.check``).
+    Speculation: ``draft`` / ``n_draft`` / ``spec_ngram`` (``spec_options``);
+    a ``draft_model`` raises NotImplementedError before anything loads. A
+    GPTQ / AWQ dir with no quantization loads as int8."""
     dev = resolve_device(device)
     if dtype == "int8":
         dtype, quantization = "bfloat16", quantization or "int8"
@@ -175,6 +198,12 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
         raise NotImplementedError(
             "kv_cache_dtype int8 with kv_layout contiguous is not ported; "
             "use kv_layout paged (or auto) for an int8 cache")
+    if draft_model:
+        raise NotImplementedError(
+            f"draft_model {draft_model!r}: draft-model speculation is not "
+            f"ported yet (a later slice, with sampled acceptance); n-gram "
+            f"self-speculation (draft=auto / ngram) needs no draft model")
+    engine_knobs.update(spec_options(draft, n_draft, spec_ngram))
     if "preempt" in engine_knobs:
         engine_knobs["preempt"] = bool_option(engine_knobs["preempt"], "preempt")
     # engine knobs are checked here too, before any weight is loaded

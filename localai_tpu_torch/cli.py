@@ -12,6 +12,7 @@
         [--preempt 1] [--priority-weights 4:2:1] [--max-preemptions 2] \\
         [--resume-reserve-pages 0] [--priority normal] \\
         [--priority-aging-ms 4000] \\
+        [--draft auto] [--n-draft 4] [--spec-ngram 3] \\
         [--random-weights SEED] [--device cuda]
 
 serves one model over the OpenAI-compatible HTTP routes until
@@ -91,6 +92,15 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--priority-aging-ms", type=int, default=4000,
                    help="queued work older than this ranks one class higher; "
                         "0 = off")
+    # speculation (the JAX names and defaults)
+    r.add_argument("--draft", default="auto",
+                   help="auto (= ngram: prompt-lookup self-speculation for "
+                        "greedy requests) | ngram | model (off: no draft "
+                        "model yet) | 0 / off")
+    r.add_argument("--n-draft", type=int, default=4,
+                   help="proposals per speculative round; 0 = off")
+    r.add_argument("--spec-ngram", type=int, default=3,
+                   help="the n-gram length prompt lookup matches")
     r.add_argument("--random-weights", type=int, default=None, metavar="SEED",
                    help="serve random weights from SEED for a config-only dir")
     r.add_argument("--device", default="cuda")
@@ -127,7 +137,9 @@ def main(argv=None) -> int:
                     max_preemptions=args.max_preemptions,
                     resume_reserve_pages=args.resume_reserve_pages,
                     priority=args.priority,
-                    priority_aging_ms=args.priority_aging_ms)
+                    priority_aging_ms=args.priority_aging_ms,
+                    draft=args.draft, n_draft=args.n_draft,
+                    spec_ngram=args.spec_ngram)
     app = App({lm.name: lm})
     server = make_server(app, host or "127.0.0.1", int(port))
     logging.getLogger(__name__).info("serving %s on http://%s:%d", lm.name,

@@ -36,10 +36,10 @@ CHAINED BURSTS (the JAX engine's chain and override set, ``_override``
 / ``_compose_overrides``): a burst starts from the previous burst's final
 ``tokens`` and ``lengths``, which are already in the static buffers, so
 the engine can dispatch burst N+1 before it has read burst N. ``load``
-overwrites only the rows the host changed since (one [4, S] host array
-copied in stream order: the active mask, an override mask, and the
-overriding tokens and lengths; ``torch.where`` applies them on the
-device), and ``fold`` writes a pack's sampled first tokens and lengths
+overwrites only the rows the host changed since (one [5, S] host array
+copied in stream order: the active mask, an override mask, the
+overriding tokens and lengths, and the spec mask; ``torch.where`` applies
+them on the device), and ``fold`` writes a pack's sampled first tokens and lengths
 into the finals' rows on the device (the split fused tick, the JAX
 ``_split_head_body``'s fold), with no host data at all. ``replay`` then
 runs the steps and starts the copy of ``out`` to the host (a
@@ -56,6 +56,32 @@ ran before the graph) stays as the reference that chip_smoke.py and the
 card tests hold the graphs against (``eager`` runs it from the chained
 buffers); serving never selects it.
 
+THE SPEC ROUND (n-gram self-speculation, engine/speculative.py; the JAX
+engine's ``_spec_tick_body`` round and ``_get_spec_tick_fn``): with
+``spec_width`` W = n_draft + 1 > 0 the same state holder also runs
+``spec_body``, one round on the same ``tokens`` / ``lengths`` buffers,
+so a plain burst and a spec tick chain onto each other in any order.
+``spec`` [S] bool, loaded with the tick's rows like ``active``, marks the
+speculating slots. A round: the n-gram proposals from the sampler's ring;
+the plain decode step (``step_body``'s ops) for the other active rows,
+the spec rows masked out of its KV write and sampler state; a verify
+pack of S segments x W tokens (the current token and the D proposals at
+rows lengths .. lengths + D; a non-speculating slot is a pad segment:
+seg_len 0, the sentinel slot, its tokens at seg_of S and position C)
+through ``llama.ragged_prefill(..., all_logits=True)`` (K2 / K2-int8);
+greedy picks = ``sampling.filter_window``'s rank 0 at every position
+(the plain greedy rule); ``accept_greedy``; the W masked ring pushes;
+``lengths += n_out`` and the last emitted token becomes the current one;
+the round's ids [W], logprobs [W] and n_out into row ``step`` of
+``spec_out``. No host data and no branch on a value: it is captured once
+per sampler variant beside the decode step, in the same pool, and a tick
+of R rounds is R replays and one copy (``spec_replay``). The CPU runs
+the body eagerly; on CUDA a tick before capture raises.
+``eager_rounds`` (fresh tensors, the verify pack built on the host from
+the synced lengths; ``spec_eager`` runs it from the chained buffers) is
+the reference the captured round is held against; serving never calls
+it.
+
 Kernel launch counts (ops/kernels::LAUNCHES) are taken in Python by the
 wrappers, which a replay does not run: ``capture`` takes back what the
 wrappers counted while capturing (nothing ran) and ``run`` adds the same
@@ -70,8 +96,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from localai_tpu_torch.engine import sampling, speculative
 from localai_tpu_torch.engine.transfer import Fetch, to_device
 from localai_tpu_torch.models import llama
+from localai_tpu_torch.ops import kvcache
 from localai_tpu_torch.ops.kernels import LAUNCHES
 
 # eager steps before capture: the first allocates what the step caches
@@ -85,7 +113,7 @@ class DecodeGraph:
 
     def __init__(self, params: dict, cfg: llama.LlamaConfig, cache_k: dict,
                  cache_v: dict, sampler, num_slots: int, max_steps: int,
-                 device):
+                 device, spec_width: int = 0, ngram: int = 3):
         self.params, self.cfg = params, cfg
         self.ck, self.cv = cache_k, cache_v
         self.sampler = sampler
@@ -98,8 +126,9 @@ class DecodeGraph:
         self.out = torch.zeros((max_steps, 2, S), dtype=torch.float64,
                                device=dev)
         self.step = torch.zeros(1, dtype=torch.int64, device=dev)
-        # load's staged host rows: active, override mask, tokens, lengths
-        self.stage = torch.zeros((4, S), dtype=torch.int64, device=dev)
+        # load's staged host rows: active, override mask, tokens, lengths,
+        # the spec mask
+        self.stage = torch.zeros((5, S), dtype=torch.int64, device=dev)
         self._slots = torch.arange(S, device=dev)
         self.logits: Optional[torch.Tensor] = None   # the last step's [S, V]
         self.graphs: dict = {}        # full (bool) -> CUDAGraph
@@ -107,6 +136,21 @@ class DecodeGraph:
         self._logits: dict = {}       # full -> its logits (in the pool)
         self.capture_seconds = 0.0    # warm-ups + captures, host wall
         self.pool_bytes = 0           # memory_reserved growth of the captures
+        # the spec round (module doc); spec_width 0: none
+        self.spec_width = W = spec_width
+        self.ngram = ngram
+        self.spec = torch.zeros(S, dtype=torch.bool, device=dev)
+        self.max_rounds = max(1, max_steps // W) if W else 0
+        self.spec_out = torch.zeros((self.max_rounds, 2 * W + 1, S),
+                                    dtype=torch.float64, device=dev)
+        self.spec_graphs: dict = {}   # full -> CUDAGraph
+        self.spec_launches: dict = {}  # full -> LAUNCHES added per replay
+        if W:
+            # the verify pack's fixed layout: segment b = slot b at pack
+            # offset b * W
+            self._seg_off = (self._slots * W).to(torch.int32)
+            self._col = torch.arange(W, device=dev)
+            self._seg_tok = self._slots.repeat_interleave(W)    # [S * W]
 
     def step_body(self, full: bool = False) -> torch.Tensor:
         """One decode step on the static buffers, in place, with the plain
@@ -123,13 +167,120 @@ class DecodeGraph:
         self.step.add_(1)
         return logits
 
+    def spec_body(self, full: bool = False) -> torch.Tensor:
+        """One speculative round on the static buffers, in place (the JAX
+        engine's ``_spec_tick_body`` round), with the plain or the ``full``
+        sampler for its plain rows: ``spec_propose``, ``spec_decode``,
+        ``spec_verify``, ``spec_accept`` in that order. Spec rows (active
+        and ``spec``): the n-gram proposals from the sampler's ring, a
+        verify of the current token + D proposals at rows lengths ..
+        lengths + D through ONE continued ragged prefill with logits at
+        every position (K2 / K2-int8), greedy picks from the sampler's own
+        window (``filter_window``'s rank 0, the plain greedy rule), greedy
+        acceptance, the emitted tokens pushed into the ring in order.
+        Plain rows (active, not spec): the decode step and sampler of
+        ``step_body``, with the spec rows masked out of its KV write and
+        sampler state. Then ``lengths += n_out``, the last emitted token
+        becomes the current one, and row ``step`` of ``spec_out`` gets the
+        round's ids [W], logprobs [W] and n_out. Returns the verify's
+        logits [S * W, V]."""
+        drafts = self.spec_propose()
+        ids0, lps0 = self.spec_decode(full)
+        vlogits = self.spec_verify(drafts)
+        self.spec_accept(drafts, vlogits, ids0, lps0)
+        return vlogits
+
+    def spec_propose(self) -> torch.Tensor:
+        """The round's n-gram proposals [S, D] from the sampler's ring."""
+        samp = self.sampler
+        return speculative.ngram_propose(self.tokens, samp.ring, samp.ring_pos,
+                                         self.spec_width - 1, self.ngram)
+
+    def spec_decode(self, full: bool = False):
+        """The round's plain decode step (``step_body``'s ops) for the
+        active rows that do not speculate: (ids [S], logprobs [S]); the
+        speculating rows write no KV row and move no sampler state."""
+        plain = self.active & ~self.spec
+        logits = llama.decode_step(self.params, self.cfg, self.tokens,
+                                   self.lengths, self.ck, self.cv, active=plain)
+        return self.sampler.sample_all(logits, plain, full=full)
+
+    def spec_verify(self, drafts: torch.Tensor) -> torch.Tensor:
+        """The verify forward: the current token + ``drafts`` of each
+        speculating slot at rows lengths .. lengths + D, one continued
+        ragged prefill with logits at every position [S * W, V]. A slot
+        that does not speculate is a pad segment (seg_len 0, the sentinel
+        slot, its tokens at seg_of S and position C): it writes no row and
+        reads no page."""
+        S, W = self.tokens.shape[0], self.spec_width
+        C = kvcache.shape(self.ck)[2]
+        spec = self.active & self.spec
+        lengths = self.lengths
+        tin = torch.cat([self.tokens[:, None], drafts], dim=1)       # [S, W]
+        pos = torch.where(spec[:, None], lengths.to(torch.int64)[:, None]
+                          + self._col[None, :], torch.full_like(tin, C))
+        seg_of = torch.where(spec[:, None], self._slots[:, None],
+                             torch.full_like(tin, S))
+        return llama.ragged_prefill(
+            self.params, self.cfg, tin.reshape(-1).to(torch.int32),
+            pos.reshape(-1).to(torch.int32),
+            torch.where(spec, self._slots, torch.full_like(self._slots, S)
+                        ).to(torch.int32),
+            torch.where(spec, lengths, torch.zeros_like(lengths)),
+            self._seg_off, spec.to(torch.int32) * W,
+            seg_of.reshape(-1).to(torch.int32), self.ck, self.cv,
+            continued=True, all_logits=True)
+
+    def spec_accept(self, drafts, vlogits, ids0, lps0):
+        """Greedy picks, acceptance and the round's bookkeeping: the
+        emitted tokens of each row (a spec row's accepted proposals and
+        bonus, a plain row's sampled token), the spec rows' ring pushes,
+        the chained tokens / lengths, the output row."""
+        S, W = self.tokens.shape[0], self.spec_width
+        samp = self.sampler
+        active = self.active
+        spec = active & self.spec
+        plain = active & ~self.spec
+        sel = self._seg_tok
+        sp = {name: t[sel] for name, t in samp.p.items()}
+        idx, _masked, _vals = sampling.filter_window(
+            vlogits, sp, samp.ring[sel], samp.ring_pos[sel], samp.bias[sel],
+            full=False)
+        greedy = idx[:, 0].reshape(S, W).to(drafts.dtype)
+        out_s, n_s, _k = speculative.accept_greedy(drafts, greedy, spec)
+        logp = torch.log_softmax(vlogits, dim=-1).reshape(S, W, -1)
+        lp_s = torch.gather(logp, 2, out_s[:, :, None])[:, :, 0]
+        pad = torch.zeros_like(drafts)
+        out = torch.where(spec[:, None], out_s,
+                          torch.cat([ids0[:, None].to(pad.dtype), pad], dim=1))
+        lps = torch.where(spec[:, None], lp_s,
+                          torch.cat([lps0[:, None], pad.to(lps0.dtype)], dim=1))
+        n_out = torch.where(spec, n_s, plain.to(torch.int64))
+        emitted = self._col[None, :] < n_out[:, None]                 # [S, W]
+        out = torch.where(emitted, out, torch.zeros_like(out))
+        lps = torch.where(emitted, lps, torch.zeros_like(lps))
+        # the plain rows' tokens entered the ring in sample_all; the spec
+        # rows' emitted tokens enter it here, in order
+        for j in range(W):
+            sampling.update_ring(samp.ring, samp.ring_pos, out[:, j],
+                                 spec & (j < n_out))
+        last = torch.gather(out, 1, (n_out - 1).clamp(min=0)[:, None])[:, 0]
+        self.tokens.copy_(torch.where(active, last, self.tokens))
+        self.lengths.add_(n_out.to(torch.int32))
+        row = torch.cat([out.T.to(torch.float64), lps.T.to(torch.float64),
+                         n_out[None].to(torch.float64)])              # [2W+1, S]
+        self.spec_out.index_copy_(0, self.step, row[None])
+        self.step.add_(1)
+
     def _reset(self):
-        for t in (self.tokens, self.lengths, self.active, self.step, self.stage):
+        for t in (self.tokens, self.lengths, self.active, self.step, self.stage,
+                  self.spec):
             t.zero_()
 
     def capture(self):
         """Warm up and capture ``step_body`` in both variants (CUDA only),
-        in one memory pool. Every slot is inactive throughout, so the
+        and ``spec_body`` in both when the state has a spec width, in one
+        memory pool. Every slot is inactive throughout, so the
         warm-up steps write their KV rows to the cache's scratch page /
         slot and move no sampler state (counter, ring, mu): the committed
         cache and the sampler are left as they were. Raises on any
@@ -141,32 +292,39 @@ class DecodeGraph:
             self._reset()
             stream = torch.cuda.Stream(self.device)
             stream.wait_stream(torch.cuda.current_stream(self.device))
+            bodies = [(self.step_body, self.graphs, self.launches, self._logits)]
+            if self.spec_width:
+                bodies.append((self.spec_body, self.spec_graphs,
+                               self.spec_launches, {}))
             with torch.cuda.stream(stream):
-                for full in (False, True):
-                    for _ in range(WARMUP_STEPS):
-                        self.step.zero_()
-                        self.step_body(full)
+                for body, *_ in bodies:
+                    for full in (False, True):
+                        for _ in range(WARMUP_STEPS):
+                            self.step.zero_()
+                            body(full)
             torch.cuda.current_stream(self.device).wait_stream(stream)
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(self.device)
             pool = torch.cuda.graph_pool_handle()
-            for full in (False, True):
-                graph = torch.cuda.CUDAGraph()
-                before = dict(LAUNCHES)
-                self.step.zero_()
-                try:
-                    with torch.cuda.graph(graph, pool=pool, stream=stream):
-                        logits = self.step_body(full)
-                finally:
-                    # the wrappers counted their launches while capturing;
-                    # nothing ran: take the counts back, replays add them
-                    delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
-                    for k, n in delta.items():
-                        LAUNCHES[k] -= n
-                self.graphs[full] = graph
-                self.launches[full] = {k: n for k, n in delta.items() if n}
-                self._logits[full] = logits
+            for body, graphs, launches, outs in bodies:
+                for full in (False, True):
+                    graph = torch.cuda.CUDAGraph()
+                    before = dict(LAUNCHES)
+                    self.step.zero_()
+                    try:
+                        with torch.cuda.graph(graph, pool=pool, stream=stream):
+                            logits = body(full)
+                    finally:
+                        # the wrappers counted their launches while
+                        # capturing; nothing ran: take the counts back,
+                        # replays add them
+                        delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+                        for k, n in delta.items():
+                            LAUNCHES[k] -= n
+                    graphs[full] = graph
+                    launches[full] = {k: n for k, n in delta.items() if n}
+                    outs[full] = logits
             self._reset()
             torch.cuda.synchronize(self.device)
             self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
@@ -174,18 +332,20 @@ class DecodeGraph:
 
     def free(self):
         """Drop the graphs and the pool's tensors (a shut-down engine)."""
-        self.graphs.clear()
-        self.launches.clear()
-        self._logits.clear()
+        for d in (self.graphs, self.launches, self._logits, self.spec_graphs,
+                  self.spec_launches):
+            d.clear()
         self.logits = None
 
     def load(self, host: np.ndarray):
-        """Chain the next burst onto the device state: ``host`` [4, S]
-        int64 holds the active mask, the override mask, and the tokens and
-        lengths of the overridden rows (the other rows keep the previous
-        burst's). One copy in, in stream order; nothing waits."""
+        """Chain the next burst or spec tick onto the device state:
+        ``host`` [5, S] int64 holds the active mask, the override mask, the
+        tokens and lengths of the overridden rows (the other rows keep the
+        previous burst's) and the spec mask (zero for a plain burst). One
+        copy in, in stream order; nothing waits."""
         to_device(self.stage, host)
         self.active.copy_(self.stage[0] != 0)
+        self.spec.copy_(self.stage[4] != 0)
         ov = self.stage[1] != 0
         self.tokens.copy_(torch.where(ov, self.stage[2], self.tokens))
         self.lengths.copy_(torch.where(ov, self.stage[3].to(torch.int32),
@@ -229,6 +389,47 @@ class DecodeGraph:
                 self.logits = self._logits[full]
         return Fetch(self.out[:n_steps])
 
+    def spec_replay(self, n_rounds: int, full: bool = False) -> Fetch:
+        """A spec tick: ``n_rounds`` rounds from the chained state (graph
+        replays on CUDA, ``spec_body`` on the CPU), then the copy of their
+        [n_rounds, 2 W + 1, S] float64 rows (ids [W], logprobs [W], n_out)
+        to the host, started and not waited for."""
+        if not 1 <= n_rounds <= self.max_rounds:
+            raise ValueError(f"spec tick of {n_rounds} rounds; the buffer "
+                             f"holds {self.max_rounds}")
+        graph = self.spec_graphs.get(full)
+        if self.device.type == "cuda" and graph is None:
+            raise RuntimeError(f"spec round graph (full={full}) not captured "
+                               f"(Engine.start captures both on the card)")
+        self.step.zero_()
+        for _ in range(n_rounds):
+            if graph is None:
+                self.spec_body(full)
+            else:
+                graph.replay()
+                for k, n in self.spec_launches[full].items():
+                    LAUNCHES[k] += n
+        return Fetch(self.spec_out[:n_rounds])
+
+    def spec_eager(self, n_rounds: int, full: bool = False) -> np.ndarray:
+        """``eager_rounds`` from the chained state, its final tokens and
+        lengths written back as a replay leaves them: the reference the
+        spec graphs are held against, which serving never selects. Syncs."""
+        tok = self.tokens.cpu().numpy()
+        lens = self.lengths.cpu().numpy()
+        act = self.active.cpu().numpy()
+        spec = self.spec.cpu().numpy()
+        out = eager_rounds(self.params, self.cfg, self.ck, self.cv, self.sampler,
+                           tok, lens, act, spec, n_rounds, self.spec_width,
+                           self.ngram, full=full)
+        W = self.spec_width
+        n_out = out[:, 2 * W].astype(np.int64)                      # [R, S]
+        for i in np.nonzero(act)[0]:
+            tok[i] = int(out[-1, int(n_out[-1, i]) - 1, i])
+        to_device(self.tokens, tok.astype(np.int64))
+        to_device(self.lengths, (lens + n_out.sum(axis=0)).astype(np.int32))
+        return out
+
     def eager(self, n_steps: int, full: bool = False) -> np.ndarray:
         """The eager per-step loop (``eager_burst``) from the chained state,
         its final tokens and lengths written back as a replay leaves them:
@@ -250,7 +451,8 @@ class DecodeGraph:
         S = self.tokens.shape[0]
         self.load(np.stack([np.asarray(active, np.int64), np.ones(S, np.int64),
                             np.asarray(tokens, np.int64),
-                            np.asarray(lengths, np.int64)]))
+                            np.asarray(lengths, np.int64),
+                            np.zeros(S, np.int64)]))
         return self.replay(n_steps, full).wait()
 
 
@@ -278,3 +480,80 @@ def eager_burst(params: dict, cfg: llama.LlamaConfig, cache_k: dict,
         lens = lens + act.to(lens.dtype)
         out.append(torch.stack([ids.to(torch.float64), lps.to(torch.float64)]))
     return torch.stack(out).cpu().numpy()
+
+
+def eager_rounds(params: dict, cfg: llama.LlamaConfig, cache_k: dict,
+                 cache_v: dict, sampler, tokens: np.ndarray, lengths: np.ndarray,
+                 active: np.ndarray, spec: np.ndarray, n_rounds: int,
+                 width: int, ngram: int, full: bool = False) -> np.ndarray:
+    """The spec round built the eager way (the reference
+    ``DecodeGraph.spec_body`` is held against): fresh tensors per round,
+    the plain rows through the sampler over host row lists, the verify
+    pack built on the host from the synced lengths (only the spec rows'
+    segments, as the engine's packer builds a pack), the greedy picks and
+    acceptance from the synced logits. Same result layout as
+    ``DecodeGraph.spec_replay`` ([n_rounds, 2 W + 1, S] float64)."""
+    dev = sampler.device
+    W, D = width, width - 1
+    act = np.asarray(active, np.bool_)
+    spec_rows = act & np.asarray(spec, np.bool_)
+    plain_rows = act & ~spec_rows
+    S = act.shape[0]
+    tok = np.asarray(tokens, np.int64).copy()
+    lens = np.asarray(lengths, np.int64).copy()
+    rows = list(range(S))
+    out = np.zeros((n_rounds, 2 * W + 1, S))
+    for r in range(n_rounds):
+        tok_t = torch.from_numpy(tok.copy()).to(dev)
+        drafts = speculative.ngram_propose(tok_t, sampler.ring, sampler.ring_pos,
+                                           D, ngram).cpu().numpy()
+        logits = llama.decode_step(
+            params, cfg, tok_t, torch.from_numpy(lens.astype(np.int32)).to(dev),
+            cache_k, cache_v, active=torch.from_numpy(plain_rows.copy()).to(dev))
+        ids0, lps0 = sampler.sample(logits, rows, draw=plain_rows.tolist(),
+                                    full=full)
+        ids0, lps0 = ids0.cpu().numpy(), lps0.cpu().numpy()
+        segs = [int(i) for i in np.nonzero(spec_rows)[0]]
+        n_out = plain_rows.astype(np.int64)
+        emitted = np.zeros((W, S), np.int64)
+        emitted[0] = np.where(plain_rows, ids0, 0)
+        lp = np.zeros((W, S))
+        lp[0] = np.where(plain_rows, lps0, 0.0)
+        if segs:
+            B = len(segs)
+            tin = np.concatenate([[tok[i]] + drafts[i].tolist() for i in segs])
+            pos = np.concatenate([np.arange(lens[i], lens[i] + W) for i in segs])
+            i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+            vl = llama.ragged_prefill(
+                params, cfg, i32(tin), i32(pos), i32(segs), i32(lens[segs]),
+                i32(np.arange(B) * W), i32(np.full(B, W)),
+                i32(np.repeat(np.arange(B), W)), cache_k, cache_v,
+                continued=True, all_logits=True)
+            sel = np.repeat(segs, W)
+            sp = {name: t[i32(sel).long()] for name, t in sampler.p.items()}
+            idx, _m, _v = sampling.filter_window(
+                vl, sp, None, None, sampler.bias[i32(sel).long()], full=False)
+            greedy = idx[:, 0].reshape(B, W).cpu().numpy()
+            logp = torch.log_softmax(vl, dim=-1).reshape(B, W, -1).cpu().numpy()
+            for b, i in enumerate(segs):
+                k = 0
+                while k < D and drafts[i, k] == greedy[b, k]:
+                    k += 1
+                seq = drafts[i, :k].tolist() + [int(greedy[b, k])]
+                n_out[i] = k + 1
+                emitted[:k + 1, i] = seq
+                lp[:k + 1, i] = logp[b, np.arange(k + 1), seq]
+                # the ring: the emitted tokens in order (the plain rows'
+                # entered it in sampler.sample)
+                for t in seq:
+                    sampling.update_ring(
+                        sampler.ring, sampler.ring_pos,
+                        torch.full((S,), t, dtype=torch.int64, device=dev),
+                        torch.from_numpy(np.arange(S) == i).to(dev))
+        for i in np.nonzero(act)[0]:
+            tok[i] = emitted[n_out[i] - 1, i]
+        lens += n_out
+        out[r, :W] = emitted
+        out[r, W:2 * W] = lp
+        out[r, 2 * W] = n_out
+    return out

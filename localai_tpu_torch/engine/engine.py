@@ -182,9 +182,37 @@ What this slice keeps of the JAX engine, with the same knob names:
     that needs a page that no reclaim and no lower class's pause can give
     pauses itself while another request runs (``_ensure_pages``).
 
-Left for later slices: the snap-back window, speculation, grammar,
-self-extend, the emitter thread, the replica pool (live migration), the
-SLO engine and the stall's span-ring dump.
+  * N-GRAM SELF-SPECULATION (``draft``, "auto" by default as in the JAX
+    engine, which resolves to "ngram" here: the port loads no draft
+    model; ``n_draft`` 4, ``spec_ngram`` 3; engine/speculative.py). A
+    slot is eligible (``_Slot.spec_ok``, at admission, at a resume and
+    for a fork sibling) under the JAX purity gates (no logit bias, no
+    penalties, no mirostat; the port has no grammar or multimodal
+    input) and one more: temperature <= 0. While an eligible slot
+    decodes with W = n_draft + 1 rows of headroom past its steps in
+    flight, ``_dispatch_decode`` sends a SPEC TICK (``_plan_spec``, the
+    JAX rule: decode_burst // W rounds at most, cut to the budget, the
+    scheduler's ``burst_share`` and a power of two) in place of a plain
+    burst: per round the spec rows propose D tokens from their ring,
+    verify them in one continued ragged prefill (K2 / K2-int8) and
+    accept greedily, while every other active slot takes the plain
+    decode step in the same round (engine/decode_graph.py::spec_body; on
+    the card one captured graph per sampler variant, a tick is R
+    replays). Plain bursts and spec ticks chain on the same device state;
+    the split fused tick's burst stays plain, as in JAX. A slot emits
+    each round's accepted tokens plus the bonus, round by round; rows a
+    rejected proposal wrote lie above its length: never committed, never
+    in ``_cache_tokens`` or the prefix cache, never offloaded, and
+    overwritten by the next round. ``metrics()["spec"]`` has the JAX
+    counters. The one departure from the JAX defaults: a sampled request
+    (temperature > 0) that passes the purity gates decodes as a plain
+    row of the spec tick, where the JAX engine gives it rejection-sampled
+    acceptance (a later slice); its tokens are the port's own
+    ``draft="0"`` tokens for the same seed.
+
+Left for later slices: the snap-back window, sampled speculation and the
+draft model, grammar, self-extend, the emitter thread, the replica pool
+(live migration), the SLO engine and the stall's span-ring dump.
 """
 
 from __future__ import annotations
@@ -226,6 +254,9 @@ from localai_tpu_torch.services.faults import FAULTS
 log = logging.getLogger(__name__)
 
 KV_LAYOUTS = ("auto", "paged", "contiguous")   # auto = paged
+# draft values (the JAX engine's): auto = ngram here (no draft model);
+# "model" without a draft model and the off words are off
+DRAFT_MODES = ("auto", "model", "ngram", "0", "off", "none", "false")
 # prefill_packed_fuse values (the JAX engine's): auto = split
 PACKED_FUSE = ("auto", "0", "1", "split")
 
@@ -309,6 +340,14 @@ class EngineConfig:
     priority: str = "normal"
     # queued / parked work older than this ranks one class higher; 0 = off
     priority_aging_ms: int = 4000
+    # --- speculation (module doc), the JAX names and defaults ---
+    # DRAFT_MODES: "auto" = n-gram self-speculation (no draft model is
+    # loaded); "0" / "off" = plain bursts only
+    draft: str = "auto"
+    # proposals per round (0 = off): a round verifies n_draft + 1 tokens
+    n_draft: int = 4
+    # the n-gram length prompt lookup matches against the slot's history
+    spec_ngram: int = 3
 
     def check(self):
         """Refuse values the engine does not take (ValueError), before
@@ -316,7 +355,9 @@ class EngineConfig:
         refuses a prefill_packed_fuse outside its set, the layout, the
         host tier's budget and prefetch depth, and the lifecycle and
         scheduler knobs as the JAX model config checks them (non-negative
-        ints, a known default class, three positive weights)."""
+        ints, a known default class, three positive weights), and the
+        speculation knobs (a known draft mode, n_draft >= 0, spec_ngram >=
+        1)."""
         if str(self.prefill_packed_fuse) not in PACKED_FUSE:
             raise ValueError(f"prefill_packed_fuse must be "
                              f"{'|'.join(PACKED_FUSE)}, got "
@@ -341,6 +382,13 @@ class EngineConfig:
             raise ValueError(f"priority must be {'|'.join(PRIORITY_CLASSES)}, "
                              f"got {self.priority!r}")
         parse_priority_weights(self.priority_weights)
+        if str(self.draft).strip().lower() not in DRAFT_MODES:
+            raise ValueError(f"draft must be {'|'.join(DRAFT_MODES)}, got "
+                             f"{self.draft!r}")
+        for name, low in (("n_draft", 0), ("spec_ngram", 1)):
+            v = getattr(self, name)
+            if not isinstance(v, int) or isinstance(v, bool) or v < low:
+                raise ValueError(f"{name} must be an int >= {low}, got {v!r}")
 
 
 @dataclasses.dataclass
@@ -409,7 +457,7 @@ class _Slot:
     __slots__ = ("req", "detok", "held_text", "prompt_len",
                  "t_start", "t_first_token", "n_decoded", "t_prefill_ms",
                  "phase", "pending", "written", "cache_len", "committed",
-                 "reused", "prio", "preempts")
+                 "reused", "prio", "preempts", "spec_ok")
 
     def __init__(self, req: GenRequest, detok, prompt_len: int):
         self.req = req
@@ -429,6 +477,7 @@ class _Slot:
         self.reused = 0          # prompt rows reused from earlier requests
         self.prio = PRIORITY_RANK.get(req.priority, PRIORITY_RANK["normal"])
         self.preempts = 0        # times this request was paused
+        self.spec_ok = False     # may take spec rounds (Engine._spec_eligible)
 
 
 class _DispatchStall(Exception):
@@ -465,9 +514,11 @@ class _Burst:
     _Burst). ``slots``: the (slot, _Slot) it decodes, snapshotted at
     dispatch; ``group`` / ``head``: a fused tick's finals and its pack;
     ``skip``: slots whose tokens in it must be dropped (context-shifted
-    after the dispatch)."""
+    after the dispatch). A spec tick has ``spec_width`` W > 0 (its
+    ``n_steps`` are rounds) and ``spec_mask`` [S], the slots that took
+    spec rounds."""
     __slots__ = ("n_steps", "slots", "fetch", "group", "head", "skip", "t0",
-                 "faults_seen")
+                 "faults_seen", "spec_mask", "spec_width")
 
     def __init__(self, n_steps: int, slots: list, fetch: Fetch, t0: float,
                  group=(), head: Optional[_Pack] = None):
@@ -479,6 +530,8 @@ class _Burst:
         self.head = head
         self.skip: set = set()
         self.faults_seen = False
+        self.spec_mask: Optional[np.ndarray] = None
+        self.spec_width = 0
 
 
 def _host_pages(rows) -> list:
@@ -668,9 +721,28 @@ class Engine:
             # captured decode step reads it where it lies
             self.cv["ptab"] = self.ck["ptab"]
         self.sampler = sampling.SlotSampler(S, model_cfg.vocab_size, self.device)
+        # speculation's mode (the JAX resolution): "model" needs a draft
+        # model, which the port does not load yet, so it is off; auto is
+        # n-gram self-speculation; n_draft 0 is off
+        d = str(self.ecfg.draft).strip().lower()
+        self._spec_mode = ("ngram" if d in ("auto", "ngram")
+                           and self.ecfg.n_draft > 0 else "off")
+        self._spec_width = (self.ecfg.n_draft + 1
+                            if self._spec_mode != "off" else 0)
         self._graph = DecodeGraph(params, model_cfg, self.ck, self.cv,
                                   self.sampler, S, self.ecfg.decode_burst,
-                                  self.device)
+                                  self.device, spec_width=self._spec_width,
+                                  ngram=self.ecfg.spec_ngram)
+        # dispatches: spec ticks; mixed_dispatches: those that also carried
+        # plain rows; rounds / proposed / accepted / tokens: per-slot round
+        # totals (tokens = emitted, accepted + bonus); by_mode the same per
+        # acceptance mode (the JAX engine's; "sampled" stays 0 here)
+        self._spec_stats = {"dispatches": 0, "mixed_dispatches": 0,
+                            "rounds": 0, "proposed": 0, "accepted": 0,
+                            "tokens": 0,
+                            "by_mode": {m: {"rounds": 0, "proposed": 0,
+                                            "accepted": 0, "tokens": 0}
+                                        for m in ("greedy", "sampled")}}
         eid = getattr(tokenizer, "eos_token_id", None)
         self.eos_ids = {int(eid)} if eid is not None else set()
         # host mirrors of the per-slot decode state
@@ -728,9 +800,12 @@ class Engine:
         self._pack_stats = {"dispatches": 0, "tokens": 0, "segments": 0,
                             "pad_tokens": 0, "continued": 0,
                             "kernel_fallback": 0, "seconds": 0.0}
-        # full_steps: steps of the full sampler variant
+        # full_steps: steps of the full sampler variant; a spec tick counts
+        # its rounds as steps (each runs one decode step), and spec_ticks /
+        # spec_rounds count the spec ticks' alone
         self._decode_stats = {"bursts": 0, "steps": 0, "full_steps": 0,
-                              "tokens": 0, "seconds": 0.0}
+                              "tokens": 0, "seconds": 0.0, "spec_ticks": 0,
+                              "spec_rounds": 0}
         # the request lifecycle (module doc): its counters (submit() runs
         # on other threads, hence the lock); the last landing the loop saw
         # (the stall watchdog measures from max(dispatch, this)); the idle
@@ -920,6 +995,7 @@ class Engine:
                "packed_prefill": dict(self._pack_stats),
                "decode": dict(self._decode_stats),
                "decode_graph": {"captured": sorted(self._graph.graphs),
+                                "spec_captured": sorted(self._graph.spec_graphs),
                                 "capture_seconds": self._graph.capture_seconds,
                                 "pool_bytes": self._graph.pool_bytes},
                "prefill_graph": {"captured": sorted(self._pgraph.graphs),
@@ -930,6 +1006,23 @@ class Engine:
                            "fuse": self._fuse, "inflight": self._n_inflight(),
                            **self._pipe_stats}
         out["fork"] = dict(self._fork_stats)
+        # speculation (the JAX engine's keys): the counters and two rates,
+        # acceptance (accepted / proposed) and emitted tokens per slot-round
+        # (1.0: speculation buys nothing)
+        st = self._spec_stats
+        out["spec"] = {
+            "mode": self._spec_mode, "n_draft": self.ecfg.n_draft,
+            **{k: v for k, v in st.items() if k != "by_mode"},
+            "acceptance_rate": (st["accepted"] / st["proposed"]
+                                if st["proposed"] else 0.0),
+            "accept_per_dispatch": (st["tokens"] / st["rounds"]
+                                    if st["rounds"] else 0.0),
+            "by_mode": {m: {**c,
+                            "acceptance_rate": (c["accepted"] / c["proposed"]
+                                                if c["proposed"] else 0.0),
+                            "accept_per_dispatch": (c["tokens"] / c["rounds"]
+                                                    if c["rounds"] else 0.0)}
+                        for m, c in st["by_mode"].items()}}
         out["prompt_tokens_reused"] = self._reuse_stats["reused_rows"]
         # the lifecycle's counters and limits (the JAX engine's keys, less
         # the stall ring dumps)
@@ -1480,8 +1573,22 @@ class Engine:
                               fallback_seed=zlib.crc32(req.request_id.encode()))
         self.sampler.set_ring(slot, ids)
         s = _Slot(req, IncrementalDetokenizer(self.tokenizer), len(ids))
+        s.spec_ok = self._spec_eligible(req)
         self.slots[slot] = s
         return s
+
+    def _spec_eligible(self, req: GenRequest) -> bool:
+        """Whether a request may take spec rounds: the JAX admission
+        gates (no logit bias, penalties or mirostat, whose per-token state
+        one frozen verify cannot follow; the port has no grammar or
+        multimodal input), and greedy only: sampled acceptance is a later
+        slice (module doc). The n-gram drafter keeps no state, so a resume
+        and a fork sibling qualify as a fresh admission does."""
+        sp = req.params
+        return (self._spec_mode != "off" and sp.temperature <= 0
+                and not sp.logit_bias and sp.repeat_penalty in (0.0, 1.0)
+                and sp.presence_penalty == 0.0 and sp.frequency_penalty == 0.0
+                and (sp.mirostat or 0) == 0)
 
     def _start_fork_sibling(self, req: GenRequest, leader: int, lsnap: _Slot,
                             ids: list):
@@ -2117,7 +2224,8 @@ class Engine:
 
     def _inflight_vec(self) -> list:
         """Per slot, the tokens already dispatched and not processed: the
-        steps of the bursts it rides, plus a fused tick's first token
+        steps of the bursts it rides (W per round of a spec tick for a spec
+        row: the most a round can emit), plus a fused tick's first token
         until its head is processed (the JAX engine's ``_inflight_vec``)."""
         n = [0] * self.ecfg.num_slots
         for b in self._fifo:
@@ -2127,7 +2235,8 @@ class Engine:
             gset = {i for i, _s in b.group}
             for i, _s in b.slots:
                 if i not in b.skip:
-                    n[i] += b.n_steps + (head if i in gset else 0)
+                    w = b.spec_width if b.spec_width and b.spec_mask[i] else 1
+                    n[i] += b.n_steps * w + (head if i in gset else 0)
         return n
 
     def _pick_burst(self, infl: list, extra=()) -> int:
@@ -2166,8 +2275,61 @@ class Engine:
             k *= 2
         return k
 
+    def _plan_spec(self, included: list, infl: list):
+        """The spec plan of this tick (the JAX engine's ``_plan_spec``):
+        (rounds, spec_mask [S]), or None for a plain burst. A slot takes
+        spec rounds when it is ``spec_ok`` and has W = n_draft + 1 rows of
+        headroom past its steps in flight (a slot near the cache edge
+        rides as a plain row, so context shift works as before); every
+        other slot in ``included`` takes the plain decode step in the same
+        rounds. Rounds: at most decode_burst // W, each spec slot charged
+        W rows of cache and W tokens of budget per round, cut to the
+        longest remaining budget, to the scheduler's ``burst_share``, and
+        to a power of two."""
+        if self._spec_mode == "off":
+            return None
+        W = self._spec_width
+        C = self.ecfg.max_context
+        mask = np.zeros((self.ecfg.num_slots,), np.bool_)
+        for i in included:
+            s = self.slots[i]
+            if s.spec_ok and C - 2 - (s.cache_len + infl[i]) >= W:
+                mask[i] = True
+        if not mask.any():
+            return None
+        cap = max(1, self.ecfg.decode_burst // W)
+        budget = 1
+        for i in included:
+            s = self.slots[i]
+            used = s.cache_len + infl[i]
+            rem = s.req.max_new_tokens - s.n_decoded - infl[i]
+            if mask[i]:
+                cap = min(cap, max(1, (C - 2 - used) // W))
+                budget = max(budget, (rem + W - 1) // W)
+            else:
+                cap = min(cap, max(1, C - 2 - used))
+                budget = max(budget, rem)
+        cap = min(cap, budget)
+        if self._sched is not None:
+            # the priority-weighted sizing of _pick_burst
+            pend = [0] * len(PRIORITY_CLASSES)
+            dec_rank = None
+            for s in self.slots:
+                if s is None:
+                    continue
+                if s.phase == "prefill" and s.pending:
+                    pend[s.prio] += 1
+                elif s.phase == "decode":
+                    dec_rank = s.prio if dec_rank is None else min(dec_rank, s.prio)
+            cap = self._sched.burst_share(dec_rank, pend, cap)
+        k = 1
+        while k * 2 <= cap:
+            k *= 2
+        return k, mask
+
     def _dispatch_decode(self) -> bool:
-        """Dispatch the next decode burst if the pipeline has room and a
+        """Dispatch the next decode burst, or a spec tick when a decoding
+        slot may speculate (``_plan_spec``), if the pipeline has room and a
         decoding slot has budget beyond its steps in flight (a slot whose
         steps in flight cover its max_new_tokens sits this burst out)."""
         if self._n_inflight() >= self.ecfg.pipeline_depth:
@@ -2179,18 +2341,28 @@ class Engine:
         if not included:
             return False
         t0 = time.monotonic()
-        n_steps = self._pick_burst(infl)
+        plan = self._plan_spec(included, infl)
+        spec_mask = None
+        if plan is not None:
+            n_steps, spec_mask = plan
+        else:
+            n_steps = self._pick_burst(infl)
         if self._pool is not None:
             C = self.ecfg.max_context
             for i in included:
+                # a spec row writes up to W rows a round (the rejected
+                # tail is overwritten by the next round)
+                need = (n_steps * self._spec_width
+                        if spec_mask is not None and spec_mask[i] else n_steps)
                 if self.slots[i] is not None:   # not paused for pages here
                     self._ensure_pages(i, min(C, int(self.lengths[i]) + infl[i]
-                                              + n_steps + 2))
+                                              + need + 2))
             included = [i for i in included if self.slots[i] is not None]
             if not included:
                 return True
         self._commit_ptab()
-        self._fifo.append(self._dispatch_burst(n_steps, included, t0))
+        self._fifo.append(self._dispatch_burst(n_steps, included, t0,
+                                               spec_mask=spec_mask))
         return True
 
     def _dispatch_fused(self, segs: list, bucket: int, continued: bool,
@@ -2235,30 +2407,45 @@ class Engine:
 
     def _dispatch_burst(self, n_steps: int, included: list, t0: float,
                         head: Optional[_Pack] = None,
-                        fold: Optional[int] = None) -> _Burst:
-        """Chain one burst onto the device state: the active mask and the
-        overridden rows loaded, a fused tick's finals folded in from the
-        ``fold`` bucket's pack, the steps dispatched. Returns its
+                        fold: Optional[int] = None,
+                        spec_mask: Optional[np.ndarray] = None) -> _Burst:
+        """Chain one burst onto the device state: the active mask, the
+        overridden rows and the spec mask loaded, a fused tick's finals
+        folded in from the ``fold`` bucket's pack, the steps dispatched
+        (with ``spec_mask``: a spec tick of ``n_steps`` rounds). Returns its
         _Burst."""
         S = self.ecfg.num_slots
         active = np.zeros((S,), np.bool_)
         active[included] = True
-        rows = np.zeros((4, S), np.int64)
+        rows = np.zeros((5, S), np.int64)
         rows[0] = active
         rows[1, sorted(self._override)] = 1
         rows[2], rows[3] = self.cur_tokens, self.lengths
+        if spec_mask is not None:
+            rows[4] = spec_mask & active
         self._override.clear()
         self._graph.load(rows)
         if fold is not None:
             self._graph.fold(split_pack(self._pgraph.buf[fold], fold, S),
                              self._pgraph.out[fold][0])
-        fetch = self._burst(n_steps, active)
+        if spec_mask is None:
+            fetch = self._burst(n_steps, active)
+        else:
+            fetch = self._spec_tick(n_steps, active)
         st = self._decode_stats
         st["bursts"] += 1
         st["steps"] += n_steps
         st["full_steps"] += n_steps * self.sampler.full_needed(active)
         b = _Burst(n_steps, [(i, self.slots[i]) for i in included], fetch, t0,
                    group=head.group if head is not None else (), head=head)
+        if spec_mask is not None:
+            b.spec_mask = spec_mask & active
+            b.spec_width = self._spec_width
+            st["spec_ticks"] += 1
+            st["spec_rounds"] += n_steps
+            self._spec_stats["dispatches"] += 1
+            if not b.spec_mask[included].all():
+                self._spec_stats["mixed_dispatches"] += 1
         ps = self._pipe_stats
         ps["max_inflight"] = max(ps["max_inflight"], self._n_inflight() + 1)
         return b
@@ -2285,6 +2472,15 @@ class Engine:
         the card tests hold the graph against; serving never calls it."""
         return Fetch.of(self._graph.eager(
             n_steps, full=self.sampler.full_needed(active)))
+
+    def _spec_tick(self, n_rounds: int, active: np.ndarray) -> Fetch:
+        """A spec tick's device work from the loaded state: graph replays
+        of the round on the card, the same round body eagerly on the CPU
+        (decode_graph.DecodeGraph.spec_replay), in the full sampler variant
+        when an active slot needs it. Returns the Fetch of its
+        [R, 2 W + 1, S] rows."""
+        return self._graph.spec_replay(
+            n_rounds, full=self.sampler.full_needed(active))
 
     # ---------- the FIFO ----------
 
@@ -2411,11 +2607,14 @@ class Engine:
         if b.head is not None and not b.head.processed:
             self._process_pack(b.head, blame=b)
         host = self._wait_ready(b)                       # [K, 2, S]
-        ids_np = host[:, 0].astype(np.int64)
-        lps_np = host[:, 1]
         t1 = time.monotonic()
         self._decode_stats["seconds"] += t1 - max(b.t0, self._t_last_burst)
         self._t_last_burst = t1
+        if b.spec_width:
+            self._process_spec(b, host)
+            return
+        ids_np = host[:, 0].astype(np.int64)
+        lps_np = host[:, 1]
         dropped = 0
         self._sink = {}
         try:
@@ -2435,6 +2634,56 @@ class Engine:
             if i not in b.skip and self.slots[i] is snap and snap.phase == "decode":
                 self.lengths[i] += b.n_steps
                 self.cur_tokens[i] = int(ids_np[-1, i])
+
+    def _process_spec(self, b: _Burst, host: np.ndarray):
+        """Emit a spec tick's tokens (the JAX engine's ``_fold_burst`` and
+        spec emission): round by round, each slot its round's n_out tokens
+        (a spec row: the accepted proposals and the bonus; a plain row:
+        one). ``committed`` moves per emitted token, so the rows a rejected
+        proposal wrote stay above it. A slot that ends (EOS, stop,
+        max_tokens), shifts or is released mid-round gets nothing more;
+        the slots still decoding advance their mirrors by the tokens
+        emitted. The spec counters fold first, for every slot live at the
+        tick's processing."""
+        W, R = b.spec_width, b.n_steps
+        ids = host[:, :W].astype(np.int64)              # [R, W, S]
+        lps = host[:, W:2 * W]
+        n_out = host[:, 2 * W].astype(np.int64)         # [R, S]
+
+        def live(i, snap):
+            return (i not in b.skip and self.slots[i] is snap
+                    and snap.phase == "decode")
+
+        st = self._spec_stats
+        for i, snap in b.slots:
+            tot = int(n_out[:, i].sum())
+            if live(i, snap) and tot > 0 and b.spec_mask[i]:
+                for c in (st, st["by_mode"]["greedy"]):
+                    c["rounds"] += R
+                    c["proposed"] += R * (W - 1)
+                    c["accepted"] += tot - R
+                    c["tokens"] += tot
+        dropped = 0
+        self._sink = {}
+        try:
+            for r in range(R):
+                for i, snap in b.slots:
+                    if not live(i, snap):
+                        dropped += 1      # finished / shifted / replaced
+                        continue
+                    for j in range(int(n_out[r, i])):
+                        if not live(i, snap):
+                            break
+                        # the round wrote the row of the token before this one
+                        snap.committed = min(snap.committed + 1, snap.cache_len)
+                        self._emit(i, int(ids[r, j, i]), float(lps[r, j, i]))
+        finally:
+            self._flush_sink()
+        self._pipe_stats["dropped_steps"] += dropped
+        for i, snap in b.slots:
+            if live(i, snap):
+                self.lengths[i] += int(n_out[:, i].sum())
+                self.cur_tokens[i] = int(ids[R - 1, n_out[R - 1, i] - 1, i])
 
     # ---------- emission ----------
 

@@ -211,14 +211,17 @@ def ragged_prefill(params: dict, cfg: LlamaConfig,
                    seg_len: torch.Tensor,     # [B] int32 tokens (pads: 0)
                    seg_of: torch.Tensor,      # [N] int segment per token (pads: B)
                    cache_k: dict, cache_v: dict,
-                   continued: Optional[bool] = None):
+                   continued: Optional[bool] = None,
+                   all_logits: bool = False):
     """RAGGED PACKED PREFILL: the prompt tails of up to B slots as one
     [N]-token batch. Writes every token's K/V row through its own slot's
     page table (in place) and returns logits [B, V] (float32) at each
     segment's last packed token; pad segments give rows to ignore.
     ``continued`` False promises no segment has committed rows (the JAX
     package's static flag; the kernels then skip the cache), None reads
-    it off seg_start."""
+    it off seg_start. ``all_logits`` (the JAX ``return_all_logits``, for
+    the speculative verify pass) returns logits [N, V] at every packed
+    token instead; pad tokens' rows are to be ignored."""
     B = seg_slots.shape[0]
     sin, cos = rope_frequencies(cfg, positions[None])
     x = _embed_rows(params["embed"], tokens, cfg.dtype)              # [N, D]
@@ -244,6 +247,8 @@ def ragged_prefill(params: dict, cfg: LlamaConfig,
 
         x = _block(x, attend, _layer(params, li), cfg, sin, cos)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    if all_logits:
+        return _unembed(x, params, cfg)
     last = (seg_off.to(torch.int64) + seg_len.to(torch.int64) - 1).clamp(min=0)
     return _unembed(x[last], params, cfg)
 

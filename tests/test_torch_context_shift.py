@@ -96,7 +96,7 @@ def port_engine(tiny, reuse: bool, **knobs):
     _jc, _jp, tcfg, tparams = tiny
     return teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         **EC, decode_burst=16, kv_prefix_cache=reuse, kv_offload=False,
-        **knobs), device="cpu").start()
+        draft="0", **knobs), device="cpu").start()
 
 
 def submit(e, prompt, n, stop=(), **params):
@@ -239,7 +239,7 @@ def test_cancel_during_the_shifts_reprefill_keeps_only_committed_rows(tiny):
     _jc, _jp, tcfg, tparams = tiny
     e = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         **{**EC, "prefill_chunk": 16, "prefill_buckets": (16,)},
-        decode_burst=16), device="cpu")
+        decode_burst=16, draft="0"), device="cpu")
     prompt = np.random.default_rng(29).integers(2, 258, size=20).tolist()
     out = submit(e, prompt, 100)
     assert e._admit()

@@ -269,7 +269,7 @@ def test_contiguous_engine_greedy_tokens_byte_identical_to_jax(tiny):
         draft="0"))
     te = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         num_slots=4, max_context=128, prefill_chunk=16, decode_burst=16,
-        kv_layout="contiguous", kv_offload=False), device="cpu")
+        kv_layout="contiguous", kv_offload=False, draft="0"), device="cpu")
     je.start()
     te.start()
     try:

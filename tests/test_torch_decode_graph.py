@@ -30,8 +30,13 @@ layers x steps the replays ran, capture runs under
 ``torch.cuda.set_sync_debug_mode("error")``, an Engine captures at start
 and serves through replays, and its pipelined loop serves a fork group
 and a logit bias under that mode, as do a preempt / resume round and a
-real device stall aborted by the bounded wait; ``clone_page`` on the
-card equals the plain copy, scales included. On the card's machine (no JAX):
+real device stall aborted by the bounded wait (those engines pin
+``draft="0"``: they hold plain bursts); ``clone_page`` on the card equals
+the plain copy, scales included. The spec round (n-gram speculation):
+its captured graph equals its eager form (``eager_rounds``) in the five
+configurations, and an engine at its defaults serves spec ticks, a
+preempt / resume of a speculating slot and a stalled spec tick under the
+sync guard. On the card's machine (no JAX):
 
     python -m pytest --noconftest tests/test_torch_decode_graph.py -q -m cuda
 """
@@ -48,6 +53,7 @@ from localai_tpu_torch.engine import decode_graph as dg
 from localai_tpu_torch.engine import sampling
 from localai_tpu_torch.engine.weights import random_params
 from localai_tpu_torch.models import llama
+from localai_tpu_torch.ops import kvcache
 from localai_tpu_torch.ops import rope as trope
 from localai_tpu_torch.ops.kernels import LAUNCHES
 
@@ -447,7 +453,7 @@ def test_engine_loop_never_waits_for_the_stream(card):
     cfg, params, *_ = _small("paged", "cuda", head_dim=128)
     e = Engine(cfg, params, _Tok(), EngineConfig(
         num_slots=4, max_context=128, prefill_chunk=16, kv_page_size=16,
-        decode_burst=16), device="cuda").start()
+        decode_burst=16, draft="0"), device="cuda").start()
     prompt = list(range(2, 42))
     reqs = [GenRequest(prompt_ids=list(prompt), max_new_tokens=21, ignore_eos=True,
                        params=sampling.SamplingParamsHost(temperature=0.0))
@@ -522,7 +528,7 @@ def test_preempt_resume_and_stall_never_wait_for_the_stream(card):
     cfg, params, *_ = _small("paged", "cuda", head_dim=128)
     e = Engine(cfg, params, _Tok(), EngineConfig(
         num_slots=1, max_context=128, prefill_chunk=16, kv_page_size=16,
-        decode_burst=16), device="cuda").start()
+        decode_burst=16, draft="0"), device="cuda").start()
 
     def req(prompt, n, priority=""):
         return GenRequest(prompt_ids=list(prompt), max_new_tokens=n,
@@ -583,8 +589,8 @@ def test_engine_captures_at_start_and_serves_through_replays(card, kind):
     cfg, params, *_ = _small(kind, "cuda", head_dim=128)
     e = Engine(cfg, params, _Tok(), EngineConfig(
         num_slots=4, max_context=128, prefill_chunk=16, kv_page_size=16,
-        decode_burst=16, kv_layout="contiguous" if kind == "contig" else "auto"),
-        device="cuda").start()
+        decode_burst=16, kv_layout="contiguous" if kind == "contig" else "auto",
+        draft="0"), device="cuda").start()
     try:
         m = e.metrics()["decode_graph"]
         assert m["captured"] and m["capture_seconds"] > 0
@@ -670,8 +676,8 @@ def test_replays_after_splice_and_replace_read_the_new_table(device, kind):
     cfg, params, *_ = _small(kind, device, head_dim=128 if device == "cuda" else 8)
     e = Engine(cfg, params, _EngineTok(), EngineConfig(
         num_slots=S, max_context=C, prefill_chunk=16, kv_page_size=PG,
-        decode_burst=8, cache_dtype=torch.int8 if kind == "int8" else None),
-        device=device)
+        decode_burst=8, cache_dtype=torch.int8 if kind == "int8" else None,
+        draft="0"), device=device)
     if device == "cuda":
         e._capture()          # the decode step and the prefill graphs
     graph_burst = e._burst
@@ -752,3 +758,141 @@ def test_clone_page_on_the_card_equals_the_plain_copy(card, quant):
     assert cache["pages"].data_ptr() == ptr
     for k, v in plain.items():
         assert torch.equal(cache[k].cpu(), v), k
+
+
+# ---------- the spec round (n-gram self-speculation) on the card ----------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", CONFIGS)
+def test_spec_round_graph_equals_its_eager_form_on_the_card(card, kind):
+    """The captured spec round (DecodeGraph.spec_body) against eager_rounds
+    (fresh tensors, the verify pack built on the host) on twin states:
+    speculating greedy slots 0 and 2 (slot 0's history repeats), the
+    seeded sampled slot 1 as a plain row, idle slot 3; ticks of 3, 1 and 2
+    rounds. Tokens and n_out identical, logprobs within 1e-4, the chained
+    tokens / lengths, rings and counters identical, the committed rows
+    within 1e-4 (the two verify packs differ in size; int8 KV: 5e-3 and
+    one quantization level); the decode kernel
+    and K2 / K2-int8 launched once per layer per replayed round."""
+    from localai_tpu_torch.ops.kernels import reset_launches
+
+    W = 5
+    cfg, params, ck, cv, sampler, lengths = _small(kind, "cuda", head_dim=128)
+    ck2, cv2, sm2 = _twin(cfg, params, ck, cv, sampler, "cuda")
+    hist = [7, 8, 9, 10] * 4
+    for sm in (sampler, sm2):
+        sm.set_ring(0, hist)
+    graph = dg.DecodeGraph(params, cfg, ck, cv, sampler, S, 16, "cuda", spec_width=W)
+    twin = dg.DecodeGraph(params, cfg, ck2, cv2, sm2, S, 16, "cuda", spec_width=W)
+    graph.capture()
+    assert sorted(graph.spec_graphs) == [False, True]
+    rows = np.stack([[1, 1, 1, 0], np.ones(S), [10, 4, 5, 0], lengths,
+                     [1, 0, 1, 0]]).astype(np.int64)
+    graph.load(rows)
+    twin.load(rows)
+    k2 = "ragged_prefill_attention_int8" if kind in ("int8", "w8kv8") else \
+        "ragged_prefill_attention"
+    for n in (3, 1, 2):
+        reset_launches()
+        got = graph.spec_replay(n).wait()
+        torch.cuda.synchronize()
+        assert LAUNCHES[DECODE_KERNEL[kind]] == cfg.num_layers * n
+        assert LAUNCHES[k2] == cfg.num_layers * n
+        ref = twin.spec_eager(n)
+        np.testing.assert_array_equal(got[:, :W], ref[:, :W])
+        np.testing.assert_array_equal(got[:, 2 * W], ref[:, 2 * W])
+        # int8 KV: a row the two packs' projections round to one level
+        # apart moves a logprob by up to ~1e-3 (the int8 tolerance of the
+        # card checks)
+        np.testing.assert_allclose(got[:, W:2 * W], ref[:, W:2 * W],
+                                   atol=5e-3 if kind in ("int8", "w8kv8") else 1e-4)
+        for a, b in ((graph.tokens, twin.tokens), (graph.lengths, twin.lengths),
+                     (sampler.ring, sm2.ring), (sampler.counter, sm2.counter)):
+            assert torch.equal(a, b)
+    lens = graph.lengths.cpu().numpy()
+    for x, y in ((ck, ck2), (cv, cv2)):
+        a, b = kvcache.gather_all_rows(kvcache.layer(x, 1)), \
+            kvcache.gather_all_rows(kvcache.layer(y, 1))
+        a, b = (a["q"], b["q"]) if isinstance(a, dict) else (a, b)
+        for s in range(3):
+            torch.testing.assert_close(a[s, :lens[s]].float(), b[s, :lens[s]].float(),
+                                       atol=1e-4 if kind not in ("int8", "w8kv8") else 1.0,
+                                       rtol=0)
+    assert sampler.counter.tolist()[1] == 6 and sampler.counter.tolist()[0] == 0
+
+
+@pytest.mark.cuda
+def test_spec_ticks_never_wait_for_the_stream(card):
+    """The engine at its defaults (speculation on) under
+    torch.cuda.set_sync_debug_mode("error"): greedy requests take spec
+    ticks beside a sampled one riding
+    them as a plain row; a high request pauses a speculating low one,
+    which resumes; then a GPU sleep of about 1 s enqueued ahead of one spec
+    tick makes it late and dispatch_stall_ms 300 aborts its request alone;
+    a request sent after the sleep is served. No op on the engine thread
+    waits for the whole stream."""
+    import time
+
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+
+    class _Tok:
+        eos_token_id = 1
+
+        def decode(self, ids, **kw):
+            return "".join(chr(97 + (i % 26)) for i in ids)
+
+    cfg, params, *_ = _small("paged", "cuda", head_dim=128)
+    e = Engine(cfg, params, _Tok(), EngineConfig(
+        num_slots=2, max_context=128, prefill_chunk=16, kv_page_size=16,
+        decode_burst=16), device="cuda").start()
+
+    def req(prompt, n, priority="", temperature=0.0):
+        return GenRequest(prompt_ids=list(prompt), max_new_tokens=n,
+                          ignore_eos=True, priority=priority,
+                          params=sampling.SamplingParamsHost(
+                              temperature=temperature, seed=5))
+
+    def drain(out, first=None):
+        evs = [first] if first is not None else []
+        while (ev := out.get(timeout=300)) is not None:
+            evs.append(ev)
+        return evs
+
+    rate = torch.cuda.get_device_properties(0).clock_rate * 1e3   # kHz -> Hz
+    tick, armed = e._spec_tick, []
+
+    def late_tick(n_rounds, active):
+        if armed and armed.pop():
+            torch.cuda._sleep(int(rate))          # ~1 s of device time
+        return tick(n_rounds, active)
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [e.submit(req([9, 10, 11, 12] * 8, 40)),
+                e.submit(req(range(40, 60), 40, temperature=0.8))]
+        mixed = [drain(o) for o in outs]
+        out_low = e.submit(req(range(2, 42), 60, "low"))
+        first = out_low.get(timeout=300)
+        out_low2 = e.submit(req(range(3, 30), 60, "low"))
+        first2 = out_low2.get(timeout=300)       # both slots decode now
+        high = drain(e.submit(req(range(60, 70), 8, "high")))
+        low = drain(out_low, first) + drain(out_low2, first2)
+        e.ecfg.dispatch_stall_ms = 300
+        e._spec_tick = late_tick
+        armed.append(True)
+        stalled = drain(e.submit(req(range(80, 90), 40)))
+        time.sleep(1.5)                           # the sleep has run
+        after = drain(e.submit(req(range(80, 90), 8)))
+        captured = e.metrics()["decode_graph"]["spec_captured"]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        e.shutdown()
+    assert captured == [False, True]
+    assert not any(ev.error for ev in sum(mixed, []) + high + low + after)
+    assert [m[-1].completion_tokens for m in mixed] == [40, 40]
+    assert high[-1].completion_tokens == 8 and after[-1].completion_tokens == 8
+    assert stalled[-1].error_kind == "stall"
+    m = e.metrics()
+    assert m["spec"]["rounds"] > 0 and m["spec"]["mixed_dispatches"] > 0
+    assert m["scheduler"]["preemptions"] >= 1 and m["scheduler"]["resumes"] >= 1
+    assert m["lifecycle"]["stalls"] >= 1 and m["pages_in_use"] == 0

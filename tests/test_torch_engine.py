@@ -70,7 +70,7 @@ def engines(tmp_path_factory):
         draft="0"))
     te = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         num_slots=4, max_context=128, prefill_chunk=16, kv_page_size=16,
-        decode_burst=16, kv_offload=False), device="cpu")
+        decode_burst=16, kv_offload=False, draft="0"), device="cpu")
     je.start()
     te.start()
     yield je, te
@@ -215,7 +215,9 @@ bad = sorted(k for k in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert {"localai_tpu_torch.services.errors", "localai_tpu_torch.services.faults",
-        "localai_tpu_torch.engine.scheduler"} <= set(names), names
+        "localai_tpu_torch.engine.scheduler",
+        "localai_tpu_torch.engine.speculative"} <= set(names), names
+assert "localai_tpu_torch.engine.speculative" in sys.modules
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=300)

@@ -86,8 +86,8 @@ def jax_engine(tiny, layout):
 def port_engine(tiny, layout):
     _jc, _jp, tcfg, tparams = tiny
     return teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
-        **EC, decode_burst=16, kv_offload=False, **LAYOUTS[layout][0]),
-        device="cpu")
+        **EC, decode_burst=16, kv_offload=False, draft="0",
+        **LAYOUTS[layout][0]), device="cpu")
 
 
 def submit(e, prompt, n, rid, **params):

@@ -94,7 +94,8 @@ def jax_engine(tiny, dtype="float32", start=True, **knobs):
 def port_engine(tiny, dtype="float32", start=True, **knobs):
     _jc, _jp, tcfg, tparams, _d = tiny
     kw = dict(num_slots=S, max_context=C, prefill_chunk=16, kv_page_size=PG,
-              decode_burst=16, kv_pool_pages=POOL, cache_dtype=DTYPES[dtype][0])
+              decode_burst=16, kv_pool_pages=POOL, cache_dtype=DTYPES[dtype][0],
+              draft="0")
     kw.update(knobs)
     e = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(**kw), device="cpu")
     return e.start() if start else e

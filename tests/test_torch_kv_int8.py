@@ -315,7 +315,7 @@ def test_int8_engine_greedy_tokens_byte_identical_to_jax(tiny):
     te = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         num_slots=4, max_context=128, prefill_chunk=16, kv_page_size=16,
         decode_burst=16, cache_dtype=torch.int8, kv_layout="paged",
-        kv_offload=False), device="cpu")
+        kv_offload=False, draft="0"), device="cpu")
     je.start()
     te.start()
     try:

@@ -91,8 +91,8 @@ def jax_engine(tiny, layout, eos=1):
 def port_engine(tiny, layout, eos=1, start=True, **knobs):
     _jc, _jp, tcfg, tparams = tiny
     e = teng.Engine(tcfg, tparams, _Tok(eos), teng.EngineConfig(
-        **EC, decode_burst=16, kv_offload=False, **LAYOUTS[layout][0], **knobs),
-        device="cpu")
+        **EC, decode_burst=16, kv_offload=False, draft="0",
+        **LAYOUTS[layout][0], **knobs), device="cpu")
     return e.start() if start else e
 
 

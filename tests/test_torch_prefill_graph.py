@@ -122,7 +122,7 @@ def test_pack_buckets_equal_the_jax_engine(tiny, buckets, chunk, budget, context
     te = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         num_slots=2, max_context=context, prefill_buckets=buckets,
         prefill_chunk=chunk, prefill_token_budget=budget, kv_page_size=16,
-        kv_offload=False), device="cpu")
+        kv_offload=False, draft="0"), device="cpu")
     assert te._pack_buckets == tuple(want)
     assert te.metrics()["prefill_graph"]["buckets"] == list(want)
     assert sorted(te._pgraph.buf) == list(want)
@@ -337,7 +337,7 @@ def test_engine_matches_the_jax_engine_request_by_request(tiny, layout):
         draft="0"))
     te = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         **EC, decode_burst=16, kv_prefix_cache=True, prefill_packed_fuse="0",
-        kv_offload=False, **tk), device="cpu")
+        kv_offload=False, draft="0", **tk), device="cpu")
     je.start()
     te.start()
     try:
@@ -447,7 +447,7 @@ def test_engine_captures_every_pair_and_serves_packs_as_replays(card, kind):
     e = teng.Engine(cfg, params, _Tok(), teng.EngineConfig(
         num_slots=S, max_context=128, prefill_chunk=16, kv_page_size=16,
         prefill_buckets=(8, 16), cache_dtype=torch.int8 if kind == "int8" else None,
-        kv_layout="contiguous" if kind == "contig" else "auto"),
+        kv_layout="contiguous" if kind == "contig" else "auto", draft="0"),
         device="cuda").start()
     try:
         m = e.metrics()["prefill_graph"]

@@ -112,7 +112,8 @@ def jax_engine(tiny, reuse: bool, cache_dtype=jnp.float32, layout="paged",
 def port_engine(tiny, reuse: bool, **knobs):
     _jcfg, _jp, tcfg, tparams = tiny
     kw = dict(num_slots=S, max_context=C, prefill_chunk=16, kv_page_size=PG,
-              decode_burst=16, kv_prefix_cache=reuse, kv_offload=False)
+              decode_burst=16, kv_prefix_cache=reuse, kv_offload=False,
+              draft="0")
     kw.update(knobs)
     return teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(**kw),
                        device="cpu").start()
@@ -303,7 +304,7 @@ def test_admission_without_a_clone_page_fails_only_that_request(tiny):
     _jcfg, _jp, tcfg, tparams = tiny
     e = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         num_slots=2, max_context=C, prefill_chunk=16, kv_page_size=PG,
-        decode_burst=4, kv_pool_pages=5), device="cpu")
+        decode_burst=4, kv_pool_pages=5, draft="0"), device="cpu")
     cold = port_engine(tiny, False, num_slots=2, decode_burst=4)
     try:
         rng = np.random.default_rng(15)
@@ -433,7 +434,7 @@ def test_cancelled_stream_retains_only_committed_rows(tiny):
     _jcfg, _jp, tcfg, tparams = tiny
     e = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         num_slots=2, max_context=C, prefill_chunk=16, kv_page_size=PG,
-        decode_burst=4), device="cpu")
+        decode_burst=4, draft="0"), device="cpu")
     cold = port_engine(tiny, False, num_slots=2, decode_burst=4)
     try:
         rng = np.random.default_rng(8)

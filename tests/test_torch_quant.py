@@ -318,8 +318,8 @@ def test_quantized_engine_greedy_tokens_byte_identical_to_jax(tiny, bits, kv):
         draft="0"))
     te = teng.Engine(tcfg, tq, _Tok(), teng.EngineConfig(
         num_slots=4, max_context=128, prefill_chunk=16, kv_page_size=16,
-        decode_burst=16, cache_dtype=tdt, kv_layout="paged", kv_offload=False),
-        device="cpu")
+        decode_burst=16, cache_dtype=tdt, kv_layout="paged", kv_offload=False,
+        draft="0"), device="cpu")
     je.start()
     te.start()
     try:

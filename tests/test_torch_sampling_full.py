@@ -337,7 +337,7 @@ def engines(tmp_path_factory):
     te = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         num_slots=4, max_context=C, prefill_buckets=(16, 32), prefill_chunk=32,
         kv_page_size=16, decode_burst=8, kv_prefix_cache=False,
-        kv_offload=False), device="cpu")
+        kv_offload=False, draft="0"), device="cpu")
     je.start()
     te.start()
     yield je, te

@@ -54,7 +54,8 @@ BASE = dict(num_slots=1, max_context=96, prefill_chunk=16, decode_burst=4,
 def port_engine(tiny, **kw):  # noqa: F811
     _jc, _jp, tcfg, tparams = tiny
     return teng.Engine(tcfg, tparams, _Tok(),
-                       teng.EngineConfig(**{**BASE, **kw}), device="cpu")
+                       teng.EngineConfig(**{**BASE, "draft": "0", **kw}),
+                       device="cpu")
 
 
 def jax_engine(tiny, **kw):  # noqa: F811

@@ -48,7 +48,7 @@ def served(tmp_path_factory):
     hf = write_tiny_checkpoint(d)
     lm = load_model(d, "tiny", num_slots=4, context_size=256, dtype="float32",
                     device="cpu", prefill_chunk=16, kv_page_size=16,
-                    kv_offload=False)
+                    kv_offload=False, draft="0")
     app = App({"tiny": lm})
     server = make_server(app, "127.0.0.1", 0)
     th = threading.Thread(target=server.serve_forever, daemon=True)
