@@ -86,16 +86,18 @@ Phases, each raising on failure (no phase swallows an error):
               paged).
               Each: one short warm-up request (so no configuration's
               numbers carry the process's first-use costs), then three chat
-              requests (one streamed) and one /v1/completions request with
-              a ~1500-token prompt, which prefill_chunk splits into
-              continued packs, concurrently. max_tokens 32 with ignore_eos:
-              every usage.completion_tokens must be 32. One chat sends
+              requests (one streamed), a seeded sampled chat (temperature
+              0.8, max_tokens 64) and one /v1/completions request with a
+              ~1500-token prompt, which prefill_chunk splits into
+              continued packs, concurrently. max_tokens 32 (the sampled
+              chat 64) with ignore_eos: every usage.completion_tokens must
+              be its max_tokens. One chat sends
               presence_penalty, frequency_penalty, repeat_penalty and a
               logit_bias of -100 on the first token an engine-level probe
               of its prompt got without them: its 32 tokens (read on the
               engine thread) must not hold that token, and some decode
               steps must run the full sampler variant. Launch counters are
-              zeroed just before each configuration's four requests and
+              zeroed just before each configuration's five requests and
               read just after. Every decode burst runs as replays of the
               graph the engine captured at start: the decode kernel's
               launches, counted through the replays, must be 32 x the
@@ -107,8 +109,10 @@ Phases, each raising on failure (no phase swallows an error):
               its default (draft "auto" = n-gram self-speculation, n_draft
               4): the greedy requests must take spec rounds (each round a
               decode step, counted among the steps above, and a verify
-              pack of K2 / K2-int8); the penalized chat rides them as a
-              plain row. The phases below, up to 3h, measure plain
+              pack of K2 / K2-int8), the sampled chat rejection-sampled
+              ones (``by_mode["sampled"]``); the penalized chat rides them
+              as a plain row. The emitter thread (on by default) must be
+              alive and have emitted the requests' tokens. The phases below, up to 3h, measure plain
               bursts: they run with speculation off (draft "0"), on the
               loaded engine and on every engine built from its config;
               3i turns it back on.
@@ -303,21 +307,35 @@ Phases, each raising on failure (no phase swallows an error):
               for byte on paged, int8 KV and contiguous engines, and the
               captured round equals its eager form
               (DecodeGraph.spec_eager) from the same state: tokens and
-              n_out identical, logprobs within 1e-4. (b) 8 greedy requests
-              x 256 tokens admitted together, speculation off then on, on
-              two prompt sets: one phrase repeated (repetitive) and seeded
+              n_out identical, logprobs within 1e-4, with greedy and with
+              seeded sampled rows (rejection-sampled acceptance); and 16
+              seeded sampled requests x 48 tokens with speculation against
+              draft "0": a two-sample chi-square over the token counts, p
+              > 0.01 (one law; fixed seeds). (b) 8 greedy requests x 256
+              tokens admitted together, speculation off then on, on two
+              prompt sets: one phrase repeated (repetitive) and seeded
               random ids: decode tok/s (host clock), ms per tick and per
               round or step, acceptance_rate and accept_per_dispatch, the
               share of identical tokens and the first divergence per
               request (bf16: not a byte gate); one spec tick of the
               repetitive run under torch.profiler (CUDA kernels per
-              round, busy share, top kernels). (c) the round's parts
+              round, busy share, top kernels); then the same with 8
+              seeded sampled requests (temperature 0.8): tok/s,
+              acceptance, tokens per slot-round. (c) the round's parts
               alone, each captured as a graph of its own and timed with
               CUDA events, 8 slots speculating over 1024 rows: propose,
               the decode step, the verify forward (K2 / K2-int8 and the
-              products at M = 40), accept; against the whole round. A
-              {"spec": ...} JSON line before the kernels line holds it
-              all, with the serving run's spec counters.
+              products at M = 40), accept; against the whole round. (d)
+              paged only, the emitter thread on against off (emitter_phase,
+              speculation off as in 3f, one engine each): phase 3f's byte
+              gate requests (tokens identical on and off) with the engine
+              thread's host time per busy tick (waits for results
+              excluded), and 3f's mixed traffic, untraced: the arrivals'
+              TTFT and the decoding requests' mean inter-token time (host
+              clock); 3f itself traces that load with the emitter on (the
+              default) and reports its device gaps. A {"spec": ...} JSON line before the
+              kernels line holds it all, with the serving run's spec
+              counters.
   4. kernels  one JSON line {"kernels": [...]}: for each of the eight kernels,
               launches during its serving configuration (K5 has no serving
               path: its launches are those of phases 2 and 4), parity
@@ -504,10 +522,48 @@ def timed_ms(fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+class _Range:
+    __slots__ = ("start", "end")
+
+    def __init__(self, start, end):
+        self.start, self.end = start, end
+
+
+class _Event:
+    """One profiler event: name, device_type, time_range (us)."""
+    __slots__ = ("name", "device_type", "time_range")
+
+    def __init__(self, name, device_type, start, end):
+        self.name, self.device_type = name, device_type
+        self.time_range = _Range(start, end)
+
+
+def trace_events(prof) -> list:
+    """A torch.profiler trace's events (name, device_type, time_range in
+    us) read straight from its kineto results: building ``prof.events()``
+    (the parent / child tree of every op) takes ~60x longer, tens of
+    seconds for a trace of a busy second. ``prof.events()`` where a torch
+    has no such results."""
+    try:
+        return [_Event(e.name(), e.device_type(), e.start_ns() / 1e3,
+                       (e.start_ns() + e.duration_ns()) / 1e3)
+                for e in prof.profiler.kineto_results.events()]
+    except AttributeError:
+        return list(prof.events())
+
+
+# the profiler starts recording device activity 5-18 ms into its window
+# (PERF.md §7) and can miss the kernels queued before: a GPU sleep of this
+# many cycles (~25 ms at 1.98 GHz) leads each per-call window, and is
+# dropped from the count
+LEAD_CYCLES = 50_000_000
+
+
 def kernels_per_call(fn):
     """The CUDA kernels one call of fn() runs, as torch.profiler (CUPTI)
-    records them around that call after a warm-up: (count, names), or
-    (None, []) when the profiler recorded no device activity at all."""
+    records them around that call after a warm-up, behind a GPU sleep
+    (LEAD_CYCLES): (count, names), or (None, []) when the profiler
+    recorded no device activity at all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -515,10 +571,12 @@ def kernels_per_call(fn):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(LEAD_CYCLES)
         fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    names = [e.name for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    dev = [e for e in trace_events(prof) if e.device_type == DeviceType.CUDA]
+    names = [e.name for e in dev if not e.name.startswith(("Memcpy", "Memset"))
+             and "spin_kernel" not in e.name]
     return (len(names) if dev else None), names
 
 
@@ -1111,7 +1169,7 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
         common = {"model": lm.name, "max_tokens": 32, "ignore_eos": True,
                   "temperature": 0}
         chats = [[{"role": "user", "content": f"Question {i}: what is {i} + {i}?"}]
-                 for i in range(3)]
+                 for i in range(4)]
         results = {}
 
         def run(key, fn):
@@ -1140,6 +1198,15 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
                                          **penalized}),
             "completion_long": lambda: http_json(
                 base + "/v1/completions", {**common, "prompt": long_prompt}),
+            # a seeded sampled chat: speculates with rejection-sampled
+            # acceptance (the JAX default). Its own prompt (an identical
+            # one would fork) and 64 tokens: the split fused tick's bursts
+            # stay plain, and once the prompts are packed every tick is a
+            # spec tick
+            "chat_sampled": lambda: http_json(
+                base + "/v1/chat/completions",
+                {**common, "messages": chats[3], "temperature": 0.8,
+                 "seed": SEED, "max_tokens": 2 * common["max_tokens"]}),
         }
         warm = http_json(base + "/v1/completions",
                          {**common, "prompt": "Warm up.", "max_tokens": 4})
@@ -1176,10 +1243,11 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
                 raise AssertionError(f"{tag} {key} failed: {res!r}")
         if len(results) != len(jobs):
             raise AssertionError(f"{tag} requests did not finish: {sorted(results)}")
-        for key in ("chat_1", "chat_2", "completion_long"):
+        for key in ("chat_1", "chat_2", "completion_long", "chat_sampled"):
             body = results[key][0]
             u = body["usage"]
-            assert u["completion_tokens"] == 32, (config, key, u)
+            want = 64 if key == "chat_sampled" else 32
+            assert u["completion_tokens"] == want, (config, key, u)
             assert body["choices"][0]["finish_reason"] == "length", (config, key, body)
         assert results["completion_long"][0]["usage"]["prompt_tokens"] == n_long
         if len(biased) != 32 or banned in biased:
@@ -1197,15 +1265,28 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
               for k in m1["packed_prefill"]}
         dec = {k: m1["decode"][k] - m0["decode"][k] for k in m1["decode"]}
         spec = {k: m1["spec"][k] - m0["spec"][k] for k in SPEC_KEYS}
+        spec["by_mode"] = {mode: {k: m1["spec"]["by_mode"][mode][k]
+                                  - m0["spec"]["by_mode"][mode][k]
+                                  for k in ("rounds", "proposed", "accepted", "tokens")}
+                           for mode in ("greedy", "sampled")}
         if spec["rounds"] <= 0 or dec["spec_rounds"] <= 0:
             raise AssertionError(f"{tag} the greedy requests took no spec round "
                                  f"(speculation is on by default): {spec}")
+        if spec["by_mode"]["sampled"]["rounds"] <= 0:
+            raise AssertionError(f"{tag} the sampled chat took no rejection-sampled "
+                                 f"spec round: {spec['by_mode']}")
+        emitter = m1["emitter"]
+        if not (emitter["enabled"] and emitter["alive"]
+                and emitter["emitted"] > m0["emitter"]["emitted"]):
+            raise AssertionError(f"{tag} the emitter thread did not emit the "
+                                 f"requests' tokens: {emitter}")
+        spec["emitted"] = emitter["emitted"] - m0["emitter"]["emitted"]
         if dec["full_steps"] <= 0:
             raise AssertionError(f"{tag} no decode step ran the full sampler "
                                  f"variant for the penalized chat: {dec}")
         step_ms = dec["seconds"] / max(1, dec["steps"]) * 1e3
         pack_ms = pk["seconds"] / max(1, pk["dispatches"]) * 1e3
-        log(f"{tag} {card}: 4 concurrent requests in {wall:.2f} s; streamed "
+        log(f"{tag} {card}: 5 concurrent requests in {wall:.2f} s; streamed "
             f"chat TTFT {ttft_ms:.1f} ms, its decode {decode_tok_s:.1f} tok/s "
             f"(31 tokens after the first, HTTP-observed); long completion "
             f"({n_long}-token prompt) e2e "
@@ -1241,7 +1322,8 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
                                  f"{pk['dispatches']} packs and {dec['spec_rounds']} "
                                  f"spec rounds (graph replays), expected "
                                  f"{n_layers} per pack and per round")
-        prompt_lens = [len(lm.tokenizer.encode(render_chat(c))) for c in chats]
+        # phase 4's decode shape: the three greedy chats and the long one
+        prompt_lens = [len(lm.tokenizer.encode(render_chat(c))) for c in chats[:3]]
         # the phases that measure plain bursts (3b-3h) run with speculation
         # off, on this engine and on every engine built from its config;
         # 3i turns it back on
@@ -1297,7 +1379,7 @@ def trace_split(prof, n_steps: int):
     most total time. None when the profiler recorded no device activity."""
     from torch.autograd import DeviceType
 
-    evs = list(prof.events())
+    evs = trace_events(prof)
     win = [e for e in evs if e.name == ANNOTATION and e.device_type == DeviceType.CPU]
     dev = [e for e in evs if e.device_type == DeviceType.CUDA and e.name != ANNOTATION]
     if not win or not dev:
@@ -1380,6 +1462,7 @@ def decode_phase(lm, card: str, config: str) -> dict:
         return eng._graph.replay(n_steps, full=True)
 
     for way in ("graph", "full", "eager"):
+        t_way = time.monotonic()
         fn = {"graph": eng._burst, "full": full_burst,
               "eager": eng._burst_eager}[way]
         rec, probe, prof_box, gaps = [], {}, {}, []
@@ -1476,7 +1559,10 @@ def decode_phase(lm, card: str, config: str) -> dict:
         if len(per_step) < 10:
             raise AssertionError(f"{tag} {way}: only {len(per_step)} bursts of 16 "
                                  f"steps with all {S_SLOTS} slots active: {rec}")
+        t_split = time.monotonic()
         split = trace_split(prof_box["prof"], prof_box["steps"]) if prof_box else None
+        log(f"[time] {config}: decode_phase {way}: run {t_split - t_way:.1f} s, "
+            f"trace {time.monotonic() - t_split:.1f} s")
         runs[way] = {"ms_per_step": statistics.median(per_step),
                      "ms_per_step_min": min(per_step), "ms_per_step_max": max(per_step),
                      "bursts": len(per_step), "steps": steps,
@@ -2666,7 +2752,9 @@ def collect(reqs, outs, tag):
         res[i] = {"rid": req.request_id, "ids": ids, "finish": last.finish_reason,
                   "completion_tokens": last.completion_tokens,
                   "reused": last.timings["reused_prompt_tokens"],
-                  "ttft_ms": (t_first - req.t_submit) * 1e3}
+                  "ttft_ms": (t_first - req.t_submit) * 1e3,
+                  "itl_ms": (time.monotonic() - t_first) * 1e3
+                  / max(1, last.completion_tokens - 1)}
 
     threads = [threading.Thread(target=read, args=(i, r, o), daemon=True)
                for i, (r, o) in enumerate(zip(reqs, outs))]
@@ -2724,7 +2812,7 @@ def trace_gaps(prof):
     packs) and the mixed classes. None without device activity."""
     from torch.autograd import DeviceType
 
-    evs = list(prof.events())
+    evs = trace_events(prof)
     win = [e for e in evs if e.name == ANNOTATION and e.device_type == DeviceType.CPU]
     if not win:
         return None
@@ -2763,7 +2851,7 @@ def trace_gaps(prof):
                                for c, (n, ms) in sorted(classes.items())}}
 
 
-def mixed_run(eng, gen, tag):
+def mixed_run(eng, gen, tag, trace: bool = True):
     """(b): MIX_LONG generations decode; once all have their first token,
     MIX_ARRIVALS long prompts arrive MIX_SPACING_S apart. From the first
     arrival until every request ended the card runs under torch.profiler,
@@ -2785,7 +2873,8 @@ def mixed_run(eng, gen, tag):
         f.wait(timeout=600)
     ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]),
            record_function(ANNOTATION))
-    on_engine_thread(eng, lambda: [c.__enter__() for c in ctx])
+    if trace:
+        on_engine_thread(eng, lambda: [c.__enter__() for c in ctx])
     res_a, th_a = [], []
     for r in arrivals:           # each read from its submit on
         res, th, _f = collect([r], [eng.submit(r)], tag)
@@ -2803,15 +2892,17 @@ def mixed_run(eng, gen, tag):
         torch.cuda.synchronize()
         ctx[0].__exit__(None, None, None)
 
-    on_engine_thread(eng, stop)
+    if trace:
+        on_engine_thread(eng, stop)
     bad = [(r["completion_tokens"], len(r["ids"]), want) for r, want in
            [(r, MIX_LONG_TOKENS) for r in res_l] + [(r, MIX_TOKENS) for r in res_a]
            if r["completion_tokens"] != want or len(r["ids"]) != want]
     if bad:
         raise AssertionError(f"{tag} completion_tokens != max_tokens: {bad}")
     m = idle_metrics(eng, tag)
-    return {"ttft_ms": [r["ttft_ms"] for r in res_a], "trace": trace_gaps(ctx[0]),
-            "pipeline": m["pipeline"]}
+    return {"ttft_ms": [r["ttft_ms"] for r in res_a],
+            "trace": trace_gaps(ctx[0]) if trace else None,
+            "itl_ms": [r["itl_ms"] for r in res_l], "pipeline": m["pipeline"]}
 
 
 def dedup_run(eng, gen, tag):
@@ -2911,11 +3002,15 @@ def pipeline_phase(lm, card: str, config: str) -> dict:
                  "gate_pipeline": m1["pipeline"],
                  "gate_packs": m1["packed_prefill"]["dispatches"]
                  - m0["packed_prefill"]["dispatches"]}
+            t1 = time.monotonic()
             r["mixed"] = mixed_run(eng, np.random.default_rng(SEED + 17),
                                    f"{tag} {way} mixed")
+            t2 = time.monotonic()
             if way == "pipe":
                 r["dedup"] = dedup_run(eng, np.random.default_rng(SEED + 19),
                                        f"{tag} dedup")
+            log(f"[time] {config}: pipeline_phase {way}: gate {t1 - t0:.1f} s, "
+                f"mixed {t2 - t1:.1f} s, dedup {time.monotonic() - t2:.1f} s")
             runs[way] = r
         finally:
             eng.shutdown()
@@ -3528,6 +3623,10 @@ def spec_tiny_phase(card: str) -> dict:
                 streams[draft] = (ids, dict(e.metrics()["spec"]))
                 if draft == "auto":
                     err = on_engine_thread(e, lambda e=e: spec_graph_vs_eager(e))
+                    err_s = on_engine_thread(
+                        e, lambda e=e: spec_graph_vs_eager(e, sampled=True))
+            if kind == "paged":
+                chi = sampled_chi2(e, GenRequest, SamplingParamsHost, prompts)
         finally:
             e.shutdown()
         (sid, st), (pid, pst) = streams["auto"], streams["0"]
@@ -3540,24 +3639,89 @@ def spec_tiny_phase(card: str) -> dict:
         if st["rounds"] <= 0:
             raise AssertionError(f"[spec tiny {kind}] no spec round ran: {st}")
         out[kind] = {"rounds": st["rounds"], "accepted": st["accepted"],
-                     "graph_vs_eager_logprob_err": err}
+                     "graph_vs_eager_logprob_err": err,
+                     "sampled_graph_vs_eager_logprob_err": err_s}
         log(f"[spec tiny {kind}] {card}: f32 greedy tokens with speculation == "
             f"draft=0 ({len(prompts)} x 60); {st['rounds']} rounds, "
             f"{st['accepted']} of {st['proposed']} proposals accepted; captured "
-            f"round == eager form (tokens, n_out), logprob max err {err:.2e}")
+            f"round == eager form (tokens, n_out), logprob max err {err:.2e} "
+            f"greedy, {err_s:.2e} sampled")
+    out["sampled_chi2"] = chi
+    log(f"[spec tiny paged] {card}: {SPEC_CHI_SEEDS} seeded sampled requests x "
+        f"{SPEC_CHI_TOKENS} tokens, speculation vs draft=0: chi2 {chi['stat']:.2f}, "
+        f"dof {chi['dof']}, p {chi['p']:.4f}; {chi['rounds']} sampled rounds, "
+        f"acceptance {chi['acceptance_rate']:.3f}")
     return out
 
 
-def spec_graph_vs_eager(e) -> float:
+SPEC_CHI_SEEDS, SPEC_CHI_TOKENS = 16, 48
+
+
+def sampled_chi2(e, GenRequest, SamplingParamsHost, prompts) -> dict:
+    """SPEC_CHI_SEEDS seeded sampled requests (temperature 0.8, top_k 16)
+    x SPEC_CHI_TOKENS tokens, queued together, with speculation and with
+    draft "0": the token counts' two-sample chi-square (one law, so p >
+    0.01; fixed seeds, so the run is deterministic)."""
+    import numpy as np
+
+    from localai_tpu_torch.engine.speculative import two_sample_chi2
+
+    V = e.cfg.vocab_size
+    counts, stats = {}, {}
+    for draft in ("auto", "0"):
+        pin_speculation(e, draft == "auto")
+        on_engine_thread(e, lambda: forget_retained(e))
+        m0 = e.metrics()["spec"]["by_mode"]["sampled"]
+        c = np.zeros(V, np.int64)
+        # queued together, served 4 at a time: a seeded stream's law does
+        # not depend on its neighbours
+        outs = [e.submit(GenRequest(
+            prompt_ids=list(prompts[i % len(prompts)]),
+            max_new_tokens=SPEC_CHI_TOKENS, ignore_eos=True,
+            params=SamplingParamsHost(temperature=0.8, top_k=16, seed=SEED + i)))
+            for i in range(SPEC_CHI_SEEDS)]
+        for out in outs:
+            ids = []
+            while (ev := out.get(timeout=600)) is not None:
+                if ev.error:
+                    raise AssertionError(f"[spec tiny chi2] {ev.error}")
+                ids.extend(ev.token_ids or [ev.token_id])
+            if len(ids) != SPEC_CHI_TOKENS:
+                raise AssertionError(f"[spec tiny chi2] {len(ids)} tokens")
+            c += np.bincount(ids, minlength=V)[:V]
+        m1 = e.metrics()["spec"]["by_mode"]["sampled"]
+        counts[draft] = c
+        stats[draft] = {k: m1[k] - m0[k] for k in ("rounds", "proposed", "accepted")}
+    pin_speculation(e, True)
+    stat, dof, p = two_sample_chi2(counts["auto"], counts["0"])
+    st = stats["auto"]
+    if st["rounds"] <= 0 or stats["0"]["rounds"] != 0:
+        raise AssertionError(f"[spec tiny chi2] sampled rounds: {stats}")
+    if not (dof >= 1 and p > 0.01):
+        raise AssertionError(f"[spec tiny chi2] sampled speculation moves the law: "
+                             f"chi2 {stat:.2f}, dof {dof}, p {p:.4g}")
+    return {"stat": stat, "dof": dof, "p": p, "rounds": st["rounds"],
+            "acceptance_rate": st["accepted"] / max(1, st["proposed"])}
+
+
+def spec_graph_vs_eager(e, sampled: bool = False) -> float:
     """On an idle engine's thread: 3 slots decoding 2 rounds from the same
     state through the captured round and through the eager form, the
-    state restored in between. Returns the logprobs' max abs error."""
+    state restored in between; two of them speculate. With ``sampled``
+    the three draw (seeded, temperature 0.8: rejection-sampled acceptance
+    on the spec rows, counters included). Returns the logprobs' max abs
+    error."""
     import numpy as np
     import torch
+
+    from localai_tpu_torch.engine.sampling import SamplingParamsHost
 
     g = e._graph
     samp = e.sampler
     S = g.tokens.shape[0]
+    for s in range(3):
+        samp.set_slot(s, SamplingParamsHost(temperature=0.8 if sampled else 0.0,
+                                            seed=SEED + s, top_k=0, top_p=1.0), 0)
     forget_retained(e)           # the rows written below are nobody's
     if e._pool is not None:
         for s in range(3):
@@ -3581,6 +3745,9 @@ def spec_graph_vs_eager(e) -> float:
     err = float(np.abs(got[:, W:2 * W] - ref[:, W:2 * W]).max())
     if err > 1e-4:
         raise AssertionError(f"spec round graph vs eager logprobs err {err:.3e} > 1e-4")
+    if sampled and not (samp.counter[:2] >= 2 * W).all():
+        raise AssertionError(f"sampled spec rows drew {samp.counter.tolist()}, "
+                             f"expected {W} a round")
     for s in range(3):
         if e._pool is not None:
             e._pool.release(s, 0)
@@ -3590,9 +3757,10 @@ def spec_graph_vs_eager(e) -> float:
     return err
 
 
-def spec_run(lm, eng, prompts, spec: bool, tag: str, trace: bool = False) -> dict:
-    """8 greedy requests of SPEC_TOKENS tokens, admitted together, with
-    speculation on or off: streams, decode tok/s (tokens after each
+def spec_run(lm, eng, prompts, spec: bool, tag: str, trace: bool = False,
+             sampled: bool = False) -> dict:
+    """8 greedy (``sampled``: seeded, temperature 0.8) requests of
+    SPEC_TOKENS tokens, admitted together, with speculation on or off: streams, decode tok/s (tokens after each
     request's first over the time from the last first token to the last
     token, host clock), the ticks' host ms (Engine.metrics decode
     seconds per tick and per round or step), the spec counters; with
@@ -3636,10 +3804,11 @@ def spec_run(lm, eng, prompts, spec: bool, tag: str, trace: bool = False) -> dic
     eng._spec_tick = traced
     try:
         m0 = eng.metrics()
-        outs = [eng.submit(GenRequest(prompt_ids=list(p), max_new_tokens=SPEC_TOKENS,
-                                      ignore_eos=True,
-                                      params=SamplingParamsHost(temperature=0.0)))
-                for p in prompts]
+        outs = [eng.submit(GenRequest(
+            prompt_ids=list(p), max_new_tokens=SPEC_TOKENS, ignore_eos=True,
+            params=SamplingParamsHost(temperature=0.8, seed=SEED + i) if sampled
+            else SamplingParamsHost(temperature=0.0)))
+                for i, p in enumerate(prompts)]
         n = len(outs)
         streams, firsts, lasts, errors = [None] * n, [0.0] * n, [0.0] * n, []
 
@@ -3670,6 +3839,11 @@ def spec_run(lm, eng, prompts, spec: bool, tag: str, trace: bool = False) -> dic
         raise AssertionError(f"{tag}: stream lengths {[len(s) for s in streams]}")
     dec = {k: m1["decode"][k] - m0["decode"][k] for k in m1["decode"]}
     sp = {k: m1["spec"][k] - m0["spec"][k] for k in SPEC_KEYS}
+    mode = "sampled" if sampled else "greedy"
+    if sp["rounds"] != (m1["spec"]["by_mode"][mode]["rounds"]
+                        - m0["spec"]["by_mode"][mode]["rounds"]):
+        raise AssertionError(f"{tag}: spec rounds outside by_mode[{mode!r}]: "
+                             f"{m1['spec']['by_mode']}")
     wall = max(lasts) - max(firsts)
     r = {"tok_s": S_SLOTS * (SPEC_TOKENS - 1) / max(1e-9, wall),
          "decode_wall_s": wall, "ticks": dec["bursts"],
@@ -3764,7 +3938,9 @@ def spec_phase(lm, card: str, config: str) -> dict:
 
     eng = lm.engine
     tag = f"[spec {config}]"
+    t0 = time.monotonic()
     tiny = spec_tiny_phase(card) if config == "paged" else None
+    log(f"[time] {config}: spec_phase (a) {time.monotonic() - t0:.1f} s")
     phrase_ids = lm.tokenizer.encode(SPEC_PHRASE * 24)
     rng = np.random.default_rng(SEED)
     sets = {
@@ -3798,6 +3974,23 @@ def spec_phase(lm, card: str, config: str) -> dict:
             f"{s['acceptance_rate']:.3f}, {s['accept_per_dispatch']:.3f} tokens "
             f"per slot-round; identical tokens {share * 100:.1f}%, first "
             f"divergence per request {first_div}")
+    log(f"[time] {config}: spec_phase (b) greedy {time.monotonic() - t0:.1f} s")
+    out["sampled"] = {}
+    for name, prompts in sets.items():
+        runs = {spec: spec_run(lm, eng, prompts, spec, f"{tag} {name} sampled",
+                               sampled=True) for spec in (False, True)}
+        s, p = runs[True], runs[False]
+        for r in runs.values():
+            r.pop("streams")
+        out["sampled"][name] = {"spec": s, "plain": p,
+                                "speedup": s["tok_s"] / p["tok_s"]}
+        log(f"{tag} {card}: {name} prompts, 8 x {SPEC_TOKENS} sampled tokens "
+            f"(temperature 0.8, seeded): speculation {s['tok_s']:.1f} tok/s vs off "
+            f"{p['tok_s']:.1f} ({s['tok_s'] / p['tok_s']:.3f}x); spec "
+            f"{s['ms_per_tick']:.2f} ms per tick, {s['ms_per_round_or_step']:.2f} ms "
+            f"per round; acceptance {s['acceptance_rate']:.3f}, "
+            f"{s['accept_per_dispatch']:.3f} tokens per slot-round")
+    log(f"[time] {config}: spec_phase (b) sampled {time.monotonic() - t0:.1f} s")
     tr = out["sets"]["repetitive"]["spec"].get("trace")
     if tr:
         log(f"{tag} {card}: one spec tick ({out['sets']['repetitive']['spec']['traced_rounds']}"
@@ -3811,6 +4004,91 @@ def spec_phase(lm, card: str, config: str) -> dict:
         f"{parts['propose']:.3f} ms, decode step {parts['decode_step']:.3f}, "
         f"verify {parts['verify']:.3f}, accept {parts['accept']:.3f} (sum "
         f"{parts['parts_sum']:.3f}) vs the whole round {parts['round']:.3f} ms")
+    log(f"[time] {config}: spec_phase (c) {time.monotonic() - t0:.1f} s")
+    if config == "paged":
+        out["emitter"] = emitter_phase(lm, card, config)
+        log(f"[time] {config}: spec_phase (d) {time.monotonic() - t0:.1f} s")
+    return out
+
+
+def emitter_phase(lm, card: str, config: str) -> dict:
+    """3i (d): the emitter thread on against off (engines of their own over
+    the loaded weights, speculation off as in 3f): 3f's byte gate
+    requests, tokens identical on and off, with the engine thread's host
+    time per busy tick (``Engine._tick`` timed on the engine thread, less
+    the time it waited for results in ``_wait_ready``); then
+    3f's mixed traffic, untraced (mixed_run): the arrivals' TTFT and the
+    decoding requests' mean inter-token time."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from localai_tpu_torch.engine.engine import Engine
+
+    tag = f"[emitter {config}]"
+    eos = lm.tokenizer.eos_token_id
+    vocab = LLAMA31_8B["vocab_size"]
+    gen = np.random.default_rng(SEED + 13)
+    gate_specs = [(gen.integers(1000, vocab, n).tolist(), k, forced)
+                  for n, k, forced in PIPE_GATE]
+    runs = {}
+    for on in (True, False):
+        eng = Engine(lm.cfg, lm.engine.params, lm.tokenizer,
+                     dataclasses.replace(lm.engine.ecfg, emitter=on), device=DEV).start()
+        ticks, waits = [], [0.0]
+        tick, wait_ready = eng._tick, eng._wait_ready
+
+        def timed_wait(*a, wait_ready=wait_ready, waits=waits, **k):
+            t = time.perf_counter()
+            try:
+                return wait_ready(*a, **k)
+            finally:
+                waits[0] += time.perf_counter() - t
+
+        def timed_tick(tick=tick, ticks=ticks, waits=waits):
+            t, w0 = time.perf_counter(), waits[0]
+            busy = tick()
+            if busy:
+                ticks.append(time.perf_counter() - t - (waits[0] - w0))
+            return busy
+
+        eng._tick, eng._wait_ready = timed_tick, timed_wait
+        try:
+            gate = run_together(eng, pipe_requests(gate_specs, eos), f"{tag} {on}")
+            idle_metrics(eng, f"{tag} {on}")
+            host = list(ticks)
+            # untraced: 3f traces the same load with the emitter on (the
+            # default) and holds its gaps
+            mixed = mixed_run(eng, np.random.default_rng(SEED + 17),
+                              f"{tag} {on} mixed", trace=False)
+            m = eng.metrics()
+        finally:
+            del eng._tick, eng._wait_ready
+            eng.shutdown()
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        if on != m["emitter"]["enabled"] or (on and not m["emitter"]["emitted"]):
+            raise AssertionError(f"{tag} emitter {on}: {m['emitter']}")
+        runs[on] = {"gate_ids": [r["ids"] for r in gate],
+                    "host_ms_per_tick": sum(host) / max(1, len(host)) * 1e3,
+                    "busy_ticks": len(host),
+                    "ttft_ms": mixed["ttft_ms"], "itl_ms": mixed["itl_ms"]}
+    if runs[True]["gate_ids"] != runs[False]["gate_ids"]:
+        raise AssertionError(f"{tag} greedy tokens differ with the emitter on and off")
+    out = {}
+    for on, r in runs.items():
+        r.pop("gate_ids")
+        out["on" if on else "off"] = r
+        log(f"{tag} {card}: emitter {'on' if on else 'off'}: engine thread "
+            f"{r['host_ms_per_tick']:.3f} ms host time per busy tick, waits for "
+            f"results excluded ({r['busy_ticks']} ticks, 3f's byte gate, tokens "
+            f"identical on and off); 3f's mixed "
+            f"traffic: arrivals' TTFT {', '.join(f'{t:.1f}' for t in r['ttft_ms'])} "
+            f"ms, decoding requests' mean inter-token time "
+            f"{', '.join(f'{t:.2f}' for t in r['itl_ms'])} ms (host clock, "
+            f"untraced)")
     return out
 
 

@@ -22,7 +22,8 @@ engine's shed / timeout / stall events into the 429 / 504 / 503 errors of
 services/errors.py. Speculation takes the JAX options and parsing:
 ``draft`` (auto | model | ngram | 0 / off / none / false), ``n_draft`` (0
 turns it off) and ``spec_ngram``; a draft model (``draft_model``) is not
-served yet and is refused before any weight is loaded.
+served yet and is refused before any weight is loaded. ``emitter`` (on
+by default; 0 / false / off / no = inline emission) is the JAX option.
 """
 
 from __future__ import annotations
@@ -109,7 +110,7 @@ def kv_cache_dtype_of(name: str, model_dtype: torch.dtype):
 
 
 def bool_option(value, name: str = "kv_offload") -> bool:
-    """An on/off option (``kv_offload``, ``preempt``): a bool, or
+    """An on/off option (``kv_offload``, ``preempt``, ``emitter``): a bool, or
     0/false/off/no (off) and 1/true/on/yes or empty (on); anything else
     raises ValueError."""
     if isinstance(value, bool):
@@ -179,8 +180,8 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
     ``kv_host_store`` (``host_store_path``). ``engine_knobs`` are
     EngineConfig fields with the JAX engine's names (prefill_chunk,
     decode_burst, pipeline_depth, prefill_packed_fuse, kv_prefetch_ahead,
-    the lifecycle and scheduler knobs, ...; ``preempt`` parsed as
-    ``kv_offload``), checked before loading too (``EngineConfig.check``).
+    the lifecycle and scheduler knobs, ...; ``preempt`` and ``emitter``
+    parsed as ``kv_offload``), checked before loading too (``EngineConfig.check``).
     Speculation: ``draft`` / ``n_draft`` / ``spec_ngram`` (``spec_options``);
     a ``draft_model`` raises NotImplementedError before anything loads. A
     GPTQ / AWQ dir with no quantization loads as int8."""
@@ -204,8 +205,9 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
             f"ported yet (a later slice, with sampled acceptance); n-gram "
             f"self-speculation (draft=auto / ngram) needs no draft model")
     engine_knobs.update(spec_options(draft, n_draft, spec_ngram))
-    if "preempt" in engine_knobs:
-        engine_knobs["preempt"] = bool_option(engine_knobs["preempt"], "preempt")
+    for name in ("preempt", "emitter"):
+        if name in engine_knobs:
+            engine_knobs[name] = bool_option(engine_knobs[name], name)
     # engine knobs are checked here too, before any weight is loaded
     # (an unknown prefill_packed_fuse, a pipeline_depth below 1, a
     # priority outside high | normal | low)

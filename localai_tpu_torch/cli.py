@@ -12,7 +12,7 @@
         [--preempt 1] [--priority-weights 4:2:1] [--max-preemptions 2] \\
         [--resume-reserve-pages 0] [--priority normal] \\
         [--priority-aging-ms 4000] \\
-        [--draft auto] [--n-draft 4] [--spec-ngram 3] \\
+        [--draft auto] [--n-draft 4] [--spec-ngram 3] [--emitter 1] \\
         [--random-weights SEED] [--device cuda]
 
 serves one model over the OpenAI-compatible HTTP routes until
@@ -101,6 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="proposals per speculative round; 0 = off")
     r.add_argument("--spec-ngram", type=int, default=3,
                    help="the n-gram length prompt lookup matches")
+    r.add_argument("--emitter", default="1",
+                   help="1: detokenization, stop sequences and stream writes "
+                        "on the emitter thread; 0: inline on the engine thread")
     r.add_argument("--random-weights", type=int, default=None, metavar="SEED",
                    help="serve random weights from SEED for a config-only dir")
     r.add_argument("--device", default="cuda")
@@ -138,6 +141,7 @@ def main(argv=None) -> int:
                     resume_reserve_pages=args.resume_reserve_pages,
                     priority=args.priority,
                     priority_aging_ms=args.priority_aging_ms,
+                    emitter=args.emitter,
                     draft=args.draft, n_draft=args.n_draft,
                     spec_ngram=args.spec_ngram)
     app = App({lm.name: lm})

@@ -69,8 +69,10 @@ pack of S segments x W tokens (the current token and the D proposals at
 rows lengths .. lengths + D; a non-speculating slot is a pad segment:
 seg_len 0, the sentinel slot, its tokens at seg_of S and position C)
 through ``llama.ragged_prefill(..., all_logits=True)`` (K2 / K2-int8);
-greedy picks = ``sampling.filter_window``'s rank 0 at every position
-(the plain greedy rule); ``accept_greedy``; the W masked ring pushes;
+the filtered window at every position (``sampling.verify_dist``); a
+greedy spec row accepts greedily against its rank 0 (the plain greedy
+rule), a sampled one by rejection sampling (``accept_sampled``, D + 1
+counter draws a round); the W masked ring pushes;
 ``lengths += n_out`` and the last emitted token becomes the current one;
 the round's ids [W], logprobs [W] and n_out into row ``step`` of
 ``spec_out``. No host data and no branch on a value: it is captured once
@@ -175,9 +177,10 @@ class DecodeGraph:
         and ``spec``): the n-gram proposals from the sampler's ring, a
         verify of the current token + D proposals at rows lengths ..
         lengths + D through ONE continued ragged prefill with logits at
-        every position (K2 / K2-int8), greedy picks from the sampler's own
-        window (``filter_window``'s rank 0, the plain greedy rule), greedy
-        acceptance, the emitted tokens pushed into the ring in order.
+        every position (K2 / K2-int8), the sampler's own window at every
+        position (``verify_dist``), greedy acceptance against its rank 0
+        (the plain greedy rule) or rejection sampling for a sampled row,
+        the emitted tokens pushed into the ring in order.
         Plain rows (active, not spec): the decode step and sampler of
         ``step_body``, with the spec rows masked out of its KV write and
         sampler state. Then ``lengths += n_out``, the last emitted token
@@ -187,7 +190,7 @@ class DecodeGraph:
         drafts = self.spec_propose()
         ids0, lps0 = self.spec_decode(full)
         vlogits = self.spec_verify(drafts)
-        self.spec_accept(drafts, vlogits, ids0, lps0)
+        self.spec_accept(drafts, vlogits, ids0, lps0, full)
         return vlogits
 
     def spec_propose(self) -> torch.Tensor:
@@ -231,25 +234,37 @@ class DecodeGraph:
             seg_of.reshape(-1).to(torch.int32), self.ck, self.cv,
             continued=True, all_logits=True)
 
-    def spec_accept(self, drafts, vlogits, ids0, lps0):
-        """Greedy picks, acceptance and the round's bookkeeping: the
-        emitted tokens of each row (a spec row's accepted proposals and
-        bonus, a plain row's sampled token), the spec rows' ring pushes,
-        the chained tokens / lengths, the output row."""
+    def spec_accept(self, drafts, vlogits, ids0, lps0, full: bool = False):
+        """Acceptance and the round's bookkeeping: the target's filtered
+        window at every verify position (``sampling.verify_dist``, typical-p
+        with the ``full`` variant, as the JAX ``use_typical`` flag); a
+        greedy spec row accepts greedily against the window's rank 0, a
+        sampled one by rejection sampling (``accept_sampled``, its D + 1
+        counter draws); then the emitted tokens of each row (a spec row's
+        accepted proposals and final token, a plain row's sampled token),
+        the spec rows' ring pushes, the chained tokens / lengths, the
+        output row. Logprobs follow the JAX definitions: a greedy spec row
+        reports the verify's log-softmax, a sampled one log p of the
+        filtered window (post-temperature), a plain row the sampler's."""
         S, W = self.tokens.shape[0], self.spec_width
         samp = self.sampler
         active = self.active
         spec = active & self.spec
         plain = active & ~self.spec
-        sel = self._seg_tok
-        sp = {name: t[sel] for name, t in samp.p.items()}
-        idx, _masked, _vals = sampling.filter_window(
-            vlogits, sp, samp.ring[sel], samp.ring_pos[sel], samp.bias[sel],
-            full=False)
-        greedy = idx[:, 0].reshape(S, W).to(drafts.dtype)
-        out_s, n_s, _k = speculative.accept_greedy(drafts, greedy, spec)
+        samp_rows = spec & ~samp.p["greedy"]
+        idx, probs = sampling.verify_dist(vlogits, samp.p, W, typical=full)
+        greedy = idx[:, :, 0].to(drafts.dtype)
+        out_g, n_g, _k = speculative.accept_greedy(drafts, greedy, spec)
         logp = torch.log_softmax(vlogits, dim=-1).reshape(S, W, -1)
-        lp_s = torch.gather(logp, 2, out_s[:, :, None])[:, :, 0]
+        lp_g = torch.gather(logp, 2, out_g[:, :, None])[:, :, 0]
+        out_r, n_r, _kr, counter = speculative.accept_sampled(
+            drafts, idx, probs, samp_rows, seed=samp.seed, counter=samp.counter)
+        samp.counter.copy_(counter)
+        p_out = (probs * (idx == out_r[:, :, None].to(idx.dtype))).sum(dim=-1)
+        lp_r = torch.log(torch.clamp(p_out, min=1e-20))
+        out_s = torch.where(samp_rows[:, None], out_r, out_g)
+        n_s = torch.where(samp_rows, n_r, n_g)
+        lp_s = torch.where(samp_rows[:, None], lp_r, lp_g)
         pad = torch.zeros_like(drafts)
         out = torch.where(spec[:, None], out_s,
                           torch.cat([ids0[:, None].to(pad.dtype), pad], dim=1))
@@ -490,9 +505,12 @@ def eager_rounds(params: dict, cfg: llama.LlamaConfig, cache_k: dict,
     ``DecodeGraph.spec_body`` is held against): fresh tensors per round,
     the plain rows through the sampler over host row lists, the verify
     pack built on the host from the synced lengths (only the spec rows'
-    segments, as the engine's packer builds a pack), the greedy picks and
-    acceptance from the synced logits. Same result layout as
-    ``DecodeGraph.spec_replay`` ([n_rounds, 2 W + 1, S] float64)."""
+    segments, as the engine's packer builds a pack), the acceptance
+    walked position by position on the host from the synced window: a
+    greedy row against rank 0, a sampled row against its counter's
+    uniforms (the final draw by ``sampling.draw_index``). Same result
+    layout as ``DecodeGraph.spec_replay`` ([n_rounds, 2 W + 1, S]
+    float64)."""
     dev = sampler.device
     W, D = width, width - 1
     act = np.asarray(active, np.bool_)
@@ -531,18 +549,47 @@ def eager_rounds(params: dict, cfg: llama.LlamaConfig, cache_k: dict,
                 continued=True, all_logits=True)
             sel = np.repeat(segs, W)
             sp = {name: t[i32(sel).long()] for name, t in sampler.p.items()}
-            idx, _m, _v = sampling.filter_window(
-                vl, sp, None, None, sampler.bias[i32(sel).long()], full=False)
-            greedy = idx[:, 0].reshape(B, W).cpu().numpy()
+            zero = torch.zeros((1, 1), dtype=vl.dtype, device=dev)
+            idx, masked, _v = sampling.filter_window(
+                vl, sp, None, None, zero, full=False, typical=full)
+            idx = idx.reshape(B, W, -1).cpu().numpy()
+            probs = torch.softmax(masked, dim=-1).reshape(B, W, -1).cpu().numpy()
             logp = torch.log_softmax(vl, dim=-1).reshape(B, W, -1).cpu().numpy()
+            greedy_row = sampler.p["greedy"].cpu().numpy()
+            seed = sampler.seed.cpu().numpy()
+            counter = sampler.counter.cpu().numpy()
             for b, i in enumerate(segs):
-                k = 0
-                while k < D and drafts[i, k] == greedy[b, k]:
-                    k += 1
-                seq = drafts[i, :k].tolist() + [int(greedy[b, k])]
+                if greedy_row[i]:
+                    k = 0
+                    while k < D and drafts[i, k] == idx[b, k, 0]:
+                        k += 1
+                    seq = drafts[i, :k].tolist() + [int(idx[b, k, 0])]
+                    lp[:k + 1, i] = logp[b, np.arange(k + 1), seq]
+                else:
+                    # rejection sampling, one position at a time: D
+                    # acceptance uniforms, then one categorical draw
+                    u = sampling.counter_uniform(
+                        torch.full((W,), int(seed[i])),
+                        int(counter[i]) + torch.arange(W)).numpy()
+                    pr = {t: [float(probs[b, j][idx[b, j] == t].sum())
+                              for j in range(W)] for t in drafts[i]}
+                    k = 0
+                    while k < D and u[k] < pr[drafts[i, k]][k]:
+                        k += 1
+                    w = probs[b, k].copy()
+                    if k < D:
+                        w[idx[b, k] == drafts[i, k]] = 0.0
+                        if not (w > 0).any():
+                            w = probs[b, k].copy()
+                    c = int(sampling.draw_index(
+                        torch.from_numpy(w[None]).to(dev),
+                        torch.full((1,), float(u[D]), device=dev))[0])
+                    seq = drafts[i, :k].tolist() + [int(idx[b, k, c])]
+                    lp[:k + 1, i] = [np.log(max(float(probs[b, j][idx[b, j] == t].sum()),
+                                                1e-20)) for j, t in enumerate(seq)]
+                    sampler.counter[i] += W
                 n_out[i] = k + 1
                 emitted[:k + 1, i] = seq
-                lp[:k + 1, i] = logp[b, np.arange(k + 1), seq]
                 # the ring: the emitted tokens in order (the plain rows'
                 # entered it in sampler.sample)
                 for t in seq:

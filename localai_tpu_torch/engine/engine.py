@@ -106,6 +106,10 @@ What this slice keeps of the JAX engine, with the same knob names:
     page cloned; contiguous: the rows copied) and prefills only the last
     prompt token to sample its own first token. A leader cancelled,
     failed or gone before that downgrades its siblings to full prefills.
+    A departure from the JAX engine: a leader paused again within its own
+    admission pass (the newest slot, when aged arrivals preempt) leads no
+    sibling, and the next identical request becomes a leader (JAX seats
+    it as the sibling of the parked leader, and it waits for ever).
 
   * THE HOST TIER of prefix reuse (``kv_offload``, on by default as in
     the JAX engine; engine/kv_offload.py), paged with the prefix cache
@@ -188,7 +192,7 @@ What this slice keeps of the JAX engine, with the same knob names:
     slot is eligible (``_Slot.spec_ok``, at admission, at a resume and
     for a fork sibling) under the JAX purity gates (no logit bias, no
     penalties, no mirostat; the port has no grammar or multimodal
-    input) and one more: temperature <= 0. While an eligible slot
+    input), greedy or sampled. While an eligible slot
     decodes with W = n_draft + 1 rows of headroom past its steps in
     flight, ``_dispatch_decode`` sends a SPEC TICK (``_plan_spec``, the
     JAX rule: decode_burst // W rounds at most, cut to the budget, the
@@ -198,21 +202,46 @@ What this slice keeps of the JAX engine, with the same knob names:
     accept greedily, while every other active slot takes the plain
     decode step in the same round (engine/decode_graph.py::spec_body; on
     the card one captured graph per sampler variant, a tick is R
-    replays). Plain bursts and spec ticks chain on the same device state;
+    replays). A sampled slot (temperature > 0) accepts by rejection
+    sampling against the filtered window at each verify position
+    (``sampling.verify_dist``, typical-p in the full variant;
+    ``speculative.accept_sampled``), which keeps plain sampling's law;
+    its counter RNG draws D + 1 uniforms a round whatever it accepts. Plain bursts and spec ticks chain on the same device state;
     the split fused tick's burst stays plain, as in JAX. A slot emits
     each round's accepted tokens plus the bonus, round by round; rows a
     rejected proposal wrote lie above its length: never committed, never
     in ``_cache_tokens`` or the prefix cache, never offloaded, and
     overwritten by the next round. ``metrics()["spec"]`` has the JAX
-    counters. The one departure from the JAX defaults: a sampled request
-    (temperature > 0) that passes the purity gates decodes as a plain
-    row of the spec tick, where the JAX engine gives it rejection-sampled
-    acceptance (a later slice); its tokens are the port's own
-    ``draft="0"`` tokens for the same seed.
+    counters, split ``by_mode`` into greedy and sampled by each slot's
+    greedy flag when the tick was dispatched (``_Burst.spec_greedy``).
 
-Left for later slices: the snap-back window, sampled speculation and the
-draft model, grammar, self-extend, the emitter thread, the replica pool
-(live migration), the SLO engine and the stall's span-ring dump.
+  * THE EMITTER THREAD (``emitter``, on by default as in the JAX engine;
+    engine/emitter.py). The engine thread keeps the id-level control of
+    emission (``_emit_ev``: EOS, max_tokens, the cache edge and context
+    shift, ``cache_len`` / ``_cache_tokens`` / ``committed``, the release
+    of the finishes it finds) and hands each processed pack, burst or
+    spec tick's tokens to the worker as ONE batch (``_close_sink``); the
+    worker detokenizes, scans for stop sequences, holds back partial
+    stops and puts every event, in FIFO order per stream. A stop the
+    worker finds comes back as a note, applied at the top of the next
+    tick (``_apply_emitter_notes``): the slot is released, its later
+    tokens in flight are dropped (the bursts' skip sets), a context
+    shift's re-prefill queued after the stop goes with it, and
+    ``committed`` is cut back to the rows before the stop token (a
+    finish the engine found itself first keeps its rows: they hold the
+    tokens' true KV). At the cache edge the engine shifts first and the
+    worker scans the trigger token after, as in JAX, so a stop completing
+    there reports the shift's reused rows. Failure and shutdown finals go
+    through the worker's queue behind the stream's tokens (``_final``);
+    a resumed request's stream continues on its paused snapshot's text
+    state. A worker stuck longer than dispatch_stall_ms is replaced
+    (``_check_emitter_wedge``, in the idle branch with the stall
+    watchdog). ``emitter=False`` is the inline path (``_emit``), byte
+    for byte what the port did before.
+
+Left for later slices: the snap-back window, the draft model, grammar,
+self-extend, the replica pool (live migration), the SLO engine, the
+tracer and the stall's span-ring dump.
 """
 
 from __future__ import annotations
@@ -235,6 +264,7 @@ from localai_tpu_torch import resolve_device
 from localai_tpu_torch.engine import sampling
 from localai_tpu_torch.engine.decode_graph import DecodeGraph
 from localai_tpu_torch.engine.detok import IncrementalDetokenizer
+from localai_tpu_torch.engine.emitter import EmitterWorker
 from localai_tpu_torch.engine.kv_offload import HostPageStore, PrefetchPipeline
 from localai_tpu_torch.engine.paging import PagePool, PoolExhausted
 from localai_tpu_torch.engine.prefill_graph import (
@@ -348,6 +378,9 @@ class EngineConfig:
     n_draft: int = 4
     # the n-gram length prompt lookup matches against the slot's history
     spec_ngram: int = 3
+    # the emitter thread (module doc): detokenization, stop sequences and
+    # the stream puts off the engine thread; False = inline emission
+    emitter: bool = True
 
     def check(self):
         """Refuse values the engine does not take (ValueError), before
@@ -457,7 +490,8 @@ class _Slot:
     __slots__ = ("req", "detok", "held_text", "prompt_len",
                  "t_start", "t_first_token", "n_decoded", "t_prefill_ms",
                  "phase", "pending", "written", "cache_len", "committed",
-                 "reused", "prio", "preempts", "spec_ok")
+                 "reused", "prio", "preempts", "spec_ok", "shift_at",
+                 "em_done", "resumed_from")
 
     def __init__(self, req: GenRequest, detok, prompt_len: int):
         self.req = req
@@ -478,6 +512,11 @@ class _Slot:
         self.prio = PRIORITY_RANK.get(req.priority, PRIORITY_RANK["normal"])
         self.preempts = 0        # times this request was paused
         self.spec_ok = False     # may take spec rounds (Engine._spec_eligible)
+        self.shift_at = -1       # n_decoded at the last context shift
+        # the emitter's (engine/emitter.py): the stream is closed; the
+        # paused snapshot this resumed request continues
+        self.em_done = False
+        self.resumed_from = None
 
 
 class _DispatchStall(Exception):
@@ -515,10 +554,11 @@ class _Burst:
     dispatch; ``group`` / ``head``: a fused tick's finals and its pack;
     ``skip``: slots whose tokens in it must be dropped (context-shifted
     after the dispatch). A spec tick has ``spec_width`` W > 0 (its
-    ``n_steps`` are rounds) and ``spec_mask`` [S], the slots that took
-    spec rounds."""
+    ``n_steps`` are rounds), ``spec_mask`` [S], the slots that took spec
+    rounds, and ``spec_greedy`` [S], the slots' greedy flags at dispatch
+    (which acceptance each spec row ran)."""
     __slots__ = ("n_steps", "slots", "fetch", "group", "head", "skip", "t0",
-                 "faults_seen", "spec_mask", "spec_width")
+                 "faults_seen", "spec_mask", "spec_width", "spec_greedy")
 
     def __init__(self, n_steps: int, slots: list, fetch: Fetch, t0: float,
                  group=(), head: Optional[_Pack] = None):
@@ -532,6 +572,7 @@ class _Burst:
         self.faults_seen = False
         self.spec_mask: Optional[np.ndarray] = None
         self.spec_width = 0
+        self.spec_greedy: Optional[np.ndarray] = None
 
 
 def _host_pages(rows) -> list:
@@ -736,7 +777,7 @@ class Engine:
         # dispatches: spec ticks; mixed_dispatches: those that also carried
         # plain rows; rounds / proposed / accepted / tokens: per-slot round
         # totals (tokens = emitted, accepted + bonus); by_mode the same per
-        # acceptance mode (the JAX engine's; "sampled" stays 0 here)
+        # acceptance mode (the JAX engine's: greedy / rejection-sampled)
         self._spec_stats = {"dispatches": 0, "mixed_dispatches": 0,
                             "rounds": 0, "proposed": 0, "accepted": 0,
                             "tokens": 0,
@@ -771,6 +812,12 @@ class Engine:
                                     self.sampler, S, C, self._pack_buckets,
                                     self.device)
         self._sink: Optional[dict] = None   # per-slot event coalescing
+        # the emitter thread (module doc): the tick's token batch, the
+        # notes of the stops it found, the worker (None: inline emission)
+        self._em_batch: dict = {}
+        self._em_notes: list = []
+        self._em_lock = threading.Lock()
+        self._emitter = self._make_emitter() if self.ecfg.emitter else None
         # the pipelined loop (module doc): dispatched _Pack / _Burst items
         # in dispatch order; slots whose decode state the next burst takes
         # from the host mirrors; fork siblings by their leader's _Slot
@@ -869,8 +916,7 @@ class Engine:
                           finish_reason="stop", error="engine shut down")
         for i, s in enumerate(self.slots):
             if s is not None:
-                s.req.out.put(err)
-                s.req.out.put(None)
+                self._final(i, s, [err, None])
                 self._release_slot(i)
         while True:
             try:
@@ -880,8 +926,9 @@ class Engine:
             req.out.put(err)
             req.out.put(None)
         for entry in self._sched.drain_parked() if self._sched else ():
-            entry.req.out.put(err)
-            entry.req.out.put(None)
+            self._final_parked(entry, [err, None])
+        if self._emitter is not None:
+            self._emitter.stop(timeout=5.0)
         # the offloads in flight land in the store before it is saved
         self._offloader.close()
         if self._hstore is not None and self.ecfg.kv_host_store_path:
@@ -1006,6 +1053,10 @@ class Engine:
                            "fuse": self._fuse, "inflight": self._n_inflight(),
                            **self._pipe_stats}
         out["fork"] = dict(self._fork_stats)
+        em = self._emitter
+        out["emitter"] = ({"enabled": True, "alive": em.alive,
+                           "queued": em.qsize(), "emitted": em.emitted}
+                          if em is not None else {"enabled": False})
         # speculation (the JAX engine's keys): the counters and two rates,
         # acceptance (accepted / proposed) and emitted tokens per slot-round
         # (1.0: speculation buys nothing)
@@ -1136,8 +1187,10 @@ class Engine:
             try:
                 if not self._tick():
                     # a dispatched item the loop is not waiting on may sit
-                    # in the FIFO while it idles: the watchdog covers it
+                    # in the FIFO while it idles, and the emitter may be
+                    # stuck: the watchdog covers both
                     self._check_parked_stall()
+                    self._check_emitter_wedge()
                     self._wake.wait(timeout=self._idle_wait_s)
                     self._wake.clear()
             except _DispatchStall as st:
@@ -1151,6 +1204,8 @@ class Engine:
         dispatch a pack and a burst (neither waits), then process what the
         FIFO rule allows. False when nothing happened (idle)."""
         self._autosize_reserve()
+        # the stops the emitter found: their slots free before admission
+        noted = self._apply_emitter_notes()
         admitted = self._admit()
         if self._prefetch is not None:
             # the host links of requests still queued upload now, ahead
@@ -1159,7 +1214,7 @@ class Engine:
         prefilled = self._dispatch_prefill()
         dispatched = self._dispatch_decode()
         drained = self._drain_fifo(can_feed=prefilled or dispatched)
-        return admitted or prefilled or dispatched or drained
+        return noted or admitted or prefilled or dispatched or drained
 
     def _fail_active(self, e: Exception):
         log.exception("engine step failed")
@@ -1169,10 +1224,9 @@ class Engine:
         self._drop_prefetched()
         for i, s in enumerate(self.slots):
             if s is not None:
-                s.req.out.put(StreamEvent(
+                self._final(i, s, [StreamEvent(
                     token_id=-1, text="", logprob=0.0, finish_reason="stop",
-                    error=f"{type(e).__name__}: {e}"))
-                s.req.out.put(None)
+                    error=f"{type(e).__name__}: {e}"), None])
                 self._release_slot(i)
 
     def _reap_cancelled(self):
@@ -1189,14 +1243,14 @@ class Engine:
         for i, s in enumerate(self.slots):
             if s is not None and s.req.request_id in ids:
                 self._release_slot(i)
-                s.req.out.put(None)
+                self._final(i, s, [None])
                 # a cancelled leader must not strand its fork siblings
                 self._process_fork_waiters(i, s)
         if self._sched is not None and self._sched.resume_depth:
             for rid in ids:
                 entry = self._sched.remove_parked(rid)
                 if entry is not None:
-                    entry.req.out.put(None)
+                    self._final_parked(entry, [None])
         with self._queue.mutex:
             queued = {r.request_id for r in self._queue.queue}
         with self._cancel_lock:
@@ -1231,12 +1285,12 @@ class Engine:
             return
         with self._cancel_lock:
             cancelled = set(self._cancelled)
-        for s in self.slots:
+        for i, s in enumerate(self.slots):
             if (s is not None and s.req.deadline and now > s.req.deadline
                     and s.req.request_id not in cancelled):
                 # decoding for a dead client: the error now, then the
                 # cancel path releases the slot and closes the stream
-                s.req.out.put(self._timeout_event(s.req))
+                self._final(i, s, [self._timeout_event(s.req)])
                 self.cancel(s.req.request_id)
 
     def _admit(self) -> bool:
@@ -1276,7 +1330,9 @@ class Engine:
         key = (tuple(int(t) for t in req.prompt_ids),
                min(req.max_new_tokens, self.ecfg.max_context // 4))
         try:
-            if key in leaders:
+            # a leader this pass paused again (an aged arrival's
+            # preemption) cannot lead: its waiters would wait for ever
+            if key in leaders and self.slots[leaders[key][0]] is leaders[key][1]:
                 self._start_fork_sibling(req, *leaders[key])
             else:
                 slot, ids, s = self._start_request(req)
@@ -1430,7 +1486,8 @@ class Engine:
             n_decoded=s.n_decoded, prompt_len=s.prompt_len, detok=s.detok,
             held_text=s.held_text, t_start=s.t_start,
             t_first_token=s.t_first_token or None, t_prefill_ms=s.t_prefill_ms,
-            mu=self.sampler.mu[slot].clone(), preempt_count=s.preempts + 1))
+            mu=self.sampler.mu[slot].clone(), preempt_count=s.preempts + 1,
+            snap=s))
         # the reserve autosize's input: the preemption's time and pages
         pages = committed // (self._pool.page_size if self._pool else 1)
         self._preempt_marks.append(time.monotonic())
@@ -1560,6 +1617,9 @@ class Engine:
             s.t_first_token = resume.t_first_token or 0.0
             s.t_prefill_ms = resume.t_prefill_ms
             s.preempts = resume.preempt_count
+            if self._emitter is not None:
+                # the emitter grafts the paused stream's text state on
+                s.resumed_from = resume.snap
             if resume.mu is not None:
                 self.sampler.mu[slot].copy_(resume.mu)
         self._prefill_queue.append(slot)
@@ -1581,11 +1641,11 @@ class Engine:
         """Whether a request may take spec rounds: the JAX admission
         gates (no logit bias, penalties or mirostat, whose per-token state
         one frozen verify cannot follow; the port has no grammar or
-        multimodal input), and greedy only: sampled acceptance is a later
-        slice (module doc). The n-gram drafter keeps no state, so a resume
-        and a fork sibling qualify as a fresh admission does."""
+        multimodal input). Greedy requests accept greedily, sampled ones
+        by rejection sampling. The n-gram drafter keeps no state, so a
+        resume and a fork sibling qualify as a fresh admission does."""
         sp = req.params
-        return (self._spec_mode != "off" and sp.temperature <= 0
+        return (self._spec_mode != "off"
                 and not sp.logit_bias and sp.repeat_penalty in (0.0, 1.0)
                 and sp.presence_penalty == 0.0 and sp.frequency_penalty == 0.0
                 and (sp.mirostat or 0) == 0)
@@ -2191,7 +2251,7 @@ class Engine:
         t1 = time.monotonic()
         if not item.split:
             self._pack_stats["seconds"] += t1 - item.t0
-        self._sink = {}
+        self._open_sink()
         try:
             for b, (slot, s) in enumerate(item.group):
                 if self.slots[slot] is not s:
@@ -2211,7 +2271,7 @@ class Engine:
                     s.t_first_token = t1
                 self._emit(slot, int(ids[b]), float(lps[b]))
         finally:
-            self._flush_sink()
+            self._close_sink()
         for slot, s in item.group:
             self._process_fork_waiters(slot, s)
 
@@ -2441,6 +2501,7 @@ class Engine:
         if spec_mask is not None:
             b.spec_mask = spec_mask & active
             b.spec_width = self._spec_width
+            b.spec_greedy = self.sampler.host["greedy"].copy()
             st["spec_ticks"] += 1
             st["spec_rounds"] += n_steps
             self._spec_stats["dispatches"] += 1
@@ -2590,12 +2651,12 @@ class Engine:
         if isinstance(item, _Pack):
             item.processed = True     # its chained burst must not wait on it
         for i, snap in stalled:
-            snap.req.out.put(StreamEvent(
+            # with the emitter, behind the tokens it still holds
+            self._final(i, snap, [StreamEvent(
                 token_id=-1, text="", logprob=0.0, finish_reason="stop",
                 error=(f"device dispatch stalled > "
                        f"{self.ecfg.dispatch_stall_ms} ms; request aborted"),
-                error_kind="stall"))
-            snap.req.out.put(None)
+                error_kind="stall"), None])
             self._release_slot(i)
             self._process_fork_waiters(i, snap)
 
@@ -2616,7 +2677,7 @@ class Engine:
         ids_np = host[:, 0].astype(np.int64)
         lps_np = host[:, 1]
         dropped = 0
-        self._sink = {}
+        self._open_sink()
         try:
             for j in range(b.n_steps):
                 for i, snap in b.slots:
@@ -2628,7 +2689,7 @@ class Engine:
                     snap.committed = min(snap.committed + 1, snap.cache_len)
                     self._emit(i, int(ids_np[j, i]), float(lps_np[j, i]))
         finally:
-            self._flush_sink()
+            self._close_sink()
         self._pipe_stats["dropped_steps"] += dropped
         for i, snap in b.slots:
             if i not in b.skip and self.slots[i] is snap and snap.phase == "decode":
@@ -2658,13 +2719,14 @@ class Engine:
         for i, snap in b.slots:
             tot = int(n_out[:, i].sum())
             if live(i, snap) and tot > 0 and b.spec_mask[i]:
-                for c in (st, st["by_mode"]["greedy"]):
+                mode = "greedy" if b.spec_greedy[i] else "sampled"
+                for c in (st, st["by_mode"][mode]):
                     c["rounds"] += R
                     c["proposed"] += R * (W - 1)
                     c["accepted"] += tot - R
                     c["tokens"] += tot
         dropped = 0
-        self._sink = {}
+        self._open_sink()
         try:
             for r in range(R):
                 for i, snap in b.slots:
@@ -2678,7 +2740,7 @@ class Engine:
                         snap.committed = min(snap.committed + 1, snap.cache_len)
                         self._emit(i, int(ids[r, j, i]), float(lps[r, j, i]))
         finally:
-            self._flush_sink()
+            self._close_sink()
         self._pipe_stats["dropped_steps"] += dropped
         for i, snap in b.slots:
             if live(i, snap):
@@ -2687,15 +2749,50 @@ class Engine:
 
     # ---------- emission ----------
 
-    def _flush_sink(self):
+    def _open_sink(self):
+        """Start a processed item's emission: inline, its events coalesce
+        per slot (``_sink``); with the emitter, its tokens gather in the
+        batch handed over at ``_close_sink``."""
+        if self._emitter is None:
+            self._sink = {}
+
+    def _close_sink(self):
+        if self._emitter is not None:
+            self._flush_em_batch()
+            return
         sink, self._sink = self._sink, None
         for out, evs in (sink or {}).values():
             out.put(evs[0] if len(evs) == 1 else _merge_events(evs))
 
+    def _final(self, slot: int, s: _Slot, evs: list):
+        """A failure's or shutdown's final events for a slotted stream:
+        with the emitter, through its queue, behind the tokens it still
+        holds for the stream (the JAX engine's ``push_final``); inline,
+        straight to the stream."""
+        if self._emitter is not None:
+            self._emitter.push_final(slot, s, evs)
+        else:
+            for ev in evs:
+                s.req.out.put(ev)
+
+    def _final_parked(self, entry: ResumeEntry, evs: list):
+        """``_final`` for a parked (preempted) request, whose paused
+        snapshot the emitter may still hold tokens of."""
+        if self._emitter is not None and entry.snap is not None:
+            self._emitter.push_final(-1, entry.snap, evs)
+        else:
+            for ev in evs:
+                entry.req.out.put(ev)
+
     def _emit(self, slot: int, token_id: int, logprob: float):
         """Emit one token of a slot: EOS / max-tokens / stop sequences
         finish the request and release the slot; at the cache edge the
-        slot shifts its context (or, without context_shift, finishes)."""
+        slot shifts its context (or, without context_shift, finishes).
+        With the emitter, ``_emit_ev`` does the id-level part and the
+        worker the text."""
+        if self._emitter is not None:
+            self._emit_ev(slot, token_id, logprob)
+            return
         s = self.slots[slot]
         s.n_decoded += 1
         self._decode_stats["tokens"] += 1
@@ -2728,16 +2825,7 @@ class Engine:
                          completion_tokens=s.n_decoded)
         key = id(s)
         if finish:
-            dt = time.monotonic() - s.t_first_token
-            ev.timings = {
-                "prefill_ms": s.t_prefill_ms,
-                "queue_wait_ms": max(0.0, (s.t_start - s.req.t_submit) * 1e3)
-                if s.req.t_submit else 0.0,
-                "admit_to_first_ms": max(0.0, (s.t_first_token - s.t_start) * 1e3),
-                "decode_tokens_per_s": (s.n_decoded - 1) / dt
-                if dt > 0 and s.n_decoded > 1 else 0.0,
-                "reused_prompt_tokens": s.reused,
-            }
+            ev.timings = self._finish_timings(s)
             self._release_slot(slot)
             if self._sink is not None and key in self._sink:
                 _out, evs = self._sink.pop(key)
@@ -2748,6 +2836,172 @@ class Engine:
             self._sink.setdefault(key, (s.req.out, []))[1].append(ev)
         else:
             s.req.out.put(ev)
+
+    def _finish_timings(self, s: _Slot) -> dict:
+        """A finished request's timings (its final event's)."""
+        dt = time.monotonic() - s.t_first_token
+        return {
+            "prefill_ms": s.t_prefill_ms,
+            "queue_wait_ms": max(0.0, (s.t_start - s.req.t_submit) * 1e3)
+            if s.req.t_submit else 0.0,
+            "admit_to_first_ms": max(0.0, (s.t_first_token - s.t_start) * 1e3),
+            "decode_tokens_per_s": (s.n_decoded - 1) / dt
+            if dt > 0 and s.n_decoded > 1 else 0.0,
+            "reused_prompt_tokens": s.reused,
+        }
+
+    # ---------- the emitter thread ----------
+
+    def _make_emitter(self) -> EmitterWorker:
+        # the callbacks hold the note list, its lock and the wake event,
+        # not the engine: no cycle keeps a shut-down engine's weights
+        notes, lock, wake = self._em_notes, self._em_lock, self._wake
+
+        def note(slot, snap, ndec):
+            with lock:
+                notes.append(("stop", slot, snap, ndec))
+            wake.set()
+
+        def note_abort(slot, snap):
+            with lock:
+                notes.append(("abort", slot, snap, 0))
+            wake.set()
+
+        return EmitterWorker(stream_event=StreamEvent, merge_events=_merge_events,
+                             note_finish=note, note_abort=note_abort)
+
+    def _emit_ev(self, slot: int, token_id: int, logprob: float):
+        """The emitter's half of ``_emit`` (the JAX engine's
+        ``_emit_token_ev``): the id-level control flow (EOS, max_tokens,
+        the cache edge and context shift, ``cache_len`` and
+        ``_cache_tokens``, the release of the finishes found here), and
+        the token joins the batch the worker gets at ``_close_sink``. The
+        worker detokenizes, scans for stops and puts the events; a stop it
+        finds comes back as a note (``_apply_emitter_notes``)."""
+        s = self.slots[slot]
+        s.n_decoded += 1
+        self._decode_stats["tokens"] += 1
+        finish = None
+        shifted = False
+        edge = s.cache_len + 1 >= self.ecfg.max_context - 1
+        if token_id in self.eos_ids and not s.req.ignore_eos:
+            finish = "stop"
+        elif (s.n_decoded >= s.req.max_new_tokens
+              or (edge and not self.ecfg.context_shift)):
+            finish = "length"
+        elif edge:
+            # the worker still scans this token; a stop it completes ends
+            # the shifted slot through a note (the re-prefill is wasted
+            # work, the stream is the inline one's)
+            self._context_shift(slot, s, token_id)
+            shifted = True
+        if finish is None and not shifted:
+            s.cache_len += 1      # this token's KV is written by the next step
+            self._cache_tokens[slot].append(token_id)
+        key = (slot, id(s))
+        e = self._em_batch.get(key)
+        if e is None:
+            e = self._em_batch[key] = {"slot": slot, "snap": s, "tokens": [],
+                                       "finish": None, "timings": None}
+        # n_decoded per token: the snapshot moves on while the batch queues
+        e["tokens"].append((token_id, logprob, s.n_decoded))
+        if finish:
+            e["finish"], e["timings"] = finish, self._finish_timings(s)
+            self._release_slot(slot)
+
+    def _flush_em_batch(self):
+        """Hand the processed item's tokens to the worker as ONE queue
+        item: per-slot FIFO order is the queue's order."""
+        if self._em_batch:
+            batch, self._em_batch = self._em_batch, {}
+            self._emitter.push_batch(list(batch.values()))
+
+    def _slot_of(self, snap: _Slot) -> Optional[int]:
+        """The slot that runs ``snap``'s request now (a resume may have
+        moved it), or None."""
+        for i, s in enumerate(self.slots):
+            if s is snap or (s is not None and s.req is snap.req):
+                return i
+        return None
+
+    def _apply_emitter_notes(self) -> bool:
+        """The finishes the worker found (the JAX engine's
+        ``_apply_emitter_notes``), on the engine thread at the top of a
+        tick. "stop": a stop sequence completed, the stream is closed;
+        "abort": the worker failed the stream. The slot is released (a
+        context shift's re-prefill queued after the stop leaves the queue
+        with it), added to every burst's and spec tick's skip set in
+        flight, and its fork waiters resolve; a request parked meanwhile
+        leaves the resume queue. For a stop, ``committed`` is cut back to
+        the rows before the stop token, so the rows kept for reuse are the
+        inline path's. Host work only: nothing is written to the card."""
+        if self._emitter is None or not self._em_notes:
+            return False
+        with self._em_lock:
+            notes = list(self._em_notes)
+            self._em_notes.clear()
+        for kind, _slot, snap, ndec in notes:
+            slot = self._slot_of(snap)
+            if slot is None:
+                # finished by the engine meanwhile, or parked
+                if self._sched is not None:
+                    self._sched.remove_parked(snap.req.request_id)
+                continue
+            s = self.slots[slot]
+            if kind == "stop":
+                if s.shift_at > ndec:
+                    s.committed = 0   # a shift past the stop rebuilt the history
+                else:
+                    # tokens past the stop joined _cache_tokens, the stop
+                    # token included; their rows are not kept
+                    extra = s.n_decoded - ndec
+                    s.committed = max(0, min(
+                        s.committed, len(self._cache_tokens[slot]) - 1 - extra))
+            for b in self._fifo:
+                if isinstance(b, _Burst):
+                    b.skip.add(slot)
+            self._release_slot(slot)
+            self._process_fork_waiters(slot, s)
+        return True
+
+    def _check_emitter_wedge(self):
+        """The watchdog for the worker (the JAX engine's
+        ``_check_emitter_wedge``): stuck on one item longer than
+        dispatch_stall_ms, or dead with work queued, it is replaced. The
+        streams of the items it still held and every running request get
+        a "stall" event and close; their slots are released."""
+        em = self._emitter
+        stall_s = self.ecfg.dispatch_stall_ms / 1e3
+        if em is None or stall_s <= 0:
+            return
+        t = em.t_item_start
+        if not ((t > 0 and time.monotonic() - t > stall_s)
+                or (not em.alive and em.qsize() > 0)):
+            return
+        log.error("emitter wedged (> %d ms on one item); replacing the worker",
+                  self.ecfg.dispatch_stall_ms)
+        with self._lc_lock:
+            self._lc["stalls"] += 1
+        victims: dict = {}
+        for it in em.takeover():
+            snaps = [e["snap"] for e in it[1]] if it[0] == "batch" else [it[2]]
+            for snap in snaps:
+                victims[id(snap)] = snap
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                victims[id(s)] = s
+                self._release_slot(i)
+                self._process_fork_waiters(i, s)
+        for s in victims.values():
+            if s.em_done:
+                continue
+            s.em_done = True
+            s.req.out.put(StreamEvent(
+                token_id=-1, text="", logprob=0.0, finish_reason="stop",
+                error=(f"emitter wedged > {self.ecfg.dispatch_stall_ms} ms; "
+                       f"request aborted"), error_kind="stall"))
+            s.req.out.put(None)
+        self._emitter = self._make_emitter()
 
     def _context_shift(self, slot: int, s: _Slot, token_id: int):
         """The cache is full mid-generation: keep the last max_context // 2
@@ -2767,6 +3021,7 @@ class Engine:
                                     self._cache_tokens[slot][:s.committed])
             self._pool.release(slot, 0)
         s.phase = "prefill"
+        s.shift_at = s.n_decoded
         s.pending = list(new_ids)
         s.written = s.cache_len = s.committed = 0
         self._cache_tokens[slot] = list(new_ids)

@@ -151,14 +151,18 @@ def window_counts(ring, pos, idx, repeat_last_n):
 
 
 def filter_window(logits: torch.Tensor, sp: dict, ring, ring_pos,
-                  bias: torch.Tensor, mu=None, full: bool = True):
+                  bias: torch.Tensor, mu=None, full: bool = True,
+                  typical: Optional[bool] = None):
     """logits [R, V] f32, per-row parameter vectors ``sp`` [R] (names of
     ``PARAMS``), the rows' rings ring [R, RING_N] / ring_pos [R], bias
     [R, V] and mirostat's ``mu`` [R] -> (idx [R, K]
     candidate ids, masked [R, K] filtered log-probs (-inf outside the keep
     set, rank 0 always kept), vals [R, K] the post-penalty,
     pre-temperature window logits). ``full=False`` is the plain variant:
-    no penalties, typical-p or mirostat (ring and mu unread)."""
+    no penalties, typical-p or mirostat (ring and mu unread).
+    ``typical`` (default: ``full``) applies typical-p alone, as the JAX
+    ``use_typical`` flag does (``verify_dist``)."""
+    typical = full if typical is None else typical
     k = min(SORT_K, logits.shape[-1])
     top_vals, top_idx = torch.topk(logits + bias, k, dim=-1)  # sorted desc
     if full:
@@ -186,7 +190,7 @@ def filter_window(logits: torch.Tensor, sp: dict, ring, ring_pos,
     keep = keep & ((cum - probs) < sp["top_p"][:, None])
     keep = keep & (probs >= sp["min_p"][:, None] * probs[:, :1])
     logp = torch.log(torch.clamp(probs, min=1e-20))
-    if full:
+    if typical:
         # typical-p: the tokens whose -log p lies closest to the entropy,
         # until their mass reaches typical_p
         entropy = -torch.where(probs > 0, probs * logp,
@@ -214,6 +218,40 @@ def filter_window(logits: torch.Tensor, sp: dict, ring, ring_pos,
     else:
         masked = torch.where(keep, logp, neg_inf)
     return idx, masked, vals
+
+
+def verify_dist(logits: torch.Tensor, sp: dict, width: int,
+                typical: bool = True):
+    """The filtered target distribution at every speculative-verify
+    position (the JAX ``verify_dist``): logits [S * W, V] from the verify
+    forward (slot-major, ``width`` W positions per slot), ``sp`` the [S]
+    parameter vectors, repeated over each slot's W positions. Returns
+    (idx [S, W, K] candidate ids, probs [S, W, K] the softmax of
+    ``filter_window``'s ``masked``: the law each position's plain draw
+    takes). The same window code path as the decode step's sampler, so
+    rejection acceptance against these probs keeps plain sampling's law.
+    Penalties, mirostat and bias stay out (the spec purity gates keep
+    slots that use them out of spec rounds); typical-p follows the
+    sampler variant (``typical``). Greedy picks are ``idx[:, :, 0]``."""
+    W = width
+    rep = {name: t.repeat_interleave(W) for name, t in sp.items()}
+    zero_bias = torch.zeros((1, 1), dtype=logits.dtype, device=logits.device)
+    idx, masked, _vals = filter_window(logits, rep, None, None, zero_bias,
+                                       full=False, typical=typical)
+    probs = torch.softmax(masked, dim=-1)
+    S = logits.shape[0] // W
+    return idx.reshape(S, W, -1), probs.reshape(S, W, -1)
+
+
+def draw_index(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF draw of one index per row from non-negative ``weights``
+    [R, K] (not necessarily normalized) with uniforms ``u`` [R]: the first
+    index whose cumulative weight reaches ``u`` x the row's total (the
+    rule of ``SlotSampler._draw``; a leading zero-weight entry is never
+    drawn, even at u = 0)."""
+    cdf = torch.cumsum(weights, dim=-1)
+    below = (cdf < u[:, None] * cdf[:, -1:]) | (cdf <= 0)
+    return below.sum(dim=-1).clamp(max=weights.shape[-1] - 1)
 
 
 def mirostat_mu(mu, masked, choice, sp):
@@ -323,10 +361,8 @@ class SlotSampler:
         int64, logprobs [R] f32, mu after the draw [R])."""
         idx, masked, vals = filter_window(logits, sp, ring, ring_pos, bias,
                                           mu=mu, full=full)
-        u = counter_uniform(seed, counter)
-        cdf = torch.cumsum(torch.softmax(masked, dim=-1), dim=-1)
-        choice = (cdf < u[:, None] * cdf[:, -1:]).sum(dim=-1)
-        choice = choice.clamp(max=idx.shape[-1] - 1)
+        choice = draw_index(torch.softmax(masked, dim=-1),
+                            counter_uniform(seed, counter))
         rank = torch.where(sp["greedy"], torch.zeros_like(choice), choice)
         ids = torch.gather(idx, 1, rank[:, None])[:, 0]
         # the logprob under the post-penalty, pre-temperature window

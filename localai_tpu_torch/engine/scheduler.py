@@ -99,6 +99,9 @@ class ResumeEntry:
     mu: Optional[Any] = None   # the slot's mirostat state (a 0-d tensor)
     preempt_count: int = 1
     t_parked: float = field(default_factory=time.monotonic)
+    # the engine's paused slot snapshot (its emitter grafts the stream's
+    # text state from it at resume); None where nothing needs it
+    snap: Any = None
 
 
 class Scheduler:

@@ -23,16 +23,30 @@ CURRENT token (the last emitted) is not yet written; a round writes it
 as its first row. Rows written for rejected proposals lie at or above
 the new length: never committed, and overwritten by the next round.
 
-Left for later slices: ``draft_propose`` (the draft model's proposals),
-``accept_sampled`` and ``two_sample_chi2`` (rejection-sampled acceptance
-for temperature > 0, with ``sampling.verify_dist``), and ``spec_round``
-(its n-gram analogue is what the CPU tests compose from the JAX
-functions as the reference).
+SAMPLED ACCEPTANCE (temperature > 0, ``accept_sampled``): the target's
+filtered window at every verify position (``sampling.verify_dist``) is
+the law plain sampling draws from; proposal x_j is accepted with
+probability p(x_j) (the proposals are deterministic, so the draft law is
+a one-hot), the first rejection draws one token from p with x_j zeroed,
+and full acceptance draws the bonus from p at the last position. The
+emitted stream then has plain sampling's law exactly, though not its
+bits: both draw from the counter RNG, but a round consumes D + 1 draws
+where plain steps consume one per token. ``two_sample_chi2`` is the
+test that holds two samples to one law.
+
+Left for later slices: ``draft_propose`` (the draft model's proposals)
+and ``spec_round`` (its n-gram analogue is what the CPU tests compose
+from the JAX functions as the reference).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
+
+from localai_tpu_torch.engine.sampling import counter_uniform, draw_index
 
 
 def ngram_propose(tokens: torch.Tensor, ring: torch.Tensor,
@@ -97,3 +111,82 @@ def accept_greedy(drafts: torch.Tensor, greedy: torch.Tensor,
                                   zero))
     n_out = (k + 1) * active.to(torch.int64)
     return out, n_out, k
+
+
+def accept_sampled(drafts: torch.Tensor, idx: torch.Tensor, probs: torch.Tensor,
+                   active: torch.Tensor, seed: Optional[torch.Tensor] = None,
+                   counter: Optional[torch.Tensor] = None,
+                   uniforms: Optional[torch.Tensor] = None):
+    """Rejection-sampled acceptance for sampled slots (the JAX
+    ``accept_sampled`` with ``draft_probs=None``), in window space.
+
+    drafts [S, D] proposals; idx / probs [S, D + 1, K] the filtered target
+    window at every verify position (``sampling.verify_dist``; a token
+    outside a row's window has p = 0, and ``idx = arange(V)`` with vocab
+    probs is the vocabulary form); active [S] bool. The draws: ``uniforms``
+    [S, D + 1] when given (D acceptance uniforms, then the categorical's),
+    else ``counter_uniform(seed, counter + j)`` for j <= D from the rows'
+    ``seed`` / ``counter`` [S].
+
+    Proposal x_j is accepted when u_j < p_j(x_j); k = the accepted prefix.
+    The final token is drawn by inverse CDF (``sampling.draw_index``, the
+    sampler's rule) from p_k with x_k zeroed when k < D (the residual;
+    when that is empty, from p_k itself), else from p_D (the bonus). The
+    schedule is data-independent: every active row consumes D + 1 draws.
+    Returns (out [S, D + 1] emitted tokens, zero past them; n_out [S] =
+    k + 1 on an active row, 0 on another; k [S]; counter + (D + 1) on the
+    active rows, the counter unchanged elsewhere, or None without one)."""
+    S, D = drafts.shape
+    dev = drafts.device
+    if uniforms is None:
+        j = torch.arange(D + 1, device=dev)
+        uniforms = counter_uniform(seed[:, None], counter[:, None] + j[None, :])
+    # p_j(x_j): the proposal's mass in its position's window (0 outside)
+    hit = idx[:, :D] == drafts[:, :, None].to(idx.dtype)                 # [S, D, K]
+    p_dr = (probs[:, :D] * hit).sum(dim=-1)                              # [S, D]
+    accept = (uniforms[:, :D] < p_dr).to(torch.int64)
+    k = torch.cumprod(accept, dim=1).sum(dim=1)                          # [S]
+    row = torch.gather(probs, 1, k[:, None, None].expand(-1, 1, probs.shape[-1]))[:, 0]
+    row_idx = torch.gather(idx, 1, k[:, None, None].expand(-1, 1, idx.shape[-1]))[:, 0]
+    # on a rejection the proposal at k leaves the row (the residual)
+    x_k = torch.gather(drafts, 1, k.clamp(max=D - 1)[:, None])[:, 0]
+    resid = torch.where((k < D)[:, None] & (row_idx == x_k[:, None].to(row_idx.dtype)),
+                        torch.zeros_like(row), row)
+    fin = torch.where((resid > 0).any(dim=-1, keepdim=True), resid, row)
+    choice = draw_index(fin, uniforms[:, D])
+    final_tok = torch.gather(row_idx, 1, choice[:, None])[:, 0]
+    pos = torch.arange(D + 1, device=dev)[None, :]
+    drafts_pad = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+    out = torch.where(pos < k[:, None], drafts_pad,
+                      torch.where(pos == k[:, None], final_tok[:, None].to(drafts.dtype),
+                                  torch.zeros_like(drafts_pad)))
+    n_out = (k + 1) * active.to(torch.int64)
+    new_counter = None
+    if counter is not None:
+        new_counter = counter + (D + 1) * active.to(counter.dtype)
+    return out, n_out, k, new_counter
+
+
+def two_sample_chi2(counts_a, counts_b, min_expected: float = 5.0):
+    """Two-sample chi-square homogeneity test over per-category counts (the
+    JAX ``two_sample_chi2``, host numpy). Categories whose combined count
+    is below ``min_expected`` pool into one bin. Returns (stat, dof,
+    p_value); p is uniform on [0, 1] when both samples draw from one law.
+    The unequal-N form: sum (K1 a_i - K2 b_i)^2 / (a_i + b_i), K1 =
+    sqrt(NB / NA), K2 = sqrt(NA / NB); p from ``scipy.stats.chi2``."""
+    from scipy.stats import chi2
+
+    a = np.asarray(counts_a, np.float64).ravel()
+    b = np.asarray(counts_b, np.float64).ravel()
+    big = (a + b) >= min_expected
+    a = np.concatenate([a[big], [a[~big].sum()]])
+    b = np.concatenate([b[big], [b[~big].sum()]])
+    keep = (a + b) > 0
+    a, b = a[keep], b[keep]
+    if len(a) < 2 or a.sum() == 0 or b.sum() == 0:
+        return 0.0, 0, 1.0
+    k1 = np.sqrt(b.sum() / a.sum())
+    k2 = np.sqrt(a.sum() / b.sum())
+    stat = float(np.sum((k1 * a - k2 * b) ** 2 / (a + b)))
+    dof = int(len(a) - 1)
+    return stat, dof, float(chi2.sf(stat, dof))

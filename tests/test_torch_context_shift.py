@@ -20,7 +20,8 @@ Per request the tokens, finish reason, completion_tokens and
 reused_prompt_tokens equal the JAX Engine's. Then, on the paged case:
 with ``context_shift`` off both stop with "length" at the same token; a
 stop sequence completing on the trigger token finishes with "stop" on
-both; and a request cancelled during its shift's re-prefill keeps only
+both, with the same reused_prompt_tokens (both emitter threads shift
+before the stop scan); and a request cancelled during its shift's re-prefill keeps only
 the rows whose KV write ran.
 """
 
@@ -220,11 +221,11 @@ def test_stop_sequence_on_the_trigger_token_finishes_with_stop(pair):
         n += 1                       # a stop that completes only there
     stop = text[k + 1 - n:k + 1]
     res = [drain(submit(e, prompt, 60, stop=[stop])) for e in (je, te)]
-    # the JAX engine's event-driven emitter shifts first and aborts the
-    # shifted slot when its stop scan completes (the wasted re-prefill's
-    # admission is what it reports as reused); the port follows the JAX
-    # in-loop path (``_emit``), which checks the stop before shifting
-    for key in ("ids", "finish", "completion_tokens", "text"):
+    # both engines' emitter threads: the engine thread shifts first, and
+    # the stop scan that completes on the trigger token ends the shifted
+    # slot (the wasted re-prefill's admission is what both report as
+    # reused)
+    for key in ("ids", "finish", "completion_tokens", "text", "reused"):
         assert res[1][key] == res[0][key], key
     assert res[1]["finish"] == "stop"
     assert res[1]["completion_tokens"] == k + 1

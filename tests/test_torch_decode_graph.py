@@ -436,9 +436,9 @@ def test_capture_runs_under_sync_debug_error(card):
 def test_engine_loop_never_waits_for_the_stream(card):
     """The pipelined loop (depth 2, the split fused tick) with a fork
     group (a shared prefix and its boundary-page clone) and a logit bias
-    (a bias row copied in), then the host tier (a wave that needs the
-    whole pool offloads the fork group's retained chain, and the prompt
-    sent again restores it) serves under torch.cuda.set_sync_debug_mode
+    (a bias row copied in), then the host tier (a wave that needs more
+    than the whole pool offloads the fork group's retained chain, and the
+    prompt sent again restores it) serves under torch.cuda.set_sync_debug_mode
     "error": no op on the engine thread waits for the whole stream (a
     pageable copy, .item(), a boolean mask); it waits only on one
     dispatch's event."""
@@ -481,12 +481,19 @@ def test_engine_loop_never_waits_for_the_stream(card):
         gate.set()
         e._wake.set()
         finals = finals_of(outs)
-        # 4 x (100 + 20) rows take all 32 pages: every retained chain is
-        # evicted, the prompt's two full pages offloaded
-        finals += finals_of([e.submit(GenRequest(
+        # 4 x (100 + 20) rows take all 32 pages, and a fifth request keeps
+        # 7 more full pages: the wave's 35 full pages and the first
+        # group's ~4 exceed the pool whatever the timing (with four, the
+        # partial pages of a request that finishes early can be reused
+        # and the fork group's chain may survive on the device), so every
+        # older retained chain is evicted first (LRU), the prompt's two
+        # full pages offloaded
+        wave = [e.submit(GenRequest(
             prompt_ids=rng.integers(2, 96, size=100).tolist(), max_new_tokens=20,
             ignore_eos=True, params=sampling.SamplingParamsHost(temperature=0.0)))
-            for _ in range(4)])
+            for _ in range(5)]
+        finals += finals_of(wave[:4])
+        finals_of(wave[4:])
         e._offloader.join()
         offloaded = e.metrics()["kv_offload"]["offloaded_pages"]
         finals += finals_of([e.submit(GenRequest(
@@ -677,7 +684,7 @@ def test_replays_after_splice_and_replace_read_the_new_table(device, kind):
     e = Engine(cfg, params, _EngineTok(), EngineConfig(
         num_slots=S, max_context=C, prefill_chunk=16, kv_page_size=PG,
         decode_burst=8, cache_dtype=torch.int8 if kind == "int8" else None,
-        draft="0"), device=device)
+        draft="0", emitter=False), device=device)
     if device == "cuda":
         e._capture()          # the decode step and the prefill graphs
     graph_burst = e._burst
@@ -823,11 +830,12 @@ def test_spec_round_graph_equals_its_eager_form_on_the_card(card, kind):
 
 @pytest.mark.cuda
 def test_spec_ticks_never_wait_for_the_stream(card):
-    """The engine at its defaults (speculation on) under
+    """The engine at its defaults (speculation on, the emitter thread) under
     torch.cuda.set_sync_debug_mode("error"): greedy requests take spec
-    ticks beside a sampled one riding
-    them as a plain row; a high request pauses a speculating low one,
-    which resumes; then a GPU sleep of about 1 s enqueued ahead of one spec
+    ticks beside a penalized sampled one riding them as a plain row, and
+    a sampled one takes rejection-sampled rounds; a high request pauses a
+    speculating low one, which resumes; then a GPU sleep of about 1 s
+    enqueued ahead of one spec
     tick makes it late and dispatch_stall_ms 300 aborts its request alone;
     a request sent after the sleep is served. No op on the engine thread
     waits for the whole stream."""
@@ -846,11 +854,11 @@ def test_spec_ticks_never_wait_for_the_stream(card):
         num_slots=2, max_context=128, prefill_chunk=16, kv_page_size=16,
         decode_burst=16), device="cuda").start()
 
-    def req(prompt, n, priority="", temperature=0.0):
+    def req(prompt, n, priority="", temperature=0.0, **params):
         return GenRequest(prompt_ids=list(prompt), max_new_tokens=n,
                           ignore_eos=True, priority=priority,
                           params=sampling.SamplingParamsHost(
-                              temperature=temperature, seed=5))
+                              temperature=temperature, seed=5, **params))
 
     def drain(out, first=None):
         evs = [first] if first is not None else []
@@ -869,11 +877,12 @@ def test_spec_ticks_never_wait_for_the_stream(card):
     torch.cuda.set_sync_debug_mode("error")
     try:
         outs = [e.submit(req([9, 10, 11, 12] * 8, 40)),
-                e.submit(req(range(40, 60), 40, temperature=0.8))]
+                e.submit(req(range(40, 60), 40, temperature=0.8,
+                             repeat_penalty=1.1))]
         mixed = [drain(o) for o in outs]
         out_low = e.submit(req(range(2, 42), 60, "low"))
         first = out_low.get(timeout=300)
-        out_low2 = e.submit(req(range(3, 30), 60, "low"))
+        out_low2 = e.submit(req(range(3, 30), 60, "low", temperature=0.8))
         first2 = out_low2.get(timeout=300)       # both slots decode now
         high = drain(e.submit(req(range(60, 70), 8, "high")))
         low = drain(out_low, first) + drain(out_low2, first2)
@@ -894,5 +903,6 @@ def test_spec_ticks_never_wait_for_the_stream(card):
     assert stalled[-1].error_kind == "stall"
     m = e.metrics()
     assert m["spec"]["rounds"] > 0 and m["spec"]["mixed_dispatches"] > 0
+    assert m["spec"]["by_mode"]["sampled"]["rounds"] > 0
     assert m["scheduler"]["preemptions"] >= 1 and m["scheduler"]["resumes"] >= 1
     assert m["lifecycle"]["stalls"] >= 1 and m["pages_in_use"] == 0

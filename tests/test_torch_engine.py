@@ -21,6 +21,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -133,6 +134,12 @@ def test_stop_sequence_truncates_and_releases(engines):
         stop_sequences=[stop], params=tsamp.SamplingParamsHost(temperature=0.0)))
     assert evs[-1].finish_reason == "stop"
     assert text == full[:full.index(stop)]
+    # the emitter thread found the stop and closed the stream; the engine
+    # releases the slot when it applies that note, at its next tick (as
+    # the JAX engine's emitter test waits for)
+    deadline = time.monotonic() + 10
+    while te.num_active and time.monotonic() < deadline:
+        time.sleep(0.01)
     assert te.metrics()["pages_in_use"] == 0
 
 
@@ -216,8 +223,10 @@ print(len(names), bad)
 assert not bad, bad
 assert {"localai_tpu_torch.services.errors", "localai_tpu_torch.services.faults",
         "localai_tpu_torch.engine.scheduler",
-        "localai_tpu_torch.engine.speculative"} <= set(names), names
+        "localai_tpu_torch.engine.speculative",
+        "localai_tpu_torch.engine.emitter"} <= set(names), names
 assert "localai_tpu_torch.engine.speculative" in sys.modules
+assert "localai_tpu_torch.engine.emitter" in sys.modules
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=300)

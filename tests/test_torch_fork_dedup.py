@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -223,3 +224,37 @@ def test_cancel_while_siblings_wait(tiny, layout, cancel):
     assert m["active_slots"] == 0
     if layout == "paged":
         assert m["pages_in_use"] == 0
+
+
+def test_a_leader_paused_in_its_admission_pass_leads_no_sibling(tiny):
+    """Two slots decode; two identical requests queued behind them age
+    past priority_aging_ms, so each pass of one admission preempts the
+    newest running slot for the next. The first of the pair is admitted
+    as a leader and is the newest slot when the second comes up: it is
+    paused, and the second must not become its fork sibling (a sibling of
+    a parked leader waits for ever; the JAX admission has that gap). Every
+    request completes with the tokens of a cold run of its prompt."""
+    _jc, _jp, tcfg, tparams = tiny
+    e = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
+        **{**EC, "num_slots": 2}, priority_aging_ms=1, kv_offload=False,
+        draft="0", emitter=False), device="cpu")
+    rng = np.random.default_rng(11)
+    first = [submit(e, rng.integers(2, 258, 20).tolist(), 30, f"run{i}",
+                    temperature=0.0) for i in range(2)]
+    assert e._tick()                            # both running
+    same = prompt_of(5)[:20]
+    pair = [submit(e, same, 12, f"same{i}", temperature=0.0) for i in range(2)]
+    time.sleep(0.01)                            # the pair ages to "high"
+    for _ in range(400):
+        if not e._tick() and not e._fifo and e.num_active == 0:
+            break
+    assert e.metrics()["scheduler"]["preemptions"] >= 2
+    assert not e._fork_waiters
+    got = [drain(o) for o in first + pair]
+    assert all(g["completion_tokens"] == n for g, n in zip(got, (30, 30, 12, 12)))
+    cold = port_engine(tiny, "paged").start()
+    try:
+        want = drain(submit(cold, same, 12, "cold", temperature=0.0))["ids"]
+    finally:
+        cold.shutdown()
+    assert got[2]["ids"] == got[3]["ids"] == want

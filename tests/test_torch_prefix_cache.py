@@ -434,7 +434,7 @@ def test_cancelled_stream_retains_only_committed_rows(tiny):
     _jcfg, _jp, tcfg, tparams = tiny
     e = teng.Engine(tcfg, tparams, _Tok(), teng.EngineConfig(
         num_slots=2, max_context=C, prefill_chunk=16, kv_page_size=PG,
-        decode_burst=4, draft="0"), device="cpu")
+        decode_burst=4, draft="0", emitter=False), device="cpu")
     cold = port_engine(tiny, False, num_slots=2, decode_burst=4)
     try:
         rng = np.random.default_rng(8)

@@ -16,7 +16,8 @@ checkpoint, and the ``_cfg()`` model of the JAX package's spec tests):
     metrics have the JAX keys;
   * a mixed tick (a greedy slot, a repeat-penalty slot, a sampled slot):
     mixed_dispatches > 0, the greedy stream equals the JAX Engine's, the
-    sampled streams equal the port's own ``draft="0"`` streams;
+    repeat-penalty slot's (a plain row) the port's own ``draft="0"``
+    stream, and the sampled slot takes rejection-sampled rounds;
   * the host tier on: the host-tier script of tests/test_torch_host_tier.py
     with speculation on both sides: requests and host counters equal;
   * a high arrival pausing a speculating low slot: the tokens before the
@@ -355,11 +356,12 @@ def test_repetitive_prompt_speculates_with_the_jax_tokens():
 
 
 def test_mixed_tick_greedy_equals_jax_sampled_equals_plain():
-    """A greedy slot speculates while a repeat-penalty slot and a pure
-    sampled slot ride the same ticks as plain rows (decode_burst 4, so the
-    streams interleave tick by tick): mixed_dispatches > 0; the greedy
-    stream is the JAX Engine's; the sampled streams are byte for byte what
-    the port gives with speculation off, for the same seeds."""
+    """A greedy slot and a pure sampled slot speculate while a
+    repeat-penalty slot rides the same ticks as a plain row (decode_burst
+    4, so the streams interleave tick by tick): mixed_dispatches > 0; the
+    greedy stream is the JAX Engine's; the repeat-penalty stream is byte
+    for byte what the port gives with speculation off, for the same seed;
+    the pure sampled slot takes rejection-sampled rounds."""
     models = _cfg_models()
     tok = ByteTokenizer()
     prompt = "the rain in spain falls mainly on the plain on the plain"
@@ -382,10 +384,12 @@ def test_mixed_tick_greedy_equals_jax_sampled_equals_plain():
             e.shutdown()
     (port, st), (plain, pst), (jax_ids, _j) = runs["port"], runs["plain"], runs["jax"]
     assert port[0] == jax_ids[0]
-    assert port[1:] == plain[1:] and all(len(x) == 32 for x in port)
+    assert port[1] == plain[1] and all(len(x) == 32 for x in port)
     assert st["mixed_dispatches"] > 0 and st["rounds"] > 0
-    assert st["by_mode"]["greedy"]["rounds"] == st["rounds"]
-    assert st["by_mode"]["sampled"]["rounds"] == 0
+    assert st["by_mode"]["greedy"]["rounds"] > 0
+    assert st["by_mode"]["sampled"]["rounds"] > 0
+    assert (st["by_mode"]["greedy"]["rounds"] + st["by_mode"]["sampled"]["rounds"]
+            == st["rounds"])
     assert 1.0 <= st["accept_per_dispatch"] and 0.0 <= st["acceptance_rate"] <= 1.0
     assert pst["mode"] == "off" and pst["dispatches"] == 0
 
