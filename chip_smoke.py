@@ -336,6 +336,34 @@ Phases, each raising on failure (no phase swallows an error):
               default) and reports its device gaps. A {"spec": ...} JSON line before the
               kernels line holds it all, with the serving run's spec
               counters.
+  3j. obs     observability at the defaults (trace and kv_audit on). In
+              every configuration, right after phase 3's requests (each
+              sent with an X-Correlation-ID), the engine idle
+              (observability_checks): GET /metrics answers 200 with the
+              Prometheus content type, and its packed-prefill, decode
+              (bursts, tokens, TTFT count) and speculation counters equal
+              metrics(); /debug/trace holds a "request" span and
+              /debug/events an "admit" and a "complete" event for each
+              correlation id; /debug/kv shows audit checks > 0 and 0
+              violations (contig: {"mode": "off"}); no graph was captured
+              and no kernel built after start. After every engine's
+              shutdown, phases 3-3j, kv_audit_sweep(drained=True) reports 0
+              violations and 0 leaked pages. Paged, last (obs_phase): (a)
+              the engine's device_mem against torch.cuda.memory_stats(),
+              and MFU (non-zero) with its peak; (b) the cost: engines at
+              the defaults and at trace=False, kv_audit="off" in turn over
+              the loaded weights (speculation off): 3b's decode ms/step
+              (the graph), 3f's mixed traffic untraced (TTFT, inter-token
+              time) with the tracer's decomp_ms beside the device ms of the
+              same packs and bursts by CUDA events; 3f (b) prints the
+              tracer's decomp_ms of its traced window beside the
+              profiler's busy share; printed, not gated. (c) in 3h (d), the stalled burst's
+              span-ring dump loads as Chrome trace JSON and holds the
+              stalled request's spans and its burst's dispatch, a flight
+              dump names the request, and lifecycle.stall_dumps equals
+              its stalls (2 at depth 2: the burst queued behind the
+              sleep stalls too, with no request). An
+              {"observability": ...} JSON line before the kernels line.
   4. kernels  one JSON line {"kernels": [...]}: for each of the eight kernels,
               launches during its serving configuration (K5 has no serving
               path: its launches are those of phases 2 and 4), parity
@@ -343,7 +371,9 @@ Phases, each raising on failure (no phase swallows an error):
               shapes (median of 20 calls, CUDA events, L2 flushed and a GPU
               sleep before each call, see timed_ms), the bound from bytes
               and operations, and the CUDA kernels one wrapper call runs,
-              counted by torch.profiler in this run (the split-K decode
+              counted by torch.profiler in this run (a window that
+              recorded no kernel of the call is traced again, see
+              kernels_per_call; the split-K decode
               kernels enqueue two: split and combine; bf16 W8 / W4 one
               wgmma_kernel, plus a combine where ops/quant.py::tc_plan
               splits K, and nothing else: no library GEMM, no dense
@@ -557,27 +587,45 @@ def trace_events(prof) -> list:
 # many cycles (~25 ms at 1.98 GHz) leads each per-call window, and is
 # dropped from the count
 LEAD_CYCLES = 50_000_000
+PROFILE_ATTEMPTS = 5
+TRAIL_S = 0.05      # the n-th window stays open n times this long after the call
 
 
-def kernels_per_call(fn):
+def kernels_per_call(fn, name=""):
     """The CUDA kernels one call of fn() runs, as torch.profiler (CUPTI)
     records them around that call after a warm-up, behind a GPU sleep
-    (LEAD_CYCLES): (count, names), or (None, []) when the profiler
-    recorded no device activity at all."""
+    (LEAD_CYCLES): (count, names), or (None, []) when no window recorded
+    a kernel of the call. Late in a long process the profiler drops a
+    short window's device records, all of them or only the last (PERF.md
+    §7), while the wrapper's launch count shows the call ran: each window
+    stays open a while after the call (TRAIL_S), and a window with no
+    kernel of the call is traced again, with the lead sleep doubled and
+    the wait after the call longer, up to PROFILE_ATTEMPTS windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from localai_tpu_torch.ops.kernels import LAUNCHES
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(LEAD_CYCLES)
-        fn()
-        torch.cuda.synchronize()
-    dev = [e for e in trace_events(prof) if e.device_type == DeviceType.CUDA]
-    names = [e.name for e in dev if not e.name.startswith(("Memcpy", "Memset"))
-             and "spin_kernel" not in e.name]
-    return (len(names) if dev else None), names
+    for attempt in range(PROFILE_ATTEMPTS):
+        n0 = sum(LAUNCHES.values())
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(LEAD_CYCLES << attempt)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(TRAIL_S * (attempt + 1))
+        launched = sum(LAUNCHES.values()) - n0
+        dev = [e for e in trace_events(prof) if e.device_type == DeviceType.CUDA]
+        names = [e.name for e in dev if not e.name.startswith(("Memcpy", "Memset"))
+                 and "spin_kernel" not in e.name]
+        if names:
+            return len(names), names
+        log(f"[kernels] {name}: profiler window {attempt + 1} of {PROFILE_ATTEMPTS} "
+            f"recorded no kernel of the call (wrapper launches {launched}; device "
+            f"records {[e.name[:32] for e in dev]})")
+    return None, []
 
 
 def max_err(a, b, mask=None) -> float:
@@ -1084,18 +1132,31 @@ def param_bytes(params) -> int:
     return params.numel() * params.element_size()
 
 
-def http_json(url: str, body=None, timeout=600):
+def http_json(url: str, body=None, timeout=600, cid: str = ""):
+    """A request's JSON answer (``cid``: its X-Correlation-ID)."""
     data = None if body is None else json.dumps(body).encode()
-    req = urllib.request.Request(url, data=data,
-                                 headers={"Content-Type": "application/json"})
+    req = urllib.request.Request(url, data=data, headers=http_headers(cid))
     with urllib.request.urlopen(req, timeout=timeout) as r:
         return json.loads(r.read())
 
 
-def http_stream(url: str, body: dict, timeout=600):
+def http_headers(cid: str = "") -> dict:
+    h = {"Content-Type": "application/json"}
+    if cid:
+        h["X-Correlation-ID"] = cid
+    return h
+
+
+def http_text(url: str, timeout=120):
+    """(status, Content-Type, text) of a GET."""
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.headers.get("Content-Type"), r.read().decode()
+
+
+def http_stream(url: str, body: dict, timeout=600, cid: str = ""):
     """(chunks, t_first_chunk, t_last_chunk) of an SSE response."""
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
+                                 headers=http_headers(cid))
     chunks, t_first, t_last = [], None, None
     with urllib.request.urlopen(req, timeout=timeout) as r:
         for raw in r:
@@ -1187,17 +1248,24 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
         banned = [ev.token_id for ev in probe][0]
         penalized = {"presence_penalty": 0.5, "frequency_penalty": 0.5,
                      "repeat_penalty": 1.3, "logit_bias": {str(banned): -100}}
+        # each request carries an X-Correlation-ID: the engine's spans and
+        # events must carry it (observability_checks)
+        cids = {k: f"cs-{config}-{k}" for k in ("chat_stream", "chat_1", "chat_2",
+                                                 "completion_long", "chat_sampled")}
         jobs = {
             "chat_stream": lambda: http_stream(
                 base + "/v1/chat/completions",
-                {**common, "messages": chats[0], "stream": True}),
+                {**common, "messages": chats[0], "stream": True},
+                cid=cids["chat_stream"]),
             "chat_1": lambda: http_json(base + "/v1/chat/completions",
-                                        {**common, "messages": chats[1]}),
+                                        {**common, "messages": chats[1]},
+                                        cid=cids["chat_1"]),
             "chat_2": lambda: http_json(base + "/v1/chat/completions",
                                         {**common, "messages": chats[2],
-                                         **penalized}),
+                                         **penalized}, cid=cids["chat_2"]),
             "completion_long": lambda: http_json(
-                base + "/v1/completions", {**common, "prompt": long_prompt}),
+                base + "/v1/completions", {**common, "prompt": long_prompt},
+                cid=cids["completion_long"]),
             # a seeded sampled chat: speculates with rejection-sampled
             # acceptance (the JAX default). Its own prompt (an identical
             # one would fork) and 64 tokens: the split fused tick's bursts
@@ -1206,7 +1274,8 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
             "chat_sampled": lambda: http_json(
                 base + "/v1/chat/completions",
                 {**common, "messages": chats[3], "temperature": 0.8,
-                 "seed": SEED, "max_tokens": 2 * common["max_tokens"]}),
+                 "seed": SEED, "max_tokens": 2 * common["max_tokens"]},
+                cid=cids["chat_sampled"]),
         }
         warm = http_json(base + "/v1/completions",
                          {**common, "prompt": "Warm up.", "max_tokens": 4})
@@ -1322,6 +1391,8 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
                                  f"{pk['dispatches']} packs and {dec['spec_rounds']} "
                                  f"spec rounds (graph replays), expected "
                                  f"{n_layers} per pack and per round")
+        obs = phase_timed(config, observability_checks, lm, base, config,
+                          list(cids.values()))
         # phase 4's decode shape: the three greedy chats and the long one
         prompt_lens = [len(lm.tokenizer.encode(render_chat(c))) for c in chats[:3]]
         # the phases that measure plain bursts (3b-3h) run with speculation
@@ -1331,7 +1402,7 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
         log(f"[time] {config}: load + serving {time.monotonic() - t0:.1f} s")
         decode = phase_timed(config, decode_phase, lm, card, config)
         prefill = phase_timed(config, prefill_phase, lm, card, config)
-        prefix = host = shift = pipeline = lifecycle = spec_out = None
+        prefix = host = shift = pipeline = lifecycle = spec_out = obs_cost = None
         if config in PREFIX_K2:
             prefix, runs3c = phase_timed(config, prefix_phase, lm, card, config)
             host = phase_timed(config, host_tier_phase, lm, card, config, runs3c)
@@ -1341,7 +1412,9 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
             lifecycle = phase_timed(config, lifecycle_phase, lm, card, config)
             pin_speculation(lm.engine, True)
             spec_out = phase_timed(config, spec_phase, lm, card, config)
-        return launches, {"spec": spec_out, "spec_serving": spec,"prompt_lens": prompt_lens, "n_long": n_long,
+        if config == "paged":
+            obs_cost = phase_timed(config, obs_phase, lm, card, config)
+        return launches, {"spec": spec_out, "obs": obs, "obs_cost": obs_cost, "spec_serving": spec,"prompt_lens": prompt_lens, "n_long": n_long,
                           "ttft_ms": ttft_ms, "decode_tok_s": decode_tok_s,
                           "step_ms": step_ms, "pack_ms": pack_ms,
                           "pad_tokens": pk["pad_tokens"],
@@ -1423,7 +1496,8 @@ def forget_retained(eng):
     eng._cache_tokens = [[] for _ in eng.slots]
 
 
-def decode_phase(lm, card: str, config: str) -> dict:
+def decode_phase(lm, card: str, config: str, ways=("graph", "full", "eager"),
+                 label: str = "") -> dict:
     """8 slots all decoding DECODE_TOKENS tokens (greedy, ignore_eos), once
     through the graph (serving's path) and once through the eager per-step
     loop (``Engine._burst_eager``, which serving never selects), in this
@@ -1433,7 +1507,9 @@ def decode_phase(lm, card: str, config: str) -> dict:
     (emission and bookkeeping, while the card waits), a torch.profiler
     trace of one such burst (excluded from the median), the decode kernel's launches against 32 x
     steps, and the first step's logits (a 1-step probe before the first
-    burst: idempotent, it writes the rows the first step rewrites)."""
+    burst: idempotent, it writes the rows the first step rewrites).
+    Phase 3j runs the graph alone (``ways``), tagged ``label``; it then
+    returns each way's numbers only."""
     import statistics
 
     import numpy as np
@@ -1446,7 +1522,7 @@ def decode_phase(lm, card: str, config: str) -> dict:
     from localai_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
     eng = lm.engine
-    tag = f"[decode {config}]"
+    tag = f"[decode {config}{' ' + label if label else ''}]"
     n_layers = LLAMA31_8B["num_hidden_layers"]
     dk = DECODE_KERNEL[config]
     prompts = [lm.tokenizer.encode(f"Decode request {i}: tell a story about "
@@ -1461,7 +1537,7 @@ def decode_phase(lm, card: str, config: str) -> dict:
         from the loaded (chained) state."""
         return eng._graph.replay(n_steps, full=True)
 
-    for way in ("graph", "full", "eager"):
+    for way in ways:
         t_way = time.monotonic()
         fn = {"graph": eng._burst, "full": full_burst,
               "eager": eng._burst_eager}[way]
@@ -1587,6 +1663,10 @@ def decode_phase(lm, card: str, config: str) -> dict:
         if split:
             log(f"{tag} {way}: 10 longest kernels by total time in the traced "
                 f"burst: {json.dumps(split['top10'])}")
+    if tuple(ways) != ("graph", "full", "eager"):
+        return {way: {k: v for k, v in r.items()
+                      if k not in ("streams", "logits", "active")}
+                for way, r in runs.items()}
     g, e, f = runs["graph"], runs["eager"], runs["full"]
     full_same = sum(a == b for a, b in zip(g["streams"], f["streams"]))
     log(f"{tag} full sampler variant vs plain (neutral greedy slots): "
@@ -2871,6 +2951,7 @@ def mixed_run(eng, gen, tag, trace: bool = True):
         t.start()
     for f in first_l:
         f.wait(timeout=600)
+    d0 = eng.metrics()["trace"].get("decomp_ms")      # the tracer's, if on
     ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]),
            record_function(ANNOTATION))
     if trace:
@@ -2900,8 +2981,12 @@ def mixed_run(eng, gen, tag, trace: bool = True):
     if bad:
         raise AssertionError(f"{tag} completion_tokens != max_tokens: {bad}")
     m = idle_metrics(eng, tag)
+    d1 = m["trace"].get("decomp_ms")
     return {"ttft_ms": [r["ttft_ms"] for r in res_a],
             "trace": trace_gaps(ctx[0]) if trace else None,
+            # the tracer's host / device / emitter split over the arrivals'
+            # window (services/tracing.py), None with trace=False
+            "decomp_ms": ({k: d1[k] - d0[k] for k in d1} if d0 and d1 else None),
             "itl_ms": [r["itl_ms"] for r in res_l], "pipeline": m["pipeline"]}
 
 
@@ -3057,6 +3142,8 @@ def pipeline_phase(lm, card: str, config: str) -> dict:
                f"{tr['tail_ms']:.1f} ms tail); idle gaps over 20 us by the work "
                f"on their sides {json.dumps(tr['gaps_over_20us'])}" if tr else
                "the profiler recorded no device activity (not measured)")
+            + f"; the tracer's decomp_ms over the same window "
+              f"{json.dumps(mx['decomp_ms'])}"
             + f"; completion_tokens == max_tokens for all; loop "
               f"{json.dumps(mx['pipeline'])}")
     # (c)
@@ -3120,13 +3207,13 @@ LC_TIMEOUT = (200, 2000)        # (e) request_timeout_ms, max_tokens
 LC_QWAIT_MS = 100               # (e) max_queue_wait_ms
 
 
-def http_any(url: str, body: dict, timeout=600):
+def http_any(url: str, body: dict, timeout=600, cid: str = ""):
     """(status, headers, body) of a POST, error statuses included: the
     JSON object, or for a stream answered 200 its SSE chunks."""
     import urllib.error
 
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
+                                 headers=http_headers(cid))
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
             status, headers, raw = r.status, dict(r.headers), r.read().decode()
@@ -3386,8 +3473,21 @@ def lc_stall(lm, eng, url, greedy, prompt, tag):
     """(d) a real device stall under dispatch_stall_ms = LC_STALL_MS: the
     stalled burst's request gets a 503; a request sent after the sleep has
     run is served, with the greedy tokens of the loaded engine (the same
-    configuration) on the same prompt."""
+    configuration) on the same prompt. Phase 3j (c): every stall wrote a
+    span-ring dump (``lifecycle.stall_dumps`` == ``stalls``: at depth 2
+    the burst queued behind the sleep stalls too, with no request left);
+    the first loads as Chrome trace JSON and holds the stalled request's
+    spans and its burst's dispatch; one flight dump (rate-limited) names
+    the request."""
+    import glob
+
     probe = prompt(40)
+    dump_dir = os.path.join(ROOT, "build", "chip_smoke", "stall_dumps",
+                            tag.strip("[]").replace(" ", "-"))
+    for f in glob.glob(os.path.join(dump_dir, "localai-*")):
+        os.unlink(f)
+    eng.ecfg.stall_dump_dir = eng._flight.out_dir = dump_dir
+    cid = f"stall-{tag.strip('[]').replace(' ', '-')}"
 
     def ids_of(events):
         return [t for e in events for t in (e.token_ids or [e.token_id])]
@@ -3406,7 +3506,7 @@ def lc_stall(lm, eng, url, greedy, prompt, tag):
         stall_once(eng)
         st, h, err = http_any(url, {"messages": [{"role": "user", "content": "stall"}],
                                     "max_tokens": 64, "temperature": 0,
-                                    "ignore_eos": True})
+                                    "ignore_eos": True}, cid=cid)
         time.sleep(1.5)                     # the GPU sleep has run
     finally:
         eng.ecfg.dispatch_stall_ms = 30000
@@ -3421,7 +3521,40 @@ def lc_stall(lm, eng, url, greedy, prompt, tag):
         raise AssertionError(f"{tag} (d) {st} {err}; aborts {aborts}; after the "
                              f"stall {[e.error for e in evs if e.error]}, tokens "
                              f"equal: {got == want}")
+    # the dumps' names end in their wall-clock ms: the first is the stall's
+    rings = sorted(glob.glob(os.path.join(dump_dir, "localai-stall-*.trace.json")))
+    flights = glob.glob(os.path.join(dump_dir, "localai-flight-stall-*.json"))
+    ring = {}
+    if rings:
+        with open(rings[0]) as f:
+            ring = json.load(f)
+    xs = [ev for ev in ring.get("traceEvents", ()) if ev.get("ph") == "X"]
+    mine = {ev["name"]: ev["ts"] for ev in xs
+            if ev["args"].get("request_id") == cid}
+    # the stalled burst's dispatch: a plain burst's decode_dispatch, or the
+    # fused tick's prefill_dispatch, after the request's admission
+    burst = [ev["name"] for ev in xs
+             if ev["name"] in ("decode_dispatch", "prefill_dispatch")
+             and ev["ts"] >= mine.get("admission", float("inf"))]
+    flight = {}
+    if len(flights) == 1:
+        with open(flights[0]) as f:
+            flight = json.load(f)
+    lc = m["lifecycle"]
+    if (not 1 <= lc["stall_dumps"] == lc["stalls"] == len(rings)
+            or not {"queue_wait", "admission"} <= set(mine) or not burst
+            or flight.get("requests") != [cid]
+            or not {"trace", "state", "events"} <= set(flight)):
+        raise AssertionError(f"{tag} (d) stall dumps: {m['lifecycle']}, rings "
+                             f"{rings}, spans of {cid} {sorted(mine)}, flights "
+                             f"{flights} {sorted(flight)[:8]}")
+    log(f"{tag} (d) 3j (c): the span-ring dump {os.path.basename(rings[0])} loads "
+        f"as Chrome trace JSON: {len(xs)} spans, {cid}'s {sorted(mine)} and the "
+        f"stalled burst's {burst[-1]}; flight dump "
+        f"{os.path.basename(flights[0])} names {flight['requests']}; "
+        f"lifecycle stalls {lc['stalls']}, stall_dumps {lc['stall_dumps']}")
     return {"dispatch_to_abort_ms": aborts, "http_status": st,
+            "ring_dump_spans": len(xs), "stall_dumps": lc["stall_dumps"],
             "retry_after": h.get("Retry-After"), "stalls": m["lifecycle"]["stalls"],
             "after_tokens_equal": True}
 
@@ -4092,6 +4225,202 @@ def emitter_phase(lm, card: str, config: str) -> dict:
     return out
 
 
+# ---------- phase 3j: observability ----------
+
+def prom_values(text: str) -> dict:
+    """{sample name with its labels: value} of a Prometheus text (an
+    exemplar suffix dropped)."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        line = line.split(" # ", 1)[0]
+        key, _, value = line.rpartition(" ")
+        out[key] = float(value)
+    return out
+
+
+def observability_checks(lm, base: str, config: str, cids: list) -> dict:
+    """Phase 3's observability checks at the defaults (trace and kv_audit
+    on), right after its requests, the engine idle: GET /metrics answers
+    200 with the Prometheus content type, and its packed-prefill, decode
+    (bursts and tokens) and speculation counters equal metrics(); every
+    request's X-Correlation-ID has a "request" span in /debug/trace and
+    "admit" and "complete" events in /debug/events; /debug/kv shows audit
+    checks > 0 and 0 violations (the contiguous layout: {"mode": "off"});
+    no graph was captured and no kernel built after start."""
+    from localai_tpu_torch.services.metrics import CONTENT_TYPE
+
+    tag = f"[obs {config}]"
+    name = lm.name
+    lab = f'{{model="{name}"}}'
+    idle_metrics(lm.engine, tag)
+    st, ct, text = http_text(base + "/metrics")
+    m = lm.engine.metrics()
+    if st != 200 or ct != CONTENT_TYPE:
+        raise AssertionError(f"{tag} /metrics answered {st} {ct!r}")
+    got = prom_values(text)
+    h = m["histograms"]
+    sp = m["spec"]
+    want = {
+        f"localai_prefill_packed_dispatches_total{lab}": m["packed_prefill"]["dispatches"],
+        f"localai_prefill_packed_tokens_total{lab}": m["packed_prefill"]["tokens"],
+        f"localai_decode_burst_seconds_count{lab}": h["decode_burst_seconds"]["count"],
+        f"localai_goodput_tokens_total{lab}": m["sysobs"]["goodput"]["goodput_tokens_total"],
+        f"localai_ttft_seconds_count{lab}": h["ttft_seconds"]["count"],
+        f"localai_spec_rounds_total{lab}": sp["rounds"],
+        f"localai_spec_proposed_total{lab}": sp["proposed"],
+        f"localai_spec_accepted_total{lab}": sp["accepted"],
+    }
+    for mode, c in sp["by_mode"].items():
+        want[f'localai_spec_rounds_total{{mode="{mode}",model="{name}"}}'] = c["rounds"]
+    if sp["mode"] == "off":                 # no speculation: no spec family
+        want = {k: v for k, v in want.items() if "_spec_" not in k}
+    bad = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if bad:
+        raise AssertionError(f"{tag} /metrics against metrics(): {bad}")
+    if h["decode_burst_seconds"]["count"] != m["decode"]["bursts"]:
+        raise AssertionError(f"{tag} bursts processed {h['decode_burst_seconds']['count']}"
+                             f" != dispatched {m['decode']['bursts']}")
+    trace = json.loads(http_text(base + "/debug/trace")[2])
+    spans = {ev["args"].get("request_id") for ev in trace["traceEvents"]
+             if ev.get("name") == "request"}
+    evs = json.loads(http_text(base + "/debug/events?last=512")[2])["events"]
+    seen = {}
+    for ev in evs:
+        seen.setdefault(ev.get("rid"), []).append(ev["event"])
+    missing = [c for c in cids if c not in spans
+               or not {"admit", "complete"} <= set(seen.get(c, ()))]
+    if missing:
+        raise AssertionError(f"{tag} no request span or admit / complete event "
+                             f"for {missing}")
+    kv = json.loads(http_text(base + "/debug/kv")[2])["models"][name]
+    if lm.engine.kv_layout == "paged":
+        if kv["mode"] != "on" or kv["audit"]["checks"] <= 0 or kv["audit"]["violations"]:
+            raise AssertionError(f"{tag} /debug/kv audit {kv.get('audit')}")
+    elif kv != {"mode": "off", "replica": 0}:
+        raise AssertionError(f"{tag} /debug/kv of the contiguous layout: {kv}")
+    comp = m["sysobs"]["compiles"]
+    if comp["compiles_after_warmup"] or not comp["warm"]:
+        raise AssertionError(f"{tag} captures / builds after start: {comp}")
+    tr = m["trace"]
+    out = {"metrics_lines": len(got), "checked": len(want),
+           "audit": {k: kv["audit"][k] for k in ("checks", "violations",
+                                                 "leaked_pages", "ledger_events")}
+           if kv["mode"] != "off" else {"mode": "off"},
+           "spans_recorded": tr["spans_recorded"], "decomp_ms": tr["decomp_ms"],
+           "compiles": comp}
+    log(f"{tag} /metrics: {len(got)} samples, {len(want)} held to metrics(); "
+        f"{len(cids)} correlation ids with their request span and admit / "
+        f"complete events; audit {out['audit']}; "
+        f"{tr['spans_recorded']} spans, decomp_ms {json.dumps(tr['decomp_ms'])}; "
+        f"compiles {json.dumps(comp)}")
+    return out
+
+
+def obs_phase(lm, card: str, config: str) -> dict:
+    """Phase 3j (module doc), on the loaded weights: (a) the card's
+    allocator counters as the engine reads them against
+    torch.cuda.memory_stats(), and MFU with its peak; (b) the cost of the
+    observability: engines at the defaults (trace and kv_audit on) and at
+    trace=False, kv_audit="off", speculation off as in 3b / 3f, built in
+    turn in this call: 3b's decode ms/step (the graph), and 3f's mixed
+    traffic untraced (the arrivals' TTFT, the decoding requests' mean
+    inter-token time) with the tracer's decomp_ms over that window beside
+    the device ms of the same packs and bursts from CUDA events (3f prints
+    the tracer's decomp_ms of its traced run beside the profiler's busy
+    share). Printed, not gated."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from localai_tpu_torch.engine.engine import Engine
+
+    tag = f"[obs {config}]"
+    out = {}
+    # (a) on the loaded engine, idle
+    m = lm.engine.metrics()
+    dm = m["sysobs"].get("device_mem") or {}
+    st = torch.cuda.memory_stats()
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not dm or dm["bytes_limit"] != total or abs(
+            dm["bytes_in_use"] - st["allocated_bytes.all.current"]) > 64 << 20:
+        raise AssertionError(f"{tag} device_mem {dm} against memory_stats "
+                             f"{st['allocated_bytes.all.current']} / {total}")
+    out["device_mem"] = {"engine": dm,
+                         "memory_stats": {"allocated_current": st["allocated_bytes.all.current"],
+                                          "allocated_peak": st["allocated_bytes.all.peak"],
+                                          "total_memory": total}}
+    log(f"{tag} (a) {card}: device_mem {json.dumps(dm)}; torch.cuda.memory_stats "
+        f"allocated {st['allocated_bytes.all.current']} (peak "
+        f"{st['allocated_bytes.all.peak']}), total {total}")
+    runs = {}
+    for label, knobs in (("defaults", {}),
+                         ("off", {"trace": False, "kv_audit": "off"})):
+        eng = Engine(lm.cfg, lm.engine.params, lm.tokenizer,
+                     dataclasses.replace(lm.engine.ecfg, draft="0", **knobs),
+                     device=DEV).start()
+        try:
+            dec = decode_phase(dataclasses.replace(lm, engine=eng), card, config,
+                               ways=("graph",), label=f"obs {label}")["graph"]
+            gp = eng.metrics()["sysobs"]["goodput"]
+            evs = []
+
+            def timed(fn, evs=evs):
+                def run(*a, **k):
+                    s0 = torch.cuda.Event(enable_timing=True)
+                    s0.record()
+                    res = fn(*a, **k)
+                    s1 = torch.cuda.Event(enable_timing=True)
+                    s1.record()
+                    evs.append((s0, s1))
+                    return res
+                return run
+
+            eng._burst, eng._prefill_pack = timed(eng._burst), timed(eng._prefill_pack)
+            try:
+                mixed = mixed_run(eng, np.random.default_rng(SEED + 17),
+                                  f"{tag} {label} mixed", trace=False)
+            finally:
+                del eng._burst, eng._prefill_pack
+            torch.cuda.synchronize()
+            dev_ms = sum(a.elapsed_time(b) for a, b in evs)
+            run = {"decode_ms_per_step": dec["ms_per_step"],
+                   "decode_ms_min_max": [dec["ms_per_step_min"], dec["ms_per_step_max"]],
+                   "ttft_ms": mixed["ttft_ms"], "itl_ms": mixed["itl_ms"],
+                   "cuda_events_device_ms": dev_ms, "dispatches_timed": len(evs),
+                   "mfu": gp["mfu"], "goodput_tok_s": gp["goodput_tok_s"],
+                   "peak_flops": gp["peak_flops"]}
+            if mixed["decomp_ms"]:
+                run["decomp_ms"] = mixed["decomp_ms"]
+            if label == "defaults":
+                if not gp["mfu"] > 0 or not gp["peak_flops"] > 0:
+                    raise AssertionError(f"{tag} MFU {gp}")
+                ka = eng.kv_audit_sweep()
+                if ka["violations"] or ka["checks"] <= 0:
+                    raise AssertionError(f"{tag} audit {ka}")
+                run["audit_checks"] = ka["checks"]
+        finally:
+            eng.shutdown()
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        runs[label] = run
+        log(f"{tag} (b) {card}: {label}: decode {run['decode_ms_per_step']:.3f} "
+            f"ms/step (graph, 3b's run); 3f's mixed traffic untraced: arrivals' "
+            f"TTFT {', '.join(f'{t:.1f}' for t in run['ttft_ms'])} ms, decoding "
+            f"requests' mean inter-token time "
+            f"{', '.join(f'{t:.2f}' for t in run['itl_ms'])} ms; device ms of its "
+            f"{len(evs)} packs and bursts by CUDA events {dev_ms:.1f}"
+            + (f", tracer decomp_ms {json.dumps(run['decomp_ms'])}"
+               if "decomp_ms" in run else ", tracer off")
+            + f"; MFU {run['mfu']:.6f} at peak {run['peak_flops']:.4g} FLOP/s "
+            f"(goodput {run['goodput_tok_s']:.1f} tok/s)")
+    out["cost"] = runs
+    return out
+
+
 # ---------- phase 4 ----------
 
 def decode_cost(lengths, elt, cache_elt=None, scales=False, table=True):
@@ -4370,7 +4699,7 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
     # the CUDA kernels of one wrapper call, after every timing above (the
     # profiler's tracing stays out of the timed calls)
     for r, (name, fn, split_k) in zip(rows, profiled):
-        per_call, kernel_names = kernels_per_call(fn)
+        per_call, kernel_names = kernels_per_call(fn, name)
         log(f"[kernels] {name}: one wrapper call ran {per_call} CUDA kernels "
             f"(torch.profiler): {kernel_names}")
         if split_k is True and per_call is not None and (
@@ -4383,7 +4712,7 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
         r["cuda_kernels_per_call"] = per_call
         for sub in ("lm_head", "wide"):
             if sub in r:
-                n, names = kernels_per_call(r[sub].pop("fn"))
+                n, names = kernels_per_call(r[sub].pop("fn"), f"{name} {sub}")
                 log(f"[kernels] {name} {sub}: one wrapper call ran {n} CUDA "
                     f"kernels (torch.profiler): {names}")
                 check_wgmma_call(f"{name} {sub}", r[sub]["tc_plan"], n, names)
@@ -4503,12 +4832,37 @@ def main():
     k5_before = LAUNCHES["decode_attention_append_full"]
     errs = parity()
     k5_launches = LAUNCHES["decode_attention_append_full"] - k5_before
+    # after every engine's shutdown (phases 3-3j), a drained audit: 0
+    # violations and 0 leaked pages in its whole life
+    from localai_tpu_torch.engine.engine import Engine
+
+    audits = []
+    shutdown = Engine.shutdown
+
+    def audited(self, shutdown=shutdown, audits=audits):
+        shutdown(self)
+        if self._kv_audit is not None:
+            audits.append(self.kv_audit_sweep(drained=True))
+
+    Engine.shutdown = audited
     launches, shapes = {}, {}
     for config, knobs, must, must_not in CONFIGS:
         launches[config], shapes[config] = serve(card, config, knobs, must,
                                                  must_not)
+    Engine.shutdown = shutdown
+    bad = [a for a in audits if a["violations"] or a["leaked_pages"]]
+    log(f"[obs] drained audits after shutdown: {len(audits)} paged engines, "
+        f"{sum(a['checks'] for a in audits)} checks, {len(bad)} with violations "
+        f"or leaked pages")
+    if bad or not audits:
+        raise AssertionError(f"[obs] drained audits: {bad}")
     rows = kernel_report(launches, k5_launches, errs, shapes, card)
     import torch
+
+    print(json.dumps({"observability": {c: shapes[c]["obs"] for c in shapes},
+                      "cost": shapes["paged"]["obs_cost"],
+                      "drained_audits": len(audits), "card": card},
+                     default=str), flush=True)
 
     print(json.dumps({"decode": {c: shapes[c]["decode"] for c in shapes},
                       "card": card}), flush=True)

@@ -12,6 +12,17 @@ envelope and ``Retry-After`` when the engine gave a hint, as
 localai_tpu/api/app.py does; a stream is opened only after its first
 chunk, so a refusal before the first token gets its real status, and one
 after it ends the stream with the same envelope as an event.
+
+Every request goes through the JAX server's correlation middleware: its
+``X-Correlation-ID`` header is taken (or an id minted) and handed to the
+route, which makes it the engine request's ``request_id`` (the first
+choice's; later choices add "-c<i>" / "-p<i>"), so the engine's spans and
+events carry the client's id. The request's duration goes into the
+``localai_api_call`` histogram under its route, and an "http" span into
+the HTTP layer's tracer (services/tracing.py::frontend_tracer), except for
+/metrics, /debug/*, /healthz and /readyz. GET routes take (app, query),
+POST routes (app, body, correlation id); the observability routes live in
+api/localai_routes.py.
 """
 
 from __future__ import annotations
@@ -19,11 +30,16 @@ from __future__ import annotations
 import json
 import logging
 import math
+import re
 import time
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Iterator, Optional
+from urllib.parse import parse_qsl
 
 from localai_tpu_torch.services.errors import ServingError
+from localai_tpu_torch.services.metrics import METRICS
+from localai_tpu_torch.services.tracing import frontend_tracer
 
 log = logging.getLogger(__name__)
 
@@ -37,11 +53,21 @@ class ApiError(Exception):
 
 
 class Response:
+    """A JSON body, a text body with its ``content_type`` (a str body),
+    or an SSE stream."""
+
     def __init__(self, body=None, status: int = 200,
-                 stream: Optional[Iterator] = None):
+                 stream: Optional[Iterator] = None,
+                 content_type: str = "application/json"):
         self.body = body
         self.status = status
         self.stream = stream
+        self.content_type = content_type
+
+
+# observability surfaces get no "http" span: scrapes and debug pulls would
+# fill the ring with their own reads of it
+_TRACE_SKIP = re.compile(r"^/(metrics|debug/|healthz|readyz)")
 
 
 def error_body(message: str, status: int, etype: str) -> dict:
@@ -85,10 +111,11 @@ class App:
 
 
 def _handler(app: App):
+    from localai_tpu_torch.api import localai_routes
     from localai_tpu_torch.api import openai_routes as routes
 
     gets = {"/readyz": routes.readyz, "/v1/models": routes.list_models,
-            "/models": routes.list_models}
+            "/models": routes.list_models, **localai_routes.GETS}
     posts = {"/v1/chat/completions": routes.chat_completions,
              "/chat/completions": routes.chat_completions,
              "/v1/completions": routes.completions,
@@ -100,10 +127,15 @@ def _handler(app: App):
         def log_message(self, fmt, *args):
             log.debug("%s " + fmt, self.address_string(), *args)
 
-        def _send_json(self, status: int, obj, headers=()):
-            data = json.dumps(obj).encode()
+        def send_response(self, code, message=None):
+            self._status = code          # the http span's status
+            super().send_response(code, message)
+
+        def _send_json(self, status: int, obj, headers=(),
+                       content_type: str = "application/json"):
+            data = (obj if isinstance(obj, str) else json.dumps(obj)).encode()
             self.send_response(status)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(data)))
             for k, v in headers:
                 self.send_header(k, v)
@@ -162,18 +194,39 @@ def _handler(app: App):
                          "cancelled", type(e).__name__, e)
 
         def _dispatch(self, table: dict, body: Optional[dict]):
-            path = self.path.split("?", 1)[0]
+            # the correlation middleware (module doc)
+            t0, t_mono = time.perf_counter(), time.monotonic()
+            rid = self.headers.get("X-Correlation-ID") or uuid.uuid4().hex
+            path, _, qs = self.path.partition("?")
+            self._status = 0
+            try:
+                self._route(table, body, path, qs, rid)
+            finally:
+                route = path if path in table else "unmatched"
+                METRICS.observe_api_call(self.command, route,
+                                         time.perf_counter() - t0)
+                tr = frontend_tracer()
+                if tr.enabled and not _TRACE_SKIP.match(path):
+                    tr.record("http", "http", t_mono, time.monotonic(),
+                              rid=rid, args={"method": self.command,
+                                             "path": route,
+                                             "status": self._status or 500})
+
+        def _route(self, table: dict, body: Optional[dict], path: str,
+                   qs: str, rid: str):
             fn = table.get(path)
             if fn is None:
                 self._send_json(404, error_body(f"no route {path}", 404,
                                                 "invalid_request_error"))
                 return
             try:
-                resp = fn(app, body) if body is not None else fn(app)
+                resp = (fn(app, body, rid) if body is not None
+                        else fn(app, dict(parse_qsl(qs))))
                 if resp.stream is not None:
                     self._send_stream(resp.stream)
                 else:
-                    self._send_json(resp.status, resp.body)
+                    self._send_json(resp.status, resp.body,
+                                    content_type=resp.content_type)
             except ApiError as e:
                 self._send_json(e.status, error_body(str(e), e.status, e.etype))
             except ServingError as e:

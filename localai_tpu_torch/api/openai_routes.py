@@ -11,7 +11,10 @@ joined by "\\n", as api/chatflow.py does), written in plain Python; model
 YAML templates and jinja come with a later slice. A chat request whose
 ``tools`` / ``functions`` survive its ``tool_choice`` is refused with a
 400 (tool calls need grammar), never answered in free text; "none" is
-served. ``priority`` picks the request's scheduling class.
+served. ``priority`` picks the request's scheduling class. The request
+id of the first choice (or prompt) is the correlation id the server took
+from ``X-Correlation-ID`` or minted (api/app.py); later ones add "-c<i>"
+(chat) or "-p<i>" (completions), as in the JAX routes.
 """
 
 from __future__ import annotations
@@ -122,7 +125,7 @@ def _fan_out(lm, reqs: list) -> list:
     return results
 
 
-def readyz(app: App) -> Response:
+def readyz(app: App, query: dict = None) -> Response:
     return Response({"status": "ok", "models": {
         name: {"slots": lm.engine.ecfg.num_slots,
                "active_slots": lm.engine.num_active,
@@ -130,14 +133,14 @@ def readyz(app: App) -> Response:
         for name, lm in app.models.items()}})
 
 
-def list_models(app: App) -> Response:
+def list_models(app: App, query: dict = None) -> Response:
     return Response({"object": "list", "data": [
         {"id": name, "object": "model", "created": int(app.started_at),
          "owned_by": "localai-tpu-torch", "ready": True}
         for name in sorted(app.models)]})
 
 
-def chat_completions(app: App, body: dict) -> Response:
+def chat_completions(app: App, body: dict, rid: str = "") -> Response:
     model, lm = app.resolve(body)
     messages = body.get("messages") or []
     if not messages:
@@ -151,7 +154,7 @@ def chat_completions(app: App, body: dict) -> Response:
         overrides["functions"] = functions
     created = int(time.time())
     cmpl_id = f"chatcmpl-{secrets.token_hex(12)}"
-    rid = uuid.uuid4().hex
+    rid = rid or uuid.uuid4().hex
 
     if body.get("stream"):
         req = runner.build_request(lm, prompt, overrides, rid)
@@ -192,7 +195,8 @@ def chat_completions(app: App, body: dict) -> Response:
         o = dict(overrides)
         if i and o.get("seed") is not None:
             o["seed"] = int(o["seed"]) + i      # n distinct samples
-        reqs.append(runner.build_request(lm, prompt, o, f"{rid}-c{i}"))
+        reqs.append(runner.build_request(lm, prompt, o,
+                                         f"{rid}-c{i}" if i else rid))
     results = _fan_out(lm, reqs)
     echo = prompt if body.get("echo") else ""
     choices = [{"index": i,
@@ -206,7 +210,7 @@ def chat_completions(app: App, body: dict) -> Response:
                         sum(r["completion_tokens"] for r in results))})
 
 
-def completions(app: App, body: dict) -> Response:
+def completions(app: App, body: dict, rid: str = "") -> Response:
     model, lm = app.resolve(body)
     overrides = _overrides_from(body)
     prompts = body.get("prompt", "")
@@ -214,7 +218,7 @@ def completions(app: App, body: dict) -> Response:
         prompts = [prompts]
     created = int(time.time())
     cmpl_id = f"cmpl-{secrets.token_hex(12)}"
-    rid = uuid.uuid4().hex
+    rid = rid or uuid.uuid4().hex
 
     if body.get("stream"):
         req = runner.build_request(lm, prompts[0], overrides, rid)
@@ -239,7 +243,7 @@ def completions(app: App, body: dict) -> Response:
 
         return Response(stream=gen())
 
-    reqs = [runner.build_request(lm, p, overrides, f"{rid}-p{i}")
+    reqs = [runner.build_request(lm, p, overrides, f"{rid}-p{i}" if i else rid)
             for i, p in enumerate(prompts)]
     results = _fan_out(lm, reqs)
     return Response({

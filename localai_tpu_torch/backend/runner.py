@@ -24,6 +24,11 @@ services/errors.py. Speculation takes the JAX options and parsing:
 turns it off) and ``spec_ngram``; a draft model (``draft_model``) is not
 served yet and is refused before any weight is loaded. ``emitter`` (on
 by default; 0 / false / off / no = inline emission) is the JAX option.
+The observability options take the JAX names, defaults and checks:
+``trace`` (on; the off words turn it off), ``trace_ring_size``,
+``slow_request_ms``, ``stall_dump_dir``, ``event_log``,
+``event_log_max_mb`` (non-negative ints where they are counts),
+``peak_tflops`` (a number >= 0) and ``kv_audit`` (off | on | strict).
 """
 
 from __future__ import annotations
@@ -155,6 +160,28 @@ def spec_options(draft="auto", n_draft=4, spec_ngram=3) -> dict:
                          f"expected ints") from None
 
 
+# the observability options given as numbers (the JAX option parsing:
+# ints for the counts, a float for the peak)
+_OBS_NUMBERS = {"trace_ring_size": int, "slow_request_ms": int,
+                "event_log_max_mb": int, "peak_tflops": float}
+
+
+def observability_options(**opts) -> dict:
+    """The numeric observability options as the JAX runner parses them
+    (str or number -> int / float); a value that does not parse raises
+    ValueError (EngineConfig.check refuses negative ones)."""
+    out = {}
+    for name, value in opts.items():
+        cast = _OBS_NUMBERS[name]
+        try:
+            out[name] = cast(str(value).strip())
+        except ValueError:
+            raise ValueError(f"{name} {value!r}: expected "
+                             f"{'an int' if cast is int else 'a number'}"
+                             ) from None
+    return out
+
+
 def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
                context_size: int = 2048, dtype: str = "bfloat16",
                random_weights: Optional[int] = None, device="cuda",
@@ -180,8 +207,10 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
     ``kv_host_store`` (``host_store_path``). ``engine_knobs`` are
     EngineConfig fields with the JAX engine's names (prefill_chunk,
     decode_burst, pipeline_depth, prefill_packed_fuse, kv_prefetch_ahead,
-    the lifecycle and scheduler knobs, ...; ``preempt`` and ``emitter``
-    parsed as ``kv_offload``), checked before loading too (``EngineConfig.check``).
+    the lifecycle, scheduler and observability knobs, ...; ``preempt``,
+    ``emitter`` and ``trace`` parsed as ``kv_offload``, the numeric
+    observability knobs by ``observability_options``), checked before
+    loading too (``EngineConfig.check``).
     Speculation: ``draft`` / ``n_draft`` / ``spec_ngram`` (``spec_options``);
     a ``draft_model`` raises NotImplementedError before anything loads. A
     GPTQ / AWQ dir with no quantization loads as int8."""
@@ -205,9 +234,11 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
             f"ported yet (a later slice, with sampled acceptance); n-gram "
             f"self-speculation (draft=auto / ngram) needs no draft model")
     engine_knobs.update(spec_options(draft, n_draft, spec_ngram))
-    for name in ("preempt", "emitter"):
-        if name in engine_knobs:
-            engine_knobs[name] = bool_option(engine_knobs[name], name)
+    for opt in ("preempt", "emitter", "trace"):
+        if opt in engine_knobs:
+            engine_knobs[opt] = bool_option(engine_knobs[opt], opt)
+    engine_knobs.update(observability_options(**{
+        k: engine_knobs.pop(k) for k in _OBS_NUMBERS if k in engine_knobs}))
     # engine knobs are checked here too, before any weight is loaded
     # (an unknown prefill_packed_fuse, a pipeline_depth below 1, a
     # priority outside high | normal | low)

@@ -13,10 +13,13 @@
         [--resume-reserve-pages 0] [--priority normal] \\
         [--priority-aging-ms 4000] \\
         [--draft auto] [--n-draft 4] [--spec-ngram 3] [--emitter 1] \\
+        [--trace 1] [--trace-ring-size 4096] [--slow-request-ms 0] \\
+        [--stall-dump-dir DIR] [--event-log PATH|stderr|off] \\
+        [--event-log-max-mb 64] [--peak-tflops 0] [--kv-audit on] \\
         [--random-weights SEED] [--device cuda]
 
-serves one model over the OpenAI-compatible HTTP routes until
-interrupted.
+serves one model over the OpenAI-compatible HTTP routes, and /metrics
+and /debug/{trace,state,events,kv}, until interrupted.
 """
 
 from __future__ import annotations
@@ -104,6 +107,27 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--emitter", default="1",
                    help="1: detokenization, stop sequences and stream writes "
                         "on the emitter thread; 0: inline on the engine thread")
+    # observability (the JAX names and defaults)
+    r.add_argument("--trace", default="1",
+                   help="the request span tracer: 1 (default) | 0")
+    r.add_argument("--trace-ring-size", type=int, default=4096,
+                   help="spans kept in the ring")
+    r.add_argument("--slow-request-ms", type=int, default=0,
+                   help="log a request whose TTFT or end-to-end time exceeds "
+                        "this; 0 = off")
+    r.add_argument("--stall-dump-dir", default="",
+                   help="where stall span-ring dumps and flight dumps land "
+                        "(default: the temp dir)")
+    r.add_argument("--event-log", default="",
+                   help="the event log's sink: a path | stderr | off (the "
+                        "ring at /debug/events is kept either way)")
+    r.add_argument("--event-log-max-mb", type=int, default=64,
+                   help="rotate the event-log file at this size; 0 = never")
+    r.add_argument("--peak-tflops", type=float, default=0.0,
+                   help="the card's peak TFLOP/s for MFU; 0 = by card name")
+    r.add_argument("--kv-audit", default="on",
+                   help="the KV lifecycle auditor: on (report) | strict "
+                        "(raise) | off")
     r.add_argument("--random-weights", type=int, default=None, metavar="SEED",
                    help="serve random weights from SEED for a config-only dir")
     r.add_argument("--device", default="cuda")
@@ -142,6 +166,12 @@ def main(argv=None) -> int:
                     priority=args.priority,
                     priority_aging_ms=args.priority_aging_ms,
                     emitter=args.emitter,
+                    trace=args.trace, trace_ring_size=args.trace_ring_size,
+                    slow_request_ms=args.slow_request_ms,
+                    stall_dump_dir=args.stall_dump_dir,
+                    event_log=args.event_log,
+                    event_log_max_mb=args.event_log_max_mb,
+                    peak_tflops=args.peak_tflops, kv_audit=args.kv_audit,
                     draft=args.draft, n_draft=args.n_draft,
                     spec_ngram=args.spec_ngram)
     app = App({lm.name: lm})

@@ -24,6 +24,13 @@ their final events through ``push_final`` on the same queue, so they land
 after the tokens still queued for the stream. A worker stuck on one item
 longer than the dispatch stall budget is found by the engine's watchdog
 through the ``t_item_start`` heartbeat and replaced (``takeover``).
+The ``emitter_wedge_ms`` fault (services/faults.py) holds the worker that
+long on one item, so the watchdog's path can be driven.
+
+With a tracer (services/tracing.py), each batch records an ``emit_bg``
+span (the text work) and a ``stream_flush_bg`` span (the queue puts) on
+the "emitter" track: the decomposition keeps this thread's walltime apart
+from the engine loop's, which it overlaps.
 
 A stream's closed flag lives on its snapshot (``em_done``). A request
 resumed after a preemption gets a new snapshot whose ``resumed_from`` is
@@ -39,6 +46,8 @@ import logging
 import queue
 import threading
 import time
+
+from localai_tpu_torch.services.faults import FAULTS
 
 log = logging.getLogger(__name__)
 
@@ -84,11 +93,13 @@ class EmitterWorker:
     callback for the stop-sequence finishes found here, and
     ``note_abort(slot, snap)`` the callback for streams this worker had to
     fail (an item raised): the stream is closed with an error here, the
-    engine only releases the slot."""
+    engine only releases the slot. ``tracer``: the engine's RingTracer
+    (None: no spans)."""
 
     def __init__(self, stream_event, merge_events, note_finish,
-                 note_abort=None, name: str = "engine-emitter"):
+                 note_abort=None, name: str = "engine-emitter", tracer=None):
         self._StreamEvent = stream_event
+        self._tracer = tracer
         self._merge = merge_events
         self._note_finish = note_finish
         self._note_abort = note_abort
@@ -196,6 +207,10 @@ class EmitterWorker:
                 break
             self.t_item_start = time.monotonic()
             try:
+                if FAULTS.active:
+                    ms = FAULTS.take("emitter_wedge_ms")
+                    if ms is not None:
+                        time.sleep(float(ms) / 1e3)
                 if item[0] == "batch":
                     self._process_batch(item[1])
                 else:
@@ -256,6 +271,7 @@ class EmitterWorker:
         # of a snapshot closed earlier in the batch is dropped), then one
         # pass of queue puts, then the engine notes, after the streams
         # are closed
+        t0 = time.monotonic()
         writes, notes = [], []
         for e in entries:
             out, evs, note = self._build_entry(e)
@@ -263,11 +279,17 @@ class EmitterWorker:
                 writes.append((out, evs))
             if note is not None:
                 notes.append(note)
+        tput = time.monotonic()
         for out, evs in writes:
             for ev in evs:
                 out.put(ev)
         for slot, snap, ndec in notes:
             self._note_finish(slot, snap, ndec)
+        tr = self._tracer
+        if tr is not None and tr.enabled:
+            tr.record("emit_bg", "emitter", t0, tput,
+                      args={"entries": len(entries)})
+            tr.record("stream_flush_bg", "emitter", tput, time.monotonic())
 
     def _timings(self, snap, ndec):
         """The final event's timings for a stop found here (the engine

@@ -239,9 +239,41 @@ What this slice keeps of the JAX engine, with the same knob names:
     watchdog). ``emitter=False`` is the inline path (``_emit``), byte
     for byte what the port did before.
 
+  * OBSERVABILITY (the JAX engine's defaults; services/tracing.py,
+    eventlog.py, metrics.py, kv_audit.py, sysobs.py). ``trace`` (on,
+    ``trace_ring_size`` 4096): spans at the JAX record sites into a ring
+    (queue_wait, admission, prefill_dispatch, prefill_device,
+    finish_detect, prefill, decode_dispatch, decode_burst_device, the
+    spec tick's spec_round / spec_draft / spec_verify (the split is
+    analytic, as in JAX), per-slot decode, emit, stream_flush, request,
+    offload / restore_dispatch, preempt, resume, tick, and the emitter's
+    emit_bg / stream_flush_bg), read by ``metrics()["trace"]`` (with the
+    host / device / emitter decomposition ``decomp_ms``) and
+    ``trace_events()`` (Chrome trace JSON). A device span ends when the
+    loop first sees the item's CUDA event complete (``Fetch.t_ready``);
+    every span argument is host state the loop already has, so the tracer
+    never reads a CUDA tensor. The latency histograms (ttft, itl,
+    decode_burst, prefill_dispatch) with their worst-since-last-pull
+    exemplars, and ``ttft_decomp_p50_ms``. The event ring ``EVENTS``
+    (admit, complete, shed, timeout, preempt, resume, pool_pressure,
+    emitter_wedge, kv_audit_violation, stall_dump, flight_dump,
+    compile_storm; ``event_log`` adds a file or stderr sink). The KV
+    lifecycle ledger and online auditor (``kv_audit`` "on"; "strict"
+    raises, "off" builds nothing): the page pool, the prefix cache and
+    the host store record their transitions, and the loop scans the
+    invariants every 0.5 s between ticks (the prefetch pipeline's
+    detached pages declared as extras), and once more, drained, at a
+    shutdown with nothing running. The watermarks (also 0.5 s), goodput
+    and MFU (``peak_tflops``), the compile tracker (a graph captured or a
+    kernel library built after ``start``: a "compile storm"), the card's
+    allocator counters and the flight recorder. A stalled dispatch writes
+    the span ring to ``stall_dump_dir`` (``lifecycle.stall_dumps``) and a
+    flight dump. ``state_snapshot()``, ``kv_debug()`` and
+    ``kv_audit_sweep()`` serve /debug/state and /debug/kv
+    (api/localai_routes.py).
+
 Left for later slices: the snap-back window, the draft model, grammar,
-self-extend, the replica pool (live migration), the SLO engine, the
-tracer and the stall's span-ring dump.
+self-extend, the replica pool (live migration) and the SLO engine.
 """
 
 from __future__ import annotations
@@ -254,6 +286,7 @@ import queue
 import threading
 import time
 import uuid
+import weakref
 import zlib
 from typing import Any, Iterator, Optional
 
@@ -279,7 +312,11 @@ from localai_tpu_torch.engine.transfer import (
 from localai_tpu_torch.models import llama
 from localai_tpu_torch.ops import kvcache
 from localai_tpu_torch.ops.ragged_prefill import kernel_supports
+from localai_tpu_torch.services import sysobs
+from localai_tpu_torch.services.eventlog import EVENTS
 from localai_tpu_torch.services.faults import FAULTS
+from localai_tpu_torch.services.kv_audit import KVAuditError, KVAuditor
+from localai_tpu_torch.services.tracing import RingTracer, chrome_trace, dump_ring
 
 log = logging.getLogger(__name__)
 
@@ -289,6 +326,20 @@ KV_LAYOUTS = ("auto", "paged", "contiguous")   # auto = paged
 DRAFT_MODES = ("auto", "model", "ngram", "0", "off", "none", "false")
 # prefill_packed_fuse values (the JAX engine's): auto = split
 PACKED_FUSE = ("auto", "0", "1", "split")
+KV_AUDIT_MODES = ("off", "on", "strict")
+
+# The engine's latency histograms (the JAX engine's buckets, in seconds),
+# exposed by /metrics as Prometheus histograms
+_HIST_BUCKETS = {
+    "ttft_seconds": (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
+                     2.5, 5.0, 10.0, 30.0),
+    "itl_seconds": (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                    0.25, 0.5, 1.0),
+    "decode_burst_seconds": (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                             0.1, 0.25, 0.5, 1.0, 2.5),
+    "prefill_dispatch_seconds": (0.0005, 0.001, 0.0025, 0.005, 0.01,
+                                 0.025, 0.05, 0.1, 0.25, 0.5, 1.0),
+}
 
 
 @dataclasses.dataclass
@@ -381,6 +432,27 @@ class EngineConfig:
     # the emitter thread (module doc): detokenization, stop sequences and
     # the stream puts off the engine thread; False = inline emission
     emitter: bool = True
+    # --- observability (module doc), the JAX names and defaults ---
+    # the span tracer; False makes every record a one-check no-op
+    trace: bool = True
+    trace_ring_size: int = 4096
+    # log one WARNING with the timings of a request whose TTFT or
+    # end-to-end time exceeds this many ms; 0 = off
+    slow_request_ms: int = 0
+    # where stall ring dumps and flight dumps land; "" = the temp dir
+    stall_dump_dir: str = ""
+    # the event log's write-through sink: a path, "stderr", or "" / "off"
+    # (the ring only; the ring is always kept)
+    event_log: str = ""
+    # the file sink rotates at this size; 0 = never
+    event_log_max_mb: int = 64
+    # the card's peak TFLOP/s for MFU; 0 = LOCALAI_PEAK_TFLOPS or the
+    # table by card name (services/sysobs.py); unknown reports MFU 0
+    peak_tflops: float = 0.0
+    # KV_AUDIT_MODES: the lifecycle ledger and online auditor ("on":
+    # report only; "strict": a violation raises KVAuditError; "off":
+    # nothing is built)
+    kv_audit: str = "on"
 
     def check(self):
         """Refuse values the engine does not take (ValueError), before
@@ -390,7 +462,8 @@ class EngineConfig:
         scheduler knobs as the JAX model config checks them (non-negative
         ints, a known default class, three positive weights), and the
         speculation knobs (a known draft mode, n_draft >= 0, spec_ngram >=
-        1)."""
+        1), and the observability knobs (non-negative ints, kv_audit
+        off | on | strict, peak_tflops a number >= 0)."""
         if str(self.prefill_packed_fuse) not in PACKED_FUSE:
             raise ValueError(f"prefill_packed_fuse must be "
                              f"{'|'.join(PACKED_FUSE)}, got "
@@ -418,10 +491,20 @@ class EngineConfig:
         if str(self.draft).strip().lower() not in DRAFT_MODES:
             raise ValueError(f"draft must be {'|'.join(DRAFT_MODES)}, got "
                              f"{self.draft!r}")
-        for name, low in (("n_draft", 0), ("spec_ngram", 1)):
+        for name, low in (("n_draft", 0), ("spec_ngram", 1),
+                          ("trace_ring_size", 0), ("slow_request_ms", 0),
+                          ("event_log_max_mb", 0)):
             v = getattr(self, name)
             if not isinstance(v, int) or isinstance(v, bool) or v < low:
                 raise ValueError(f"{name} must be an int >= {low}, got {v!r}")
+        if self.kv_audit not in KV_AUDIT_MODES:
+            raise ValueError(f"kv_audit must be {'|'.join(KV_AUDIT_MODES)}, "
+                             f"got {self.kv_audit!r}")
+        if (isinstance(self.peak_tflops, bool)
+                or not isinstance(self.peak_tflops, (int, float))
+                or self.peak_tflops < 0):
+            raise ValueError(f"peak_tflops must be a number >= 0, got "
+                             f"{self.peak_tflops!r}")
 
 
 @dataclasses.dataclass
@@ -573,6 +656,18 @@ class _Burst:
         self.spec_mask: Optional[np.ndarray] = None
         self.spec_width = 0
         self.spec_greedy: Optional[np.ndarray] = None
+
+
+def _tensors(tree):
+    """Every tensor of a nested dict / list / tuple (the weights)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
 
 
 def _host_pages(rows) -> list:
@@ -812,6 +907,10 @@ class Engine:
                                     self.sampler, S, C, self._pack_buckets,
                                     self.device)
         self._sink: Optional[dict] = None   # per-slot event coalescing
+        # the span tracer (module doc): always built; trace=False makes
+        # record() a no-op (the emitter's spans go into it too)
+        self.tracer = RingTracer(self.ecfg.trace_ring_size,
+                                 enabled=bool(self.ecfg.trace))
         # the emitter thread (module doc): the tick's token batch, the
         # notes of the stops it found, the worker (None: inline emission)
         self._em_batch: dict = {}
@@ -879,6 +978,72 @@ class Engine:
         self._preempt_pages_ewma = 0.0
         self._reserve_auto = 0
         self._t_reserve_sample = time.monotonic()
+        self._init_observability()
+
+    def _init_observability(self):
+        """The observability state (module doc), the JAX engine's."""
+        self.replica_id = 0
+        self._load_time = time.monotonic()
+        self._slow_ms = float(self.ecfg.slow_request_ms)
+        # the latency histograms: name -> [bucket counts + +Inf, sum, n];
+        # one writer (the engine thread), metrics() reads snapshots
+        self._hists = {name: [[0] * (len(b) + 1), 0.0, 0]
+                       for name, b in _HIST_BUCKETS.items()}
+        # the worst observation per histogram since the last metrics() pull,
+        # with its request id (the /metrics exemplar)
+        self._hist_worst: dict = {}
+        # per finished request (queue_wait, admit_to_first, prefill) ms,
+        # the last 512: metrics()["ttft_decomp_p50_ms"]
+        self._ttft_decomp: collections.deque = collections.deque(maxlen=512)
+        self._decomp_lock = threading.Lock()
+        self._lc["stall_dumps"] = 0
+        if self.ecfg.event_log:
+            EVENTS.configure(self.ecfg.event_log,
+                             max_mb=self.ecfg.event_log_max_mb)
+        # a graph captured or a kernel library built after start() is a
+        # compile storm (services/sysobs.py)
+        self._cobs = sysobs.CompileTracker(
+            model="llama", on_storm=lambda rec: EVENTS.emit("compile_storm",
+                                                            **rec))
+        self._wm = sysobs.Watermarks()
+        self._weight_bytes = int(sum(
+            t.numel() * t.element_size() for t in _tensors(self.params)))
+        peak = (self.ecfg.peak_tflops * 1e12 if self.ecfg.peak_tflops > 0
+                else (sysobs.peak_device_flops()
+                      if self.device.type == "cuda" else 0.0))
+        self._goodput = sysobs.GoodputMeter(
+            flops_per_tok=sysobs.flops_per_token(
+                self.cfg, ctx=self.ecfg.max_context // 2),
+            peak_flops=peak)
+        self._flight = sysobs.FlightRecorder(self.ecfg.stall_dump_dir)
+        # the card's allocator counters at the last sample ({} on the CPU)
+        self._device_mem: dict = {}
+        self._pool_pressure = False     # hysteresis of pool_pressure events
+        self._t_wm = 0.0                # the last housekeeping pass
+        # the lifecycle ledger and auditor: kv_audit "off" (or the
+        # contiguous layout) builds nothing, and every hook in the pool,
+        # the prefix cache and the host store stays one `is not None`
+        self._kv_audit: Optional[KVAuditor] = None
+        if self._pool is not None and self.ecfg.kv_audit != "off":
+            aud = KVAuditor(mode=self.ecfg.kv_audit, replica=self.replica_id,
+                            seed=self.replica_id)
+            # through a weak reference: the pool holds the auditor, and a
+            # cycle back to the engine would keep a shut-down engine's
+            # weights until the cycle collector ran
+            ref = weakref.ref(self)
+
+            def on_violation(v, ref=ref):
+                eng = ref()
+                if eng is not None:
+                    eng._on_kv_violation(v)
+
+            aud.on_violation = on_violation
+            self._pool.audit = aud
+            if self._pcache is not None:
+                self._pcache.audit = aud
+            if self._hstore is not None:
+                self._hstore.audit = aud
+            self._kv_audit = aud
 
     # ---------- lifecycle ----------
 
@@ -886,7 +1051,8 @@ class Engine:
         """Start the engine thread. On the card it first captures the
         decode step's graph and the prefill graphs (as the JAX engine
         precompiles its bursts and packs); start returns once that is
-        done and raises if it failed."""
+        done and raises if it failed. From then on a capture or a kernel
+        build is a compile storm (services/sysobs.py)."""
         if self._thread is None:
             ready, failed = threading.Event(), []
             self._thread = threading.Thread(target=self._run, name="engine",
@@ -897,6 +1063,7 @@ class Engine:
                 self._thread.join()
                 self._thread = None
                 raise RuntimeError("CUDA graph capture failed") from failed[0]
+            self._cobs.mark_warm()
         return self
 
     def shutdown(self):
@@ -910,6 +1077,9 @@ class Engine:
                 self._graph.free()
                 self._pgraph.free()
             self._thread = None
+        # nothing running, queued or parked: the pool must balance to zero
+        drained = (self.num_active == 0 and self._queue.qsize() == 0
+                   and not (self._sched and self._sched.resume_depth))
         self._fifo.clear()
         self._fork_waiters.clear()
         err = StreamEvent(token_id=-1, text="", logprob=0.0,
@@ -933,6 +1103,30 @@ class Engine:
         self._offloader.close()
         if self._hstore is not None and self.ecfg.kv_host_store_path:
             self._hstore.save(self.ecfg.kv_host_store_path)
+        if self._kv_audit is not None and drained:
+            self._drained_audit()
+
+    def _drained_audit(self):
+        """The post-drain audit (the JAX engine's, at shutdown when nothing
+        was cut off): free slots' retained tables are released, the
+        prefix cache evicted, and the pool must balance to zero (every
+        page free, every hold dropped, the ledger agreeing). The prefetch
+        pipeline's pages are given back first (JAX declares them extras,
+        but a drained pool must hold none). Strict mode raises out of
+        shutdown by design."""
+        try:
+            self._drop_prefetched()
+            for i, s in enumerate(self.slots):
+                if s is None and self._pool.owned[i]:
+                    self._pool.release(i, 0)
+                    self._cache_tokens[i] = []
+            if self._pcache is not None:
+                self._pcache.evict(self._pool, self._pool.num_pages)
+            self._kv_audit_tick(drained=True)
+        except KVAuditError:
+            raise
+        except Exception:
+            log.exception("post-drain kv audit failed")
 
     def cancel(self, request_id: str):
         """Cancel a queued or running request (the JAX engine's
@@ -992,6 +1186,8 @@ class Engine:
     def _shed(self, req: GenRequest, reason: str):
         with self._lc_lock:
             self._lc["requests_shed"] += 1
+        EVENTS.emit("shed", rid=req.request_id, reason=reason,
+                    queued=self._queue.qsize())
         req.out.put(StreamEvent(
             token_id=-1, text="", logprob=0.0, finish_reason="stop",
             error=reason, error_kind="shed",
@@ -1001,6 +1197,8 @@ class Engine:
     def _timeout_event(self, req: GenRequest) -> StreamEvent:
         with self._lc_lock:
             self._lc["requests_timed_out"] += 1
+        EVENTS.emit("timeout", rid=req.request_id,
+                    timeout_ms=self.ecfg.request_timeout_ms)
         return StreamEvent(
             token_id=-1, text="", logprob=0.0, finish_reason="stop",
             error=(f"request deadline exceeded "
@@ -1034,9 +1232,23 @@ class Engine:
         return sum(1 for s in self.slots if s is not None)
 
     def metrics(self) -> dict:
+        """The engine's counters and gauges: the port's own keys, and the
+        JAX engine's keys that /metrics (api/localai_routes.py) reads,
+        under the JAX names (slots_total / slots_active, prefill_packed,
+        kv_pages_*, histograms, trace, sysobs, flight_recorder, kv_audit,
+        hist_exemplars: the worst observations since the last pull)."""
+        n_active = self.num_active
         out = {"num_slots": self.ecfg.num_slots,
-               "active_slots": self.num_active,
+               "active_slots": n_active,
+               "slots_total": self.ecfg.num_slots,
+               "slots_active": n_active,
+               "replica_id": self.replica_id,
+               "uptime_s": time.monotonic() - self._load_time,
                "queued": self._queue.qsize(),
+               # the port always packs its prompts (the JAX default)
+               "prefill_packed": True,
+               "prefill_packed_fuse": str(self.ecfg.prefill_packed_fuse),
+               "prefill_token_budget": self._pack_budget,
                "kv_layout": self.kv_layout,
                "cache_dtype": str(self.cache_dtype).replace("torch.", ""),
                "packed_prefill": dict(self._pack_stats),
@@ -1075,8 +1287,7 @@ class Engine:
                                                     if c["rounds"] else 0.0)}
                         for m, c in st["by_mode"].items()}}
         out["prompt_tokens_reused"] = self._reuse_stats["reused_rows"]
-        # the lifecycle's counters and limits (the JAX engine's keys, less
-        # the stall ring dumps)
+        # the lifecycle's counters and limits (the JAX engine's keys)
         with self._lc_lock:
             lc = dict(self._lc)
         for k in ("max_queued_requests", "max_queue_wait_ms",
@@ -1095,9 +1306,16 @@ class Engine:
                 [i for i, s in enumerate(self.slots) if s is None],
                 extra=self._prefetched_pages())
             out["pages_total"] = pool.num_pages
+            out["kv_page_size"] = pool.page_size
+            out["kv_pages_total"] = pool.num_pages
+            out["kv_pages_in_use"] = pool.pages_in_use
+            out["kv_pages_shared"] = int((pool.refs > 1).sum())
             out["kv_pages_free"] = pool.free_pages
             out["kv_pages_retained"] = pool.retained_pages
             out["kv_pages_active"] = pool.active_pages
+            out["kv_pool_oversubscription"] = round(pool.oversubscription, 4)
+            if self._kv_audit is not None:
+                out["kv_audit"] = self._kv_audit.snapshot()
             if self._pcache is not None:
                 out["prefix_cache"] = {**self._pcache.stats(),
                                        "cow_clones": self._reuse_stats["cow_clones"]}
@@ -1105,7 +1323,213 @@ class Engine:
                 out["kv_pages_offloaded"] = self._hstore.pages
                 out["kv_offload"] = self._hstore.stats()
                 out["kv_offload_worker"] = dict(self._offloader.stats)
+        with self._decomp_lock:
+            d = list(self._ttft_decomp)
+        if d:
+            qw, af, pf = (sorted(x[i] for x in d) for i in range(3))
+            mid = len(d) // 2
+            out["ttft_decomp_p50_ms"] = {
+                "queue_wait": round(qw[mid], 1),
+                "admit_to_first": round(af[mid], 1),
+                "prefill_dispatch": round(pf[mid], 1),
+                "n": len(d)}
+        out["histograms"] = {
+            name: {"le": list(_HIST_BUCKETS[name]), "counts": list(h[0]),
+                   "sum": round(h[1], 6), "count": h[2]}
+            for name, h in self._hists.items()}
+        out["trace"] = self.tracer.summary()
+        self._sample_watermarks()
+        sys_obs = {"compiles": self._cobs.snapshot(),
+                   "watermarks": self._wm.snapshot(),
+                   "goodput": self._goodput.snapshot(),
+                   "weight_bytes": self._weight_bytes}
+        if self._pool is not None:
+            sys_obs["fragmentation"] = self._pool.fragmentation()
+        if self._device_mem:
+            sys_obs["device_mem"] = dict(self._device_mem)
+        out["sysobs"] = sys_obs
+        out["flight_recorder"] = self._flight.snapshot()
+        # consumed: each pull sees its interval's worst observation
+        worst, self._hist_worst = self._hist_worst, {}
+        if worst:
+            out["hist_exemplars"] = {
+                name: {"value": round(v, 6), "trace_id": rid, "ts": ts}
+                for name, (v, rid, ts) in worst.items()}
         return out
+
+    # ---------- observability (module doc) ----------
+
+    def _hobserve(self, name: str, seconds: float, rid: str = ""):
+        """One latency observation into histogram ``name``; with ``rid``,
+        the worst since the last metrics() pull is kept as its exemplar."""
+        h = self._hists[name]
+        for i, b in enumerate(_HIST_BUCKETS[name]):
+            if seconds <= b:
+                h[0][i] += 1
+                break
+        else:
+            h[0][-1] += 1
+        h[1] += seconds
+        h[2] += 1
+        if rid:
+            worst = self._hist_worst.get(name)
+            if worst is None or seconds > worst[0]:
+                self._hist_worst[name] = (seconds, rid, time.time())
+
+    def _sample_watermarks(self):
+        """Fold the gauges into the high-water marks (housekeeping, every
+        admission and every metrics() pull), read the card's allocator
+        counters, and emit pool_pressure when the free share falls under
+        5% (once per excursion: cleared above 10%)."""
+        wm = {"queued": self._queue.qsize(), "slots_active": self.num_active,
+              "tokens_total": self._decode_stats["tokens"]}
+        dm = sysobs.device_memory_stats(self.device)
+        if dm:
+            self._device_mem = dm
+            wm["device_bytes_in_use"] = dm.get("bytes_in_use", 0)
+        pool = self._pool
+        if pool is not None:
+            wm["pool_active_pages"] = pool.active_pages
+            wm["pool_retained_pages"] = pool.retained_pages
+            wm["pool_pages_in_use"] = pool.pages_in_use
+            if self._hstore is not None:
+                wm["host_offloaded_pages"] = self._hstore.pages
+                wm["host_bytes"] = self._hstore.bytes_used
+            free_frac = pool.free_pages / max(1, pool.num_pages)
+            if not self._pool_pressure and free_frac < 0.05:
+                self._pool_pressure = True
+                EVENTS.emit("pool_pressure", free_pages=pool.free_pages,
+                            total_pages=pool.num_pages,
+                            retained=pool.retained_pages,
+                            active=pool.active_pages)
+            elif self._pool_pressure and free_frac > 0.10:
+                self._pool_pressure = False
+        self._wm.sample(**wm)
+
+    def _flight_dump(self, reason: str, tag: str = "slo", **extra) -> str:
+        """Write the flight recorder's bundle for one bad moment: the trace,
+        the state snapshot and the last 256 events, plus ``extra``. Never
+        raises into the engine loop."""
+        try:
+            payload = {"trace": self.trace_events(),
+                       "state": self.state_snapshot(),
+                       "events": EVENTS.events(last=256)}
+            payload.update(extra)
+            path = self._flight.dump(reason, payload, tag=tag)
+            if path:
+                EVENTS.emit("flight_dump", reason=reason, tag=tag, path=path)
+            return path
+        except Exception:
+            log.exception("flight dump failed")
+            return ""
+
+    def _on_kv_violation(self, v: dict):
+        """The auditor's callback: one kv_audit_violation event per
+        violation and a flight dump with the ledger's tail."""
+        try:
+            EVENTS.emit("kv_audit_violation",
+                        **{k: (x if isinstance(x, (str, int, float))
+                               else str(x)) for k, x in v.items()})
+            self._flight_dump("kv_audit:" + str(v.get("check", "?")),
+                              tag="kv_audit", kv_violation=v,
+                              kv_ledger_tail=(self._kv_audit.ledger.tail(64)
+                                              if self._kv_audit is not None
+                                              else []))
+        except Exception:
+            pass
+
+    def _kv_audit_tick(self, drained: bool = False) -> list:
+        """One audit pass (engine thread, between ticks). The detached
+        pages that outlive a tick are the prefetch pipeline's, declared as
+        extras; every other detached page is adopted or freed within the
+        call that made it. Strict mode lets KVAuditError propagate (in the
+        loop: the step-failure path)."""
+        aud = self._kv_audit
+        if aud is None:
+            return []
+        return aud.run(self._pool, pcache=self._pcache, hstore=self._hstore,
+                       extra_pages=self._prefetched_pages() or None,
+                       drained=drained)
+
+    def kv_audit_sweep(self, drained: bool = False) -> dict:
+        """A full audit pass on demand, and the auditor's snapshot. The
+        caller must be quiesced (nothing in flight, the loop idle or
+        stopped): the scan reads the pool's host mirrors."""
+        if self._kv_audit is None:
+            return {"mode": "off", "checks": 0, "violations": 0,
+                    "leaked_pages": 0, "ledger_events": 0}
+        self._kv_audit_tick(drained=drained)
+        return self._kv_audit.snapshot()
+
+    def _pool_map(self) -> dict:
+        pool = self._pool
+        return {"pages_total": pool.num_pages, "page_size": pool.page_size,
+                "free": pool.free_pages, "active": pool.active_pages,
+                "retained": pool.retained_pages,
+                "shared": int((pool.refs > 1).sum()),
+                "oversubscription": round(pool.oversubscription, 4),
+                "fragmentation": pool.fragmentation(),
+                "pages_per_slot": [int(n) for n in pool.owned]}
+
+    def kv_debug(self) -> dict:
+        """The /debug/kv payload: the pool map, the prefix cache's chains,
+        the audit counters and last violations, the ledger's tail, the
+        host tier and the prefetch pipeline. {"mode": "off", ...} when
+        auditing is off or the layout has no pages."""
+        if self._kv_audit is None:
+            return {"mode": "off", "replica": self.replica_id}
+        out = {"mode": self._kv_audit.mode, "replica": self.replica_id,
+               "pool": self._pool_map(),
+               "chains": (self._pcache.genealogy(64)
+                          if self._pcache is not None else []),
+               "audit": self._kv_audit.snapshot(),
+               "ledger_tail": self._kv_audit.ledger.tail(64)}
+        if self._hstore is not None:
+            out["host"] = self._hstore.stats()
+        if self._prefetch is not None:
+            out["prefetch"] = {"staged_pages": len(self._prefetch),
+                               "seen_rids": len(self._prefetch.seen_rids)}
+        return out
+
+    def state_snapshot(self) -> dict:
+        """The /debug/state payload: slots, queue, pool map, warmth and
+        the last captures / builds, watermarks, goodput, speculation and
+        lifecycle counters."""
+        now = time.monotonic()
+        slots = []
+        for s in list(self.slots):
+            slots.append(None if s is None else {
+                "rid": s.req.request_id,
+                "prompt_tokens": len(s.req.prompt_ids),
+                "committed": int(s.committed),
+                "n_decoded": int(s.n_decoded),
+                "age_s": round(now - s.t_start, 3)})
+        comp = self._cobs.snapshot()
+        out = {"slots": slots, "slots_active": self.num_active,
+               "queued": self._queue.qsize(), "warm": comp["warm"],
+               "compiles": comp, "last_compiles": self._cobs.last_compiles(),
+               "watermarks": self._wm.snapshot(),
+               "goodput": self._goodput.snapshot(),
+               "weight_bytes": self._weight_bytes}
+        if self._device_mem:
+            out["device_mem"] = dict(self._device_mem)
+        st = self._spec_stats
+        out["spec"] = {"mode": self._spec_mode,
+                       **{k: v for k, v in st.items() if k != "by_mode"},
+                       "by_mode": {m: dict(c)
+                                   for m, c in st["by_mode"].items()}}
+        out["flight_recorder"] = self._flight.snapshot()
+        with self._lc_lock:
+            out["lifecycle"] = dict(self._lc)
+        if self._pool is not None:
+            out["pool"] = self._pool_map()
+            if self._hstore is not None:
+                out["host_store"] = self._hstore.stats()
+        return out
+
+    def trace_events(self) -> dict:
+        """The span ring as Chrome trace-event JSON (perfetto loads it)."""
+        return chrome_trace(self.tracer)
 
     def _scheduler_metrics(self) -> dict:
         """``Scheduler.stats()`` plus the knobs, the reserve applied, and
@@ -1147,10 +1571,13 @@ class Engine:
 
     def _capture(self):
         """Capture the decode step's two variants and every (bucket,
-        continued) prefill graph (CUDA only; engine thread), then pin the
-        host tier's memory."""
-        self._graph.capture()
-        self._pgraph.capture()
+        continued) prefill graph (CUDA only; engine thread; each counted
+        by the compile tracker), then pin the host tier's memory."""
+        for name, graph in (("decode_graph", self._graph),
+                            ("prefill_graph", self._pgraph)):
+            t0 = time.monotonic()
+            graph.capture()
+            sysobs.note_compile(name, time.monotonic() - t0)
         if self._hstore is not None:
             self._reserve_pinned()
 
@@ -1175,6 +1602,8 @@ class Engine:
         del blocks
 
     def _run(self, ready: threading.Event, failed: list):
+        # captures and kernel builds on this thread count as compiles
+        sysobs.register_thread(self._cobs)
         try:
             if self.device.type == "cuda":
                 self._capture()
@@ -1203,6 +1632,15 @@ class Engine:
         """One iteration of the loop (the JAX engine's tick): reap, admit,
         dispatch a pack and a burst (neither waits), then process what the
         FIFO rule allows. False when nothing happened (idle)."""
+        t_tick = time.monotonic()
+        if t_tick - self._t_wm > 0.5:
+            # housekeeping on the JAX cadence, between ticks on this
+            # thread, so the pool's host mirrors are never mid-change:
+            # the watermark fold and the online KV audit
+            self._t_wm = t_tick
+            self._sample_watermarks()
+            if self._kv_audit is not None:
+                self._kv_audit_tick()
         self._autosize_reserve()
         # the stops the emitter found: their slots free before admission
         noted = self._apply_emitter_notes()
@@ -1214,6 +1652,13 @@ class Engine:
         prefilled = self._dispatch_prefill()
         dispatched = self._dispatch_decode()
         drained = self._drain_fifo(can_feed=prefilled or dispatched)
+        tr = self.tracer
+        if tr.enabled and (admitted or prefilled or dispatched or drained):
+            tr.record("tick", "sched", t_tick, time.monotonic(),
+                      args={"admitted": int(admitted),
+                            "prefilled": int(prefilled),
+                            "dispatched": int(dispatched),
+                            "drained": int(drained)})
         return noted or admitted or prefilled or dispatched or drained
 
     def _fail_active(self, e: Exception):
@@ -1474,6 +1919,7 @@ class Engine:
         are dropped (``_Burst.skip``, as for a context shift) and resume
         re-computes from the last token kept. The mirostat mu is copied on
         the card, in stream order (no wait)."""
+        t0 = time.monotonic()
         s = self.slots[slot]
         hist = list(self._cache_tokens[slot])        # prompt + emitted tokens
         committed = min(s.committed, len(hist))
@@ -1505,8 +1951,13 @@ class Engine:
                 b.skip.add(slot)
         with self._lc_lock:
             self._lc["preemptions"] += 1
-        log.debug("preempt %s (%s) from slot %d: %d decoded, %d rows retained",
-                  s.req.request_id, why, slot, s.n_decoded, committed)
+        EVENTS.emit("preempt", rid=s.req.request_id, slot=slot, why=why,
+                    priority=s.req.priority, n_decoded=s.n_decoded,
+                    retained_rows=committed)
+        if self.tracer.enabled:
+            self.tracer.record("preempt", f"slot{slot}", t0, time.monotonic(),
+                               rid=s.req.request_id,
+                               args={"why": why, "retained_rows": committed})
 
     def _start_resume(self, entry: ResumeEntry) -> int:
         """Re-admit a preempted request (the JAX engine's
@@ -1519,11 +1970,21 @@ class Engine:
         sched = self._sched
         req = entry.req
         req.prompt_ids = list(entry.ids)
-        slot, _ids, s = self._start_request(req, resume=entry)
+        t0 = time.monotonic()
+        slot, ids, s = self._start_request(req, resume=entry)
         sched.resumes += 1
         sched.resume_restore_rows += s.reused
         if s.reused == 0:
             sched.resume_reprefills += 1
+        EVENTS.emit("resume", rid=req.request_id, slot=slot,
+                    priority=req.priority, reused_rows=s.reused,
+                    reprefill_rows=len(ids) - s.reused,
+                    parked_ms=round((t0 - entry.t_parked) * 1e3, 1))
+        if self.tracer.enabled:
+            self.tracer.record("resume", f"slot{slot}", t0, time.monotonic(),
+                               rid=req.request_id,
+                               args={"reused_rows": s.reused,
+                                     "reprefill_rows": len(ids) - s.reused})
         return slot
 
     def _autosize_reserve(self):
@@ -1577,6 +2038,11 @@ class Engine:
         restore path: ``req.prompt_ids`` holds the whole history, which is
         not truncated (only clamped below the cache edge), and the parked
         streaming state is grafted onto the new _Slot."""
+        t_adm = time.monotonic()
+        if resume is None:
+            EVENTS.emit("admit", rid=req.request_id,
+                        prompt_tokens=len(req.prompt_ids),
+                        queued=self._queue.qsize())
         C = self.ecfg.max_context
         ids = [int(t) for t in req.prompt_ids]
         if resume is not None:
@@ -1623,6 +2089,18 @@ class Engine:
             if resume.mu is not None:
                 self.sampler.mu[slot].copy_(resume.mu)
         self._prefill_queue.append(slot)
+        # a request shorter than the housekeeping cadence still leaves its
+        # high-water mark
+        self._sample_watermarks()
+        tr = self.tracer
+        if tr.enabled and resume is None:
+            if req.t_submit:
+                tr.record("queue_wait", f"slot{slot}", req.t_submit,
+                          s.t_start, rid=req.request_id)
+            # admission: the prefix tiers' splice and the host restore
+            tr.record("admission", f"slot{slot}", t_adm, time.monotonic(),
+                      rid=req.request_id,
+                      args={"prompt_tokens": len(ids), "reused_rows": common})
         return slot, ids, s
 
     def _install(self, slot: int, req: GenRequest, ids: list) -> _Slot:
@@ -1907,6 +2385,7 @@ class Engine:
         rewrites them. The offload worker copies that snapshot to pinned
         host memory and puts the pages into the host store: pinning host
         memory is slow, and stays off the engine thread."""
+        t0 = time.monotonic()
         pages = [v[3] for v in victims]
         stream = (torch.cuda.current_stream(self.device)
                   if self.device.type == "cuda" else None)
@@ -1914,6 +2393,9 @@ class Engine:
             [(key, parent, depth) for key, parent, depth, _p in victims],
             kvcache.gather_pages(self.ck, pages),
             kvcache.gather_pages(self.cv, pages), stream, self._hstore))
+        if self.tracer.enabled:
+            self.tracer.record("offload_dispatch", "engine", t0,
+                               time.monotonic(), args={"pages": len(pages)})
 
     def _upload_pages(self, pages: list, host_hits: list):
         """Copy host-tier entries into device pages (same order): each
@@ -1939,6 +2421,7 @@ class Engine:
         2, so the first prefill write clones). Under pool pressure a
         partial allocation restores a shorter chain from the root; it
         never fails the admission. Returns the pages restored."""
+        t0 = time.monotonic()
         pool = self._pool
         pages = pool.alloc_many(len(host_hits))
         if len(pages) < len(host_hits):
@@ -1953,6 +2436,9 @@ class Engine:
             pool.adopt(slot, p)
             self._pcache.attach(pool, e.key, e.parent, p, e.depth)
         self._hstore.note_restore(n)
+        if self.tracer.enabled:
+            self.tracer.record("restore_dispatch", "engine", t0,
+                               time.monotonic(), args={"pages": n})
         return n
 
     def _prefetch_tick(self):
@@ -2174,6 +2660,12 @@ class Engine:
         self._commit_ptab()
         fetch = self._prefill_pack(bucket, continued, host)
         group = self._advance(segs, t0)
+        t1 = time.monotonic()
+        self._hobserve("prefill_dispatch_seconds", t1 - t0)
+        if self.tracer.enabled:
+            self.tracer.record("prefill_dispatch", "engine", t0, t1,
+                               args={"tokens": total, "segments": len(segs),
+                                     "bucket": bucket, "packed": True})
         if not group:
             st["seconds"] += time.monotonic() - t0
             return True
@@ -2251,6 +2743,16 @@ class Engine:
         t1 = time.monotonic()
         if not item.split:
             self._pack_stats["seconds"] += t1 - item.t0
+        tr = self.tracer
+        if tr.enabled:
+            # dispatch -> the results seen landed: device time (and the
+            # queue behind earlier dispatches); landed -> now: pickup lag
+            t_rdy = item.fetch.t_ready or t1
+            args = {"slots": len(item.group)}
+            if item.split:
+                args["split"] = True
+            tr.record("prefill_device", "engine", item.t0, t_rdy, args=args)
+            tr.record("finish_detect", "engine", t_rdy, t1)
         self._open_sink()
         try:
             for b, (slot, s) in enumerate(item.group):
@@ -2269,6 +2771,16 @@ class Engine:
                 s.t_prefill_ms += (t1 - item.t0) * 1e3
                 if not s.t_first_token:   # a shift's re-prefill keeps it
                     s.t_first_token = t1
+                    if s.req.t_submit:
+                        self._hobserve("ttft_seconds", t1 - s.req.t_submit,
+                                       rid=s.req.request_id)
+                    if tr.enabled:
+                        args = {"prompt_tokens": s.prompt_len}
+                        if item.split:
+                            args["fused"] = ("split" if self._fuse == "split"
+                                             else True)
+                        tr.record("prefill", f"slot{slot}", item.t0, t1,
+                                  rid=s.req.request_id, args=args)
                 self._emit(slot, int(ids[b]), float(lps[b]))
         finally:
             self._close_sink()
@@ -2421,8 +2933,16 @@ class Engine:
             if not included:
                 return True
         self._commit_ptab()
+        t_d = time.monotonic()
         self._fifo.append(self._dispatch_burst(n_steps, included, t0,
                                                spec_mask=spec_mask))
+        if self.tracer.enabled:
+            args = {"steps": n_steps, "slots": len(included)}
+            if spec_mask is not None:
+                args.update(spec_slots=int(spec_mask[included].sum()),
+                            spec_width=self._spec_width)
+            self.tracer.record("decode_dispatch", "engine", t_d,
+                               time.monotonic(), args=args)
         return True
 
     def _dispatch_fused(self, segs: list, bucket: int, continued: bool,
@@ -2463,7 +2983,15 @@ class Engine:
         if self._fuse == "split":
             self._fifo.append(head)
         self._fifo.append(b)
-        self._pack_stats["seconds"] += time.monotonic() - t0
+        t1 = time.monotonic()
+        self._pack_stats["seconds"] += t1 - t0
+        self._hobserve("prefill_dispatch_seconds", t1 - t0)
+        if self.tracer.enabled:
+            self.tracer.record("prefill_dispatch", "engine", t0, t1,
+                               args={"segments": len(segs), "bucket": bucket,
+                                     "packed": True,
+                                     "fused": ("split" if self._fuse == "split"
+                                               else True)})
 
     def _dispatch_burst(self, n_steps: int, included: list, t0: float,
                         head: Optional[_Pack] = None,
@@ -2589,6 +3117,7 @@ class Engine:
         d = FAULTS.take("sync_delay_ms")
         if d is not None:
             item.fetch.t_due = time.monotonic() + int(d) / 1e3
+            item.fetch.t_ready = 0.0
         if FAULTS.take("sync_fail") is not None:
             item.fetch.err = RuntimeError("injected fault: sync_fail")
 
@@ -2629,21 +3158,34 @@ class Engine:
 
     def _handle_stall(self, item):
         """Abort only the stalled item's requests (the JAX engine's
-        ``_handle_stall``, without its span-ring dump, which comes with
-        the observability slice): each gets a "stall" event, its slot is
+        ``_handle_stall``): the span ring is dumped to stall_dump_dir
+        (``lifecycle.stall_dumps``), a "stall_dump" event and a flight dump
+        are written, each request gets a "stall" event, its slot is
         released and its fork waiters resolved; the item leaves the FIFO.
         The device state is kept: the other slots serve on (module doc)."""
         pairs = item.slots if isinstance(item, _Burst) else item.group
         stalled = [(i, snap) for i, snap in pairs if self.slots[i] is snap]
+        rids = [snap.req.request_id for _, snap in stalled]
         with self._lc_lock:
             self._lc["stalls"] += 1
+        dump_path = ""
+        try:
+            dump_path = dump_ring(self.tracer, self.ecfg.stall_dump_dir)
+            with self._lc_lock:
+                self._lc["stall_dumps"] += 1
+        except Exception:
+            log.exception("stall ring dump failed")
         log.warning(json.dumps({
             "event": "dispatch_stall",
             "dispatch_stall_ms": self.ecfg.dispatch_stall_ms,
             "item": type(item).__name__,
-            "requests": [snap.req.request_id for _, snap in stalled],
+            "requests": rids,
             "slots": [i for i, _ in stalled],
-            "ring_dump": ""}))
+            "ring_dump": dump_path}))
+        EVENTS.emit("stall_dump", dispatch_stall_ms=self.ecfg.dispatch_stall_ms,
+                    requests=rids, ring_dump=dump_path)
+        # the ring dump is spans only; the bundle adds state and events
+        self._flight_dump("stall", tag="stall", requests=rids)
         try:
             self._fifo.remove(item)
         except ValueError:
@@ -2669,10 +3211,12 @@ class Engine:
             self._process_pack(b.head, blame=b)
         host = self._wait_ready(b)                       # [K, 2, S]
         t1 = time.monotonic()
-        self._decode_stats["seconds"] += t1 - max(b.t0, self._t_last_burst)
+        prev = self._t_last_burst
+        self._decode_stats["seconds"] += t1 - max(b.t0, prev)
         self._t_last_burst = t1
+        self._burst_observe(b, host, prev, t1)
         if b.spec_width:
-            self._process_spec(b, host)
+            self._process_spec(b, host, t1)
             return
         ids_np = host[:, 0].astype(np.int64)
         lps_np = host[:, 1]
@@ -2689,14 +3233,65 @@ class Engine:
                     snap.committed = min(snap.committed + 1, snap.cache_len)
                     self._emit(i, int(ids_np[j, i]), float(lps_np[j, i]))
         finally:
-            self._close_sink()
+            self._close_sink(t1, b.n_steps)
         self._pipe_stats["dropped_steps"] += dropped
         for i, snap in b.slots:
             if i not in b.skip and self.slots[i] is snap and snap.phase == "decode":
                 self.lengths[i] += b.n_steps
                 self.cur_tokens[i] = int(ids_np[-1, i])
 
-    def _process_spec(self, b: _Burst, host: np.ndarray):
+    def _burst_observe(self, b: _Burst, host: np.ndarray, prev: float,
+                       t1: float):
+        """A processed burst's histograms and spans (the JAX engine's):
+        decode_burst_seconds (dispatch -> landed), itl_seconds (burst to
+        burst over the steps, or for a spec tick over the mean tokens a
+        live slot emitted), and the decode_burst_device, spec_round /
+        spec_draft / spec_verify (an analytic split: the n-gram match is
+        a tenth of the round), finish_detect and per-slot decode spans.
+        Everything comes from the host copy ``host`` and host state."""
+        t_rdy = b.fetch.t_ready or t1
+        self._hobserve("decode_burst_seconds", max(0.0, t_rdy - b.t0))
+        n_out = None
+        if b.spec_width:
+            n_out = host[:, 2 * b.spec_width].astype(np.int64)   # [R, S]
+        if prev:
+            steps = b.n_steps
+            if n_out is not None:
+                per_slot = n_out.sum(axis=0)
+                live = per_slot[per_slot > 0]
+                if live.size:
+                    steps = float(live.mean())
+            self._hobserve("itl_seconds",
+                           max(0.0, t1 - prev) / max(1.0, steps))
+        tr = self.tracer
+        if not tr.enabled:
+            return
+        tr.record("decode_burst_device", "engine", b.t0, t_rdy,
+                  args={"steps": b.n_steps, "slots": len(b.slots),
+                        "fused": bool(b.group), "spec": bool(b.spec_width)})
+        if n_out is not None:
+            W = b.spec_width
+            spec_idx = [i for i, _s in b.slots if b.spec_mask[i]]
+            tot = int(sum(int(n_out[:, i].sum()) for i in spec_idx))
+            mid = b.t0 + (t_rdy - b.t0) * 0.1
+            tr.record("spec_round", "engine", b.t0, t_rdy,
+                      args={"mode": self._spec_mode, "rounds": b.n_steps,
+                            "spec_slots": len(spec_idx),
+                            "proposed": b.n_steps * (W - 1) * len(spec_idx),
+                            "accepted": max(0, tot - b.n_steps
+                                            * len(spec_idx))})
+            tr.record("spec_draft", "engine", b.t0, mid,
+                      args={"analytic": True})
+            tr.record("spec_verify", "engine", mid, t_rdy,
+                      args={"analytic": True})
+        tr.record("finish_detect", "engine", t_rdy, t1)
+        for i, snap in b.slots:
+            if (i not in b.skip and self.slots[i] is snap
+                    and snap.phase == "decode"):
+                tr.record("decode", f"slot{i}", b.t0, t_rdy,
+                          rid=snap.req.request_id, args={"steps": b.n_steps})
+
+    def _process_spec(self, b: _Burst, host: np.ndarray, t1: float = 0.0):
         """Emit a spec tick's tokens (the JAX engine's ``_fold_burst`` and
         spec emission): round by round, each slot its round's n_out tokens
         (a spec row: the accepted proposals and the bonus; a plain row:
@@ -2740,7 +3335,7 @@ class Engine:
                         snap.committed = min(snap.committed + 1, snap.cache_len)
                         self._emit(i, int(ids[r, j, i]), float(lps[r, j, i]))
         finally:
-            self._close_sink()
+            self._close_sink(t1, R)
         self._pipe_stats["dropped_steps"] += dropped
         for i, snap in b.slots:
             if live(i, snap):
@@ -2756,13 +3351,25 @@ class Engine:
         if self._emitter is None:
             self._sink = {}
 
-    def _close_sink(self):
+    def _close_sink(self, t_emit: float = 0.0, steps: int = 0):
+        """End a processed item's emission: the batch to the worker, or the
+        coalesced events to the streams. For a burst (``t_emit``: the
+        moment it was read) the emit span (t_emit -> now: the id-level
+        work, with the detokenization when inline) and the stream_flush
+        span (the handover or the puts) are recorded."""
+        tr = self.tracer if t_emit else None
+        t0 = time.monotonic()
+        if tr is not None and tr.enabled:
+            tr.record("emit", "engine", t_emit, t0, args={"steps": steps})
+        sink, self._sink = self._sink, None
         if self._emitter is not None:
             self._flush_em_batch()
-            return
-        sink, self._sink = self._sink, None
-        for out, evs in (sink or {}).values():
-            out.put(evs[0] if len(evs) == 1 else _merge_events(evs))
+        else:
+            for out, evs in (sink or {}).values():
+                out.put(evs[0] if len(evs) == 1 else _merge_events(evs))
+        if tr is not None and tr.enabled:
+            tr.record("stream_flush", "engine", t0, time.monotonic(),
+                      args={"streams": len(sink) if sink else 0})
 
     def _final(self, slot: int, s: _Slot, evs: list):
         """A failure's or shutdown's final events for a slotted stream:
@@ -2826,6 +3433,7 @@ class Engine:
         key = id(s)
         if finish:
             ev.timings = self._finish_timings(s)
+            self._finish_accounting(slot, s, finish, s.n_decoded, ev.timings)
             self._release_slot(slot)
             if self._sink is not None and key in self._sink:
                 _out, evs = self._sink.pop(key)
@@ -2850,6 +3458,37 @@ class Engine:
             "reused_prompt_tokens": s.reused,
         }
 
+    def _finish_accounting(self, slot: int, s: _Slot, finish: str, ndec: int,
+                           timings: dict):
+        """What a clean finish records besides its stream events (the JAX
+        engine's ``_finish_accounting_ev``): the TTFT decomposition, the
+        request span, the slow-request log, goodput and the "complete"
+        event. Sheds, timeouts, stalls and failures never come here."""
+        with self._decomp_lock:
+            self._ttft_decomp.append((timings["queue_wait_ms"],
+                                      timings["admit_to_first_ms"],
+                                      s.t_prefill_ms))
+        t_done = time.monotonic()
+        req = s.req
+        if self.tracer.enabled and req.t_submit:
+            self.tracer.record("request", f"slot{slot}", req.t_submit, t_done,
+                               rid=req.request_id,
+                               args={"completion_tokens": ndec,
+                                     "finish": finish})
+        e2e_ms = (t_done - req.t_submit) * 1e3 if req.t_submit else 0.0
+        if self._slow_ms > 0:
+            ttft_ms = timings["queue_wait_ms"] + timings["admit_to_first_ms"]
+            if ttft_ms > self._slow_ms or e2e_ms > self._slow_ms:
+                log.warning("slow request %s: %s", req.request_id, json.dumps({
+                    "threshold_ms": self._slow_ms, "e2e_ms": round(e2e_ms, 1),
+                    "ttft_ms": round(ttft_ms, 1), "completion_tokens": ndec,
+                    "spans": {k: (round(v, 1) if isinstance(v, float) else v)
+                              for k, v in timings.items()}}, sort_keys=True))
+        self._goodput.add(ndec)
+        EVENTS.emit("complete", rid=req.request_id, finish=finish,
+                    completion_tokens=ndec,
+                    e2e_ms=round(e2e_ms, 1) if req.t_submit else None)
+
     # ---------- the emitter thread ----------
 
     def _make_emitter(self) -> EmitterWorker:
@@ -2868,7 +3507,8 @@ class Engine:
             wake.set()
 
         return EmitterWorker(stream_event=StreamEvent, merge_events=_merge_events,
-                             note_finish=note, note_abort=note_abort)
+                             note_finish=note, note_abort=note_abort,
+                             tracer=self.tracer)
 
     def _emit_ev(self, slot: int, token_id: int, logprob: float):
         """The emitter's half of ``_emit`` (the JAX engine's
@@ -2907,6 +3547,7 @@ class Engine:
         e["tokens"].append((token_id, logprob, s.n_decoded))
         if finish:
             e["finish"], e["timings"] = finish, self._finish_timings(s)
+            self._finish_accounting(slot, s, finish, s.n_decoded, e["timings"])
             self._release_slot(slot)
 
     def _flush_em_batch(self):
@@ -2949,6 +3590,8 @@ class Engine:
                 continue
             s = self.slots[slot]
             if kind == "stop":
+                self._finish_accounting(slot, s, "stop", ndec,
+                                        self._finish_timings(s))
                 if s.shift_at > ndec:
                     s.committed = 0   # a shift past the stop rebuilt the history
                 else:
@@ -2982,6 +3625,8 @@ class Engine:
                   self.ecfg.dispatch_stall_ms)
         with self._lc_lock:
             self._lc["stalls"] += 1
+        EVENTS.emit("emitter_wedge", dispatch_stall_ms=self.ecfg.dispatch_stall_ms,
+                    queued=em.qsize())
         victims: dict = {}
         for it in em.takeover():
             snaps = [e["snap"] for e in it[1]] if it[0] == "batch" else [it[2]]

@@ -51,11 +51,16 @@ not.
 
 Left out of this port, each with the ROADMAP Queue 1 item that brings
 it: the shared mode's owners (``map_key`` / ``unmap_key`` /
-``evict_blocked``) and the federated peer tier (item 10, scale-out);
-``audit_scan`` and the auditor's ledger (``kv_audit`` is not ported);
-the ``FAULTS`` hooks (``services/faults`` is not ported); the draft
-planes ``dk`` / ``dv`` (speculation, item 7). ``contains_any`` is
-``contains`` (no peer tier).
+``evict_blocked``) and the federated peer tier (item 11, scale-out); the
+draft planes ``dk`` / ``dv`` (the draft model, item 2c). ``contains_any``
+is ``contains`` (no peer tier).
+
+The lifecycle ledger (services/kv_audit.py): with ``kv_audit`` on,
+``audit`` is the engine's KVAuditor, and the store records "offload",
+"restore", "prefetch" and "host_evict"; ``audit_scan`` is its invariant
+scan of this tier. The ``host_store_corrupt`` fault (services/faults.py)
+flips one byte of the entry ``get`` reads, which the CRC check must
+catch.
 
 Thread safety: the engine thread reads entries while the offload worker
 inserts them; every public method of HostPageStore locks.
@@ -70,6 +75,8 @@ import threading
 import zlib
 
 import numpy as np
+
+from localai_tpu_torch.services.faults import FAULTS
 
 log = logging.getLogger(__name__)
 
@@ -207,6 +214,8 @@ class HostPageStore:
         self.prefetch_late = 0     # sync restores the pipeline predicted
         self.prefetch_wasted = 0   # prefetched pages reclaimed unclaimed
         self.prefetch_inflight = 0  # prefetch uploads not yet landed
+        # the KVAuditor, attached by the engine when kv_audit is not off
+        self.audit = None
 
     # ---------- introspection ----------
 
@@ -268,6 +277,8 @@ class HostPageStore:
             self._bytes += e.nbytes
             self.offloaded_pages += 1
             self.offloaded_bytes += e.nbytes
+            if self.audit is not None:
+                self.audit.ledger.record("offload", key=key)
             self._evict_to_budget_locked()
             return True
 
@@ -284,6 +295,16 @@ class HostPageStore:
             e = self._entries.get(key)
             if e is None:
                 return None
+            if FAULTS.active and FAULTS.take("host_store_corrupt") is not None:
+                leaf = next(iter(e.k.values())) if isinstance(e.k, dict) \
+                    else e.k
+                flat = np.ascontiguousarray(leaf).view(np.uint8).reshape(-1)
+                flat[0] ^= 0xFF
+                if isinstance(e.k, dict):
+                    e.k[next(iter(e.k))] = flat.view(leaf.dtype).reshape(
+                        leaf.shape)
+                else:
+                    e.k = flat.view(leaf.dtype).reshape(leaf.shape)
             if _page_crc(e.k, e.v) != e.crc:
                 log.warning("kv host store: CRC mismatch on page depth=%d — "
                             "dropping subtree, forcing re-prefill", e.depth)
@@ -309,6 +330,8 @@ class HostPageStore:
             self.restores += 1
             self.hits += 1
             self.restored_pages += int(n_pages)
+            if self.audit is not None:
+                self.audit.ledger.record("restore")
 
     def note_miss(self):
         with self._lock:
@@ -318,6 +341,8 @@ class HostPageStore:
         with self._lock:
             self.prefetch_issued += int(n_pages)
             self.prefetch_inflight += 1
+            if self.audit is not None:
+                self.audit.ledger.record("prefetch")
 
     def note_prefetch_done(self):
         """One prefetch upload landed."""
@@ -365,8 +390,74 @@ class HostPageStore:
                     del self._children[e.parent]
             self._bytes -= e.nbytes
             self.evicted_pages += 1
+            if self.audit is not None:
+                self.audit.ledger.record("host_evict", key=k)
             n += 1
         return n
+
+    def audit_scan(self, sample_crc: int = 4, rng=None) -> list:
+        """The KV auditor's scan of this tier (the JAX store's, without
+        the shared mode's mapped keys and the draft planes), under the
+        lock:
+
+        * host_bytes: the running byte total matches the summed entry
+          sizes, and each entry's nbytes matches its leaves;
+        * host_children: the parent -> children map and the entries'
+          parent links agree both ways (an absent parent is legal: an
+          offload can land a child whose parent was evicted);
+        * host_crc: the CRC of up to ``sample_crc`` randomly sampled
+          entries is recomputed (bit rot in retained host pages).
+
+        Violations are ``{"check", "detail"}`` dicts; [] = clean."""
+        out = []
+        with self._lock:
+            total = 0
+            for key, e in self._entries.items():
+                nb = _leaf_bytes(e.k) + _leaf_bytes(e.v)
+                if nb != e.nbytes:
+                    out.append({"check": "host_bytes",
+                                "detail": f"entry {key[:8].hex()} nbytes "
+                                          f"{e.nbytes} != plane sum {nb}"})
+                total += e.nbytes
+                kids = self._children.get(e.parent)
+                if kids is None or key not in kids:
+                    out.append({"check": "host_children",
+                                "detail": f"entry {key[:8].hex()} missing "
+                                          f"from parent "
+                                          f"{e.parent[:8].hex()} kid set"})
+            if total != self._bytes:
+                out.append({"check": "host_bytes",
+                            "detail": f"byte accounting drift: running "
+                                      f"{self._bytes} != summed {total} "
+                                      f"over {len(self._entries)} entries"})
+            for parent, kids in self._children.items():
+                for c in kids:
+                    e = self._entries.get(c)
+                    if e is None:
+                        out.append({"check": "host_children",
+                                    "detail": f"kid set of "
+                                              f"{parent[:8].hex()} names "
+                                              f"absent entry "
+                                              f"{c[:8].hex()}"})
+                    elif e.parent != parent:
+                        out.append({"check": "host_children",
+                                    "detail": f"entry {c[:8].hex()} parent "
+                                              f"link disagrees with kid "
+                                              f"set of {parent[:8].hex()}"})
+            ns = min(int(sample_crc), len(self._entries))
+            if ns > 0:
+                rest = list(self._entries)
+                if rng is not None and len(rest) > ns:
+                    idx = rng.choice(len(rest), size=ns, replace=False)
+                    rest = [rest[int(i)] for i in idx]
+                for key in rest[:ns]:
+                    e = self._entries[key]
+                    if _page_crc(e.k, e.v) != e.crc:
+                        out.append({"check": "host_crc",
+                                    "detail": f"retained entry "
+                                              f"{key[:8].hex()} failed CRC "
+                                              f"spot-check"})
+        return out
 
     def clear(self):
         with self._lock:

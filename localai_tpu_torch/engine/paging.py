@@ -1,6 +1,5 @@
 """Host-side page allocator for the paged KV cache (a copy of
-localai_tpu/engine/paging.py without the window's ``demote`` and the
-lifecycle auditor).
+localai_tpu/engine/paging.py without the window's ``demote``).
 
 The device holds the page pool and the page table; this module owns the
 table's numpy mirror, the FIFO free list, per-page reference counts,
@@ -21,6 +20,12 @@ lazy allocation and the copy-on-write sharing decisions:
 
 Every change to the table sets ``dirty``; the engine copies the mirror
 into the one device table before the next pack or burst.
+
+The lifecycle ledger (services/kv_audit.py): with ``kv_audit`` on, the
+engine attaches its KVAuditor as ``audit`` and every transition records
+into its ledger, each hook behind one ``audit is not None`` check. A
+broken rule raises KVLifecycleError (defined in services/kv_audit.py,
+re-exported here) after reporting it to the auditor.
 """
 
 from __future__ import annotations
@@ -29,19 +34,7 @@ from collections import deque
 
 import numpy as np
 
-
-class KVLifecycleError(RuntimeError):
-    """A page lifecycle rule was broken (a free of a free page, a share
-    into a non-empty table, a drop without a hold, ...). Raised
-    unconditionally, so it survives ``python -O``."""
-
-    def __init__(self, op: str, detail: str, page: int = -1, slot=None):
-        super().__init__(
-            f"kv lifecycle: {op}: {detail} (page={page}, slot={slot})")
-        self.op = op
-        self.detail = detail
-        self.page = int(page)
-        self.slot = slot
+from localai_tpu_torch.services.kv_audit import KVLifecycleError
 
 
 class PoolExhausted(RuntimeError):
@@ -69,6 +62,15 @@ class PagePool:
         self.owned = np.zeros((num_slots,), np.int32)  # table entries in use
         self._free = deque(range(self.num_pages))
         self.dirty = True      # device table snapshot is stale
+        # the KVAuditor, attached by the engine when kv_audit is not off
+        self.audit = None
+
+    def _fail(self, op: str, detail: str, page: int = -1, slot=None):
+        """Report a broken lifecycle rule to the auditor, then raise it."""
+        err = KVLifecycleError(op, detail, page=page, slot=slot)
+        if self.audit is not None:
+            self.audit.lifecycle_violation(err)
+        raise err
 
     # ---------- accounting ----------
 
@@ -93,6 +95,33 @@ class PagePool:
     def active_pages(self) -> int:
         """Pages some slot table (or a detached clone) references."""
         return int(((self.refs > 0) & (self.refs > self.held)).sum())
+
+    @property
+    def oversubscription(self) -> float:
+        """Worst-case logical demand over physical pages: > 1.0 when the
+        pool holds fewer than num_slots * max_context rows."""
+        return self.num_slots * self.max_pages / float(self.num_pages)
+
+    def fragmentation(self) -> dict:
+        """The free list's shape (the memory watermarks' telemetry): free
+        pages in HOLES below the highest allocated page id against those
+        in the free TAIL of the id space. Pages are interchangeable, so
+        holes cost nothing; a hole-heavy free list says the pool has
+        churned through its ids, retained-page eviction serving
+        admissions."""
+        free = len(self._free)
+        if free == 0:
+            return {"free_pages": 0, "tail_pages": 0, "hole_pages": 0,
+                    "ratio": 0.0}
+        free_ids = set(self._free)
+        tail = 0
+        for p in range(self.num_pages - 1, -1, -1):
+            if p not in free_ids:
+                break
+            tail += 1
+        holes = free - tail
+        return {"free_pages": free, "tail_pages": tail, "hole_pages": holes,
+                "ratio": round(holes / float(free), 4)}
 
     def pages_beyond(self, idle_slots, extra=()) -> int:
         """Pages referenced beyond the prefix cache's holds, the tables of
@@ -123,6 +152,8 @@ class PagePool:
                 f"{self.page_size} rows)")
         p = self._free.popleft()
         self.refs[p] = 1
+        if self.audit is not None:
+            self.audit.ledger.record("alloc", page=p)
         return p
 
     def alloc_detached(self) -> int:
@@ -141,11 +172,12 @@ class PagePool:
 
     def unref_detached(self, page: int):
         if self.refs[page] <= 0:
-            raise KVLifecycleError("free", "unref of an already-free page",
-                                   page=page)
+            self._fail("free", "unref of an already-free page", page=page)
         self.refs[page] -= 1
         if self.refs[page] == 0:
             self._free.append(page)
+            if self.audit is not None:
+                self.audit.ledger.record("free", page=page)
 
     def ensure(self, slot: int, rows: int) -> bool:
         """Allocate pages so the slot can hold ``rows`` logical rows
@@ -163,6 +195,8 @@ class PagePool:
     def release(self, slot: int, keep_rows: int = 0):
         """Drop the slot's pages beyond those covering keep_rows."""
         keep = min(self.pages_for(keep_rows), self.max_pages)
+        if self.audit is not None and self.owned[slot] > keep:
+            self.audit.ledger.record("release", slot=slot)
         while self.owned[slot] > keep:
             self.owned[slot] -= 1
             i = int(self.owned[slot])
@@ -178,8 +212,8 @@ class PagePool:
         pages. Returns the rows shared (a page multiple)."""
         n = min(int(rows) // self.page_size, int(self.owned[src]))
         if self.owned[dst] != 0:
-            raise KVLifecycleError("share", "share() into a non-empty slot",
-                                   slot=(src, dst))
+            self._fail("share", "share() into a non-empty slot",
+                       slot=(src, dst))
         for i in range(n):
             p = int(self.ptab[src, i])
             self.ptab[dst, i] = p
@@ -187,6 +221,9 @@ class PagePool:
         self.owned[dst] = n
         if n:
             self.dirty = True
+            if self.audit is not None:
+                self.audit.ledger.record(
+                    "share", page=int(self.ptab[src, 0]), slot=(src, dst))
         return n * self.page_size
 
     def hold(self, page: int):
@@ -194,17 +231,19 @@ class PagePool:
         alive after every slot table lets go. Only a referenced page can
         be held (a free page holds nothing worth keeping)."""
         if self.refs[page] <= 0:
-            raise KVLifecycleError("hold", "hold() on an unreferenced page",
-                                   page=page)
+            self._fail("hold", "hold() on an unreferenced page", page=page)
         self.refs[page] += 1
         self.held[page] += 1
+        if self.audit is not None:
+            self.audit.ledger.record("hold", page=page)
 
     def drop(self, page: int):
         """Release a ``hold`` reference (eviction)."""
         if self.held[page] <= 0:
-            raise KVLifecycleError("drop", "drop() without a matching hold()",
-                                   page=page)
+            self._fail("drop", "drop() without a matching hold()", page=page)
         self.held[page] -= 1
+        if self.audit is not None:
+            self.audit.ledger.record("drop", page=page)
         self.unref_detached(page)
 
     def splice(self, dst: int, pages) -> int:
@@ -212,33 +251,37 @@ class PagePool:
         cache chain) and bump the counts. dst must own no pages. Returns
         the rows spliced (a page multiple)."""
         if self.owned[dst] != 0:
-            raise KVLifecycleError("splice", "splice() into a non-empty slot",
-                                   slot=dst)
+            self._fail("splice", "splice() into a non-empty slot", slot=dst)
         n = min(len(pages), self.max_pages)
         for i in range(n):
             p = int(pages[i])
             if self.refs[p] <= 0:
-                raise KVLifecycleError("splice", "splice() of a freed page",
-                                       page=p, slot=dst)
+                self._fail("splice", "splice() of a freed page",
+                           page=p, slot=dst)
             self.ptab[dst, i] = p
             self.refs[p] += 1
         self.owned[dst] = n
         if n:
             self.dirty = True
+            if self.audit is not None:
+                self.audit.ledger.record("splice", page=int(pages[0]),
+                                         slot=dst)
         return n * self.page_size
 
     def adopt(self, slot: int, page: int):
         """Append a detached (just cloned) page to the slot's table."""
         i = int(self.owned[slot])
         if i >= self.max_pages:
-            raise KVLifecycleError("adopt", "adopt() into a full table",
-                                   page=page, slot=slot)
+            self._fail("adopt", "adopt() into a full table",
+                       page=page, slot=slot)
         if self.refs[page] <= 0:
-            raise KVLifecycleError("adopt", "adopt() of a freed page",
-                                   page=page, slot=slot)
+            self._fail("adopt", "adopt() of a freed page",
+                       page=page, slot=slot)
         self.ptab[slot, i] = page
         self.owned[slot] = i + 1
         self.dirty = True
+        if self.audit is not None:
+            self.audit.ledger.record("adopt", page=page, slot=slot)
 
     def cow_page(self, slot: int, row: int) -> int:
         """Table index of the page holding ``row`` if the slot owns it and
@@ -254,5 +297,7 @@ class PagePool:
         commit. The old page loses this table's reference."""
         old = int(self.ptab[slot, page_idx])
         self.ptab[slot, page_idx] = new_page
+        if self.audit is not None:
+            self.audit.ledger.record("clone", page=new_page, slot=slot)
         self.unref_detached(old)
         self.dirty = True

@@ -1,6 +1,6 @@
 """The cross-release prefix cache: a token-hash-keyed index of retained
 pages (a copy of localai_tpu/engine/prefix_cache.py's PrefixPageCache and
-build_scope, without the replica-pool callbacks and the auditor).
+build_scope, without the replica-pool callbacks).
 
   * Identity is a CHAINED BLOCK HASH over token ids, never page content:
     key_i = hash(scope, key_{i-1}, tokens[i*pg:(i+1)*pg])
@@ -28,7 +28,10 @@ build_scope, without the replica-pool callbacks and the auditor).
 
 Entries are one page each, so the index is bounded by the pool: pool
 pressure is the only capacity limit. Single-threaded: the engine thread
-alone calls it.
+alone calls it. With ``kv_audit`` on, ``audit`` is the engine's KVAuditor:
+insert and attach record "retain", eviction records "evict"; and the
+``kv_leak`` fault (services/faults.py) skips one ``drop`` at the eviction
+seam, the refcount leak the auditor must find.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from __future__ import annotations
 from typing import Iterable
 
 from localai_tpu_torch.ops import kvcache
+from localai_tpu_torch.services.faults import FAULTS
 
 
 class _Entry:
@@ -65,6 +69,8 @@ class PrefixPageCache:
         self.hit_rows = 0        # prompt rows reused through the index
         self.inserted_pages = 0
         self.evicted_pages = 0
+        # the KVAuditor, attached by the engine when kv_audit is not off
+        self.audit = None
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -87,6 +93,15 @@ class PrefixPageCache:
         """Membership without an LRU touch (the prefetch planner skips
         links already on the device without promoting them)."""
         return key in self._entries
+
+    def genealogy(self, limit: int = 64) -> list:
+        """The chains for /debug/kv: the newest ``limit`` entries as {key,
+        parent, page, depth, tick}, keys cut to 8 bytes of hex."""
+        items = sorted(self._entries.values(),
+                       key=lambda e: (e.tick, e.depth))[-int(limit):]
+        return [{"key": e.key[:8].hex(), "parent": e.parent[:8].hex(),
+                 "page": e.page, "depth": e.depth, "tick": e.tick}
+                for e in items]
 
     # ---------- the hash chain ----------
 
@@ -125,6 +140,9 @@ class PrefixPageCache:
             pool.hold(page)
             self._entries[key] = _Entry(key, parent, page, i, self._tick)
             self._children.setdefault(parent, set()).add(key)
+            if self.audit is not None:
+                self.audit.ledger.record("retain", page=page, slot=slot,
+                                         key=key)
             added += 1
             parent = key
         self.inserted_pages += added
@@ -185,7 +203,12 @@ class PrefixPageCache:
                     del self._children[e.parent]
             if on_evict is not None:
                 on_evict(e)
-            pool.drop(e.page)
+            if self.audit is not None:
+                self.audit.ledger.record("evict", page=e.page, key=k)
+            # the kv_leak fault: one retention drop skipped at the eviction
+            # seam (the page stays referenced, reachable from nothing)
+            if not (FAULTS.active and FAULTS.take("kv_leak")):
+                pool.drop(e.page)
             n += 1
         return n
 
@@ -198,6 +221,8 @@ class PrefixPageCache:
         pool.hold(page)
         self._entries[key] = _Entry(key, parent, page, depth, self._tick)
         self._children.setdefault(parent, set()).add(key)
+        if self.audit is not None:
+            self.audit.ledger.record("retain", page=page, key=key)
         return True
 
     def clear(self):

@@ -116,14 +116,17 @@ class Fetch:
     CUDA event recorded after the copy (module doc). ``t_due`` (monotonic
     seconds) and ``err`` model a late or a failed copy for fault
     injection (services/faults.py): the copy counts as landed no earlier
-    than ``t_due``, and ``wait`` raises ``err``."""
+    than ``t_due``, and ``wait`` raises ``err``. ``t_ready`` (monotonic) is
+    when a ``done`` or ``wait`` call first saw it landed (0.0 until then):
+    the end of the engine's device spans (services/tracing.py)."""
 
-    __slots__ = ("host", "event", "t_due", "err")
+    __slots__ = ("host", "event", "t_due", "err", "t_ready")
 
     def __init__(self, src: torch.Tensor):
         self.event: Optional[torch.cuda.Event] = None
         self.t_due = 0.0
         self.err: Optional[BaseException] = None
+        self.t_ready = 0.0
         if src.is_cuda:
             self.host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
             self.host.copy_(src, non_blocking=True)
@@ -137,16 +140,19 @@ class Fetch:
         """A Fetch that is already done, holding ``array``."""
         f = cls.__new__(cls)
         f.host, f.event = torch.from_numpy(np.asarray(array)), None
-        f.t_due, f.err = 0.0, None
+        f.t_due, f.err, f.t_ready = 0.0, None, 0.0
         return f
 
     def done(self) -> bool:
         """Whether the copy has landed (without blocking)."""
-        if self.err is not None:
-            return True
-        if self.t_due and time.monotonic() < self.t_due:
-            return False
-        return self.event is None or self.event.query()
+        if self.err is None:
+            if self.t_due and time.monotonic() < self.t_due:
+                return False
+            if self.event is not None and not self.event.query():
+                return False
+        if not self.t_ready:
+            self.t_ready = time.monotonic()
+        return True
 
     def wait(self, since: float = 0.0, stall_s: float = 0.0) -> np.ndarray:
         """Wait until the copy has landed; the host array (bfloat16 as
@@ -169,6 +175,8 @@ class Fetch:
                 time.sleep(max(0.0, self.t_due - time.monotonic()))
             if self.event is not None:
                 self.event.synchronize()
+            if not self.t_ready:
+                self.t_ready = time.monotonic()
         if self.err is not None:
             raise self.err
         return numpy_of(self.host)

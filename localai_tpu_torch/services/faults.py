@@ -25,6 +25,14 @@ package's other points belong to modules the port has not taken yet:
                                  asks about land N ms late (stall injection)
 ``sync_fail``                    the same hook: that item's results fail
 ``page_alloc_fail``              engine ``_ensure_pages``: raise PoolExhausted
+``host_store_corrupt``           engine/kv_offload.py ``get``: flip a byte in
+                                 the stored page (the checksum must catch it)
+``emitter_wedge_ms=N``           engine/emitter.py worker loop: sleep N ms on
+                                 one item (the wedged-emitter watchdog)
+``kv_leak``                      engine/prefix_cache.py ``_remove_tree``:
+                                 skip one retention ``drop()`` at the eviction
+                                 seam, a refcount leak the online KV auditor
+                                 must find
 ==========================  =================================================
 """
 

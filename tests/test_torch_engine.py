@@ -224,7 +224,13 @@ assert not bad, bad
 assert {"localai_tpu_torch.services.errors", "localai_tpu_torch.services.faults",
         "localai_tpu_torch.engine.scheduler",
         "localai_tpu_torch.engine.speculative",
-        "localai_tpu_torch.engine.emitter"} <= set(names), names
+        "localai_tpu_torch.engine.emitter",
+        "localai_tpu_torch.services.tracing",
+        "localai_tpu_torch.services.eventlog",
+        "localai_tpu_torch.services.metrics",
+        "localai_tpu_torch.services.kv_audit",
+        "localai_tpu_torch.services.sysobs",
+        "localai_tpu_torch.api.localai_routes"} <= set(names), names
 assert "localai_tpu_torch.engine.speculative" in sys.modules
 assert "localai_tpu_torch.engine.emitter" in sys.modules
 """
