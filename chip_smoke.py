@@ -22,7 +22,8 @@ Phases, each raising on failure (no phase swallows an error):
               and K3 over int8 pages) or a contiguous 4096-row cache (K4; K5
               at layer 2 of 4);
               fresh / continued / pad segments in packs of N = 128, 512,
-              1024 tokens (K2, and K2-int8 over int8 pages). Tolerances:
+              1024 tokens (K2, and K2-int8 over int8 pages); all of them
+              but K5 again at the 1B draft's head_dim (hd 64). Tolerances:
               float32 atol 1e-4 (sum order); bfloat16 atol 2e-2 and rtol
               2e-2 (bf16 rounding of the plain version's scores,
               probabilities and output, plus order); int8 cases compare
@@ -36,7 +37,10 @@ Phases, each raising on failure (no phase swallows an error):
               its edges, and the long prompt's third chunk), float32 at M =
               1, 8, 16 (the CUDA-core skinny kernel), 17, 512 (dequantize +
               matmul; the tp-8 case at 1, 8, 17), and a tied int8 table
-              [128256, 4096] used transposed (dequantize + matmul); same
+              [128256, 4096] used transposed (dequantize + matmul); at
+              the 1B draft's projections (2048, 2048), (2048, 512), (2048,
+              8192), (8192, 2048), W8 and W4, M = 1, 8, 40, 512, both
+              dtypes, and its tied table [128256, 2048] at M = 1, 8, 40; same
               tolerances (float32: sum order; bfloat16: the kernel widens
               each weight to the plain version's bf16(q * s), so only the
               sum order and the output's bf16 rounding differ). The
@@ -60,7 +64,14 @@ Phases, each raising on failure (no phase swallows an error):
               ids, logprobs, cache rows and sampler state (counters,
               penalty rings, mirostat mu); the banned token never comes
               out; the decode kernel's launches, counted through the
-              replays, are layers x steps on every side.
+              replays, are layers x steps on every side. Then, in each
+              configuration, the small model's draft of another shape (hd
+              64, one layer, tied embeddings) card vs CPU as above, and
+              the spec round with that draft captured (its D + 1 steps in
+              the graph) against its eager form: 3 rounds, two slots
+              speculating (greedy, seeded sampled), ids, n_out, counters
+              and draft rows identical, logprobs within 1e-4, the decode
+              kernel launched (2 + 5 x 1) x 3 times, K2 / K2-int8 2 x 3.
   3. serving  the port's HTTP server (stdlib) with a Llama-3.1-8B-shaped
               config-only model dir, full width and depth: random bf16
               weights from a seed, 8 slots, context 4096, prefill_chunk 512,
@@ -300,7 +311,7 @@ Phases, each raising on failure (no phase swallows an error):
               resumes, re-prefills, rows restored at resume and host-tier
               pages restored. A {"lifecycle": ...} JSON line before the
               kernels line holds it all.
-  3i. spec    for paged and w8kv8, last, on the same loaded model
+  3i. spec    for paged and w8kv8, after 3h, on the same loaded model
               (spec_phase), speculation back at its default. (a) with
               paged only, a small float32 model (head_dim 128) on the
               card: greedy tokens with speculation equal draft "0"'s byte
@@ -336,6 +347,39 @@ Phases, each raising on failure (no phase swallows an error):
               default) and reports its device gaps. A {"spec": ...} JSON line before the
               kernels line holds it all, with the serving run's spec
               counters.
+  3k. draft   for paged and w8kv8, right after 3i on the same loaded
+              model (draft_phase): draft-model speculation. (a) paged
+              only, small f32 models on the card (draft_tiny_phase): for
+              head_dim 128 and 64, a target with a draft of another shape
+              at the defaults, and the target as its own draft with the
+              unfused loop (prefill_packed_fuse "0"; the split fused
+              tick's plain burst leaves decode_burst rows the draft never
+              wrote, as in JAX): greedy tokens with the draft == draft
+              "0"'s byte for byte, and the target as its own draft accepts
+              >= 90% of its proposals; on the hd-64 pair, 3i (a)'s sampled
+              chi-square against draft "0" (p > 0.01). (b) The 1B draft
+              (LLAMA32_1B: Llama-3.2-1B's published widths, hd 64, tied
+              embeddings) through the runner's loader (draft_config /
+              load_draft) from a config-only dir, random weights from seed
+              + 1 in the target's quantization; an engine over the loaded
+              target with it (draft "auto" -> "model"): its weights' and
+              KV's bytes, load and start seconds, capture seconds and pool
+              bytes of the decode graphs and of the packs and their draft
+              mirrors. Launch counters zeroed, then 3i's 8 x 256 greedy
+              runs on both prompt sets with the draft: tok/s, acceptance,
+              tokens per slot-round, ms per round and per tick, printed
+              beside 3i's n-gram and off runs of the same sets (same call);
+              one chat through the HTTP server (48 tokens); counters read:
+              the decode kernel launched target layers x steps + draft
+              layers x 5 x rounds, K2 / K2-int8 target layers x (packs +
+              rounds) + draft layers x mirrored packs. (c) The round's
+              parts, each its own graph under CUDA events (round_parts):
+              the draft's 5 steps, the decode step, the verify, the
+              accept. (d) host tier: a speculating request's chain evicted
+              to host RAM and restored: every host entry carries draft
+              planes, the restored draft pages equal them byte for byte,
+              and the next turn takes spec rounds. A {"draft": ...} JSON
+              line before the kernels line holds it all.
   3j. obs     observability at the defaults (trace and kv_audit on). In
               every configuration, right after phase 3's requests (each
               sent with an X-Correlation-ID), the engine idle
@@ -391,6 +435,14 @@ Phases, each raising on failure (no phase swallows an error):
               the product with a dense bf16 weight of the same shape
               (what the bf16 model runs), and under "per_step" every
               projection shape at M = 8 summed over a decode step.
+              The draft path (draft_kernel_rows): under "draft", K1 / K3 /
+              K4 at hd 64 over 8 slots x 1024 rows, K2 / K2-int8 at hd 64
+              on a 512-token pack over 1024 rows, W8 at the 1B projections
+              at M = 8 ("shapes") and the tied int8 table [128256, 2048]
+              used transposed ("tied_lm_head": dequantize + matmul), each
+              with kernel / plain / library ms and its bound; every row's
+              "launches_draft_path" holds 3k's launches by configuration,
+              and its "launches" adds those of its own configuration.
 
 The last line of stdout is {"ok": true, "device": {...}}. Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -399,6 +451,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -426,6 +479,28 @@ LLAMA31_8B = {
     "tie_word_embeddings": False, "bos_token_id": 128000,
     "eos_token_id": 128001,
 }
+
+# the draft model of phase 3k: Llama-3.2-1B at its published widths
+# (meta-llama/Llama-3.2-1B's config.json), the public draft for
+# Llama-3.1-8B (the same vocabulary and tokenizer family)
+LLAMA32_1B = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "vocab_size": 128256, "hidden_size": 2048, "intermediate_size": 8192,
+    "num_hidden_layers": 16, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 64, "rms_norm_eps": 1e-5,
+    "rope_theta": 500000.0, "max_position_embeddings": 131072,
+    "rope_scaling": {"rope_type": "llama3", "factor": 32.0,
+                     "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192},
+    "tie_word_embeddings": True, "bos_token_id": 128000,
+    "eos_token_id": 128001,
+}
+DRAFT_HD = 64
+# the 1B draft's distinct (K, N), and the M its products take: a decode
+# step of 8 slots, 5 verify-sized rows a slot, a pack
+DRAFT_QUANT_SHAPES = {"wq_wo": (2048, 2048), "wk_wv": (2048, 512),
+                      "w_gate_up": (2048, 8192), "w_down": (8192, 2048)}
+DRAFT_QUANT_M = (1, 8, 40, 512)
 
 # the serving configurations: (name, load_model knobs, kernels that must
 # launch, kernels that must not)
@@ -761,6 +836,18 @@ def prefill_inputs(N, segs, dtype, seed, cache_dtype=None):
     return (q, ck, cv, *pools, ptab, *tabs), {}, real.to(DEV)
 
 
+@contextlib.contextmanager
+def head_dim(hd: int):
+    """The phase 2 / 4 input and cost helpers at head_dim ``hd`` (KV 8, G 4
+    as the 8B's; 64 is the 1B draft's)."""
+    global HD
+    saved, HD = HD, hd
+    try:
+        yield
+    finally:
+        HD = saved
+
+
 K2_CASES = {
     128: [(0, 0, 50), (1, 0, 40), (2, 0, 30)],                       # fresh + pads
     512: [(3, 512, 300), (4, 70, 150), (5, 0, 50)],                  # continued, mid-page
@@ -791,15 +878,17 @@ def parity():
         errs[key] = max(errs.get(key, 0.0), e)
         log(f"[parity] {name}: max_abs_err {e:.3e}")
 
-    for dname in ("float32", "bfloat16"):
+    def attention_cases(dname: str, hd: int):
+        """Every attention kernel at one dtype and head_dim (the 8B's 128,
+        the 1B draft's 64: K5 has no draft path, so 128 only)."""
         dt = getattr(torch, dname)
         args = decode_inputs(k1_lengths, dt, SEED)
-        record("paged_decode_attention", f"K1 paged_decode {dname} lengths="
-               f"{k1_lengths}", paged_decode_attention(*args, G),
+        record("paged_decode_attention", f"K1 paged_decode {dname} hd={hd} "
+               f"lengths={k1_lengths}", paged_decode_attention(*args, G),
                paged_decode_plain(*args, G), dname)
         args = decode_inputs(k1_lengths, dt, SEED, cache_dtype=torch.int8)
         record("paged_decode_attention_quant", f"K3 int8 paged_decode {dname} "
-               f"lengths={k1_lengths}", paged_decode_attention_quant(*args, G),
+               f"hd={hd} lengths={k1_lengths}", paged_decode_attention_quant(*args, G),
                paged_decode_quant_plain(*args, G), dname)
         c_lengths = k1_lengths[:-1] + [C_MAX]
         q, nk, nv, ck, cv, lens = contig_inputs(c_lengths, dt, SEED,
@@ -808,19 +897,20 @@ def parity():
         ref = contig_decode_plain(q, nk, nv, ck[li, :S_SLOTS], cv[li, :S_SLOTS],
                                   lens, G)
         record("decode_attention_append_contig", f"K4 contig_decode {dname} "
-               f"C={C_MAX} lengths={c_lengths}", decode_attention_append_contig(
+               f"hd={hd} C={C_MAX} lengths={c_lengths}", decode_attention_append_contig(
                    q, nk, nv, ck[li, :S_SLOTS], cv[li, :S_SLOTS], lens, G),
                ref, dname)
         layer = torch.tensor([li], dtype=torch.int32, device=DEV)
-        record("decode_attention_append_full", f"K5 contig_decode_full {dname} "
-               f"L={K5_LAYERS} layer={li}", decode_attention_append_full(
-                   q, nk, nv, ck, cv, lens, layer, G),
-               full_decode_plain(q, nk, nv, ck, cv, lens, layer, G), dname)
+        if hd != DRAFT_HD:
+            record("decode_attention_append_full", f"K5 contig_decode_full "
+                   f"{dname} L={K5_LAYERS} layer={li}",
+                   decode_attention_append_full(q, nk, nv, ck, cv, lens, layer, G),
+                   full_decode_plain(q, nk, nv, ck, cv, lens, layer, G), dname)
         del ck, cv
         for N, segs in K2_CASES.items():
             args, _kw, real = prefill_inputs(N, segs, dt, SEED + N)
-            record("ragged_prefill_attention", f"K2 ragged_prefill {dname} N={N} "
-                   f"segs={segs}", ragged_prefill_attention_paged(*args, G),
+            record("ragged_prefill_attention", f"K2 ragged_prefill {dname} "
+                   f"hd={hd} N={N} segs={segs}", ragged_prefill_attention_paged(*args, G),
                    ragged_prefill_plain(*args, G), dname, mask=real)
             args, kw, real = prefill_inputs(N, segs, dt, SEED + N,
                                             cache_dtype=torch.int8)
@@ -828,16 +918,22 @@ def parity():
             key = ("ragged_prefill_attention_int8" if continued
                    else "ragged_prefill_attention")
             record(key, f"K2{'-int8' if continued else ' (fresh, int8 cache)'} "
-                   f"ragged_prefill {dname} N={N} segs={segs}",
+                   f"ragged_prefill {dname} hd={hd} N={N} segs={segs}",
                    ragged_prefill_attention_paged(*args, G, **kw,
                                                   continued=continued),
                    ragged_prefill_plain(*args, G, **kw, continued=continued),
                    dname, mask=real)
         torch.cuda.synchronize()
+    for hd in (HD, DRAFT_HD):
+        with head_dim(hd):
+            for dname in ("float32", "bfloat16"):
+                attention_cases(dname, hd)
     quant_parity(record)
     for kind in ("paged", "int8", "contig", "w8kv8", "w4"):
         model_parity(kind)
         graph_parity(kind)
+        model_parity(kind, draft=True)
+        draft_round_parity(kind)
     return errs
 
 
@@ -870,12 +966,16 @@ def quant_parity(record):
     cases += [(W4, name, K, N, 128, 1, QUANT_M)
               for name, (K, N) in QUANT_SHAPES.items() if name != "lm_head"]
     cases += [(W4, "llama-2 w_down, tp 8", 11008, 4096, 128, 8, (1, 8, 17))]
+    # the 1B draft's projections, both weight widths (phase 3k)
+    cases += [(key, f"1B {name}", K, N, 128, 1, DRAFT_QUANT_M)
+              for key in (W8, W4) for name, (K, N) in DRAFT_QUANT_SHAPES.items()]
     for key, name, K, N, group, tp, ms_f32 in cases:
         leaf = quant_weight(K, N, 8 if key == W8 else 4, SEED + K + N, group, tp)
         g = K // leaf["s"].shape[0] if key == W4 else None
         for dname in ("float32", "bfloat16"):
             dt = getattr(torch, dname)
-            ms = QUANT_M_BF16 if dname == "bfloat16" else ms_f32
+            ms = (ms_f32 if name.startswith("1B ") or dname == "float32"
+                  else QUANT_M_BF16)
             gen = torch.Generator(device=DEV).manual_seed(SEED)
             x_all = torch.randn((max(ms), K), generator=gen, device=DEV).to(dt)
             for M in ms:
@@ -884,16 +984,22 @@ def quant_parity(record):
                        f"N={N}{f' g={g}' if g else ''} M={M}",
                        quant_matmul(x, leaf), quant_matmul_plain(x, leaf), dname)
         del leaf
-    K, V = QUANT_SHAPES["lm_head"]
-    table = quant_weight(V, K, 8, SEED)                   # [V, D], scale along D
-    for dname in ("float32", "bfloat16"):
-        dt = getattr(torch, dname)
-        gen = torch.Generator(device=DEV).manual_seed(SEED)
-        for M in (1, 8, 512):
-            x = torch.randn((M, K), generator=gen, device=DEV).to(dt)
-            record(W8, f"W8 tied table [{V}, {K}] transposed {dname} M={M}",
-                   quant_matmul(x, table, transposed=True),
-                   quant_matmul_plain(x, table, transposed=True), dname)
+    # the tied int8 tables: the 8B-wide one and the 1B draft's [128256,
+    # 2048] (its unembed at each of a round's D + 1 draft steps, M = 8)
+    for K, V, m_set in ((QUANT_SHAPES["lm_head"][0], QUANT_SHAPES["lm_head"][1],
+                         (1, 8, 512)),
+                        (LLAMA32_1B["hidden_size"], LLAMA32_1B["vocab_size"],
+                         (1, 8, 40))):
+        table = quant_weight(V, K, 8, SEED)               # [V, D], scale along D
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            gen = torch.Generator(device=DEV).manual_seed(SEED)
+            for M in m_set:
+                x = torch.randn((M, K), generator=gen, device=DEV).to(dt)
+                record(W8, f"W8 tied table [{V}, {K}] transposed {dname} M={M}",
+                       quant_matmul(x, table, transposed=True),
+                       quant_matmul_plain(x, table, transposed=True), dname)
+        del table
     torch.cuda.synchronize()
     # the dequantize route's scratch (float32 x, the tied table) is not part
     # of the bf16 serving path: free it, so phase 3's memory reads that path
@@ -901,20 +1007,37 @@ def quant_parity(record):
     torch.cuda.empty_cache()
 
 
-def model_parity(kind: str):
-    """A small hd-128 llama, float32: kernels on the card vs plain versions
-    on the CPU, same weights; prefill (fresh then continued) and decode
-    logits within 1e-3 (int8 cache: 5e-3, see the module doc)."""
+def small_cfg(draft: bool = False):
+    """Phase 2's small float32 llama (hd 128), or its draft of another
+    shape at the 1B draft's head_dim (hd 64, one layer, tied embeddings)."""
+    import torch
+
+    from localai_tpu_torch.models import llama
+
+    if draft:
+        return llama.LlamaConfig(vocab_size=512, hidden_size=256,
+                                 intermediate_size=384, num_layers=1,
+                                 num_heads=4, num_kv_heads=1, head_dim=DRAFT_HD,
+                                 rope_theta=500000.0, tie_word_embeddings=True,
+                                 dtype=torch.float32)
+    return llama.LlamaConfig(vocab_size=512, hidden_size=256,
+                             intermediate_size=512, num_layers=2, num_heads=4,
+                             num_kv_heads=1, head_dim=128, rope_theta=500000.0,
+                             dtype=torch.float32)
+
+
+def model_parity(kind: str, draft: bool = False):
+    """A small hd-128 llama (``draft``: its hd-64 draft), float32: kernels
+    on the card vs plain versions on the CPU, same weights; prefill (fresh
+    then continued) and decode logits within 1e-3 (int8 cache: 5e-3, see
+    the module doc)."""
     import torch
 
     from localai_tpu_torch.engine.weights import random_params
     from localai_tpu_torch.models import llama
     from localai_tpu_torch.ops.kernels import LAUNCHES
 
-    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256,
-                            intermediate_size=512, num_layers=2, num_heads=4,
-                            num_kv_heads=1, head_dim=128, rope_theta=500000.0,
-                            dtype=torch.float32)
+    cfg = small_cfg(draft)
     quantize = {"w8kv8": "int8", "w4": "int4"}.get(kind, "")
     int8_kv = kind in ("int8", "w8kv8")
     p_cpu = random_params(cfg, SEED, device="cpu", quantize=quantize)
@@ -974,9 +1097,9 @@ def model_parity(kind: str):
     w8, w4 = LAUNCHES[W8] - before[0], LAUNCHES[W4] - before[1]
     if (w8 > 0) != bool(quantize) or (w4 > 0) != (quantize == "int4"):
         raise AssertionError(f"model parity ({kind}): W8 / W4 launches {w8} / {w4}")
-    log(f"[parity] small model (hd 128, f32, {kind}) card kernels vs CPU "
-        f"plain: logits max_abs_err {err:.3e} (tol {tol:g}; W8 / W4 "
-        f"launches {w8} / {w4})")
+    log(f"[parity] small {'draft ' if draft else ''}model (hd {cfg.head_dim_}, "
+        f"f32, {kind}) card kernels vs CPU plain: logits max_abs_err {err:.3e} "
+        f"(tol {tol:g}; W8 / W4 launches {w8} / {w4})")
 
 
 def graph_parity(kind: str):
@@ -1121,6 +1244,126 @@ def graph_parity(kind: str):
         f"byte-identical; banned token {banned} never chosen (mu {mu[2]:.4f}); "
         f"{kernel} launches {cfg.num_layers} x {sum(steps)} on every side; capture "
         f"of both variants {g.capture_seconds:.2f} s, pool {g.pool_bytes} bytes")
+
+
+def draft_round_parity(kind: str):
+    """The spec round with a draft model (engine/decode_graph.py: the
+    draft's D + 1 steps inside the captured round) against its eager form
+    (decode_graph.eager_rounds) on the card, model_parity's small hd-128
+    target with its hd-64 draft, both in ``kind``'s weights and cache:
+    three slots prefilled into both caches (the draft's on the same page
+    table), two speculating (greedy, seeded sampled), one plain, one
+    idle; 3 rounds each way from twins of the same state. Ids and n_out
+    identical, logprobs within 1e-4, the draft rows written identical;
+    the decode kernel launched (target layers + (D + 1) x draft layers) x
+    rounds, K2 / K2-int8 target layers x rounds, through the replays."""
+    import numpy as np
+    import torch
+
+    from localai_tpu_torch.engine import decode_graph, sampling
+    from localai_tpu_torch.engine.weights import random_params
+    from localai_tpu_torch.models import llama
+    from localai_tpu_torch.ops.kernels import LAUNCHES
+
+    cfg, dcfg = small_cfg(), small_cfg(draft=True)
+    quantize = {"w8kv8": "int8", "w4": "int4"}.get(kind, "")
+    params = random_params(cfg, SEED, device=DEV, quantize=quantize)
+    dparams = random_params(dcfg, SEED + 1, device=DEV, quantize=quantize)
+    S, C, pg, W = 4, 256, 64, 5
+    int8_kv = kind in ("int8", "w8kv8")
+
+    def caches(c):
+        if kind == "contig":
+            return llama.init_cache(c, S, C, 0, device=DEV)
+        k, v = llama.init_cache(c, S, C, pg, dtype=torch.int8 if int8_kv else None,
+                                device=DEV)
+        k["ptab"] = v["ptab"] = torch.arange(
+            S * C // pg, dtype=torch.int32, device=DEV).flip(0).reshape(S, -1)
+        return k, v
+
+    gen = torch.Generator().manual_seed(SEED)
+    lengths = np.array([70, 30, 45, 0], np.int32)
+    N = int(lengths.sum())
+    tokens = torch.randint(0, 512, (N,), generator=gen, dtype=torch.int32)
+    positions = torch.cat([torch.arange(n, dtype=torch.int32) for n in lengths[:3]])
+    seg_of = torch.cat([torch.full((int(n),), b, dtype=torch.int32)
+                        for b, n in enumerate(lengths[:3])])
+    tab = torch.tensor([[0, 1, 2, S], [0, 0, 0, 0], [0, 70, 100, 0], [70, 30, 45, 0]],
+                       dtype=torch.int32)
+    state = []
+    for p, c in ((params, cfg), (dparams, dcfg)):
+        k, v = caches(c)
+        llama.ragged_prefill(p, c, tokens.to(DEV), positions.to(DEV),
+                             *(t.to(DEV) for t in tab), seg_of.to(DEV), k, v,
+                             continued=False)
+        state += [k, v]
+    prompts = torch.split(tokens, [int(n) for n in lengths[:3]])
+    H = sampling.SamplingParamsHost
+
+    def twin(c):
+        return {k: (v if k in ("ptab", "itab") else v.clone()) for k, v in c.items()}
+
+    def sampler():
+        sm = sampling.SlotSampler(S, cfg.vocab_size, DEV)
+        for s, row in enumerate((H(temperature=0.0), H(temperature=0.8, seed=SEED),
+                                 H(temperature=0.0), H(temperature=0.0))):
+            sm.set_slot(s, row, fallback_seed=0)
+            sm.set_ring(s, prompts[s].tolist() if s < 3 else [])
+        return sm
+
+    dk = "decode_attention_append_contig" if kind == "contig" else (
+        "paged_decode_attention_quant" if int8_kv else "paged_decode_attention")
+    k2 = "ragged_prefill_attention_int8" if int8_kv and kind != "contig" \
+        else "ragged_prefill_attention"
+    host = np.stack([[1, 1, 1, 0], np.ones(S), [3, 4, 5, 0], lengths,
+                     [1, 1, 0, 0]]).astype(np.int64)
+    out = {}
+    for way in ("graph", "eager"):
+        k_c, v_c, dk_c, dv_c = (twin(c) for c in state)
+        if kind != "contig":
+            dk_c["ptab"] = dv_c["ptab"] = k_c["ptab"] = v_c["ptab"]
+        sm = sampler()
+        draft = (dparams, dcfg, dk_c, dv_c)
+        n0 = (LAUNCHES[dk], LAUNCHES[k2])
+        if way == "graph":
+            g = decode_graph.DecodeGraph(params, cfg, k_c, v_c, sm, S, 16, DEV,
+                                         spec_width=W, draft=draft)
+            g.capture()
+            n0 = (LAUNCHES[dk], LAUNCHES[k2])
+            g.load(host)
+            res = g.spec_replay(3).wait()
+            cap = (g.capture_seconds, g.pool_bytes)
+        else:
+            res = decode_graph.eager_rounds(
+                params, cfg, k_c, v_c, sm, host[2], host[3], host[0] != 0,
+                host[4] != 0, 3, W, 3, draft=draft)
+        torch.cuda.synchronize()
+        out[way] = (res, LAUNCHES[dk] - n0[0], LAUNCHES[k2] - n0[1],
+                    {k: x.clone() for k, x in dk_c.items() if k not in ("ptab", "itab")},
+                    sm.counter.clone())
+    (a, la, ka, da, ca), (b, _lb, _kb, db, cb) = out["graph"], out["eager"]
+    if not (np.array_equal(a[:, :W], b[:, :W]) and np.array_equal(a[:, 2 * W], b[:, 2 * W])):
+        raise AssertionError(f"draft round parity ({kind}): graph != eager ids "
+                             f"{a[:, :W, :3].tolist()} vs {b[:, :W, :3].tolist()}")
+    err = float(np.abs(a[:, W:2 * W] - b[:, W:2 * W]).max())
+    if err > 1e-4 or not torch.equal(ca, cb):
+        raise AssertionError(f"draft round parity ({kind}): logprob err {err:.3e}, "
+                             f"counters {ca.tolist()} vs {cb.tolist()}")
+    for key in da:
+        if not torch.equal(da[key][:, :-1], db[key][:, :-1]):
+            raise AssertionError(f"draft round parity ({kind}): draft cache {key} "
+                                 f"differs graph vs eager")
+    want = 3 * (cfg.num_layers + W * dcfg.num_layers)
+    if la != want or ka != 3 * cfg.num_layers:
+        raise AssertionError(f"draft round parity ({kind}): {dk} launched {la} "
+                             f"(expected {want}), {k2} {ka} (expected "
+                             f"{3 * cfg.num_layers}) over 3 rounds")
+    log(f"[parity] small model (hd 128, f32, {kind}) with its hd-{DRAFT_HD} draft: "
+        f"3 spec rounds, captured == eager (ids, n_out, draft rows, counters; "
+        f"logprob err {err:.2e}); {dk} {la} launches = 3 x ({cfg.num_layers} + "
+        f"{W} x {dcfg.num_layers}), {k2} {ka}; accepted per round "
+        f"{(a[:, 2 * W, :2] - 1).tolist()}; capture {cap[0]:.2f} s, pool "
+        f"{cap[1]} bytes")
 
 
 # ---------- phase 3 ----------
@@ -1403,6 +1646,7 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
         decode = phase_timed(config, decode_phase, lm, card, config)
         prefill = phase_timed(config, prefill_phase, lm, card, config)
         prefix = host = shift = pipeline = lifecycle = spec_out = obs_cost = None
+        draft = None
         if config in PREFIX_K2:
             prefix, runs3c = phase_timed(config, prefix_phase, lm, card, config)
             host = phase_timed(config, host_tier_phase, lm, card, config, runs3c)
@@ -1412,9 +1656,10 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
             lifecycle = phase_timed(config, lifecycle_phase, lm, card, config)
             pin_speculation(lm.engine, True)
             spec_out = phase_timed(config, spec_phase, lm, card, config)
+            draft = phase_timed(config, draft_phase, lm, card, config, spec_out)
         if config == "paged":
             obs_cost = phase_timed(config, obs_phase, lm, card, config)
-        return launches, {"spec": spec_out, "obs": obs, "obs_cost": obs_cost, "spec_serving": spec,"prompt_lens": prompt_lens, "n_long": n_long,
+        return launches, {"spec": spec_out, "draft": draft, "obs": obs, "obs_cost": obs_cost, "spec_serving": spec,"prompt_lens": prompt_lens, "n_long": n_long,
                           "ttft_ms": ttft_ms, "decode_tok_s": decode_tok_s,
                           "step_ms": step_ms, "pack_ms": pack_ms,
                           "pad_tokens": pk["pad_tokens"],
@@ -3694,11 +3939,13 @@ SPEC_PART_ROWS = 1024        # committed rows of each slot in the round's split
 
 
 def pin_speculation(eng, on: bool):
-    """Speculation on (draft "auto", the default) or off ("0", the mode it
-    resolves to) for what an idle engine admits next, and in the config
-    later engines copy (dataclasses.replace(eng.ecfg, ...))."""
+    """Speculation on (draft "auto", the default: the draft model when the
+    engine has one, else n-gram) or off ("0", the mode it resolves to) for
+    what an idle engine admits next, and in the config later engines copy
+    (dataclasses.replace(eng.ecfg, ...))."""
     eng.ecfg.draft = "auto" if on else "0"
-    eng._spec_mode = "ngram" if on else "off"
+    eng._spec_mode = (("model" if eng.draft_params is not None else "ngram")
+                      if on else "off")
 
 
 def spec_tiny_phase(card: str) -> dict:
@@ -4065,22 +4312,29 @@ def round_parts(eng) -> dict:
     return ms
 
 
+def spec_sets(lm) -> dict:
+    """Phase 3i's two prompt sets (8 each): a phrase repeated, and seeded
+    random ids."""
+    import numpy as np
+
+    phrase_ids = lm.tokenizer.encode(SPEC_PHRASE * 24)
+    rng = np.random.default_rng(SEED)
+    return {
+        "repetitive": [phrase_ids[i:] + lm.tokenizer.encode(f" Line {i}.")
+                       for i in range(S_SLOTS)],
+        "random": [rng.integers(1000, 100000, 200).tolist() for _ in range(S_SLOTS)],
+    }
+
+
 def spec_phase(lm, card: str, config: str) -> dict:
     """Phase 3i on the loaded model (module doc)."""
-    import numpy as np
 
     eng = lm.engine
     tag = f"[spec {config}]"
     t0 = time.monotonic()
     tiny = spec_tiny_phase(card) if config == "paged" else None
     log(f"[time] {config}: spec_phase (a) {time.monotonic() - t0:.1f} s")
-    phrase_ids = lm.tokenizer.encode(SPEC_PHRASE * 24)
-    rng = np.random.default_rng(SEED)
-    sets = {
-        "repetitive": [phrase_ids[i:] + lm.tokenizer.encode(f" Line {i}.")
-                       for i in range(S_SLOTS)],
-        "random": [rng.integers(1000, 100000, 200).tolist() for _ in range(S_SLOTS)],
-    }
+    sets = spec_sets(lm)
     out = {"tiny_f32": tiny, "sets": {}}
     for name, prompts in sets.items():
         runs = {}
@@ -4222,6 +4476,357 @@ def emitter_phase(lm, card: str, config: str) -> dict:
             f"ms, decoding requests' mean inter-token time "
             f"{', '.join(f'{t:.2f}' for t in r['itl_ms'])} ms (host clock, "
             f"untraced)")
+    return out
+
+
+# ---------- phase 3k: draft-model speculation ----------
+
+DRAFT_DIR = "draft-1b"       # the 1B draft's config-only dir, in the model dir
+DRAFT_GATE_TOKENS = 60       # (a) tokens of each byte-gate request
+DRAFT_ACCEPT_MIN = 0.9       # (a) the target as its own draft, unfused
+
+
+def draft_tiny_phase(card: str) -> dict:
+    """(a) On the card, small f32 models (module doc): for head_dim 128 and
+    64, a paged engine with a draft of another shape (hd 64, one layer,
+    tied embeddings) at the defaults, and one with the target as its own
+    draft and the unfused loop (prefill_packed_fuse "0": no plain burst
+    leaves a hole in the draft rows): greedy tokens with the draft ==
+    draft "0"'s byte for byte; the target as its own draft accepts >= 90%
+    of its proposals; on the hd-64 engine with the other draft, the seeded
+    sampled chi-square of 3i (a) against draft "0"."""
+    import dataclasses
+
+    import torch
+
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+    from localai_tpu_torch.engine.sampling import SamplingParamsHost
+    from localai_tpu_torch.engine.weights import random_params
+    from localai_tpu_torch.models import llama
+
+    class Tok:
+        eos_token_id = 1
+
+        def decode(self, ids, **kw):
+            return "".join(chr(97 + (i % 26)) for i in ids)
+
+    V = 96
+    targets = {hd: llama.LlamaConfig(
+        vocab_size=V, hidden_size=512, intermediate_size=1024, num_layers=2,
+        num_heads=512 // hd, num_kv_heads=2, head_dim=hd, rope_theta=500000.0,
+        dtype=torch.float32) for hd in (128, DRAFT_HD)}
+    other = llama.LlamaConfig(vocab_size=V, hidden_size=256, intermediate_size=512,
+                              num_layers=1, num_heads=4, num_kv_heads=2,
+                              head_dim=DRAFT_HD, rope_theta=500000.0,
+                              tie_word_embeddings=True, dtype=torch.float32)
+    dother = random_params(other, SEED + 1, device=DEV)
+    base = EngineConfig(num_slots=4, max_context=256, prefill_chunk=32,
+                        kv_page_size=16, decode_burst=16, kv_offload=False)
+    prompts = [[5, 6, 7, 8] * 8, list(range(10, 50)), [9, 9, 3] * 7, list(range(60, 71))]
+    out = {}
+    for hd, cfg in targets.items():
+        params = random_params(cfg, SEED, device=DEV)
+        for name, draft, knobs in (("other", (other, dother), {}),
+                                   ("same", (cfg, params),
+                                    {"prefill_packed_fuse": "0"})):
+            tag = f"[draft tiny hd {hd} {name}]"
+            e = Engine(cfg, params, Tok(), dataclasses.replace(base, **knobs),
+                       device=DEV, draft=draft).start()
+            streams = {}
+            try:
+                assert e._spec_mode == "model", e._spec_mode
+                for mode in ("auto", "0"):
+                    pin_speculation(e, mode == "auto")
+                    on_engine_thread(e, lambda e=e: forget_retained(e))
+                    m0 = dict(e.metrics()["spec"])
+                    outs = [e.submit(GenRequest(
+                        prompt_ids=list(p), max_new_tokens=DRAFT_GATE_TOKENS,
+                        ignore_eos=True, params=SamplingParamsHost(temperature=0.0)))
+                            for p in prompts]
+                    ids = []
+                    for o in outs:
+                        got = []
+                        while (ev := o.get(timeout=600)) is not None:
+                            if ev.error:
+                                raise AssertionError(f"{tag} {ev.error}")
+                            got.extend(ev.token_ids or [ev.token_id])
+                        ids.append(got)
+                    m1 = e.metrics()["spec"]
+                    streams[mode] = (ids, {k: m1[k] - m0[k] for k in SPEC_KEYS})
+                if hd == DRAFT_HD and name == "other":
+                    chi = sampled_chi2(e, GenRequest, SamplingParamsHost, prompts)
+                    out["sampled_chi2"] = chi
+                    log(f"{tag} {card}: {SPEC_CHI_SEEDS} seeded sampled requests x "
+                        f"{SPEC_CHI_TOKENS} tokens, the draft vs draft=0: chi2 "
+                        f"{chi['stat']:.2f}, dof {chi['dof']}, p {chi['p']:.4f}; "
+                        f"{chi['rounds']} sampled rounds, acceptance "
+                        f"{chi['acceptance_rate']:.3f}")
+            finally:
+                e.shutdown()
+            (sid, st), (pid, pst) = streams["auto"], streams["0"]
+            if sid != pid:
+                raise AssertionError(f"{tag} greedy tokens with the draft differ "
+                                     f"from draft=0: {sid} vs {pid}")
+            if st["rounds"] <= 0 or pst["rounds"] != 0:
+                raise AssertionError(f"{tag} spec rounds on / off: {st} / {pst}")
+            rate = st["accepted"] / max(1, st["proposed"])
+            if name == "same" and rate < DRAFT_ACCEPT_MIN:
+                raise AssertionError(f"{tag} the target as its own draft accepted "
+                                     f"{rate:.3f} of its proposals (< "
+                                     f"{DRAFT_ACCEPT_MIN})")
+            out[f"hd{hd}_{name}"] = {"rounds": st["rounds"], "proposed": st["proposed"],
+                                     "accepted": st["accepted"], "acceptance_rate": rate}
+            log(f"{tag} {card}: f32 greedy tokens with the draft == draft=0 "
+                f"({len(prompts)} x {DRAFT_GATE_TOKENS}); {st['rounds']} rounds, "
+                f"{st['accepted']} of {st['proposed']} proposals accepted "
+                f"({rate:.3f})")
+    return out
+
+
+def load_1b_draft(lm):
+    """The 1B draft through the runner's loader (backend/runner.py::
+    draft_config / load_draft): a config-only dir beside the model's,
+    random weights from the target's seed + 1, the target's dtype and
+    quantization. Returns (LlamaConfig, params, seconds)."""
+    from localai_tpu_torch.backend import runner
+
+    ddir = os.path.join(lm.model_dir, DRAFT_DIR)
+    os.makedirs(ddir, exist_ok=True)
+    with open(os.path.join(ddir, "config.json"), "w") as f:
+        json.dump(LLAMA32_1B, f)
+    t0 = time.monotonic()
+    found = runner.draft_config(lm.model_dir, DRAFT_DIR, lm.cfg.dtype, SEED)
+    dcfg, dparams = runner.load_draft(*found, lm.quantization, SEED, DEV,
+                                      lm.cfg.vocab_size)
+    return dcfg, dparams, time.monotonic() - t0
+
+
+def draft_host_check(eng, lm, tag: str) -> dict:
+    """(d) A speculating request's chain evicted to the host tier and
+    restored: its draft planes are in every host entry, the restored
+    draft pages equal them byte for byte, and the next turn speculates."""
+    import numpy as np
+    import torch
+
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.engine.sampling import SamplingParamsHost
+
+    def run(ids, n):
+        out = eng.submit(GenRequest(prompt_ids=list(ids), max_new_tokens=n,
+                                    ignore_eos=True,
+                                    params=SamplingParamsHost(temperature=0.0)))
+        got, reused = [], None
+        while (ev := out.get(timeout=600)) is not None:
+            if ev.error:
+                raise AssertionError(f"{tag} host tier: {ev.error}")
+            got.extend(ev.token_ids or [ev.token_id])
+            if ev.timings:
+                reused = ev.timings["reused_prompt_tokens"]
+        return got, reused
+
+    rng = np.random.default_rng(SEED + 5)
+    a = rng.integers(1000, 100000, 600).tolist()
+    on_engine_thread(eng, lambda: forget_retained(eng))
+    first, _r = run(a, 64)
+    hist = a + first[:-1]
+    # the whole chain leaves the card: evicted, so offloaded with its planes
+    on_engine_thread(eng, lambda: forget_retained(eng))
+    eng._offloader.join()
+    keys = list(eng._pcache.chain_keys(hist))[:len(hist) // eng._pool.page_size]
+    ents = [eng._hstore._entries.get(k) for k in keys]
+    if not ents or any(e is None or e.dk is None for e in ents):
+        raise AssertionError(f"{tag} host tier: {sum(e is not None for e in ents)} of "
+                             f"{len(keys)} links offloaded, draft planes on "
+                             f"{sum(e is not None and e.dk is not None for e in ents)}")
+    planes = [(np.array(e.dk, copy=True) if not isinstance(e.dk, dict)
+               else {k: np.array(v, copy=True) for k, v in e.dk.items()}) for e in ents]
+    r0 = eng.metrics()["spec"]["rounds"]
+    st0 = eng._hstore.stats()
+    t0 = time.monotonic()
+    second, reused = run(hist + [first[-1]] + rng.integers(1000, 100000, 20).tolist(), 64)
+    ms = (time.monotonic() - t0) * 1e3
+    st = eng._hstore.stats()
+    torch.cuda.synchronize()
+    pages = [eng._pcache._entries[k].page for k in keys]
+    bad = 0
+    for p, want in zip(pages, planes):
+        if isinstance(want, dict):
+            got = {"q": eng.dck["pages"][:, p].cpu().numpy(),
+                   "s": eng.dck["scales"][:, p].cpu().numpy()}
+            same = all(np.array_equal(got[k], want[k]) for k in want)
+        else:
+            got = eng.dck["pages"][:, p].cpu()
+            same = np.array_equal(got.view(torch.uint16).numpy()
+                                  if got.dtype == torch.bfloat16 else got.numpy(), want)
+        bad += not same
+    rounds = eng.metrics()["spec"]["rounds"] - r0
+    restored = st["restored_pages"] - st0["restored_pages"]
+    if bad or restored < len(keys) or reused < len(keys) * eng._pool.page_size:
+        raise AssertionError(f"{tag} host tier: {bad} restored draft pages differ "
+                             f"from their planes; {restored} pages restored of "
+                             f"{len(keys)}; reused {reused}")
+    if rounds <= 0:
+        raise AssertionError(f"{tag} host tier: the restored slot took no spec round")
+    out = {"links": len(keys), "restored_pages": restored, "reused_rows": reused,
+           "rounds_after_restore": rounds, "turn2_ms": ms}
+    log(f"{tag} host tier: a speculating chain of {len(keys)} pages evicted to host "
+        f"RAM with its draft planes and restored: the draft pages byte-equal to the "
+        f"planes, {reused} rows reused, {rounds} spec rounds after the restore "
+        f"(turn 2, 64 tokens: {ms:.1f} ms, host clock)")
+    return out
+
+
+def draft_phase(lm, card: str, config: str, spec_out: dict) -> dict:
+    """Phase 3k on the loaded model (module doc): the 1B draft, an engine
+    over the loaded weights with it, the decode rate against 3i's n-gram
+    and off runs, the round's parts, one HTTP request, the host tier; for
+    paged also the small-model gates (a). The launch counters are zeroed
+    just before this engine's requests and read just after them."""
+    import dataclasses
+
+    import torch
+
+    from localai_tpu_torch.api.app import App, make_server
+    from localai_tpu_torch.backend.runner import LoadedModel
+    from localai_tpu_torch.engine.engine import Engine
+    from localai_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    tag = f"[draft {config}]"
+    t0 = time.monotonic()
+    out = {"tiny_f32": draft_tiny_phase(card) if config == "paged" else None}
+    log(f"[time] {config}: draft_phase (a) {time.monotonic() - t0:.1f} s")
+    gb0 = torch.cuda.memory_allocated() / 1e9
+    dcfg, dparams, load_s = load_1b_draft(lm)
+    dgb = param_bytes(dparams) / 1e9
+    t_e = time.monotonic()
+    eng = Engine(lm.cfg, lm.engine.params, lm.tokenizer,
+                 dataclasses.replace(lm.engine.ecfg, draft="auto"), device=DEV,
+                 draft=(dcfg, dparams)).start()
+    start_s = time.monotonic() - t_e
+    try:
+        torch.cuda.synchronize()
+        m = eng.metrics()
+        dkv = sum(t.numel() * t.element_size() for c in (eng.dck, eng.dcv)
+                  for k, t in c.items() if k != "ptab")
+        pg = m["prefill_graph"]
+        out["memory"] = {
+            "draft_weights_gb": dgb, "draft_kv_gb": dkv / 1e9,
+            "allocated_gb": torch.cuda.memory_allocated() / 1e9, "before_gb": gb0,
+            "draft_load_s": load_s, "engine_start_s": start_s,
+            "decode_capture_s": m["decode_graph"]["capture_seconds"],
+            "decode_pool_bytes": m["decode_graph"]["pool_bytes"],
+            "prefill_capture_s": pg["capture_seconds"],
+            "prefill_pool_bytes": pg["pool_bytes"],
+            "draft_mirror_capture_s": pg["draft_capture_seconds"],
+            "draft_mirror_pool_bytes": pg["draft_pool_bytes"]}
+        log(f"{tag} {card}: Llama-3.2-1B widths (hidden {dcfg.hidden_size}, "
+            f"{dcfg.num_layers} layers, KV {dcfg.num_kv_heads} x hd {dcfg.head_dim_}, "
+            f"tied {dcfg.tie_word_embeddings}), random {lm.quantization or 'bf16'} weights (seed "
+            f"{SEED + 1}): {dgb:.3f} GB weights (10^9 bytes) in {load_s:.1f} s, "
+            f"draft KV {dkv / 1e9:.3f} GB over {eng._pool.num_pages} pages; engine "
+            f"start {start_s:.1f} s; decode graphs (plain, full, 2 spec rounds with "
+            f"the draft) capture {m['decode_graph']['capture_seconds']:.2f} s, pool "
+            f"{m['decode_graph']['pool_bytes'] / 1e6:.1f} MB; packs "
+            f"{len(pg['captured'])} + {len(pg['draft_captured'])} draft mirrors "
+            f"capture {pg['capture_seconds']:.2f} s (mirrors "
+            f"{pg['draft_capture_seconds']:.2f} s), pool "
+            f"{pg['pool_bytes'] / 1e6:.1f} MB (mirrors {pg['draft_pool_bytes'] / 1e6:.1f});"
+            f" memory_allocated {out['memory']['allocated_gb']:.3f} GB "
+            f"({gb0:.3f} before the draft)")
+        mirrored = [0]
+        dispatch = eng._pgraph.dispatch
+
+        def counting(bucket, continued, host, mirror=False, dispatch=dispatch):
+            mirrored[0] += int(mirror)
+            return dispatch(bucket, continued, host, mirror)
+
+        eng._pgraph.dispatch = counting
+        sets = spec_sets(lm)
+        m0 = eng.metrics()
+        torch.cuda.synchronize()
+        reset_launches()
+        out["sets"] = {}
+        for name, prompts in sets.items():
+            r = spec_run(lm, eng, prompts, True, f"{tag} {name}")
+            r.pop("streams")
+            ng = spec_out["sets"][name]["spec"]
+            off = spec_out["sets"][name]["plain"]
+            out["sets"][name] = {"model": r, "ngram_3i": ng, "off_3i": off,
+                                 "vs_off": r["tok_s"] / off["tok_s"],
+                                 "vs_ngram": r["tok_s"] / ng["tok_s"]}
+            log(f"{tag} {card}: {name} prompts, 8 x {SPEC_TOKENS} greedy tokens: "
+                f"draft model {r['tok_s']:.1f} tok/s, n-gram {ng['tok_s']:.1f}, off "
+                f"{off['tok_s']:.1f} (3i, same call) ({r['tok_s'] / off['tok_s']:.3f}x "
+                f"off); acceptance {r['acceptance_rate']:.3f} (n-gram "
+                f"{ng['acceptance_rate']:.3f}), {r['accept_per_dispatch']:.3f} tokens "
+                f"per slot-round (n-gram {ng['accept_per_dispatch']:.3f}); "
+                f"{r['ms_per_round_or_step']:.2f} ms per round, {r['ms_per_tick']:.2f} "
+                f"per tick ({r['spec_ticks']} spec ticks of {r['ticks']})")
+        # one request through the HTTP server, as a client would send it
+        app = App({lm.name: LoadedModel(lm.name, lm.model_dir, lm.cfg, lm.tokenizer,
+                                        eng, lm.quantization)})
+        server = make_server(app, "127.0.0.1", 0)
+        th = threading.Thread(target=server.serve_forever, daemon=True)
+        th.start()
+        try:
+            body = http_json(f"http://127.0.0.1:{server.server_address[1]}"
+                             f"/v1/chat/completions",
+                             {"model": lm.name, "max_tokens": 48, "ignore_eos": True,
+                              "temperature": 0,
+                              "messages": [{"role": "user", "content":
+                                            "Write three short lines on rain."}]})
+        finally:
+            server.shutdown()
+            server.server_close()
+        if body["usage"]["completion_tokens"] != 48:
+            raise AssertionError(f"{tag} HTTP chat: {body['usage']}")
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        m1 = eng.metrics()
+        del eng._pgraph.dispatch
+        dec = {k: m1["decode"][k] - m0["decode"][k] for k in m1["decode"]}
+        pk = {k: m1["packed_prefill"][k] - m0["packed_prefill"][k]
+              for k in m1["packed_prefill"]}
+        n_t, n_d = lm.cfg.num_layers, dcfg.num_layers
+        W = eng._spec_width
+        dk = DECODE_KERNEL[config]
+        k2 = launches["ragged_prefill_attention"] + launches["ragged_prefill_attention_int8"]
+        want_dk = n_t * dec["steps"] + n_d * W * dec["spec_rounds"]
+        want_k2 = n_t * (pk["dispatches"] + dec["spec_rounds"]) + n_d * mirrored[0]
+        must = {"paged": ("paged_decode_attention", "ragged_prefill_attention"),
+                "w8kv8": ("paged_decode_attention_quant", "ragged_prefill_attention_int8",
+                          "ragged_prefill_attention", W8)}[config]
+        missing = [k for k in must if launches[k] <= 0]
+        if missing or launches[dk] != want_dk or k2 != want_k2 or mirrored[0] <= 0:
+            raise AssertionError(
+                f"{tag} launches {launches}: missing {missing}; {dk} {launches[dk]} "
+                f"(expected {n_t} x {dec['steps']} steps + {n_d} x {W} x "
+                f"{dec['spec_rounds']} rounds = {want_dk}); K2 / K2-int8 {k2} "
+                f"(expected {n_t} x ({pk['dispatches']} packs + {dec['spec_rounds']} "
+                f"rounds) + {n_d} x {mirrored[0]} mirrors = {want_k2})")
+        out["launches"] = {k: v for k, v in launches.items() if v}
+        out["counts"] = {"steps": dec["steps"], "spec_rounds": dec["spec_rounds"],
+                         "packs": pk["dispatches"], "mirrored_packs": mirrored[0]}
+        log(f"{tag} launches over the draft engine's requests (graph replays): "
+            f"{json.dumps(out['launches'])}; {dk} = {n_t} x {dec['steps']} + {n_d} x "
+            f"{W} x {dec['spec_rounds']}; K2 = {n_t} x ({pk['dispatches']} + "
+            f"{dec['spec_rounds']}) + {n_d} x {mirrored[0]} mirrored packs")
+        parts = on_engine_thread(eng, lambda: round_parts(eng))
+        out["round_parts_ms"] = parts
+        log(f"{tag} {card}: the round's parts alone (graph replays, CUDA events, 8 "
+            f"slots speculating over {SPEC_PART_ROWS} rows): the draft's {W} steps "
+            f"{parts['propose']:.3f} ms ({parts['propose'] / W:.3f} a step; the 1B "
+            f"weight-read bound {dgb / (HBM_BYTES_PER_S / 1e9) * 1e3:.3f}), decode "
+            f"step {parts['decode_step']:.3f}, verify {parts['verify']:.3f}, accept "
+            f"{parts['accept']:.3f} (sum {parts['parts_sum']:.3f}) vs the whole "
+            f"round {parts['round']:.3f} ms")
+        out["host"] = draft_host_check(eng, lm, tag)
+    finally:
+        eng.shutdown()
+        del eng, dparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[time] {config}: draft_phase {time.monotonic() - t0:.1f} s")
     return out
 
 
@@ -4695,6 +5300,17 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
                       "kernel in the JAX package)")
     rows[-1]["launches"] = k5_launches + LAUNCHES["decode_attention_append_full"] - n0
     quant_rows(rows, profiled, add, errs, shapes, dt, elt, peak)
+    # the draft path (phase 3k): each kernel at the 1B draft's shapes, and
+    # its launches there; a row whose configuration ran 3k counts them in
+    draft = draft_kernel_rows(errs)
+    for r in rows:
+        runs = {c: shapes[c]["draft"]["launches"].get(r["name"], 0)
+                for c in shapes if shapes[c]["draft"]}
+        if r["name"] in draft:
+            r["draft"] = draft[r["name"]]
+        r["launches_draft_path"] = runs
+        r["launches"] += runs.get(r["config"], 0)
+        r["max_abs_err"] = errs[r["name"]]
 
     # the CUDA kernels of one wrapper call, after every timing above (the
     # profiler's tracing stays out of the timed calls)
@@ -4726,12 +5342,147 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
             log(f"[kernels] {card}: {r['name']} share of a {r['config']} decode "
                 f"step ~ {n_layers * r['ms'] / sh['step_ms'] * 100:.1f}% "
                 f"({n_layers} layers x {r['ms']:.4f} ms / {sh['step_ms']:.2f} ms)")
-        for x in (r, r.get("fresh"), r.get("verify"), r.get("lm_head"), r.get("wide")):
+        for x in (r, r.get("fresh"), r.get("verify"), r.get("lm_head"), r.get("wide"),
+                  r.get("draft"), (r.get("draft") or {}).get("tied_lm_head"),
+                  *(r.get("draft") or {}).get("shapes", {}).values()):
             if x:
                 log(f"[kernels] {card}: {r['name']} {x['ms']:.4f} ms (plain "
                     f"{x['plain_ms']:.4f}, library {x['library_ms']:.4f}, bound "
                     f"{x['bound_ms']:.4f} by {x['bound_by']}) at {x['shape']}")
     return rows
+
+
+def draft_kernel_rows(errs: dict) -> dict:
+    """Phase 4 at the 1B draft's shapes, keyed by kernel (module doc): K1,
+    K3 and K4 at KV 8, G 4, hd 64 over 8 slots x SPEC_PART_ROWS committed
+    rows (phase 3k's round parts), K2 and K2-int8 at hd 64 on the draft's
+    mirror of the long prompt's third chunk (512 tokens over 1024 rows),
+    W8 at the 1B projections at M = 8 (a draft step of 8 slots) and the
+    tied int8 table [128256, 2048] used transposed at M = 8 (the draft's
+    unembed: dequantize into the scratch + torch.matmul). Each: kernel,
+    plain and library ms (timed_ms), the bound, the parity error."""
+    import torch
+    import torch.nn.functional as F
+
+    from localai_tpu_torch.ops import kvcache
+    from localai_tpu_torch.ops.decode_attention import (
+        contig_decode_plain, decode_attention_append_contig)
+    from localai_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_quant, paged_decode_plain,
+        paged_decode_quant_plain)
+    from localai_tpu_torch.ops.quant import mat, quant_matmul, quant_matmul_plain
+    from localai_tpu_torch.ops.ragged_prefill import (
+        ragged_prefill_attention_paged, ragged_prefill_plain)
+
+    dt, elt, peak = torch.bfloat16, 2, PEAK_FLOPS["bfloat16"]
+    out = {}
+
+    def row(name, fn, plain, lib, cost, shape, library):
+        errs[name] = max(errs.get(name, 0.0), check_close(
+            f"{name} at the draft's shape {shape}", fn(), plain(), "bfloat16"))
+        return {"ms": timed_ms(fn), "plain_ms": timed_ms(plain),
+                "library_ms": timed_ms(lib), **bound(*cost, peak),
+                "shape": shape, "library": library}
+
+    def sdpa(la):
+        return lambda: F.scaled_dot_product_attention(la[0], la[1], la[2],
+                                                      attn_mask=la[3])
+
+    with head_dim(DRAFT_HD):
+        lengths = [SPEC_PART_ROWS] * S_SLOTS
+        slots = torch.arange(S_SLOTS, device=DEV)
+        shape = (f"bf16 S={S_SLOTS} KV={KV} G={G} hd={HD} pg={PG} "
+                 f"lengths={SPEC_PART_ROWS} x {S_SLOTS}")
+        a = decode_inputs(lengths, dt, SEED)
+        q, nk, nv, pk, pv, ptab, lens = a
+        la = sdpa_decode_inputs(q, nk, nv, kvcache.gather_pool_rows(pk, ptab, slots),
+                                kvcache.gather_pool_rows(pv, ptab, slots), lens, lengths)
+        out["paged_decode_attention"] = row(
+            "paged_decode_attention", lambda: paged_decode_attention(*a, G),
+            lambda: paged_decode_plain(*a, G), sdpa(la), decode_cost(lengths, elt),
+            shape, "SDPA on pre-gathered rows")
+        a3 = decode_inputs(lengths, dt, SEED, cache_dtype=torch.int8)
+        q, nk, nv, qk, sk, qv, sv, ptab, lens = a3
+        kf = (kvcache.gather_pool_rows(qk, ptab, slots).float()
+              * kvcache.gather_pool_rows(sk, ptab, slots)[..., None]).to(dt)
+        vf = (kvcache.gather_pool_rows(qv, ptab, slots).float()
+              * kvcache.gather_pool_rows(sv, ptab, slots)[..., None]).to(dt)
+        la3 = sdpa_decode_inputs(q, nk, nv, kf, vf, lens, lengths)
+        out["paged_decode_attention_quant"] = row(
+            "paged_decode_attention_quant",
+            lambda: paged_decode_attention_quant(*a3, G),
+            lambda: paged_decode_quant_plain(*a3, G), sdpa(la3),
+            decode_cost(lengths, elt, cache_elt=1, scales=True),
+            "int8 pages " + shape, "SDPA on dequantized pre-gathered bf16 rows")
+        q, nk, nv, ck, cv, lens = contig_inputs(lengths, dt, SEED)
+        k4 = (q, nk, nv, ck[0, :S_SLOTS], cv[0, :S_SLOTS], lens)
+        la4 = sdpa_decode_inputs(q, nk, nv, k4[3], k4[4], lens, lengths)
+        out["decode_attention_append_contig"] = row(
+            "decode_attention_append_contig",
+            lambda: decode_attention_append_contig(*k4, G),
+            lambda: contig_decode_plain(*k4, G), sdpa(la4),
+            decode_cost(lengths, elt, table=False),
+            f"bf16 S={S_SLOTS} KV={KV} G={G} hd={HD} C={C_MAX} "
+            f"lengths={SPEC_PART_ROWS} x {S_SLOTS}", "SDPA on the contiguous rows")
+        del ck, cv
+        segs = [(0, 1024, 512)]
+        for quant in (False, True):
+            a2, kw, _real = prefill_inputs(512, segs, dt, SEED,
+                                           cache_dtype=torch.int8 if quant else None)
+            q2, ck2, cv2, pk2, pv2, ptab2 = a2[:6]
+            zero = torch.zeros(1, device=DEV, dtype=torch.long)
+            kc = kvcache.gather_pool_rows(pk2, ptab2, zero)[0, :1024]
+            vc = kvcache.gather_pool_rows(pv2, ptab2, zero)[0, :1024]
+            if quant:
+                kc = (kc.float() * kvcache.gather_pool_rows(
+                    kw["scales_k"], ptab2, zero)[0, :1024, :, None]).to(dt)
+                vc = (vc.float() * kvcache.gather_pool_rows(
+                    kw["scales_v"], ptab2, zero)[0, :1024, :, None]).to(dt)
+            name = ("ragged_prefill_attention_int8" if quant
+                    else "ragged_prefill_attention")
+            out[name] = row(
+                name, lambda a2=a2, kw=kw: ragged_prefill_attention_paged(
+                    *a2, G, **kw, continued=True),
+                lambda a2=a2, kw=kw: ragged_prefill_plain(*a2, G, **kw, continued=True),
+                sdpa(sdpa_prefill_inputs(q2, ck2, cv2, kc, vc)),
+                prefill_cost(512, segs, elt, cache_elt=1 if quant else None,
+                             scales=quant),
+                f"bf16 N=512 KV={KV} G={G} hd={HD} pg={PG} "
+                f"{'int8 pages ' if quant else ''}segs={segs}",
+                "SDPA, causal mask over committed + pack keys")
+    per = {}
+    for shape_name, (K, N) in DRAFT_QUANT_SHAPES.items():
+        leaf = quant_weight(K, N, 8, SEED + K + N)
+        gen = torch.Generator(device=DEV).manual_seed(SEED)
+        x = torch.randn((S_SLOTS, K), generator=gen, device=DEV).to(dt)
+        dense = mat(leaf, dt)
+        per[shape_name] = row(
+            W8, lambda x=x, leaf=leaf: quant_matmul(x, leaf),
+            lambda x=x, leaf=leaf: quant_matmul_plain(x, leaf),
+            lambda x=x, dense=dense: torch.matmul(x, dense),
+            (leaf["q"].numel() + leaf["s"].numel() * 4
+             + (S_SLOTS * K + S_SLOTS * N) * elt, 2 * S_SLOTS * K * N),
+            f"bf16 x [{S_SLOTS}, {K}] @ int8 1B {shape_name} [{K}, {N}]",
+            "torch.matmul with the dense bf16 weight")
+    K, V = LLAMA32_1B["hidden_size"], LLAMA32_1B["vocab_size"]
+    table = quant_weight(V, K, 8, SEED)
+    dense = mat(table, dt)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    x = torch.randn((S_SLOTS, K), generator=gen, device=DEV).to(dt)
+    tied = row(W8, lambda: quant_matmul(x, table, transposed=True),
+               lambda: quant_matmul_plain(x, table, transposed=True),
+               lambda: torch.matmul(x, dense.T),
+               (table["q"].numel() + table["s"].numel() * 4
+                + (S_SLOTS * K + S_SLOTS * V) * elt, 2 * S_SLOTS * K * V),
+               f"bf16 x [{S_SLOTS}, {K}] @ tied int8 table [{V}, {K}] transposed",
+               "torch.matmul with the dense bf16 table, transposed")
+    tied["route"] = ("dequantize the whole table into the bf16 scratch, then "
+                     "torch.matmul (ops/quant.py: a transposed table)")
+    out[W8] = {**per["w_gate_up"], "shapes": per, "tied_lm_head": tied}
+    del table, dense
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_wgmma_call(name, plan, per_call, kernel_names):
@@ -4884,6 +5635,9 @@ def main():
                                if shapes[c]["spec"]},
                       "serving": {c: shapes[c]["spec_serving"] for c in shapes},
                       "card": card}), flush=True)
+    print(json.dumps({"draft": {c: shapes[c]["draft"] for c in shapes
+                                if shapes[c]["draft"]},
+                      "card": card}, default=str), flush=True)
     print(json.dumps({"host_tier": {c: shapes[c]["host"] for c in shapes
                                     if shapes[c]["host"]},
                       "memory": {c: shapes[c]["memory"] for c in shapes},

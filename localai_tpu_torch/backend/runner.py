@@ -21,8 +21,9 @@ max_preemptions, resume_reserve_pages, priority, priority_aging_ms) are
 engine's shed / timeout / stall events into the 429 / 504 / 503 errors of
 services/errors.py. Speculation takes the JAX options and parsing:
 ``draft`` (auto | model | ngram | 0 / off / none / false), ``n_draft`` (0
-turns it off) and ``spec_ngram``; a draft model (``draft_model``) is not
-served yet and is refused before any weight is loaded. ``emitter`` (on
+turns it off) and ``spec_ngram``; ``draft_model`` (the JAX option) loads
+a second, smaller llama-family model as the drafter, which draft "auto"
+then resolves to (``load_draft``). ``emitter`` (on
 by default; 0 / false / off / no = inline emission) is the JAX option.
 The observability options take the JAX names, defaults and checks:
 ``trace`` (on; the off words turn it off), ``trace_ring_size``,
@@ -182,6 +183,50 @@ def observability_options(**opts) -> dict:
     return out
 
 
+def draft_config(model_dir: str, draft_model: str, dtype: torch.dtype,
+                 random_weights: Optional[int]) -> tuple:
+    """The ``draft_model`` dir (the JAX runner's: relative to the model's
+    dir, or absolute) and its LlamaConfig in the target's dtype, checked
+    before any weight is read: a missing dir, or one with no safetensors
+    and no ``random_weights``, raises FileNotFoundError; a GGUF dir
+    NotImplementedError (the port has no GGUF loader). Nothing falls back
+    to n-gram speculation."""
+    ddir = draft_model
+    if not os.path.isabs(ddir):
+        ddir = os.path.join(model_dir, ddir)
+    if not os.path.isdir(ddir):
+        raise FileNotFoundError(f"draft_model {draft_model!r}: no dir {ddir}")
+    if any(f.endswith(".gguf") for f in os.listdir(ddir)):
+        raise NotImplementedError(
+            f"draft_model {draft_model!r} is a GGUF dir: the port has no GGUF "
+            f"loader yet; give a config.json + safetensors dir")
+    if not weights.has_weights(ddir) and random_weights is None:
+        raise FileNotFoundError(
+            f"draft_model {draft_model!r}: no .safetensors in {ddir}; pass "
+            f"random_weights=SEED to serve random weights")
+    with open(os.path.join(ddir, "config.json")) as f:
+        return ddir, LlamaConfig.from_hf_config(json.load(f), dtype=dtype)
+
+
+def load_draft(ddir: str, dcfg: LlamaConfig, quantization: str,
+               random_weights: Optional[int], device, vocab_size: int) -> tuple:
+    """The draft model's weights (``draft_config`` checked the dir): read
+    with numpy from its safetensors with the target's ``quantization``,
+    or, for a config-only dir with ``random_weights`` (the target's seed),
+    random from a seed of its own (the target's + 1). A vocabulary other
+    than the target's raises ValueError. Returns (LlamaConfig, params)."""
+    if dcfg.vocab_size != vocab_size:
+        raise ValueError(f"draft model {ddir}: vocabulary {dcfg.vocab_size}, "
+                         f"the target's is {vocab_size}")
+    if weights.has_weights(ddir):
+        dparams = weights.load_llama_params(ddir, dcfg, device=device,
+                                            quantize=quantization)
+    elif random_weights is not None:
+        dparams = weights.random_params(dcfg, int(random_weights) + 1,
+                                        device=device, quantize=quantization)
+    return dcfg, dparams
+
+
 def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
                context_size: int = 2048, dtype: str = "bfloat16",
                random_weights: Optional[int] = None, device="cuda",
@@ -212,8 +257,9 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
     observability knobs by ``observability_options``), checked before
     loading too (``EngineConfig.check``).
     Speculation: ``draft`` / ``n_draft`` / ``spec_ngram`` (``spec_options``);
-    a ``draft_model`` raises NotImplementedError before anything loads. A
-    GPTQ / AWQ dir with no quantization loads as int8."""
+    ``draft_model``'s dir is checked before loading (``draft_config``) and
+    its weights loaded after the target's (``load_draft``).
+    A GPTQ / AWQ dir with no quantization loads as int8."""
     dev = resolve_device(device)
     if dtype == "int8":
         dtype, quantization = "bfloat16", quantization or "int8"
@@ -228,11 +274,6 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
         raise NotImplementedError(
             "kv_cache_dtype int8 with kv_layout contiguous is not ported; "
             "use kv_layout paged (or auto) for an int8 cache")
-    if draft_model:
-        raise NotImplementedError(
-            f"draft_model {draft_model!r}: draft-model speculation is not "
-            f"ported yet (a later slice, with sampled acceptance); n-gram "
-            f"self-speculation (draft=auto / ngram) needs no draft model")
     engine_knobs.update(spec_options(draft, n_draft, spec_ngram))
     for opt in ("preempt", "emitter", "trace"):
         if opt in engine_knobs:
@@ -248,6 +289,8 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
                         kv_host_pool_mb=kv_host_pool_mb, **engine_knobs)
     ecfg.check()
     ecfg.kv_host_store_path = host_store_path(model_dir, kv_host_store)
+    draft_dir = (draft_config(model_dir, draft_model, DTYPES[dtype],
+                              random_weights) if draft_model else None)
     with open(os.path.join(model_dir, "config.json")) as f:
         hf = json.load(f)
     cfg = LlamaConfig.from_hf_config(hf, dtype=DTYPES[dtype])
@@ -261,8 +304,12 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
         raise FileNotFoundError(
             f"no .safetensors in {model_dir}; pass random_weights=SEED "
             f"(CLI: --random-weights SEED) to serve random weights")
+    draft_pair = None
+    if draft_dir is not None:
+        draft_pair = load_draft(*draft_dir, quantization, random_weights, dev,
+                                cfg.vocab_size)
     tok = load_tokenizer(model_dir)
-    engine = Engine(cfg, params, tok, ecfg, device=dev).start()
+    engine = Engine(cfg, params, tok, ecfg, device=dev, draft=draft_pair).start()
     quantized = isinstance(params.get("embed"), dict)
     return LoadedModel(name or os.path.basename(os.path.normpath(model_dir)),
                        model_dir, cfg, tok, engine,

@@ -12,7 +12,8 @@
         [--preempt 1] [--priority-weights 4:2:1] [--max-preemptions 2] \\
         [--resume-reserve-pages 0] [--priority normal] \\
         [--priority-aging-ms 4000] \\
-        [--draft auto] [--n-draft 4] [--spec-ngram 3] [--emitter 1] \\
+        [--draft auto] [--draft-model DIR] [--n-draft 4] \\
+        [--spec-ngram 3] [--emitter 1] \\
         [--trace 1] [--trace-ring-size 4096] [--slow-request-ms 0] \\
         [--stall-dump-dir DIR] [--event-log PATH|stderr|off] \\
         [--event-log-max-mb 64] [--peak-tflops 0] [--kv-audit on] \\
@@ -97,9 +98,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "0 = off")
     # speculation (the JAX names and defaults)
     r.add_argument("--draft", default="auto",
-                   help="auto (= ngram: prompt-lookup self-speculation for "
-                        "greedy requests) | ngram | model (off: no draft "
-                        "model yet) | 0 / off")
+                   help="auto (the draft model when --draft-model is given, "
+                        "else ngram: prompt-lookup self-speculation) | ngram "
+                        "| model (off without --draft-model) | 0 / off")
+    r.add_argument("--draft-model", default="",
+                   help="a smaller llama-family model dir (config.json + "
+                        "safetensors; relative to --model) that proposes "
+                        "the speculative tokens; with --random-weights a "
+                        "config-only dir gets random weights (seed + 1)")
     r.add_argument("--n-draft", type=int, default=4,
                    help="proposals per speculative round; 0 = off")
     r.add_argument("--spec-ngram", type=int, default=3,
@@ -173,7 +179,7 @@ def main(argv=None) -> int:
                     event_log_max_mb=args.event_log_max_mb,
                     peak_tflops=args.peak_tflops, kv_audit=args.kv_audit,
                     draft=args.draft, n_draft=args.n_draft,
-                    spec_ngram=args.spec_ngram)
+                    spec_ngram=args.spec_ngram, draft_model=args.draft_model)
     app = App({lm.name: lm})
     server = make_server(app, host or "127.0.0.1", int(port))
     logging.getLogger(__name__).info("serving %s on http://%s:%d", lm.name,

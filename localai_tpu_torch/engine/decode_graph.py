@@ -62,8 +62,10 @@ engine's ``_spec_tick_body`` round and ``_get_spec_tick_fn``): with
 ``spec_body``, one round on the same ``tokens`` / ``lengths`` buffers,
 so a plain burst and a spec tick chain onto each other in any order.
 ``spec`` [S] bool, loaded with the tick's rows like ``active``, marks the
-speculating slots. A round: the n-gram proposals from the sampler's ring;
-the plain decode step (``step_body``'s ops) for the other active rows,
+speculating slots. A round: the proposals (``spec_propose``: the n-gram
+ones from the sampler's ring, or with a draft model, ``draft``, its D + 1
+greedy decode steps over its own cache, spec rows only; the JAX
+``round_step``'s two branches); the plain decode step (``step_body``'s ops) for the other active rows,
 the spec rows masked out of its KV write and sampler state; a verify
 pack of S segments x W tokens (the current token and the D proposals at
 rows lengths .. lengths + D; a non-speculating slot is a pad segment:
@@ -115,8 +117,12 @@ class DecodeGraph:
 
     def __init__(self, params: dict, cfg: llama.LlamaConfig, cache_k: dict,
                  cache_v: dict, sampler, num_slots: int, max_steps: int,
-                 device, spec_width: int = 0, ngram: int = 3):
+                 device, spec_width: int = 0, ngram: int = 3,
+                 draft: Optional[tuple] = None):
         self.params, self.cfg = params, cfg
+        # the draft model (params, config, its K and V caches), or None:
+        # the n-gram drafter
+        self.draft = draft
         self.ck, self.cv = cache_k, cache_v
         self.sampler = sampler
         self.device = torch.device(device)
@@ -174,7 +180,7 @@ class DecodeGraph:
         engine's ``_spec_tick_body`` round), with the plain or the ``full``
         sampler for its plain rows: ``spec_propose``, ``spec_decode``,
         ``spec_verify``, ``spec_accept`` in that order. Spec rows (active
-        and ``spec``): the n-gram proposals from the sampler's ring, a
+        and ``spec``): the proposals (``spec_propose``), a
         verify of the current token + D proposals at rows lengths ..
         lengths + D through ONE continued ragged prefill with logits at
         every position (K2 / K2-int8), the sampler's own window at every
@@ -194,10 +200,12 @@ class DecodeGraph:
         return vlogits
 
     def spec_propose(self) -> torch.Tensor:
-        """The round's n-gram proposals [S, D] from the sampler's ring."""
-        samp = self.sampler
-        return speculative.ngram_propose(self.tokens, samp.ring, samp.ring_pos,
-                                         self.spec_width - 1, self.ngram)
+        """The round's proposals [S, D]: the n-gram ones from the sampler's
+        ring, or with a draft model its D + 1 greedy steps over its cache
+        for the speculating rows (``speculative.draft_propose``)."""
+        return propose(self.draft, self.tokens, self.lengths,
+                       self.active & self.spec, self.sampler,
+                       self.spec_width - 1, self.ngram)
 
     def spec_decode(self, full: bool = False):
         """The round's plain decode step (``step_body``'s ops) for the
@@ -436,7 +444,7 @@ class DecodeGraph:
         spec = self.spec.cpu().numpy()
         out = eager_rounds(self.params, self.cfg, self.ck, self.cv, self.sampler,
                            tok, lens, act, spec, n_rounds, self.spec_width,
-                           self.ngram, full=full)
+                           self.ngram, full=full, draft=self.draft)
         W = self.spec_width
         n_out = out[:, 2 * W].astype(np.int64)                      # [R, S]
         for i in np.nonzero(act)[0]:
@@ -497,12 +505,29 @@ def eager_burst(params: dict, cfg: llama.LlamaConfig, cache_k: dict,
     return torch.stack(out).cpu().numpy()
 
 
+def propose(draft: Optional[tuple], tokens: torch.Tensor, lengths: torch.Tensor,
+            spec: torch.Tensor, sampler, n_draft: int, ngram: int
+            ) -> torch.Tensor:
+    """A round's proposals [S, D]: with ``draft`` (params, config, K and V
+    caches) the draft model's over the ``spec`` rows (their draft rows
+    written), else the n-gram ones from the sampler's ring."""
+    if draft is not None:
+        dparams, dcfg, dck, dcv = draft
+        return speculative.draft_propose(dparams, dcfg, tokens, lengths, dck,
+                                         dcv, spec, n_draft)
+    return speculative.ngram_propose(tokens, sampler.ring, sampler.ring_pos,
+                                     n_draft, ngram)
+
+
 def eager_rounds(params: dict, cfg: llama.LlamaConfig, cache_k: dict,
                  cache_v: dict, sampler, tokens: np.ndarray, lengths: np.ndarray,
                  active: np.ndarray, spec: np.ndarray, n_rounds: int,
-                 width: int, ngram: int, full: bool = False) -> np.ndarray:
+                 width: int, ngram: int, full: bool = False,
+                 draft: Optional[tuple] = None) -> np.ndarray:
     """The spec round built the eager way (the reference
     ``DecodeGraph.spec_body`` is held against): fresh tensors per round,
+    the proposals as ``propose`` makes them (a draft model's over the spec
+    rows, from the host's lengths),
     the plain rows through the sampler over host row lists, the verify
     pack built on the host from the synced lengths (only the spec rows'
     segments, as the engine's packer builds a pack), the acceptance
@@ -523,8 +548,9 @@ def eager_rounds(params: dict, cfg: llama.LlamaConfig, cache_k: dict,
     out = np.zeros((n_rounds, 2 * W + 1, S))
     for r in range(n_rounds):
         tok_t = torch.from_numpy(tok.copy()).to(dev)
-        drafts = speculative.ngram_propose(tok_t, sampler.ring, sampler.ring_pos,
-                                           D, ngram).cpu().numpy()
+        drafts = propose(draft, tok_t, torch.from_numpy(lens.astype(np.int32)).to(dev),
+                         torch.from_numpy(spec_rows.copy()).to(dev), sampler, D,
+                         ngram).cpu().numpy()
         logits = llama.decode_step(
             params, cfg, tok_t, torch.from_numpy(lens.astype(np.int32)).to(dev),
             cache_k, cache_v, active=torch.from_numpy(plain_rows.copy()).to(dev))

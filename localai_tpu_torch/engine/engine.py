@@ -134,7 +134,8 @@ What this slice keeps of the JAX engine, with the same knob names:
     three quarters (the JAX rule). An offload still in the worker when a
     request arrives is not found (a shorter reuse, never a wrong one),
     as with the JAX sync worker. The port has no device reset:
-    ``_fail_active`` keeps the pool and drops the prefetched pages.
+    ``_fail_active`` keeps the pool (and the draft cache) and drops the
+    prefetched pages.
 
   * THE REQUEST LIFECYCLE (the JAX engine's, with its knobs and
     defaults). Admission control: ``submit`` sheds at a full queue
@@ -186,9 +187,10 @@ What this slice keeps of the JAX engine, with the same knob names:
     that needs a page that no reclaim and no lower class's pause can give
     pauses itself while another request runs (``_ensure_pages``).
 
-  * N-GRAM SELF-SPECULATION (``draft``, "auto" by default as in the JAX
-    engine, which resolves to "ngram" here: the port loads no draft
-    model; ``n_draft`` 4, ``spec_ngram`` 3; engine/speculative.py). A
+  * SPECULATION (``draft``, "auto" by default as in the JAX engine: the
+    draft model when one is loaded, else n-gram self-speculation; "model"
+    without a draft model is off; ``n_draft`` 4, ``spec_ngram`` 3;
+    engine/speculative.py). A
     slot is eligible (``_Slot.spec_ok``, at admission, at a resume and
     for a fork sibling) under the JAX purity gates (no logit bias, no
     penalties, no mirostat; the port has no grammar or multimodal
@@ -202,11 +204,31 @@ What this slice keeps of the JAX engine, with the same knob names:
     accept greedily, while every other active slot takes the plain
     decode step in the same round (engine/decode_graph.py::spec_body; on
     the card one captured graph per sampler variant, a tick is R
-    replays). A sampled slot (temperature > 0) accepts by rejection
-    sampling against the filtered window at each verify position
-    (``sampling.verify_dist``, typical-p in the full variant;
-    ``speculative.accept_sampled``), which keeps plain sampling's law;
-    its counter RNG draws D + 1 uniforms a round whatever it accepts. Plain bursts and spec ticks chain on the same device state;
+    replays). With a draft model (``draft=(config, params)``, the
+    runner's ``draft_model``) the proposals are its D + 1 greedy decode
+    steps over the draft cache inside the same captured round (K1 / K3 /
+    K4 at the draft's head shapes), and every pack with a speculating
+    segment is mirrored into the draft cache right after the target's
+    (the draft's ragged prefill over the same pack, a graph of its own
+    per (bucket, continued); the split fused tick's pack too). The draft
+    cache is allocated at construction, before ``start`` captures the
+    graphs that read it (the JAX engine allocates it at the first
+    eligible admission). Paged, it is a pool of the same page ids on the
+    main page table, ONE ptab tensor shared with ``ck`` / ``cv``, so every
+    page operation carries its planes: clone and copy-on-write
+    (``_clone_page``), offload (``_dispatch_offload``: the draft pages
+    gathered beside the target's, kept in the host entry as planes with
+    a CRC of their own), restore and prefetch (``_upload_pages``; a hit
+    without draft planes leaves its draft rows cold, which costs
+    acceptance, never correctness). Contiguous, it is a block per slot: a
+    request with a reused prefix or a resume does not speculate, and a
+    fork sibling copies its leader's draft rows and speculates only if
+    the leader did (the JAX gates). A sampled slot (temperature > 0)
+    accepts by rejection sampling against the filtered window at each
+    verify position (``sampling.verify_dist``, typical-p in the full
+    variant; ``speculative.accept_sampled``), which keeps plain sampling's
+    law; its counter RNG draws D + 1 uniforms a round whatever it
+    accepts. Plain bursts and spec ticks chain on the same device state;
     the split fused tick's burst stays plain, as in JAX. A slot emits
     each round's accepted tokens plus the bonus, round by round; rows a
     rejected proposal wrote lie above its length: never committed, never
@@ -272,8 +294,8 @@ What this slice keeps of the JAX engine, with the same knob names:
     ``kv_audit_sweep()`` serve /debug/state and /debug/kv
     (api/localai_routes.py).
 
-Left for later slices: the snap-back window, the draft model, grammar,
-self-extend, the replica pool (live migration) and the SLO engine.
+Left for later slices: the snap-back window, grammar, self-extend, the
+replica pool (live migration) and the SLO engine.
 """
 
 from __future__ import annotations
@@ -321,8 +343,8 @@ from localai_tpu_torch.services.tracing import RingTracer, chrome_trace, dump_ri
 log = logging.getLogger(__name__)
 
 KV_LAYOUTS = ("auto", "paged", "contiguous")   # auto = paged
-# draft values (the JAX engine's): auto = ngram here (no draft model);
-# "model" without a draft model and the off words are off
+# draft values (the JAX engine's): auto = model with a draft model, else
+# ngram; "model" without a draft model and the off words are off
 DRAFT_MODES = ("auto", "model", "ngram", "0", "off", "none", "false")
 # prefill_packed_fuse values (the JAX engine's): auto = split
 PACKED_FUSE = ("auto", "0", "1", "split")
@@ -422,8 +444,8 @@ class EngineConfig:
     # queued / parked work older than this ranks one class higher; 0 = off
     priority_aging_ms: int = 4000
     # --- speculation (module doc), the JAX names and defaults ---
-    # DRAFT_MODES: "auto" = n-gram self-speculation (no draft model is
-    # loaded); "0" / "off" = plain bursts only
+    # DRAFT_MODES: "auto" = the draft model when one is loaded, else
+    # n-gram self-speculation; "0" / "off" = plain bursts only
     draft: str = "auto"
     # proposals per round (0 = off): a round verifies n_draft + 1 tokens
     n_draft: int = 4
@@ -702,32 +724,47 @@ class _PendingOffload:
     tensors. The gathered rows are a snapshot no later dispatch writes,
     so the copies may queue behind anything. ``metas``: (key, parent,
     depth) per page; ``k`` / ``v``: the gathered [L, n, ...] rows
-    (gather_pages); ``stream``: the engine's CUDA stream (None on the
+    (gather_pages); ``dk`` / ``dv``: the draft cache's rows of the same
+    pages, or None; ``stream``: the engine's CUDA stream (None on the
     CPU)."""
 
-    __slots__ = ("metas", "k", "v", "stream", "store")
+    __slots__ = ("metas", "k", "v", "dk", "dv", "stream", "store")
 
-    def __init__(self, metas, k, v, stream, store: HostPageStore):
+    def __init__(self, metas, k, v, stream, store: HostPageStore, dk=None,
+                 dv=None):
         self.metas = metas
         self.k = k
         self.v = v
+        self.dk = dk
+        self.dv = dv
         self.stream = stream
         self.store = store
+
+    def _copy(self) -> list:
+        planes = [self.k, self.v] + ([self.dk, self.dv] if self.dk is not None
+                                     else [])
+        return [_host_pages(p) for p in planes]
 
     def run(self, stats: dict):
         if self.stream is not None:
             with torch.cuda.stream(self.stream):
-                k, v = _host_pages(self.k), _host_pages(self.v)
+                planes = self._copy()
                 event = torch.cuda.Event()
                 event.record()
             event.synchronize()
         else:
-            k, v = _host_pages(self.k), _host_pages(self.v)
-        self.k = self.v = None          # the snapshot on the card goes
+            planes = self._copy()
+        self.k = self.v = self.dk = self.dv = None   # the snapshot on the card goes
         t0 = time.perf_counter()
-        for (key, parent, depth), kp, vp in zip(self.metas, k, v):
+        for i, (key, parent, depth) in enumerate(self.metas):
+            kp, vp = planes[0][i], planes[1][i]
+            draft = {}
+            if len(planes) == 4:
+                dkp, dvp = planes[2][i], planes[3][i]
+                draft = {"dk": _numpy_page(dkp), "dv": _numpy_page(dvp),
+                         "dsrc": (dkp, dvp)}
             self.store.put(key, parent, depth, _numpy_page(kp), _numpy_page(vp),
-                           src=(kp, vp))
+                           src=(kp, vp), **draft)
         stats["batches"] += 1
         stats["pages"] += len(self.metas)
         stats["seconds"] += time.perf_counter() - t0
@@ -798,11 +835,15 @@ class Engine:
     """Owns the model state on one device and a background loop thread."""
 
     def __init__(self, model_cfg: llama.LlamaConfig, params: dict, tokenizer,
-                 engine_cfg: Optional[EngineConfig] = None, device="cuda"):
+                 engine_cfg: Optional[EngineConfig] = None, device="cuda",
+                 draft: Optional[tuple] = None):
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.ecfg = engine_cfg or EngineConfig()
         self.params = params
+        # the draft model (the JAX engine's ``draft``): (LlamaConfig,
+        # params), or None
+        self.draft_cfg, self.draft_params = draft if draft else (None, None)
         self.tokenizer = tokenizer
         S, C = self.ecfg.num_slots, self.ecfg.max_context
         self.ecfg.check()
@@ -857,18 +898,35 @@ class Engine:
             # captured decode step reads it where it lies
             self.cv["ptab"] = self.ck["ptab"]
         self.sampler = sampling.SlotSampler(S, model_cfg.vocab_size, self.device)
-        # speculation's mode (the JAX resolution): "model" needs a draft
-        # model, which the port does not load yet, so it is off; auto is
-        # n-gram self-speculation; n_draft 0 is off
+        # speculation's mode (the JAX resolution): auto is the draft model
+        # when one is loaded, else n-gram self-speculation; "model" without
+        # a draft model is off; n_draft 0 is off
         d = str(self.ecfg.draft).strip().lower()
-        self._spec_mode = ("ngram" if d in ("auto", "ngram")
-                           and self.ecfg.n_draft > 0 else "off")
+        has_draft = self.draft_params is not None
+        mode = {"auto": "model" if has_draft else "ngram", "ngram": "ngram",
+                "model": "model" if has_draft else "off"}.get(d, "off")
+        self._spec_mode = mode if self.ecfg.n_draft > 0 else "off"
         self._spec_width = (self.ecfg.n_draft + 1
                             if self._spec_mode != "off" else 0)
+        # the draft cache (module doc): allocated here, before start()
+        # captures the graphs that read it, where the JAX engine allocates
+        # it at the first eligible admission. Paged, its pool rides the
+        # main page table: the SAME ptab tensor, which _commit_ptab
+        # rewrites in place
+        self.dck = self.dcv = None
+        draft_state = None
+        if self._spec_mode == "model":
+            self.dck, self.dcv = llama.init_cache(
+                self.draft_cfg, S, C, pg,
+                self._pool.num_pages if self._pool else 0,
+                dtype=self.cache_dtype, device=self.device)
+            if self._pool is not None:
+                self.dck["ptab"] = self.dcv["ptab"] = self.ck["ptab"]
+            draft_state = (self.draft_params, self.draft_cfg, self.dck, self.dcv)
         self._graph = DecodeGraph(params, model_cfg, self.ck, self.cv,
                                   self.sampler, S, self.ecfg.decode_burst,
                                   self.device, spec_width=self._spec_width,
-                                  ngram=self.ecfg.spec_ngram)
+                                  ngram=self.ecfg.spec_ngram, draft=draft_state)
         # dispatches: spec ticks; mixed_dispatches: those that also carried
         # plain rows; rounds / proposed / accepted / tokens: per-slot round
         # totals (tokens = emitted, accepted + bonus); by_mode the same per
@@ -905,7 +963,7 @@ class Engine:
             | {self._pack_budget}))
         self._pgraph = PrefillGraph(params, model_cfg, self.ck, self.cv,
                                     self.sampler, S, C, self._pack_buckets,
-                                    self.device)
+                                    self.device, draft=draft_state)
         self._sink: Optional[dict] = None   # per-slot event coalescing
         # the span tracer (module doc): always built; trace=False makes
         # record() a no-op (the emitter's spans go into it too)
@@ -1260,7 +1318,11 @@ class Engine:
                "prefill_graph": {"captured": sorted(self._pgraph.graphs),
                                  "buckets": list(self._pack_buckets),
                                  "capture_seconds": self._pgraph.capture_seconds,
-                                 "pool_bytes": self._pgraph.pool_bytes}}
+                                 "pool_bytes": self._pgraph.pool_bytes,
+                                 "draft_captured": sorted(self._pgraph.dgraphs),
+                                 "draft_capture_seconds":
+                                     self._pgraph.draft_capture_seconds,
+                                 "draft_pool_bytes": self._pgraph.draft_pool_bytes}}
         out["pipeline"] = {"depth": self.ecfg.pipeline_depth,
                            "fuse": self._fuse, "inflight": self._n_inflight(),
                            **self._pipe_stats}
@@ -1590,10 +1652,11 @@ class Engine:
         again to the offload worker's page copies (transfer.pages_to_host).
         Pinning new memory is slow (it is page-locked, PERF.md §6), and
         every graph capture empties that cache, so this runs after the
-        captures."""
+        captures. With a draft cache a page's draft planes are pinned
+        beside it (its entry holds both)."""
         leaves = [(c[k].shape[:1] + c[k].shape[2:], c[k].dtype)
-                  for c in (self.ck, self.cv) for k in ("pages", "scales")
-                  if k in c]
+                  for c in (self.ck, self.cv, self.dck, self.dcv)
+                  if c is not None for k in ("pages", "scales") if k in c]
         page_bytes = sum(torch.Size(sh).numel() * torch.empty(0, dtype=dt).element_size()
                          for sh, dt in leaves)
         n = 2 * self._hstore.budget_bytes // page_bytes
@@ -2072,6 +2135,12 @@ class Engine:
                 self._cache_tokens[slot] = []
                 raise
         s = self._install(slot, req, ids)
+        if (self._spec_mode == "model" and self._pool is None
+                and (common or resume is not None)):
+            # the contiguous draft cache holds only rows a pack mirrored
+            # into this slot: a reused prefix or a resume has none (the
+            # paged draft cache shares, clones and restores them)
+            s.spec_ok = False
         s.pending = ids[common:]
         s.written = s.committed = s.reused = common
         self._reuse_stats["reused_rows"] += common
@@ -2120,8 +2189,11 @@ class Engine:
         gates (no logit bias, penalties or mirostat, whose per-token state
         one frozen verify cannot follow; the port has no grammar or
         multimodal input). Greedy requests accept greedily, sampled ones
-        by rejection sampling. The n-gram drafter keeps no state, so a
-        resume and a fork sibling qualify as a fresh admission does."""
+        by rejection sampling. The n-gram drafter keeps no state, and the
+        paged draft cache shares and restores the draft rows of the same
+        pages, so a resume and a fork sibling qualify as a fresh admission
+        does; the model drafter on the contiguous layout adds the JAX
+        gates of ``_start_request`` and ``_process_fork_waiters``."""
         sp = req.params
         return (self._spec_mode != "off"
                 and not sp.logit_bias and sp.repeat_penalty in (0.0, 1.0)
@@ -2169,6 +2241,13 @@ class Engine:
                 else:
                     kvcache.copy_rows(self.ck, leader, sib, n)
                     kvcache.copy_rows(self.cv, leader, sib, n)
+                    if self._spec_mode == "model":
+                        # the sibling speculates only on draft rows forked
+                        # from a leader that had them (the JAX rule)
+                        s.spec_ok = s.spec_ok and lsnap.spec_ok
+                        if lsnap.spec_ok:
+                            kvcache.copy_rows(self.dck, leader, sib, n)
+                            kvcache.copy_rows(self.dcv, leader, sib, n)
                 self._fork_stats["forked"] += 1
                 self._fork_stats["rows_shared"] += n
                 self._reuse_stats["reused_rows"] += n
@@ -2320,8 +2399,11 @@ class Engine:
         self._pool.replace(slot, pi, new)
 
     def _clone_page(self, src: int, dst: int):
-        kvcache.clone_page(self.ck, src, dst)
-        kvcache.clone_page(self.cv, src, dst)
+        """Copy page ``src`` over ``dst``, the draft planes of the same page
+        id too: the draft's rows diverge exactly when the target's do."""
+        for cache in (self.ck, self.cv, self.dck, self.dcv):
+            if cache is not None:
+                kvcache.clone_page(cache, src, dst)
         self._reuse_stats["cow_clones"] += 1
 
     def _alloc_detached(self, protect) -> int:
@@ -2389,10 +2471,17 @@ class Engine:
         pages = [v[3] for v in victims]
         stream = (torch.cuda.current_stream(self.device)
                   if self.device.type == "cuda" else None)
+        draft = {}
+        if self.dck is not None:
+            # the draft planes of the same pages go with them, so a
+            # restored spec slot drafts on warm rows
+            draft = {"dk": kvcache.gather_pages(self.dck, pages),
+                     "dv": kvcache.gather_pages(self.dcv, pages)}
         self._offloader.put(_PendingOffload(
             [(key, parent, depth) for key, parent, depth, _p in victims],
             kvcache.gather_pages(self.ck, pages),
-            kvcache.gather_pages(self.cv, pages), stream, self._hstore))
+            kvcache.gather_pages(self.cv, pages), stream, self._hstore,
+            **draft))
         if self.tracer.enabled:
             self.tracer.record("offload_dispatch", "engine", t0,
                                time.monotonic(), args={"pages": len(pages)})
@@ -2402,17 +2491,28 @@ class Engine:
         page copied from its pinned host tensors without waiting for the
         stream (transfer.pages_to_device), then scattered in place; in
         stream order the rows are there before any later pack or burst
-        reads them."""
+        reads them. With a draft cache, the entries that carry draft
+        planes restore those into the draft pages of the same ids; the
+        others leave their draft rows cold (acceptance, never
+        correctness)."""
         n = len(host_hits)
-        for j, (cache, leaf) in enumerate(((self.ck, "k"), (self.cv, "v"))):
-            host = [e.src[j] if e.src is not None
-                    else _tensor_page(getattr(e, leaf)) for e in host_hits]
+        planes = [(self.ck, host_hits, pages[:n], "src", 0, "k"),
+                  (self.cv, host_hits, pages[:n], "src", 1, "v")]
+        if self.dck is not None:
+            dhits = [(p, e) for p, e in zip(pages, host_hits) if e.dk is not None]
+            if dhits:
+                dp, de = [p for p, _e in dhits], [e for _p, e in dhits]
+                planes += [(self.dck, de, dp, "dsrc", 0, "dk"),
+                           (self.dcv, de, dp, "dsrc", 1, "dv")]
+        for cache, ents, ids, src, j, leaf in planes:
+            host = [getattr(e, src)[j] if getattr(e, src) is not None
+                    else _tensor_page(getattr(e, leaf)) for e in ents]
             if isinstance(host[0], dict):
                 dev = {x: pages_to_device([h[x] for h in host], self.device)
                        for x in host[0]}
             else:
                 dev = pages_to_device(host, self.device)
-            kvcache.scatter_pages(cache, pages[:n], dev)
+            kvcache.scatter_pages(cache, ids, dev)
 
     def _restore_offloaded(self, slot: int, host_hits: list) -> int:
         """Restore host-tier hits into new pages appended to the slot's
@@ -2709,13 +2809,25 @@ class Engine:
         self._drain_all()
         return ran
 
+    def _mirror(self, host: np.ndarray, bucket: int) -> bool:
+        """Whether the draft mirrors a staged pack (the JAX rule): with the
+        model drafter, when a segment of it may speculate."""
+        if self._spec_mode != "model":
+            return False
+        v = split_pack(host, bucket, self.ecfg.num_slots)
+        return any(self.slots[int(i)] is not None and self.slots[int(i)].spec_ok
+                   for i, n in zip(v["seg_slots"], v["seg_len"]) if n > 0)
+
     def _prefill_pack(self, bucket: int, continued: bool,
                       host: np.ndarray) -> Fetch:
         """The pack's device work: a graph replay on the card, the same
         padded body eagerly on the CPU (prefill_graph.PrefillGraph.
-        dispatch). Returns the Fetch of the [2, S] first-token ids and
-        logprobs (rows [0, n_finals) are the finals')."""
-        return self._pgraph.dispatch(bucket, continued, host)
+        dispatch), and the draft's mirror of it right after when
+        ``_mirror`` asks for one. Returns the Fetch of the [2, S]
+        first-token ids and logprobs (rows [0, n_finals) are the
+        finals')."""
+        return self._pgraph.dispatch(bucket, continued, host,
+                                     self._mirror(host, bucket))
 
     def _prefill_eager(self, bucket: int, continued: bool, host: np.ndarray,
                        exact: bool = False):
@@ -3246,8 +3358,10 @@ class Engine:
         decode_burst_seconds (dispatch -> landed), itl_seconds (burst to
         burst over the steps, or for a spec tick over the mean tokens a
         live slot emitted), and the decode_burst_device, spec_round /
-        spec_draft / spec_verify (an analytic split: the n-gram match is
-        a tenth of the round), finish_detect and per-slot decode spans.
+        spec_draft / spec_verify (an analytic split, the JAX one: the
+        model drafter runs D of the round's D + 1 sequential forwards, the
+        n-gram match is a tenth of the round), finish_detect and per-slot
+        decode spans.
         Everything comes from the host copy ``host`` and host state."""
         t_rdy = b.fetch.t_ready or t1
         self._hobserve("decode_burst_seconds", max(0.0, t_rdy - b.t0))
@@ -3273,7 +3387,8 @@ class Engine:
             W = b.spec_width
             spec_idx = [i for i, _s in b.slots if b.spec_mask[i]]
             tot = int(sum(int(n_out[:, i].sum()) for i in spec_idx))
-            mid = b.t0 + (t_rdy - b.t0) * 0.1
+            share = (W - 1) / W if self._spec_mode == "model" else 0.1
+            mid = b.t0 + (t_rdy - b.t0) * share
             tr.record("spec_round", "engine", b.t0, t_rdy,
                       args={"mode": self._spec_mode, "rounds": b.n_steps,
                             "spec_slots": len(spec_idx),

@@ -24,13 +24,22 @@ past the device pages restores it instead of prefilling it again:
   * INTEGRITY: a CRC32 over the page's bytes is taken at insert and
     checked at EVERY read (``get_local``). A mismatch drops the entry and
     its subtree and reads as a miss, so the request prefills again.
+  * DRAFT PLANES (``dk`` / ``dv``, with a draft model whose paged cache
+    rides the main page table): the draft's rows of the same page id, in
+    the same representation, with a CRC of their own (``dcrc``). They
+    are an acceleration, not correctness: a corrupt draft plane decays
+    the entry to target-only (a warning, its bytes taken off the budget)
+    and its target rows still restore; a later put of the same key
+    re-attaches missing planes. An entry without them restores its
+    target rows and leaves the draft rows cold.
   * The LRU cascades device -> host -> gone: this store evicts its own
     entries LRU-first (ties: the deepest link) past ``budget_mb << 20``
     bytes.
   * PERSISTENCE: ``save`` writes one .npz in the JAX store's format
     (version, scope, page_size, keys, parents, depths, quant, kq / ks /
     vq / vs or kd / vd, dtype; bf16 as a uint16 view named "bfloat16"),
-    so either package loads the other's file. ``load`` ignores, never
+    so either package loads the other's file. Like the JAX ``save`` it
+    writes no draft planes: a reloaded entry restores target rows only. ``load`` ignores, never
     crashes on, a wrong version, scope or page size, or an unreadable or
     truncated file.
 
@@ -49,11 +58,10 @@ page left this store meanwhile. That holds for any number of restores in
 flight in one tick, where two alternating buffers without events do
 not.
 
-Left out of this port, each with the ROADMAP Queue 1 item that brings
-it: the shared mode's owners (``map_key`` / ``unmap_key`` /
-``evict_blocked``) and the federated peer tier (item 11, scale-out); the
-draft planes ``dk`` / ``dv`` (the draft model, item 2c). ``contains_any``
-is ``contains`` (no peer tier).
+Left out of this port, with the ROADMAP Queue 1 item that brings them:
+the shared mode's owners (``map_key`` / ``unmap_key`` /
+``evict_blocked``) and the federated peer tier (item 11, scale-out).
+``contains_any`` is ``contains`` (no peer tier).
 
 The lifecycle ledger (services/kv_audit.py): with ``kv_audit`` on,
 ``audit`` is the engine's KVAuditor, and the store records "offload",
@@ -116,10 +124,10 @@ def _page_crc(k, v) -> int:
 
 class _HostEntry:
     __slots__ = ("key", "parent", "depth", "tick", "k", "v", "nbytes", "crc",
-                 "src")
+                 "src", "dk", "dv", "dcrc", "dsrc")
 
     def __init__(self, key: bytes, parent: bytes, depth: int, tick: int, k, v,
-                 src=None):
+                 src=None, dk=None, dv=None, dsrc=None):
         self.key = key
         self.parent = parent
         self.depth = depth
@@ -134,6 +142,30 @@ class _HostEntry:
         # card), kept so a restore copies from them; None for pages put
         # as plain arrays (a loaded file)
         self.src = src
+        self.dk = self.dv = self.dsrc = None
+        self.dcrc = 0
+        if dk is not None:
+            self.attach_draft(dk, dv, dsrc)
+
+    def attach_draft(self, dk, dv, dsrc=None) -> int:
+        """Attach the draft planes (module doc) with their CRC; returns the
+        bytes they add. ``dk`` is set last: a reader that sees it sees the
+        rest (the engine thread reads entries without the lock)."""
+        self.dcrc = _page_crc(dk, dv)
+        self.dsrc, self.dv = dsrc, dv
+        self.dk = dk
+        extra = _leaf_bytes(dk) + _leaf_bytes(dv)
+        self.nbytes += extra
+        return extra
+
+    def drop_draft(self) -> int:
+        """Detach the draft planes; returns the bytes they held."""
+        extra = _leaf_bytes(self.dk) + _leaf_bytes(self.dv)
+        self.dk = None
+        self.dv = self.dsrc = None
+        self.dcrc = 0
+        self.nbytes -= extra
+        return extra
 
 
 class PrefetchPipeline:
@@ -258,18 +290,24 @@ class HostPageStore:
     # ---------- store operations ----------
 
     def put(self, key: bytes, parent: bytes, depth: int, k, v,
-            src=None) -> bool:
+            src=None, dk=None, dv=None, dsrc=None) -> bool:
         """Insert one offloaded page (``src``: the host tensors k and v are
-        views of, kept with the entry). A present key is touched, not
-        replaced (same key, same content); a page over the whole budget is
-        refused. Evicts LRU-first past the budget. True if inserted."""
+        views of, kept with the entry; ``dk`` / ``dv`` / ``dsrc``: the
+        draft planes and their tensors, or None). A present key is
+        touched, not replaced (same key, same content), but draft planes
+        it lacks are attached; a page over the whole budget is refused.
+        Evicts LRU-first past the budget. True if inserted."""
         with self._lock:
             self._tick += 1
             e = self._entries.get(key)
             if e is not None:
                 e.tick = self._tick
+                if dk is not None and e.dk is None:
+                    self._bytes += e.attach_draft(dk, dv, dsrc)
+                    self._evict_to_budget_locked()
                 return False
-            e = _HostEntry(key, parent, depth, self._tick, k, v, src)
+            e = _HostEntry(key, parent, depth, self._tick, k, v, src, dk, dv,
+                           dsrc)
             if e.nbytes > self.budget_bytes:
                 return False
             self._entries[key] = e
@@ -311,6 +349,13 @@ class HostPageStore:
                 self._remove_tree_locked(key)
                 self.corrupt_dropped += 1
                 return None
+            if e.dk is not None and _page_crc(e.dk, e.dv) != e.dcrc:
+                # the draft planes only speed speculation up: the entry
+                # decays to target-only and its target rows still restore
+                log.warning("kv host store: draft CRC mismatch on page "
+                            "depth=%d — dropping the draft planes only",
+                            e.depth)
+                self._bytes -= e.drop_draft()
             self._tick += 1
             e.tick = self._tick
             return e
@@ -397,16 +442,17 @@ class HostPageStore:
 
     def audit_scan(self, sample_crc: int = 4, rng=None) -> list:
         """The KV auditor's scan of this tier (the JAX store's, without
-        the shared mode's mapped keys and the draft planes), under the
-        lock:
+        the shared mode's mapped keys), under the lock:
 
         * host_bytes: the running byte total matches the summed entry
-          sizes, and each entry's nbytes matches its leaves;
+          sizes, and each entry's nbytes matches its leaves (draft planes
+          included);
         * host_children: the parent -> children map and the entries'
           parent links agree both ways (an absent parent is legal: an
           offload can land a child whose parent was evicted);
         * host_crc: the CRC of up to ``sample_crc`` randomly sampled
-          entries is recomputed (bit rot in retained host pages).
+          entries is recomputed, the draft planes' too (bit rot in
+          retained host pages).
 
         Violations are ``{"check", "detail"}`` dicts; [] = clean."""
         out = []
@@ -414,6 +460,8 @@ class HostPageStore:
             total = 0
             for key, e in self._entries.items():
                 nb = _leaf_bytes(e.k) + _leaf_bytes(e.v)
+                if e.dk is not None:
+                    nb += _leaf_bytes(e.dk) + _leaf_bytes(e.dv)
                 if nb != e.nbytes:
                     out.append({"check": "host_bytes",
                                 "detail": f"entry {key[:8].hex()} nbytes "
@@ -455,6 +503,11 @@ class HostPageStore:
                     if _page_crc(e.k, e.v) != e.crc:
                         out.append({"check": "host_crc",
                                     "detail": f"retained entry "
+                                              f"{key[:8].hex()} failed CRC "
+                                              f"spot-check"})
+                    elif e.dk is not None and _page_crc(e.dk, e.dv) != e.dcrc:
+                        out.append({"check": "host_crc",
+                                    "detail": f"draft planes of "
                                               f"{key[:8].hex()} failed CRC "
                                               f"spot-check"})
         return out

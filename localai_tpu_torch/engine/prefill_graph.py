@@ -48,6 +48,17 @@ device tensors, the sampler over host slot lists, at the bucket or at the
 pack's exact size) stays as the reference that chip_smoke.py and the
 card tests hold the graphs against; serving never selects it.
 
+THE DRAFT MIRROR (the JAX ``_get_draft_packed_fn``): with a draft model
+(``draft``: its params, config and K / V caches) each (bucket, continued)
+has a second body, ``draft_body``: the draft's ``ragged_prefill`` over
+the same buffer (tokens, positions, segments and, paged, the main page
+table, which the draft cache shares) into the draft cache, with no logits
+and no sampling. It is captured beside the target's, in the same pool,
+and ``dispatch(..., mirror=True)`` replays it right after the target's
+pack; the engine asks for it when a segment of the pack may speculate,
+as the JAX engine dispatches its mirror. Pad and non-speculating
+segments write draft rows nobody reads.
+
 Kernel launch counts (ops/kernels::LAUNCHES) are taken in Python by the
 wrappers, which a replay does not run: ``capture`` takes back what the
 wrappers counted while capturing each graph (nothing ran), and ``run``
@@ -97,11 +108,12 @@ def n_finals(host: np.ndarray, bucket: int, num_slots: int) -> int:
     return int(np.count_nonzero(split_pack(host, bucket, num_slots)["final_mask"]))
 
 
-def _forward(params, cfg, ck, cv, v: dict, continued: bool):
+def _forward(params, cfg, ck, cv, v: dict, continued: bool,
+             unembed: bool = True):
     return llama.ragged_prefill(
         params, cfg, v["tokens"], v["positions"], v["seg_slots"],
         v["seg_start"], v["seg_off"], v["seg_len"], v["seg_of"], ck, cv,
-        continued=continued)
+        continued=continued, unembed=unembed)
 
 
 class PrefillGraph:
@@ -110,8 +122,10 @@ class PrefillGraph:
 
     def __init__(self, params: dict, cfg: llama.LlamaConfig, cache_k: dict,
                  cache_v: dict, sampler, num_slots: int, max_context: int,
-                 buckets, device):
+                 buckets, device, draft: Optional[tuple] = None):
         self.params, self.cfg = params, cfg
+        # the draft model (params, config, K and V caches) or None
+        self.draft = draft
         self.ck, self.cv = cache_k, cache_v
         self.sampler = sampler
         self.S, self.C = num_slots, max_context
@@ -127,6 +141,12 @@ class PrefillGraph:
         self.logits: Optional[torch.Tensor] = None   # the last pack's [S, V]
         self.capture_seconds = 0.0    # warm-ups + captures, host wall
         self.pool_bytes = 0           # memory_reserved growth of the captures
+        # the draft mirror's graphs and launches per (bucket, continued),
+        # and its share of the capture seconds and of the pool (module doc)
+        self.dgraphs: dict = {}
+        self.dlaunches: dict = {}
+        self.draft_capture_seconds = 0.0
+        self.draft_pool_bytes = 0
 
     def body(self, bucket: int, continued: bool) -> torch.Tensor:
         """One pack on the bucket's static buffers: the forward (KV rows
@@ -140,14 +160,22 @@ class PrefillGraph:
                                             lps.to(torch.float64)]))
         return logits
 
+    def draft_body(self, bucket: int, continued: bool):
+        """The draft's mirror of the pack on the bucket's buffer: its KV rows
+        written in place, no logits, no sampling."""
+        dparams, dcfg, dck, dcv = self.draft
+        v = split_pack(self.buf[bucket], bucket, self.S)
+        _forward(dparams, dcfg, dck, dcv, v, continued, unembed=False)
+
     def capture(self):
         """Warm up and capture ``body`` for every (bucket, continued)
         (CUDA only), all in one memory pool. Every warm-up pack is all
         pads: its rows go to the scratch page, no sampler state moves, and
         it runs every kernel variant and plan the capture records (K2
         fresh and continued, K2-int8 on an int8 cache, W8 / W4 at M =
-        bucket, the dequantize scratch of a tied table). Raises on any
-        capture error."""
+        bucket, the dequantize scratch of a tied table). With a draft
+        model its mirror is warmed up and captured per pair too, in the
+        same pool. Raises on any capture error."""
         if self.device.type != "cuda":
             raise ValueError(f"capture needs a CUDA device, not {self.device}")
         t0 = time.monotonic()
@@ -160,41 +188,56 @@ class PrefillGraph:
             with torch.cuda.stream(stream):
                 for b, c in pairs:
                     self.body(b, c)
+                    if self.draft is not None:
+                        self.draft_body(b, c)
             torch.cuda.current_stream(self.device).wait_stream(stream)
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(self.device)
             pool = torch.cuda.graph_pool_handle()
-            for b, c in pairs:
-                graph = torch.cuda.CUDAGraph()
-                before = dict(LAUNCHES)
-                try:
-                    with torch.cuda.graph(graph, pool=pool, stream=stream):
-                        logits = self.body(b, c)
-                finally:
-                    # the wrappers counted their launches while capturing;
-                    # nothing ran: take the counts back, replays add them
-                    delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
-                    for k, n in delta.items():
-                        LAUNCHES[k] -= n
-                self.graphs[(b, c)] = graph
-                self.launches[(b, c)] = {k: n for k, n in delta.items() if n}
-                self._logits[(b, c)] = logits
+            bodies = [(self.body, self.graphs, self.launches, self._logits)]
+            if self.draft is not None:
+                bodies.append((self.draft_body, self.dgraphs, self.dlaunches, {}))
+            for body, graphs, launches, outs in bodies:
+                t_b = time.monotonic()
+                r_b = torch.cuda.memory_reserved(self.device)
+                for b, c in pairs:
+                    graph = torch.cuda.CUDAGraph()
+                    before = dict(LAUNCHES)
+                    try:
+                        with torch.cuda.graph(graph, pool=pool, stream=stream):
+                            logits = body(b, c)
+                    finally:
+                        # the wrappers counted their launches while
+                        # capturing; nothing ran: take the counts back,
+                        # replays add them
+                        delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+                        for k, n in delta.items():
+                            LAUNCHES[k] -= n
+                    graphs[(b, c)] = graph
+                    launches[(b, c)] = {k: n for k, n in delta.items() if n}
+                    outs[(b, c)] = logits
+                if body is not self.body:
+                    self.draft_capture_seconds = time.monotonic() - t_b
+                    self.draft_pool_bytes = (torch.cuda.memory_reserved(self.device)
+                                             - r_b)
             torch.cuda.synchronize(self.device)
             self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.capture_seconds = time.monotonic() - t0
 
     def free(self):
         """Drop the graphs and the pool's tensors (a shut-down engine)."""
-        self.graphs.clear()
-        self.launches.clear()
-        self._logits.clear()
+        for d in (self.graphs, self.launches, self._logits, self.dgraphs,
+                  self.dlaunches):
+            d.clear()
         self.logits = None
 
-    def dispatch(self, bucket: int, continued: bool, host: np.ndarray) -> Fetch:
+    def dispatch(self, bucket: int, continued: bool, host: np.ndarray,
+                 mirror: bool = False) -> Fetch:
         """One pack from its staged host array (``new_pack`` layout): the
         copy in (in stream order, from a pinned copy of ``host``), the
-        body (a graph replay on CUDA, eagerly on the CPU), and the copy of
+        body (a graph replay on CUDA, eagerly on the CPU), with ``mirror``
+        the draft's mirror of it right after, and the copy of
         ``out[bucket]`` (the first token ids and logprobs [2, S]; rows [0,
         n_finals) are the finals') to the host, started and not waited
         for."""
@@ -212,13 +255,25 @@ class PrefillGraph:
             for k, n in self.launches[key].items():
                 LAUNCHES[k] += n
             self.logits = self._logits[key]
+        if mirror and self.draft is not None:
+            dgraph = self.dgraphs.get(key)
+            if dgraph is None:
+                if self.device.type == "cuda":
+                    raise RuntimeError(f"no draft mirror graph for bucket "
+                                       f"{bucket}, continued={continued}")
+                self.draft_body(bucket, continued)
+            else:
+                dgraph.replay()
+                for k, n in self.dlaunches[key].items():
+                    LAUNCHES[k] += n
         return Fetch(self.out[bucket])
 
-    def run(self, bucket: int, continued: bool, host: np.ndarray) -> np.ndarray:
+    def run(self, bucket: int, continued: bool, host: np.ndarray,
+            mirror: bool = False) -> np.ndarray:
         """``dispatch``, waited for: [2, n_finals] float64, the final
         segments' first token ids and logprobs."""
         n = n_finals(host, bucket, self.S)
-        return self.dispatch(bucket, continued, host).wait()[:, :n]
+        return self.dispatch(bucket, continued, host, mirror).wait()[:, :n]
 
 
 def eager_pack(params: dict, cfg: llama.LlamaConfig, cache_k: dict,

@@ -11,12 +11,17 @@ drafter proposed; a rejected proposal only wastes the round's spare
 work. The round itself lives beside the decode step
 (engine/decode_graph.py::DecodeGraph.spec_body).
 
-The drafter here is prompt lookup (``ngram_propose``): the slot's
-trailing n-gram is matched against its own prompt + emitted history,
-which is the sampler's penalty ring on the device (engine/sampling.py:
-seeded with the prompt tail at admission, one entry per emitted token),
-and the continuation after the most recent match is proposed. No second
-model and no draft cache, so every eligible request can speculate.
+Two drafters, the JAX engine's. Prompt lookup (``ngram_propose``, the
+default): the slot's trailing n-gram is matched against its own prompt +
+emitted history, which is the sampler's penalty ring on the device
+(engine/sampling.py: seeded with the prompt tail at admission, one entry
+per emitted token), and the continuation after the most recent match is
+proposed; no second model and no draft cache. A draft model
+(``draft_propose``, when one is loaded): D + 1 greedy decode steps of a
+smaller llama over its own KV cache, which ingests the current token and
+every proposal, so a fully accepted round leaves no hole in it. Both
+propose deterministically (the draft by argmax), so the draft law of the
+sampled acceptance below is a one-hot either way.
 
 Cache invariant: rows [0, length) hold the accepted context and the
 CURRENT token (the last emitted) is not yet written; a round writes it
@@ -34,9 +39,8 @@ bits: both draw from the counter RNG, but a round consumes D + 1 draws
 where plain steps consume one per token. ``two_sample_chi2`` is the
 test that holds two samples to one law.
 
-Left for later slices: ``draft_propose`` (the draft model's proposals)
-and ``spec_round`` (its n-gram analogue is what the CPU tests compose
-from the JAX functions as the reference).
+Left for later slices: ``spec_round`` (the JAX package's standalone
+round; the CPU tests compose the reference round from the JAX functions).
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import numpy as np
 import torch
 
 from localai_tpu_torch.engine.sampling import counter_uniform, draw_index
+from localai_tpu_torch.models import llama
 
 
 def ngram_propose(tokens: torch.Tensor, ring: torch.Tensor,
@@ -89,6 +94,33 @@ def ngram_propose(tokens: torch.Tensor, ring: torch.Tensor,
     props = torch.gather(hist, 1, cont)                             # [S, D]
     return torch.where(has[:, None], props, tokens[:, None].to(props.dtype)
                        ).to(tokens.dtype)
+
+
+def draft_propose(dparams: dict, dcfg: llama.LlamaConfig, tokens: torch.Tensor,
+                  lengths: torch.Tensor, dck: dict, dcv: dict,
+                  active: torch.Tensor, n_draft: int) -> torch.Tensor:
+    """Draft-model proposals (the JAX ``draft_propose``): D + 1 greedy
+    decode steps of the draft over its own cache ``dck`` / ``dcv`` (any
+    layout, written in place). tokens [S]: the current (not yet written)
+    token per slot; lengths [S]: rows committed; active [S] bool: the rows
+    that speculate. Step j writes its input token at row lengths + j and
+    proposes the argmax after it, so the cache ingests the current token
+    and all D proposals (the last step's pick is dropped): a fully
+    accepted round leaves no hole in the draft's rows. Inactive rows
+    write at the out-of-bounds row, so the scatter drops them, and their
+    proposals are to be ignored. Returns proposals [S, D] in ``tokens``'
+    dtype. Device ops only: no host data, no branch on a value."""
+    tok = tokens
+    dl = lengths.to(torch.int32)
+    step = active.to(torch.int32)
+    props = []
+    for _ in range(n_draft + 1):
+        logits = llama.decode_step(dparams, dcfg, tok, dl, dck, dcv,
+                                   active=active)
+        tok = torch.argmax(logits, dim=-1).to(tokens.dtype)
+        props.append(tok)
+        dl = dl + step
+    return torch.stack(props[:n_draft], dim=1)
 
 
 def accept_greedy(drafts: torch.Tensor, greedy: torch.Tensor,

@@ -212,7 +212,7 @@ def ragged_prefill(params: dict, cfg: LlamaConfig,
                    seg_of: torch.Tensor,      # [N] int segment per token (pads: B)
                    cache_k: dict, cache_v: dict,
                    continued: Optional[bool] = None,
-                   all_logits: bool = False):
+                   all_logits: bool = False, unembed: bool = True):
     """RAGGED PACKED PREFILL: the prompt tails of up to B slots as one
     [N]-token batch. Writes every token's K/V row through its own slot's
     page table (in place) and returns logits [B, V] (float32) at each
@@ -221,7 +221,10 @@ def ragged_prefill(params: dict, cfg: LlamaConfig,
     package's static flag; the kernels then skip the cache), None reads
     it off seg_start. ``all_logits`` (the JAX ``return_all_logits``, for
     the speculative verify pass) returns logits [N, V] at every packed
-    token instead; pad tokens' rows are to be ignored."""
+    token instead; pad tokens' rows are to be ignored. ``unembed`` False
+    writes the KV rows and returns None (a draft model's mirror of a
+    pack, whose logits nobody reads: XLA drops them from the JAX
+    package's jitted mirror)."""
     B = seg_slots.shape[0]
     sin, cos = rope_frequencies(cfg, positions[None])
     x = _embed_rows(params["embed"], tokens, cfg.dtype)              # [N, D]
@@ -246,6 +249,8 @@ def ragged_prefill(params: dict, cfg: LlamaConfig,
             return out
 
         x = _block(x, attend, _layer(params, li), cfg, sin, cos)
+    if not unembed:
+        return None
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if all_logits:
         return _unembed(x, params, cfg)

@@ -149,16 +149,28 @@ def _host_stats(e) -> dict:
     return None if st is None else {k: st[k] for k in COUNTERS}
 
 
-def run_script(e, seed: int = 31) -> tuple:
+def run_script(e, seed: int = 31, hold: bool = True) -> tuple:
     """The module doc's script: (per-request results, host counters after
-    each step)."""
+    each step). ``hold`` queues each wave with admission held (below);
+    False submits it with admission free, as before the hold."""
     rng = np.random.default_rng(seed)
 
     def draw(n):
         return rng.integers(2, 258, size=n).tolist()
 
     def wave(lens, n):
-        outs = [_submit(e, draw(k), n) for k in lens]
+        # queued with admission held, so all four are admitted in one
+        # pass: otherwise a loaded host can let the loop admit the first
+        # before the last is submitted, and the pages each pass asks for
+        # (so the counters after the step) differ between the two loops
+        if hold:
+            e._admit = lambda: False
+        try:
+            outs = [_submit(e, draw(k), n) for k in lens]
+        finally:
+            if hold:
+                del e._admit             # the class's method again
+        e._wake.set()
         return [_drain(o) for o in outs]
 
     res, counters = [], []
@@ -263,7 +275,10 @@ def test_kv_offload_off_is_the_device_tier_alone(tiny):
     for name, make in (("port", port_engine), ("jax", jax_engine)):
         e = make(tiny, kv_offload=False)
         try:
-            res[name] = run_script(e)
+            # the waves admitted as they arrive: all four at once, this
+            # 20-page pool without the host tier can run out in the JAX
+            # Engine, whose PoolExhausted fails every running request
+            res[name] = run_script(e, hold=False)
             m = e.metrics()
             assert "kv_offload" not in m and "kv_pages_offloaded" not in m
             if name == "port":

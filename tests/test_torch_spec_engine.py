@@ -26,8 +26,9 @@ checkpoint, and the ``_cfg()`` model of the JAX package's spec tests):
   * cancel with a spec tick in flight; a stalled spec tick aborting only
     its request; fork siblings speculating;
   * the runner and CLI options (``draft``, ``n_draft``, ``spec_ngram``)
-    and the refusals before any weight is loaded (a draft model, an
-    unknown draft word, a negative n_draft).
+    and the refusals before any weight is loaded (a draft model dir that
+    is missing, config-only without a seed, or GGUF; an unknown draft
+    word, a negative n_draft).
 """
 
 from __future__ import annotations
@@ -580,8 +581,20 @@ def test_spec_knobs_runner_cli_and_refusals(tmp_path, monkeypatch):
 
     monkeypatch.setattr(runner.weights, "random_params", no_load)
     monkeypatch.setattr(runner.weights, "load_llama_params", no_load)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # a draft model dir that is missing, config-only without a seed, or
+    # GGUF is refused before any weight is read
+    with pytest.raises(FileNotFoundError, match="draft_model"):
         runner.load_model(str(tmp_path), draft_model="/some/draft", **kw)
+    (tmp_path / "d").mkdir()
+    with open(tmp_path / "d" / "config.json", "w") as f:
+        json.dump({"vocab_size": 64, "hidden_size": 16, "intermediate_size": 32,
+                   "num_hidden_layers": 1, "num_attention_heads": 2}, f)
+    with pytest.raises(FileNotFoundError, match="random_weights"):
+        runner.load_model(str(tmp_path), draft_model="d",
+                          **{**kw, "random_weights": None})
+    (tmp_path / "d" / "draft.gguf").write_bytes(b"GGUF")
+    with pytest.raises(NotImplementedError, match="GGUF"):
+        runner.load_model(str(tmp_path), draft_model="d", **kw)
     for bad, word in (({"draft": "medusa"}, "draft"), ({"n_draft": -1}, "n_draft"),
                       ({"spec_ngram": 0}, "spec_ngram"),
                       ({"n_draft": "four"}, "n_draft")):
