@@ -13,7 +13,9 @@ Phases, each raising on failure (no phase swallows an error):
               ragged_prefill.cu (K2 ragged prefill, K2-int8 over int8 pages),
               contig_decode.cu (K4 contiguous decode, K5 the same over the
               stacked cache with a device layer index), quant_matmul.cu
-              (W8 / W4, the weight-only int8 / int4 products).
+              (W8 / W4, the weight-only int8 / int4 products); beside
+              them, the native grammar runtime with g++
+              (localai_tpu_torch/functions/grammars/csrc/grammar.cc).
   2. parity   each kernel against its plain PyTorch version on the card at
               Llama-3.1-8B head shapes (KV 8, G 4, hd 128, page 64), in
               float32 and bfloat16: decode lengths 0, 1, around the decode
@@ -380,6 +382,47 @@ Phases, each raising on failure (no phase swallows an error):
               planes, the restored draft pages equal them byte for byte,
               and the next turn takes spec rounds. A {"draft": ...} JSON
               line before the kernels line holds it all.
+  3l. grammar for paged and w8kv8, right after 3k on the same loaded
+              model (grammar_phase): grammar-constrained decoding and
+              tool calls. It writes its own byte-level tokenizer.json
+              under the git-ignored build/ (grammar_vocab: 128,256
+              entries, the bytes, the specials at 128000 / 128001 and
+              pieces of 2-12 characters from SEED shaped for a JSON
+              grammar; nothing is downloaded). (a) paged only, phase 2's
+              small f32 model with a 512-entry cut of that vocabulary
+              (grammar_tiny_phase): 4 greedy grammar requests (a tool
+              call, its arguments, a GBNF list) on an engine whose bursts
+              replay the graph and on one running the eager loop, at
+              pipeline_depth 1 / prefill_packed_fuse "0" (each burst read
+              before the next goes out, so the stale-mask steps do not
+              depend on the card's timing): tokens, finishes and
+              rollbacks identical, every output in its grammar; then the
+              native runtime's rows against the Python automaton's over
+              all 128,256 entries at 4 states the call's run visits.
+              The vocabulary's cold host costs: token strings, the native
+              mask builder, penalty_row at the call's first state and
+              inside its free string. (b) an engine over the loaded
+              weights with that tokenizer (speculation at its default):
+              8 requests x 256 max tokens admitted together, 4 under the
+              grammar of a call of the JAX e2e tool (an enum, an integer,
+              a free string; logit_bias GRAMMAR_BIAS), 4 free, greedy,
+              then sampled (temperature 1, seeded), then the same prompts
+              all free: tok/s of the grammar and the free slots, rollbacks
+              per grammar token, host ms per grammar token and the memo's
+              hits, flushes (rows, per burst, device ms by CUDA events,
+              host ms), TTFT grammar vs free, spec ticks; every
+              constrained output must be JSON of a call of the schema
+              (its enum held) ending "stop". (c) the same engine behind
+              the HTTP server: a chat with the tool and a forced
+              tool_choice, streamed and not, answered with one
+              tool_calls entry of the schema and finish "tool_calls".
+              Launch counters zeroed before (b), read after (c): the
+              decode kernel 32 x steps, K2 / K2-int8 32 x (packs + spec
+              rounds), and K1 + K2 (paged), K3 + K2-int8 + W8 (w8kv8)
+              launched. A {"grammar": ...} JSON line before the kernels
+              line holds it all; each kernel row's
+              "launches_grammar_path" holds 3l's launches by
+              configuration, and its "launches" adds those of its own.
   3j. obs     observability at the defaults (trace and kv_audit on). In
               every configuration, right after phase 3's requests (each
               sent with an X-Correlation-ID), the engine idle
@@ -561,12 +604,29 @@ def setup():
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    from localai_tpu_torch.functions.grammars import native
     from localai_tpu_torch.ops.kernels import build
 
     t0 = time.monotonic()
+    # the native grammar runtime (g++) builds beside the kernels (nvcc)
+    gbuild: dict = {}
+
+    def grammar_build():
+        try:
+            native.get_lib()
+            gbuild["s"] = time.monotonic() - t0
+        except BaseException as e:        # re-raised below
+            gbuild["error"] = e
+
+    gth = threading.Thread(target=grammar_build)
+    gth.start()
     built = build.build_all()
+    gth.join()
+    if "error" in gbuild:
+        raise gbuild["error"]
     log(f"[setup] kernels built in {time.monotonic() - t0:.1f} s "
-        f"(per source: {json.dumps({k: round(v, 1) for k, v in built.items()})})")
+        f"(per source: {json.dumps({k: round(v, 1) for k, v in built.items()})}); "
+        f"the native grammar runtime (g++) in {gbuild['s']:.1f} s")
     for name, info in build.BUILD_INFO.items():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
@@ -1646,7 +1706,7 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
         decode = phase_timed(config, decode_phase, lm, card, config)
         prefill = phase_timed(config, prefill_phase, lm, card, config)
         prefix = host = shift = pipeline = lifecycle = spec_out = obs_cost = None
-        draft = None
+        draft = grammar = None
         if config in PREFIX_K2:
             prefix, runs3c = phase_timed(config, prefix_phase, lm, card, config)
             host = phase_timed(config, host_tier_phase, lm, card, config, runs3c)
@@ -1657,9 +1717,11 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
             pin_speculation(lm.engine, True)
             spec_out = phase_timed(config, spec_phase, lm, card, config)
             draft = phase_timed(config, draft_phase, lm, card, config, spec_out)
+            grammar = phase_timed(config, grammar_phase, lm, card, config)
         if config == "paged":
             obs_cost = phase_timed(config, obs_phase, lm, card, config)
-        return launches, {"spec": spec_out, "draft": draft, "obs": obs, "obs_cost": obs_cost, "spec_serving": spec,"prompt_lens": prompt_lens, "n_long": n_long,
+        return launches, {"spec": spec_out, "draft": draft, "grammar": grammar,
+                          "obs": obs, "obs_cost": obs_cost, "spec_serving": spec,"prompt_lens": prompt_lens, "n_long": n_long,
                           "ttft_ms": ttft_ms, "decode_tok_s": decode_tok_s,
                           "step_ms": step_ms, "pack_ms": pack_ms,
                           "pad_tokens": pk["pad_tokens"],
@@ -4830,6 +4892,505 @@ def draft_phase(lm, card: str, config: str, spec_out: dict) -> dict:
     return out
 
 
+# ---------- phase 3l: grammar ----------
+
+GRAMMAR_VOCAB = 128256          # the written vocabulary (Llama-3's size)
+GRAMMAR_SPECIALS = {128000: "<|begin_of_text|>", 128001: "<|end_of_text|>"}
+GRAMMAR_TOKENS = 256            # (b) max_tokens of each of the 8 requests
+GRAMMAR_TINY_TOKENS = 64        # (a) max_tokens of each request
+GRAMMAR_ROW_STATES = 4          # (a) states re-walked over the full vocabulary
+GRAMMAR_CITIES = ("sf", "nyc")
+# (b), (c): the constrained requests' logit_bias (+10 on the byte tokens
+# ',' and '}' and on EOS, +14 on '"', which ',' and '}' must not outrank
+# inside a string): a random model has no reason to close a string or a
+# number, its argmax over ~10^5 allowed pieces almost never lands on the
+# few that do; the bias rides the grammar's rows as their base
+GRAMMAR_BIAS = {ord('"'): 14.0, ord(","): 10.0, ord("}"): 10.0,
+                max(GRAMMAR_SPECIALS): 10.0}
+# the JAX e2e tool (tests/test_e2e_http.py) with an enum, plus an integer
+# and a free string
+GRAMMAR_TOOL = {"name": "get_weather", "parameters": {
+    "type": "object", "properties": {
+        "city": {"enum": list(GRAMMAR_CITIES)}, "days": {"type": "integer"},
+        "note": {"type": "string"}},
+    "required": ["city", "days", "note"]}}
+
+
+def grammar_vocab(n: int = GRAMMAR_VOCAB) -> str:
+    """Write (once) a byte-level tokenizer.json without merges that the
+    port's ByteLevelTokenizer reads, and return its dir: ``n`` entries,
+    ids 0-255 the bytes, the two specials at Llama-3's ids 128000 / 128001
+    (EOS 128001; with a small ``n``, at n - 2 / n - 1), and pieces of 2-12
+    characters drawn from SEED elsewhere, shaped like a BPE vocabulary for
+    a JSON grammar: lowercase words, the same after a leading space,
+    digit runs, the JSON punctuation { } [ ] " : , alone and in pairs /
+    triples, and joined to a word on either side. Nothing is downloaded."""
+    import random
+
+    from localai_tpu_torch.engine.tokenizer import bytes_to_unicode
+
+    d = os.path.join(ROOT, "build", "chip_smoke", f"grammar-vocab-{n}")
+    if os.path.isfile(os.path.join(d, "tokenizer.json")):
+        return d
+    os.makedirs(d, exist_ok=True)
+    b2u = bytes_to_unicode()
+    specials = (GRAMMAR_SPECIALS if n == GRAMMAR_VOCAB else
+                {n - 2: GRAMMAR_SPECIALS[128000], n - 1: GRAMMAR_SPECIALS[128001]})
+    vocab = {b2u[b]: b for b in range(256)}
+    rng = random.Random(SEED)
+    lower, digits, punct = "abcdefghijklmnopqrstuvwxyz", "0123456789", '{}[]":,'
+    space = b2u[ord(" ")]
+    ids = (i for i in range(256, n) if i not in specials)
+    for tid in ids:
+        while True:
+            k, r = rng.randint(2, 12), rng.random()
+            word = "".join(rng.choices(lower, k=k))
+            if r < 0.45:
+                piece = word
+            elif r < 0.75:
+                piece = space + word[1:]
+            elif r < 0.83:               # Llama-3's numbers: 1-3 digits
+                piece = "".join(rng.choices(digits, k=2 + k % 2))
+            elif r < 0.88:
+                piece = "".join(rng.choices(punct, k=rng.randint(1, 3)))
+            else:
+                p = rng.choice(punct)
+                piece = p + word[1:] if rng.random() < 0.5 else word[1:] + p
+            if piece not in vocab:
+                vocab[piece] = tid
+                break
+    spec = {"version": "1.0",
+            "added_tokens": [{"id": i, "content": c, "special": True}
+                             for i, c in sorted(specials.items())],
+            "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False},
+            "model": {"type": "BPE", "vocab": vocab, "merges": []}}
+    with open(os.path.join(d, "tokenizer.json"), "w") as f:
+        json.dump(spec, f)
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"bos_token": specials[min(specials)],
+                   "eos_token": specials[max(specials)]}, f)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"eos_token_id": max(specials)}, f)
+    return d
+
+
+def grammar_texts() -> dict:
+    """(a)'s and (b)'s grammars: the tool's call (the chat route's
+    grammar for GRAMMAR_TOOL), its arguments alone, and a GBNF list."""
+    from localai_tpu_torch.functions.grammars import json_schema
+
+    return {"call": json_schema.grammar_for_functions([GRAMMAR_TOOL]),
+            "args": json_schema.schema_to_grammar(GRAMMAR_TOOL["parameters"]),
+            "list": 'root ::= "[" [0-9]+ ("," " "? [0-9]+){0,8} "]"'}
+
+
+def check_call(text: str, tag: str) -> dict:
+    """A constrained (b) output: JSON of the tool's call, its enum held."""
+    call = json.loads(text)
+    args = call["arguments"]
+    if (call.get("name") != GRAMMAR_TOOL["name"] or args.get("city") not in GRAMMAR_CITIES
+            or not isinstance(args.get("days"), int)
+            or not isinstance(args.get("note"), str)):
+        raise AssertionError(f"{tag} not a call of the tool's schema: {text!r}")
+    return call
+
+
+def grammar_tiny_phase(card: str, big_tok) -> dict:
+    """(a) On the card, phase 2's small float32 model with a 512-entry
+    vocabulary cut from the same draw: 4 greedy grammar requests (the
+    call, its arguments, the list, the call again from another prompt),
+    admitted together, on an engine whose bursts are graph replays and on
+    one whose bursts run the eager per-step loop (Engine._burst_eager),
+    both with the synchronous loop (pipeline_depth 1, prefill_packed_fuse
+    "0": each burst is read before the next is dispatched, so which steps
+    sampled under a stale mask does not depend on the card's timing):
+    tokens, finishes and rollbacks identical request by request, every
+    finished output accepted by the Python automaton. Then the native
+    runtime's penalty rows against the Python automaton's over the full
+    128,256-entry vocabulary, at the first GRAMMAR_ROW_STATES states the
+    call's run visits."""
+    import numpy as np
+
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, GenRequest
+    from localai_tpu_torch.engine.sampling import SamplingParamsHost
+    from localai_tpu_torch.engine.tokenizer import load_tokenizer
+    from localai_tpu_torch.engine.weights import random_params
+    from localai_tpu_torch.functions.grammars import automaton, native
+
+    tag = "[grammar tiny paged]"
+    cfg = small_cfg()
+    tok = load_tokenizer(grammar_vocab(cfg.vocab_size))
+    params = random_params(cfg, SEED, device=DEV)
+    g = grammar_texts()
+    reqs = [("Call the tool: ", g["call"]), ("Arguments: ", g["args"]),
+            ("A list: ", g["list"]), ("Weather please. ", g["call"])]
+    ecfg = EngineConfig(num_slots=4, max_context=256, prefill_chunk=64,
+                        kv_page_size=16, decode_burst=16, kv_offload=False,
+                        pipeline_depth=1, prefill_packed_fuse="0")
+    runs = {}
+    for way in ("graph", "eager"):
+        e = Engine(cfg, params, tok, ecfg, device=DEV).start()
+        if way == "eager":
+            e._burst = e._burst_eager
+        try:
+            rolled = {}
+            rb = e._rollback_grammar
+
+            def spy(slot, s, rb=rb, rolled=rolled):
+                rolled[s.req.request_id] = rolled.get(s.req.request_id, 0) + 1
+                return rb(slot, s)
+
+            e._rollback_grammar = spy
+            res = run_grammar(e, [GenRequest(
+                prompt_ids=tok.encode(p), max_new_tokens=GRAMMAR_TINY_TOKENS,
+                grammar=gr, request_id=f"t{i}",
+                params=SamplingParamsHost(temperature=0.0))
+                for i, (p, gr) in enumerate(reqs)], f"{tag} {way}")
+            for r in res:
+                r["rollbacks"] = rolled.get(r["rid"], 0)
+            runs[way] = res
+        finally:
+            e.shutdown()
+    for i, (a, b) in enumerate(zip(runs["graph"], runs["eager"])):
+        if (a["ids"], a["finish"], a["rollbacks"]) != (b["ids"], b["finish"],
+                                                       b["rollbacks"]):
+            raise AssertionError(f"{tag} request {i}: graph {a['ids']} "
+                                 f"{a['finish']} ({a['rollbacks']} rollbacks) vs "
+                                 f"eager {b['ids']} {b['finish']} ({b['rollbacks']})")
+    for (_p, gr), r in zip(reqs, runs["graph"]):
+        st = automaton.Grammar.from_text(gr)
+        ok = (st.accepts(r["text"]) if r["finish"] == "stop" else
+              st.advance_string(st.initial_state(), r["text"]) is not None)
+        if not ok:
+            raise AssertionError(f"{tag} output outside its grammar: {r['text']!r}")
+    # the states the call's run visits, re-walked over the full vocabulary
+    t0 = time.monotonic()
+    strs = automaton.token_strings(big_tok)
+    eos = [big_tok.eos_token_id]
+    pg = automaton.Grammar.from_text(g["call"])
+    ng = native.NativeGrammar.from_text(g["call"])
+    py_b = automaton.TokenMaskBuilder(strs, eos, GRAMMAR_VOCAB)
+    na_b = native.NativeMaskBuilder(strs, eos, GRAMMAR_VOCAB)
+    small = automaton.token_strings(tok)
+    ps, ns, seen, states = pg.initial_state(), ng.initial_state(), set(), []
+    for tid in [None] + runs["graph"][0]["ids"]:
+        if tid is not None:
+            if tid == tok.eos_token_id:
+                break
+            ps = pg.advance_string(ps, small[tid])
+            ns = ng.advance_string(ns, small[tid])
+        if ps not in seen:
+            seen.add(ps)
+            states.append((ps, ns))
+        if len(states) == GRAMMAR_ROW_STATES:
+            break
+    allowed = []
+    for ps, ns in states:
+        pr, nr = py_b.penalty_row(pg, ps), na_b.penalty_row(ng, ns)
+        if not np.array_equal(pr, nr):
+            raise AssertionError(f"{tag} native row != Python row at a visited "
+                                 f"state ({int((pr != nr).sum())} entries differ)")
+        allowed.append(int((nr == 0).sum()))
+    rows_s = time.monotonic() - t0
+    out = {"requests": [{k: r[k] for k in ("finish", "rollbacks")}
+                        | {"tokens": len(r["ids"])} for r in runs["graph"]],
+           "rows_checked": len(states), "allowed_per_state": allowed,
+           "rows_seconds": rows_s}
+    log(f"{tag} {card}: f32 grammar streams, graph == eager (synchronous loop): "
+        f"{[(len(r['ids']), r['finish'], r['rollbacks']) for r in runs['graph']]} "
+        f"(tokens, finish, rollbacks); every output in its grammar; native rows == "
+        f"Python rows at {len(states)} visited states over {GRAMMAR_VOCAB} entries "
+        f"(allowed tokens {allowed}; {rows_s:.1f} s host)")
+    return out
+
+
+def run_grammar(eng, reqs, tag, t_gate=None) -> list:
+    """Queue ``reqs`` with admission held, open it, read every stream (on
+    reader threads); per request its ids, text, finish, first-token and
+    last-token times (host clock, from the gate's opening) and whether it
+    carried a grammar. Errors raise."""
+    gate = threading.Event()
+    admit = eng._admit
+    eng._admit = lambda admit=admit: gate.is_set() and admit()
+    res = [None] * len(reqs)
+
+    def read(i, out, t0):
+        ids, text, fin, t_first, err = [], "", None, None, None
+        while (ev := out.get(timeout=900)) is not None:
+            if ev.error:
+                err = ev.error
+            t_first = t_first or time.monotonic()
+            ids.extend(ev.token_ids or ([ev.token_id] if ev.token_id >= 0 else []))
+            text += ev.text
+            fin = ev.finish_reason or fin
+        res[i] = {"rid": reqs[i].request_id, "ids": ids, "text": text,
+                  "finish": fin, "error": err, "grammar": bool(reqs[i].grammar),
+                  "ttft_s": (t_first or time.monotonic()) - t0[0],
+                  "last_s": time.monotonic() - t0[0]}
+
+    t0 = [0.0]
+    try:
+        outs = [eng.submit(r) for r in reqs]
+        threads = [threading.Thread(target=read, args=(i, o, t0), daemon=True)
+                   for i, o in enumerate(outs)]
+        for t in threads:
+            t.start()
+        t0[0] = time.monotonic()
+        gate.set()
+        eng._wake.set()
+        for t in threads:
+            t.join(timeout=900)
+    finally:
+        del eng._admit
+    bad = [r for r in res if r is None or r["error"]]
+    if bad:
+        raise AssertionError(f"{tag} requests failed: {bad}")
+    return res
+
+
+def grammar_mixed(eng, tok, prompts, grammar, tag, sampled: bool,
+                  free_only: bool = False) -> dict:
+    """(b) One run of the 8 requests: the first four under ``grammar``
+    (none with ``free_only``), the rest free (ignore_eos); greedy or seeded
+    sampled (temperature 1). Returns the per-class rates and the grammar
+    counters of the run; every bias flush's device time is taken with CUDA
+    events around it (Engine.sampler.write_bias_rows)."""
+    import torch
+
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.engine.sampling import SamplingParamsHost
+
+    flushes = []
+    write = eng.sampler.write_bias_rows
+
+    def timed_write(slots, rows, write=write):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        a.record()
+        write(slots, rows)
+        b.record()
+        flushes.append((a, b, len(slots), time.perf_counter() - t))
+
+    eng.sampler.write_bias_rows = timed_write
+    try:
+        m0 = eng.metrics()
+        reqs = [GenRequest(
+            prompt_ids=tok.encode(p), max_new_tokens=GRAMMAR_TOKENS,
+            grammar="" if free_only or i >= 4 else grammar,
+            ignore_eos=free_only or i >= 4, request_id=f"{tag}-{i}",
+            params=SamplingParamsHost(
+                temperature=1.0 if sampled else 0.0, seed=SEED + i,
+                logit_bias={} if free_only or i >= 4 else dict(GRAMMAR_BIAS)))
+            for i, p in enumerate(prompts)]
+        res = run_grammar(eng, reqs, tag)
+        torch.cuda.synchronize()
+        m1 = eng.metrics()
+    finally:
+        del eng.sampler.write_bias_rows
+    gm = {k: m1["grammar"][k] - m0["grammar"][k] for k in m1["grammar"]}
+    dec = {k: m1["decode"][k] - m0["decode"][k] for k in m1["decode"]}
+    for r in res:
+        if r["grammar"]:
+            if r["finish"] != "stop":
+                raise AssertionError(f"{tag} a constrained request ended "
+                                     f"{r['finish']!r}: {r['text']!r}")
+            check_call(r["text"], tag)
+        elif len(r["ids"]) != GRAMMAR_TOKENS:
+            raise AssertionError(f"{tag} a free request gave {len(r['ids'])} tokens")
+
+    def rate(rs):
+        toks = sum(len(r["ids"]) - 1 for r in rs)
+        wall = max(r["last_s"] for r in rs) - min(r["ttft_s"] for r in rs)
+        return toks / max(1e-9, wall)
+
+    g_res = [r for r in res if r["grammar"]]
+    f_res = [r for r in res if not r["grammar"]]
+    dev_ms = [a.elapsed_time(b) for a, b, _n, _h in flushes]
+    out = {"free_tok_s": rate(f_res),
+           "grammar_tok_s": rate(g_res) if g_res else None,
+           "grammar_tokens": [len(r["ids"]) for r in g_res],
+           "ttft_ms_grammar": [r["ttft_s"] * 1e3 for r in g_res],
+           "ttft_ms_free": [r["ttft_s"] * 1e3 for r in f_res],
+           "rollbacks": gm["rollbacks"], "advances": gm["tokens"],
+           "rollbacks_per_token": gm["rollbacks"] / max(1, gm["tokens"]),
+           "host_ms_per_token": gm["advance_s"] * 1e3 / max(1, gm["tokens"]),
+           "memo_hit_share": gm["memo_hits"] / max(1, gm["memo_hits"]
+                                                  + gm["memo_misses"]),
+           "flushes": len(flushes),
+           "rows_per_flush": sum(n for *_x, n, _h in flushes) / max(1, len(flushes)),
+           "flushes_per_burst": len(flushes) / max(1, dec["bursts"]),
+           "flush_device_ms_median": (sorted(dev_ms)[len(dev_ms) // 2]
+                                      if dev_ms else None),
+           "flush_host_ms_median": (sorted(h for *_x, h in flushes)[len(flushes) // 2]
+                                    * 1e3 if flushes else None),
+           "bursts": dec["bursts"], "spec_ticks": dec["spec_ticks"],
+           "steps": dec["steps"], "texts": [r["text"] for r in g_res[:2]]}
+    return out
+
+
+def grammar_phase(lm, card: str, config: str) -> dict:
+    """Phase 3l on the loaded model (module doc): (a) paged only, the small
+    f32 model's gates; the vocabulary's cold costs; (b) an engine over the
+    loaded weights with the written 128,256-entry tokenizer, 8 requests
+    (4 under the tool's call grammar) greedy and sampled with speculation
+    at its default, and the same prompts all free; (c) the tool call over
+    HTTP, streamed and not. The launch counters are zeroed just before
+    (b)'s runs and read just after (c)."""
+    import dataclasses
+
+    import torch
+
+    from localai_tpu_torch.api.app import App, make_server
+    from localai_tpu_torch.backend.runner import LoadedModel
+    from localai_tpu_torch.engine.engine import Engine, GenRequest
+    from localai_tpu_torch.engine.sampling import SamplingParamsHost
+    from localai_tpu_torch.engine.tokenizer import load_tokenizer
+    from localai_tpu_torch.functions.grammars import automaton, native
+    from localai_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    tag = f"[grammar {config}]"
+    t0 = time.monotonic()
+    tok = load_tokenizer(grammar_vocab())
+    if len(automaton.token_strings(tok)) != GRAMMAR_VOCAB:
+        raise AssertionError(f"{tag} the written vocabulary is not {GRAMMAR_VOCAB}")
+    out = {"tiny_f32": grammar_tiny_phase(card, tok) if config == "paged" else None}
+    log(f"[time] {config}: grammar_phase (a) {time.monotonic() - t0:.1f} s")
+    g = grammar_texts()
+    # the cold costs at admission, over the 128,256 entries (host clock)
+    t = time.perf_counter()
+    strs = automaton.token_strings(tok)
+    strs_s = time.perf_counter() - t
+    t = time.perf_counter()
+    builder = native.NativeMaskBuilder(strs, [tok.eos_token_id], GRAMMAR_VOCAB)
+    build_s = time.perf_counter() - t
+    gr = native.NativeGrammar.from_text(g["call"])
+    st = gr.initial_state()
+    t = time.perf_counter()
+    builder.penalty_row(gr, st)
+    cold_ms = (time.perf_counter() - t) * 1e3
+    mid = gr.advance_string(st, '{"name": "get_weather", "arguments": '
+                                '{"city": "sf", "days": 3, "note": "ab')
+    t = time.perf_counter()
+    row = builder.penalty_row(gr, mid)
+    cold_string_ms = (time.perf_counter() - t) * 1e3
+    out["cold"] = {"token_strings_s": strs_s, "mask_builder_s": build_s,
+                   "penalty_row_initial_ms": cold_ms,
+                   "penalty_row_in_string_ms": cold_string_ms,
+                   "allowed_in_string": int((row == 0).sum())}
+    log(f"{tag} {card}: the vocabulary's cold costs (host): token strings "
+        f"{strs_s:.2f} s, native mask builder {build_s:.2f} s, cold penalty_row "
+        f"{cold_ms:.3f} ms at the call's first state, {cold_string_ms:.3f} ms inside "
+        f"its free string ({out['cold']['allowed_in_string']} tokens allowed)")
+    del builder, gr
+    eng = Engine(lm.cfg, lm.engine.params, tok,
+                 dataclasses.replace(lm.engine.ecfg, draft="auto"),
+                 device=DEV).start()
+    try:
+        # warm: the engine builds its token strings and mask builder at
+        # its first grammar request (as the JAX engine does)
+        run_grammar(eng, [GenRequest(prompt_ids=tok.encode("Warm up: "),
+                                     max_new_tokens=8, grammar=g["call"],
+                                     params=SamplingParamsHost(temperature=0.0))],
+                    f"{tag} warm")
+        prompts = [f"Request {i}: what is the weather in "
+                   f"{GRAMMAR_CITIES[i % 2]} for the next {i + 2} days? "
+                   f"Answer with a call of the tool." for i in range(S_SLOTS)]
+        torch.cuda.synchronize()
+        reset_launches()
+        m0 = eng.metrics()
+        runs = {}
+        for name, kw in (("greedy", {"sampled": False}), ("sampled", {"sampled": True}),
+                         ("all_free", {"sampled": False, "free_only": True})):
+            runs[name] = grammar_mixed(eng, tok, prompts, g["call"],
+                                       f"{tag} {name}", **kw)
+        # (c) the tool call through the HTTP server
+        app = App({lm.name: LoadedModel(lm.name, lm.model_dir, lm.cfg, tok, eng,
+                                        lm.quantization)})
+        server = make_server(app, "127.0.0.1", 0)
+        th = threading.Thread(target=server.serve_forever, daemon=True)
+        th.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}/v1/chat/completions"
+        body = {"model": lm.name, "max_tokens": GRAMMAR_TOKENS, "temperature": 1.0,
+                "seed": SEED, "logit_bias": {str(k): v for k, v in GRAMMAR_BIAS.items()},
+                "messages": [{"role": "user", "content":
+                                            "What is the weather in sf?"}],
+                "tools": [{"type": "function", "function": GRAMMAR_TOOL}],
+                "tool_choice": {"type": "function",
+                                "function": {"name": GRAMMAR_TOOL["name"]}}}
+        try:
+            plain = http_json(url, body)
+            chunks = http_stream(url, {**body, "stream": True, "seed": SEED + 1})[0]
+        finally:
+            server.shutdown()
+            server.server_close()
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        m1 = eng.metrics()
+    finally:
+        eng.shutdown()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    ch = plain["choices"][0]
+    calls = ch["message"].get("tool_calls") or []
+    s_calls = [c for k in chunks for c in k["choices"][0]["delta"].get("tool_calls") or ()]
+    for cs, fin in ((calls, ch["finish_reason"]),
+                    (s_calls, chunks[-1]["choices"][0]["finish_reason"])):
+        if fin != "tool_calls" or len(cs) != 1:
+            raise AssertionError(f"{tag} HTTP tool call: finish {fin!r}, calls {cs}")
+        check_call(json.dumps({"name": cs[0]["function"]["name"], "arguments":
+                               json.loads(cs[0]["function"]["arguments"])}), tag)
+    out["http"] = {"non_stream": calls[0]["function"],
+                   "stream": s_calls[0]["function"]}
+    dec = {k: m1["decode"][k] - m0["decode"][k] for k in m1["decode"]}
+    pk = {k: m1["packed_prefill"][k] - m0["packed_prefill"][k]
+          for k in m1["packed_prefill"]}
+    n_t = lm.cfg.num_layers
+    dk = DECODE_KERNEL[config]
+    k2 = launches["ragged_prefill_attention"] + launches["ragged_prefill_attention_int8"]
+    must = {"paged": ("paged_decode_attention", "ragged_prefill_attention"),
+            "w8kv8": ("paged_decode_attention_quant", "ragged_prefill_attention_int8",
+                      W8)}[config]
+    missing = [k for k in must if launches[k] <= 0]
+    if (missing or launches[dk] != n_t * dec["steps"]
+            or k2 != n_t * (pk["dispatches"] + dec["spec_rounds"])):
+        raise AssertionError(
+            f"{tag} launches {launches}: missing {missing}; {dk} {launches[dk]} "
+            f"(expected {n_t} x {dec['steps']} steps); K2 / K2-int8 {k2} (expected "
+            f"{n_t} x ({pk['dispatches']} packs + {dec['spec_rounds']} rounds))")
+    if runs["greedy"]["spec_ticks"] <= 0:
+        raise AssertionError(f"{tag} the free requests took no spec tick beside "
+                             f"the grammar ones: {runs['greedy']}")
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    out["counts"] = {"steps": dec["steps"], "spec_rounds": dec["spec_rounds"],
+                     "packs": pk["dispatches"]}
+    out["runs"] = runs
+    for name, r in runs.items():
+        log(f"{tag} {card}: {name}, 8 x {GRAMMAR_TOKENS} max tokens "
+            + (f"(4 under the tool's call grammar, 4 free): grammar slots "
+               f"{r['grammar_tok_s']:.1f} tok/s ({r['grammar_tokens']} tokens, "
+               f"every one a call of the schema ending \"stop\"), free slots "
+               f"{r['free_tok_s']:.1f} tok/s; rollbacks {r['rollbacks']} = "
+               f"{r['rollbacks_per_token']:.3f} per grammar token; host "
+               f"{r['host_ms_per_token']:.4f} ms per grammar token (advance + "
+               f"mask lookup), memo hits {r['memo_hit_share'] * 100:.1f}%; "
+               f"{r['flushes']} flushes ({r['flushes_per_burst']:.2f} per burst, "
+               f"{r['rows_per_flush']:.2f} rows each; device "
+               f"{r['flush_device_ms_median']:.4f} ms, host "
+               f"{r['flush_host_ms_median']:.4f} ms median); TTFT grammar "
+               f"{[round(x, 1) for x in r['ttft_ms_grammar']]} ms vs free "
+               f"{[round(x, 1) for x in r['ttft_ms_free']]} ms"
+               if r["grammar_tok_s"] is not None else
+               f"all free: {r['free_tok_s']:.1f} tok/s (the same prompts)")
+            + f"; {r['spec_ticks']} spec ticks of {r['bursts']} ticks")
+    log(f"{tag} HTTP tool call (forced tool_choice, temperature 1): "
+        f"{json.dumps(out['http'])}")
+    log(f"{tag} launches over (b) and (c) (graph replays): "
+        f"{json.dumps(out['launches'])}; {dk} = {n_t} x {dec['steps']} steps; K2 = "
+        f"{n_t} x ({pk['dispatches']} packs + {dec['spec_rounds']} rounds)")
+    return out
+
+
 # ---------- phase 3j: observability ----------
 
 def prom_values(text: str) -> dict:
@@ -5310,6 +5871,11 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
             r["draft"] = draft[r["name"]]
         r["launches_draft_path"] = runs
         r["launches"] += runs.get(r["config"], 0)
+        # the grammar path (phase 3l): its launches by configuration
+        gruns = {c: shapes[c]["grammar"]["launches"].get(r["name"], 0)
+                 for c in shapes if shapes[c]["grammar"]}
+        r["launches_grammar_path"] = gruns
+        r["launches"] += gruns.get(r["config"], 0)
         r["max_abs_err"] = errs[r["name"]]
 
     # the CUDA kernels of one wrapper call, after every timing above (the
@@ -5637,6 +6203,9 @@ def main():
                       "card": card}), flush=True)
     print(json.dumps({"draft": {c: shapes[c]["draft"] for c in shapes
                                 if shapes[c]["draft"]},
+                      "card": card}, default=str), flush=True)
+    print(json.dumps({"grammar": {c: shapes[c]["grammar"] for c in shapes
+                                  if shapes[c]["grammar"]},
                       "card": card}, default=str), flush=True)
     print(json.dumps({"host_tier": {c: shapes[c]["host"] for c in shapes
                                     if shapes[c]["host"]},

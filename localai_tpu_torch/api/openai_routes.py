@@ -8,10 +8,19 @@ the text alone, as its ``PredictStream`` does.
 Chat prompts render with the JAX package's default chat-message template
 (templates/prompts.py DEFAULT_CHAT_MESSAGE, "{Role}: {Content}", messages
 joined by "\\n", as api/chatflow.py does), written in plain Python; model
-YAML templates and jinja come with a later slice. A chat request whose
-``tools`` / ``functions`` survive its ``tool_choice`` is refused with a
-400 (tool calls need grammar), never answered in free text; "none" is
-served. ``priority`` picks the request's scheduling class. The request
+YAML templates and jinja come with a later slice (the JAX default model
+config has no template either, so declared functions do not enter the
+prompt on either side). TOOL CALLS (the JAX route): a chat request whose
+``tools`` / ``functions`` survive its ``tool_choice`` ("none" drops them:
+a plain chat) and that brings no ``grammar`` of its own decodes under the
+grammar ``grammar_for_functions`` builds from them (one call, or an array
+with ``parallel_tool_calls``; a dict ``tool_choice`` forces its name).
+The answer parses the calls out of the text (functions/parse.py, the
+default FunctionsConfig): non-streamed, ``message.tool_calls`` with
+content null and finish "tool_calls"; streamed, the text is buffered and
+sent as ONE ``tool_calls`` delta before the final chunk, whose finish is
+"tool_calls" (text that holds no call goes out as one content delta).
+``priority`` picks the request's scheduling class. The request
 id of the first choice (or prompt) is the correlation id the server took
 from ``X-Correlation-ID`` or minted (api/app.py); later ones add "-c<i>"
 (chat) or "-p<i>" (completions), as in the JAX routes.
@@ -27,6 +36,11 @@ import uuid
 
 from localai_tpu_torch.api.app import ApiError, App, Response
 from localai_tpu_torch.backend import runner
+from localai_tpu_torch.functions import parse as fparse
+from localai_tpu_torch.functions.grammars import json_schema
+
+# the tool-call keys and parsing rules of the JAX default model config
+FUNCTIONS = fparse.FunctionsConfig()
 
 _OVERRIDE_KEYS = ("temperature", "top_k", "top_p", "min_p", "seed",
                   "presence_penalty", "frequency_penalty", "repeat_penalty",
@@ -60,6 +74,35 @@ def _functions_from(body: dict) -> list:
     if (body.get("tool_choice") or body.get("function_call")) == "none":
         return []
     return functions
+
+
+def _tool_grammar(body: dict, functions: list) -> str:
+    """The grammar that forces a tool call (the JAX route's): built from
+    ``functions`` unless the request brings its own ``grammar``; a dict
+    ``tool_choice`` / ``function_call`` narrows it to the named function,
+    ``parallel_tool_calls`` makes it an array of calls. "" when there is
+    nothing to force."""
+    if not functions or body.get("grammar"):
+        return ""
+    choice = body.get("tool_choice") or body.get("function_call")
+    force_name = None
+    if isinstance(choice, dict):
+        force_name = ((choice.get("function") or {}).get("name")
+                      or choice.get("name"))
+    return json_schema.grammar_for_functions(
+        functions, force_name=force_name,
+        parallel_calls=bool(body.get("parallel_tool_calls", False)),
+        name_key=FUNCTIONS.function_name_key,
+        arguments_key=FUNCTIONS.function_arguments_key)
+
+
+def _tool_calls(calls: list, indexed: bool = False) -> list:
+    """Parsed calls as OpenAI ``tool_calls`` entries (streamed deltas carry
+    an ``index``)."""
+    return [{**({"index": i} if indexed else {}),
+             "id": f"call_{secrets.token_hex(8)}", "type": "function",
+             "function": {"name": c.name, "arguments": c.arguments}}
+            for i, c in enumerate(calls)]
 
 
 def _usage(prompt_tokens: int, completion_tokens: int) -> dict:
@@ -148,10 +191,9 @@ def chat_completions(app: App, body: dict, rid: str = "") -> Response:
     prompt = render_chat(messages)
     overrides = _overrides_from(body)
     functions = _functions_from(body)
-    if functions:
-        # tool calls need grammar-constrained decoding, which the port
-        # does not serve yet: build_request refuses them (400)
-        overrides["functions"] = functions
+    grammar = _tool_grammar(body, functions)
+    if grammar:
+        overrides["grammar"] = grammar
     created = int(time.time())
     cmpl_id = f"chatcmpl-{secrets.token_hex(12)}"
     rid = rid or uuid.uuid4().hex
@@ -159,28 +201,38 @@ def chat_completions(app: App, body: dict, rid: str = "") -> Response:
     if body.get("stream"):
         req = runner.build_request(lm, prompt, overrides, rid)
 
+        def chunk(delta: dict, finish=None) -> dict:
+            return {"id": cmpl_id, "object": "chat.completion.chunk",
+                    "created": created, "model": model,
+                    "choices": [{"index": 0, "delta": delta,
+                                 "finish_reason": finish}]}
+
         def gen():
             usage = [len(req.prompt_ids), 0]
             finish = "stop"
             sent_role = False
+            # under a forced tool grammar the whole output IS the call
+            # JSON: buffer it and send a tool_calls delta instead
+            collected = [] if grammar else None
             with contextlib.closing(runner.stream(lm, req)) as events:
                 for ev in events:
                     if not sent_role:
-                        yield {"id": cmpl_id, "object": "chat.completion.chunk",
-                               "created": created, "model": model,
-                               "choices": [{"index": 0,
-                                            "delta": {"role": "assistant",
-                                                      "content": ""},
-                                            "finish_reason": None}]}
+                        yield chunk({"role": "assistant", "content": ""})
                         sent_role = True
                     usage = [ev.prompt_tokens, ev.completion_tokens]
                     finish = ev.finish_reason or finish
-                    if ev.text:
-                        yield {"id": cmpl_id, "object": "chat.completion.chunk",
-                               "created": created, "model": model,
-                               "choices": [{"index": 0,
-                                            "delta": {"content": ev.text},
-                                            "finish_reason": None}]}
+                    if ev.text and collected is not None:
+                        collected.append(ev.text)
+                    elif ev.text:
+                        yield chunk({"content": ev.text})
+            if collected is not None:
+                calls = fparse.parse_function_calls("".join(collected),
+                                                    FUNCTIONS)
+                if calls:
+                    finish = "tool_calls"
+                    yield chunk({"tool_calls": _tool_calls(calls, indexed=True)})
+                elif collected:
+                    yield chunk({"content": "".join(collected)})
             yield {"id": cmpl_id, "object": "chat.completion.chunk",
                    "created": created, "model": model,
                    "choices": [{"index": 0, "delta": {},
@@ -199,10 +251,18 @@ def chat_completions(app: App, body: dict, rid: str = "") -> Response:
                                          f"{rid}-c{i}" if i else rid))
     results = _fan_out(lm, reqs)
     echo = prompt if body.get("echo") else ""
-    choices = [{"index": i,
-                "message": {"role": "assistant", "content": echo + r["text"]},
-                "finish_reason": r["finish_reason"]}
-               for i, r in enumerate(results)]
+    choices = []
+    for i, r in enumerate(results):
+        message = {"role": "assistant", "content": echo + r["text"]}
+        finish = r["finish_reason"]
+        calls = (fparse.parse_function_calls(r["text"], FUNCTIONS)
+                 if functions else [])
+        if calls:
+            message = {"role": "assistant", "content": None,
+                       "tool_calls": _tool_calls(calls)}
+            finish = "tool_calls"
+        choices.append({"index": i, "message": message,
+                        "finish_reason": finish})
     return Response({
         "id": cmpl_id, "object": "chat.completion", "created": created,
         "model": model, "choices": choices,

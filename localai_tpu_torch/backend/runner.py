@@ -11,9 +11,11 @@ maps OpenAI-style request overrides onto a GenRequest with the JAX
 package's defaults (temperature 0.8, top_k 40, top_p 0.95, max_tokens
 256, repeat_last_n 64, mirostat tau 5 / eta 0.1) and its runner's rules,
 every sampling knob of the JAX sampler included: typical_p, the repeat /
-presence / frequency penalties, mirostat and logit_bias, and the
-request's ``priority``. ``grammar`` and tool / function calls are not
-served yet and are refused, never silently ignored. The lifecycle and
+presence / frequency penalties, mirostat and logit_bias, the request's
+``priority`` and its ``grammar`` (GBNF; the chat route builds one from
+declared tools, api/openai_routes.py): a grammar that does not parse
+fails its request at admission with the JAX engine's GrammarError, which
+``stream`` raises as a 500, as the JAX server answers it. The lifecycle and
 scheduler knobs (max_queued_requests, max_queue_wait_ms,
 request_timeout_ms, dispatch_stall_ms, preempt, priority_weights,
 max_preemptions, resume_reserve_pages, priority, priority_aging_ms) are
@@ -66,12 +68,6 @@ KV_CACHE_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
 # parsing: only the off words turn one off)
 _OFF = ("0", "false", "off", "no")
 _ON = ("", "1", "true", "on", "yes")
-
-# request knobs not ported yet: (what the refusal names, neutral values);
-# ``functions``: the chat route's tools / functions that survived
-# tool_choice
-_UNSUPPORTED = {"grammar": ("grammar", ("",)),
-                "functions": ("tools / functions (tool calls)", ([],))}
 
 # the engine's lifecycle failure kinds -> the errors the HTTP layer
 # renders as 429 / 504 / 503, with the retry-after hint the JAX server
@@ -318,12 +314,9 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
 
 def build_request(lm: LoadedModel, prompt: str, overrides: dict,
                   request_id: str = "") -> GenRequest:
-    """OpenAI-style overrides -> GenRequest (raises ValueError on knobs
-    this slice does not serve)."""
+    """OpenAI-style overrides -> GenRequest (the JAX runner's mapping)."""
     o = overrides or {}
-    for k, (what, neutral) in _UNSUPPORTED.items():
-        if k in o and o[k] is not None and o[k] not in neutral:
-            raise ValueError(f"{what} is not supported by this server yet")
+
     def num(key, default, cast=float):
         return cast(o[key]) if o.get(key) is not None else default
 
@@ -351,7 +344,8 @@ def build_request(lm: LoadedModel, prompt: str, overrides: dict,
         prompt_ids=lm.tokenizer.encode(prompt), params=sp,
         max_new_tokens=int(o.get("max_tokens") or 256),
         stop_sequences=list(stop), ignore_eos=bool(o.get("ignore_eos", False)),
-        request_id=request_id, priority=str(o.get("priority") or ""))
+        request_id=request_id, priority=str(o.get("priority") or ""),
+        grammar=str(o.get("grammar") or ""))
 
 
 def stream(lm: LoadedModel, req: GenRequest) -> Iterator[StreamEvent]:

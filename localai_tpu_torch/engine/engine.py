@@ -151,8 +151,9 @@ What this slice keeps of the JAX engine, with the same knob names:
   * THE DISPATCH-STALL WATCHDOG (``dispatch_stall_ms``, 30000): no wait
     for a pack's or a burst's results blocks for ever. The loop waits in
     bounded steps (transfer.Fetch.wait) against the later of the item's
-    dispatch and the last landing it saw, and, when idle, checks the FIFO
-    head the same way. An item past the bound aborts its own requests
+    dispatch and the last landing it saw, and checks the FIFO head the
+    same way when idle and when it leaves the head unlanded to dispatch
+    more. An item past the bound aborts its own requests
     alone with a "stall" event (``_handle_stall``), leaves the FIFO, and
     its slots and their fork waiters are released; every other slot keeps
     serving. This is sound on the card because the loop runs every
@@ -192,9 +193,9 @@ What this slice keeps of the JAX engine, with the same knob names:
     without a draft model is off; ``n_draft`` 4, ``spec_ngram`` 3;
     engine/speculative.py). A
     slot is eligible (``_Slot.spec_ok``, at admission, at a resume and
-    for a fork sibling) under the JAX purity gates (no logit bias, no
-    penalties, no mirostat; the port has no grammar or multimodal
-    input), greedy or sampled. While an eligible slot
+    for a fork sibling) under the JAX purity gates (no grammar, no logit
+    bias, no penalties, no mirostat; the port has no multimodal input),
+    greedy or sampled. While an eligible slot
     decodes with W = n_draft + 1 rows of headroom past its steps in
     flight, ``_dispatch_decode`` sends a SPEC TICK (``_plan_spec``, the
     JAX rule: decode_burst // W rounds at most, cut to the budget, the
@@ -294,8 +295,35 @@ What this slice keeps of the JAX engine, with the same knob names:
     ``kv_audit_sweep()`` serve /debug/state and /debug/kv
     (api/localai_routes.py).
 
-Left for later slices: the snap-back window, grammar, self-extend, the
-replica pool (live migration) and the SLO engine.
+  * GRAMMAR-CONSTRAINED DECODING (``GenRequest.grammar``, GBNF; the
+    JAX engine's design; functions/grammars/). The grammar is compiled
+    by the native runtime (native.py over csrc/grammar.cc, built with
+    g++ at first use; no Python fallback) and its mask rides the
+    sampler's bias: at admission the slot's row is the request's logit
+    bias plus the initial state's penalty (0 where a token may follow,
+    -1e9 elsewhere), so every token the pack or a decode step samples is
+    masked on the device. Each emitted token advances the automaton on
+    the engine thread (``_advance_grammar``, in ``_emit`` and
+    ``_emit_ev`` alike: the emitter worker sees only tokens that stood);
+    rows are memoized per state, and the slots whose row changed are
+    written once per processed pack, burst or spec tick
+    (``_flush_grammar_bias``), in stream order, before the next
+    dispatch reads them. A grammar slot rides full bursts, so its steps
+    after the first sample under a mask that is one state (in the
+    pipelined loop, one burst) stale: a token the grammar rejects, or an
+    EOS its mask forbids, ROLLS BACK (``_rollback_grammar``: lengths to
+    the last valid row, the ring re-seeded, the slot overridden in the
+    next dispatch and skipped whole in every burst in flight), and the
+    step is recomputed under the fresh mask. A split fused tick whose
+    group holds a grammar slot emits the head's first tokens before its
+    burst goes out (the JAX order). A grammar slot never speculates,
+    never forks and is never preempted (the JAX gates); across a context
+    shift its automaton state carries on. ``metrics()["grammar"]``: the
+    rollbacks, tokens, advance seconds, flushes and rows, and the mask
+    memo's hits.
+
+Left for later slices: the snap-back window, self-extend, the replica
+pool (live migration) and the SLO engine.
 """
 
 from __future__ import annotations
@@ -331,6 +359,9 @@ from localai_tpu_torch.engine.scheduler import (
 from localai_tpu_torch.engine.transfer import (
     Fetch, Stalled, numpy_of, pages_to_device, pages_to_host, tensor_of,
     to_device)
+from localai_tpu_torch.functions.grammars.automaton import token_strings
+from localai_tpu_torch.functions.grammars.native import (
+    NativeGrammar, NativeMaskBuilder)
 from localai_tpu_torch.models import llama
 from localai_tpu_torch.ops import kvcache
 from localai_tpu_torch.ops.ragged_prefill import kernel_supports
@@ -538,6 +569,7 @@ class GenRequest:
     stop_sequences: list = dataclasses.field(default_factory=list)
     ignore_eos: bool = False
     request_id: str = ""
+    grammar: str = ""          # GBNF constrained decoding ("" = none)
     # priority class (high | normal | low); "" = the engine's default
     # (EngineConfig.priority); submit() normalizes it, an unknown value
     # degrades to the default
@@ -596,7 +628,8 @@ class _Slot:
                  "t_start", "t_first_token", "n_decoded", "t_prefill_ms",
                  "phase", "pending", "written", "cache_len", "committed",
                  "reused", "prio", "preempts", "spec_ok", "shift_at",
-                 "em_done", "resumed_from")
+                 "em_done", "resumed_from", "grammar", "gstate", "bias_base",
+                 "cur_penalty")
 
     def __init__(self, req: GenRequest, detok, prompt_len: int):
         self.req = req
@@ -622,6 +655,13 @@ class _Slot:
         # paused snapshot this resumed request continues
         self.em_done = False
         self.resumed_from = None
+        # grammar-constrained decoding (Engine._grammar_for): the compiled
+        # grammar, its current state, the request's logit-bias row under
+        # the mask, and the mask row last flushed (identity-compared)
+        self.grammar = None
+        self.gstate = None
+        self.bias_base = None
+        self.cur_penalty = None
 
 
 class _DispatchStall(Exception):
@@ -980,6 +1020,20 @@ class Engine:
         # from the host mirrors; fork siblings by their leader's _Slot
         self._fifo: collections.deque = collections.deque()
         self._override: set = set()
+        # grammar-constrained decoding (module doc): compiled grammars by
+        # text, the native mask builder over the vocabulary (built at the
+        # first grammar request), the grammar slots whose mask row changed
+        # since the last flush, the rollbacks (the JAX engine's
+        # ``_rollbacks``) and the counters of metrics()["grammar"] (tokens
+        # that stood, host seconds advancing the automata, flushes and
+        # the rows they wrote)
+        self._grammar_cache: dict = {}
+        self._mask_builder: Optional[NativeMaskBuilder] = None
+        self._token_strs: list = []
+        self._gbias_flush: set = set()
+        self._rollbacks = 0
+        self._grammar_stats = {"tokens": 0, "advance_s": 0.0, "flushes": 0,
+                               "rows_flushed": 0}
         self._fork_waiters: dict = {}
         self._fuse = {"0": "off", "1": "mono"}.get(
             str(self.ecfg.prefill_packed_fuse), "split")
@@ -1327,6 +1381,11 @@ class Engine:
                            "fuse": self._fuse, "inflight": self._n_inflight(),
                            **self._pipe_stats}
         out["fork"] = dict(self._fork_stats)
+        mb = self._mask_builder
+        out["grammar"] = {**self._grammar_stats, "rollbacks": self._rollbacks,
+                          "grammars_cached": len(self._grammar_cache),
+                          "memo_hits": mb.hits if mb is not None else 0,
+                          "memo_misses": mb.misses if mb is not None else 0}
         em = self._emitter
         out["emitter"] = ({"enabled": True, "alive": em.alive,
                            "queued": em.qsize(), "emitted": em.emitted}
@@ -1729,6 +1788,7 @@ class Engine:
         self._fifo.clear()
         self._override.clear()
         self._fork_waiters.clear()
+        self._gbias_flush.clear()
         self._drop_prefetched()
         for i, s in enumerate(self.slots):
             if s is not None:
@@ -1835,16 +1895,21 @@ class Engine:
         if cancelled:                   # cancelled while queued
             req.out.put(None)
             return False
-        key = (tuple(int(t) for t in req.prompt_ids),
-               min(req.max_new_tokens, self.ecfg.max_context // 4))
+        # a grammar request neither leads nor joins a fork: its automaton
+        # state is its own (the JAX engine's key)
+        key = None if req.grammar else (
+            tuple(int(t) for t in req.prompt_ids),
+            min(req.max_new_tokens, self.ecfg.max_context // 4))
         try:
             # a leader this pass paused again (an aged arrival's
             # preemption) cannot lead: its waiters would wait for ever
-            if key in leaders and self.slots[leaders[key][0]] is leaders[key][1]:
+            if (key is not None and key in leaders
+                    and self.slots[leaders[key][0]] is leaders[key][1]):
                 self._start_fork_sibling(req, *leaders[key])
             else:
                 slot, ids, s = self._start_request(req)
-                leaders[key] = (slot, s, ids)
+                if key is not None:
+                    leaders[key] = (slot, s, ids)
         except Exception as e:
             log.exception("admission failed")
             req.out.put(StreamEvent(
@@ -1949,12 +2014,13 @@ class Engine:
 
     def _preempt_eligible(self, s: _Slot) -> bool:
         """A slot that may pause: its state is rebuilt from tokens alone at
-        resume, so a fork sibling still waiting, a leader with waiters
-        attached and a cancelled request are not (the JAX engine's rule;
-        the port has no grammar, multimodal or prompt-cache slots)."""
+        resume, so a grammar slot (its automaton state is not), a fork
+        sibling still waiting, a leader with waiters attached and a
+        cancelled request are not (the JAX engine's rule; the port has no
+        multimodal or prompt-cache slots)."""
         with self._cancel_lock:
             cancelled = s.req.request_id in self._cancelled
-        return (s.phase in ("prefill", "decode")
+        return (s.grammar is None and s.phase in ("prefill", "decode")
                 and s not in self._fork_waiters and not cancelled)
 
     def _pick_victim(self, incoming_rank: int, decode_only: bool = False,
@@ -2102,6 +2168,9 @@ class Engine:
         not truncated (only clamped below the cache edge), and the parked
         streaming state is grafted onto the new _Slot."""
         t_adm = time.monotonic()
+        # a grammar compiles (GrammarError on one that does not parse)
+        # before anything changes, so a refused request leaves no state
+        grammar = self._grammar_for(req.grammar) if req.grammar else None
         if resume is None:
             EVENTS.emit("admit", rid=req.request_id,
                         prompt_tokens=len(req.prompt_ids),
@@ -2134,7 +2203,7 @@ class Engine:
                 self._pool.release(slot, 0)
                 self._cache_tokens[slot] = []
                 raise
-        s = self._install(slot, req, ids)
+        s = self._install(slot, req, ids, grammar)
         if (self._spec_mode == "model" and self._pool is None
                 and (common or resume is not None)):
             # the contiguous draft cache holds only rows a pack mirrored
@@ -2172,22 +2241,37 @@ class Engine:
                       args={"prompt_tokens": len(ids), "reused_rows": common})
         return slot, ids, s
 
-    def _install(self, slot: int, req: GenRequest, ids: list) -> _Slot:
+    def _install(self, slot: int, req: GenRequest, ids: list,
+                 grammar: Optional[NativeGrammar] = None) -> _Slot:
         """Seat a request in ``slot``: its sampling state, its penalty ring
         (seeded with the prompt tail, reused rows included) and its
-        _Slot."""
+        _Slot. With ``grammar`` the bias row is the request's logit bias
+        plus the initial state's mask (the JAX admission), so the pack
+        samples the first token under the grammar."""
+        row = None
+        if grammar is not None:
+            base = np.zeros((self.cfg.vocab_size,), np.float32)
+            for tok, b in (req.params.logit_bias or {}).items():
+                if 0 <= int(tok) < base.shape[0]:
+                    base[int(tok)] = float(b)
+            gstate = grammar.initial_state()
+            row = (base, self._mask_builder.penalty_row(grammar, gstate))
         self.sampler.set_slot(slot, req.params,
-                              fallback_seed=zlib.crc32(req.request_id.encode()))
+                              fallback_seed=zlib.crc32(req.request_id.encode()),
+                              grammar_row=row)
         self.sampler.set_ring(slot, ids)
         s = _Slot(req, IncrementalDetokenizer(self.tokenizer), len(ids))
+        if grammar is not None:
+            s.grammar, s.gstate = grammar, gstate
+            s.bias_base, s.cur_penalty = row
         s.spec_ok = self._spec_eligible(req)
         self.slots[slot] = s
         return s
 
     def _spec_eligible(self, req: GenRequest) -> bool:
         """Whether a request may take spec rounds: the JAX admission
-        gates (no logit bias, penalties or mirostat, whose per-token state
-        one frozen verify cannot follow; the port has no grammar or
+        gates (no grammar, logit bias, penalties or mirostat, whose
+        per-token state one frozen verify cannot follow; the port has no
         multimodal input). Greedy requests accept greedily, sampled ones
         by rejection sampling. The n-gram drafter keeps no state, and the
         paged draft cache shares and restores the draft rows of the same
@@ -2195,7 +2279,7 @@ class Engine:
         does; the model drafter on the contiguous layout adds the JAX
         gates of ``_start_request`` and ``_process_fork_waiters``."""
         sp = req.params
-        return (self._spec_mode != "off"
+        return (self._spec_mode != "off" and not req.grammar
                 and not sp.logit_bias and sp.repeat_penalty in (0.0, 1.0)
                 and sp.presence_penalty == 0.0 and sp.frequency_penalty == 0.0
                 and (sp.mirostat or 0) == 0)
@@ -2898,6 +2982,7 @@ class Engine:
             self._close_sink()
         for slot, s in item.group:
             self._process_fork_waiters(slot, s)
+        self._flush_grammar_bias()
 
     # ---------- decode ----------
 
@@ -3066,7 +3151,13 @@ class Engine:
         finals and every decoding slot with budget left. The finals switch
         to decode now. "split" queues the pack as the burst's head, so its
         first tokens are emitted when their copy lands, while the burst
-        runs; "1" emits them with the burst."""
+        runs; "1" emits them with the burst. A "split" group holding a
+        grammar slot takes the JAX order instead: the head's first tokens
+        are waited for and emitted before the burst is dispatched, so the
+        burst samples under the masks those tokens lead to; a group slot
+        that rolled back in the head rides the burst skipped and is
+        overridden in the next one, and one that finished rides it not at
+        all."""
         K, C = self.ecfg.decode_burst, self.ecfg.max_context
         group = self._advance(segs, t0)
         for slot, s in group:
@@ -3089,12 +3180,28 @@ class Engine:
         self._commit_ptab()
         head = _Pack(group, self._prefill_pack(bucket, continued, host), t0,
                      split=True)
-        b = self._dispatch_burst(K, sorted(gset) + others, t0, head=head,
-                                 fold=bucket)
-        head.burst = b
-        if self._fuse == "split":
+        included = sorted(gset) + others
+        poisoned: set = set()
+        if self._fuse == "split" and any(s.grammar is not None
+                                         for _sl, s in group):
+            self._fifo.append(head)     # where a stall of it is found
+            try:
+                self._process_pack(head)
+            finally:
+                if head in self._fifo:
+                    self._fifo.remove(head)
+            poisoned = gset & self._override
+            included = [i for i in included if self.slots[i] is not None
+                        and self.slots[i].phase == "decode"]
+        if self._fuse == "split" and not head.processed:
             self._fifo.append(head)
-        self._fifo.append(b)
+        if included:
+            b = self._dispatch_burst(K, included, t0, head=head, fold=bucket)
+            if poisoned:
+                b.skip |= poisoned
+                self._override |= poisoned
+            head.burst = b
+            self._fifo.append(b)
         t1 = time.monotonic()
         self._pack_stats["seconds"] += t1 - t0
         self._hobserve("prefill_dispatch_seconds", t1 - t0)
@@ -3192,7 +3299,10 @@ class Engine:
         the oldest is waited for only when the pipeline is full or nothing
         more could be dispatched (``can_feed`` False), and at most one
         burst is waited for per call, so the loop dispatches again between
-        waits (the JAX engine's ``_drain_fifo``)."""
+        waits (the JAX engine's ``_drain_fifo``). A head the loop asked
+        about and leaves unlanded is held to the stall bound all the same
+        (``_check_overdue``), so a busy loop finds a stall as soon as an
+        idle or waiting one would."""
         progressed = waited = False
         cuda = self.device.type == "cuda"
         while self._fifo:
@@ -3201,6 +3311,8 @@ class Engine:
             if not ((cuda or not burst) and self._landed(item)):
                 if waited or (can_feed and self._n_inflight()
                               < self.ecfg.pipeline_depth):
+                    if cuda or not burst:
+                        self._check_overdue(item)
                     break
                 waited = burst
             self._fifo.popleft()
@@ -3255,6 +3367,15 @@ class Engine:
         self._t_last_ready = time.monotonic()
         return out
 
+    def _check_overdue(self, item):
+        """Raise _DispatchStall for ``item``, found not landed, when the
+        stall bound has passed since the later of its dispatch and the
+        last landing seen (the rule of ``_wait_ready``)."""
+        stall_s = self.ecfg.dispatch_stall_ms / 1e3
+        if stall_s > 0 and time.monotonic() - max(item.t0,
+                                                  self._t_last_ready) > stall_s:
+            raise _DispatchStall(item)
+
     def _check_parked_stall(self):
         """The watchdog for the idle branch of the loop (the JAX engine's
         ``_check_parked_stall``): the FIFO head is what the card should be
@@ -3263,10 +3384,8 @@ class Engine:
         if stall_s <= 0 or not self._fifo:
             return
         head = self._fifo[0]
-        if self._landed(head):
-            return
-        if time.monotonic() - max(head.t0, self._t_last_ready) > stall_s:
-            raise _DispatchStall(head)
+        if not self._landed(head):
+            self._check_overdue(head)
 
     def _handle_stall(self, item):
         """Abort only the stalled item's requests (the JAX engine's
@@ -3317,8 +3436,11 @@ class Engine:
     def _process_burst(self, b: _Burst):
         """Read a burst's tokens and emit them step by step. A slot
         released, context-shifted or re-admitted since the dispatch gets
-        nothing (its steps are dropped); the others advance their host
-        mirrors. A "1" fused tick's head is processed first."""
+        nothing (its steps are dropped), nor does a grammar slot past a
+        rollback in this burst (``rolled``: the rollback set its mirrors);
+        the others advance their host mirrors. The grammar rows that
+        changed are flushed before the next dispatch. A "1" fused tick's
+        head is processed first."""
         if b.head is not None and not b.head.processed:
             self._process_pack(b.head, blame=b)
         host = self._wait_ready(b)                       # [K, 2, S]
@@ -3333,22 +3455,26 @@ class Engine:
         ids_np = host[:, 0].astype(np.int64)
         lps_np = host[:, 1]
         dropped = 0
+        rolled: set = set()
         self._open_sink()
         try:
             for j in range(b.n_steps):
                 for i, snap in b.slots:
-                    if (i in b.skip or self.slots[i] is not snap
+                    if (i in b.skip or i in rolled or self.slots[i] is not snap
                             or snap.phase != "decode"):
-                        dropped += 1      # finished / shifted / replaced
+                        dropped += 1   # finished / shifted / replaced / rolled
                         continue
                     # step j wrote the row of the slot's previous token
                     snap.committed = min(snap.committed + 1, snap.cache_len)
-                    self._emit(i, int(ids_np[j, i]), float(lps_np[j, i]))
+                    if not self._emit(i, int(ids_np[j, i]), float(lps_np[j, i])):
+                        rolled.add(i)
         finally:
+            self._flush_grammar_bias()
             self._close_sink(t1, b.n_steps)
         self._pipe_stats["dropped_steps"] += dropped
         for i, snap in b.slots:
-            if i not in b.skip and self.slots[i] is snap and snap.phase == "decode":
+            if (i not in b.skip and i not in rolled and self.slots[i] is snap
+                    and snap.phase == "decode"):
                 self.lengths[i] += b.n_steps
                 self.cur_tokens[i] = int(ids_np[-1, i])
 
@@ -3415,15 +3541,17 @@ class Engine:
         max_tokens), shifts or is released mid-round gets nothing more;
         the slots still decoding advance their mirrors by the tokens
         emitted. The spec counters fold first, for every slot live at the
-        tick's processing."""
+        tick's processing. A grammar slot rides as a plain row: a rollback
+        ends its emission from the tick (``rolled``), as in a burst."""
         W, R = b.spec_width, b.n_steps
         ids = host[:, :W].astype(np.int64)              # [R, W, S]
         lps = host[:, W:2 * W]
         n_out = host[:, 2 * W].astype(np.int64)         # [R, S]
+        rolled: set = set()
 
         def live(i, snap):
-            return (i not in b.skip and self.slots[i] is snap
-                    and snap.phase == "decode")
+            return (i not in b.skip and i not in rolled
+                    and self.slots[i] is snap and snap.phase == "decode")
 
         st = self._spec_stats
         for i, snap in b.slots:
@@ -3448,14 +3576,108 @@ class Engine:
                             break
                         # the round wrote the row of the token before this one
                         snap.committed = min(snap.committed + 1, snap.cache_len)
-                        self._emit(i, int(ids[r, j, i]), float(lps[r, j, i]))
+                        if not self._emit(i, int(ids[r, j, i]),
+                                          float(lps[r, j, i])):
+                            rolled.add(i)
         finally:
+            self._flush_grammar_bias()
             self._close_sink(t1, R)
         self._pipe_stats["dropped_steps"] += dropped
         for i, snap in b.slots:
             if live(i, snap):
                 self.lengths[i] += int(n_out[:, i].sum())
                 self.cur_tokens[i] = int(ids[R - 1, n_out[R - 1, i] - 1, i])
+
+    # ---------- grammar-constrained decoding ----------
+
+    def _grammar_for(self, text: str) -> NativeGrammar:
+        """Compile (cached, 64 grammars at most) and, at the first grammar
+        request, build the native mask builder over the vocabulary (the
+        JAX engine's ``_grammar_for`` without its fallback: a native
+        build that fails raises, and the Python automaton stays the
+        reference). GrammarError on a grammar that does not parse."""
+        if self._mask_builder is None:
+            self._token_strs = token_strings(self.tokenizer)
+            self._mask_builder = NativeMaskBuilder(
+                self._token_strs, self.eos_ids, self.cfg.vocab_size)
+        g = self._grammar_cache.get(text)
+        if g is None:
+            if len(self._grammar_cache) > 64:
+                self._grammar_cache.clear()
+            g = NativeGrammar.from_text(text)
+            self._grammar_cache[text] = g
+        return g
+
+    def _advance_grammar(self, slot: int, s: _Slot, token_id: int) -> bool:
+        """Advance the slot's grammar by an emitted token (the JAX engine's
+        ``_advance_grammar``); False when the grammar rejects it (the
+        caller rolls the slot back). The device row is not written here:
+        only the last state's mask matters to the next dispatch, so the
+        slot is marked and its row flushed once per processed item
+        (``_flush_grammar_bias``). Rows are memoized per state, so an
+        identity compare says whether the mask changed."""
+        t0 = time.perf_counter()
+        piece = (self._token_strs[token_id]
+                 if 0 <= token_id < len(self._token_strs) else None)
+        nxt = None if piece is None else s.grammar.advance_string(s.gstate, piece)
+        if nxt is not None:
+            s.gstate = nxt
+            penalty = self._mask_builder.penalty_row(s.grammar, nxt)
+            if penalty is not s.cur_penalty:
+                s.cur_penalty = penalty
+                self._gbias_flush.add(slot)
+            self._grammar_stats["tokens"] += 1
+        self._grammar_stats["advance_s"] += time.perf_counter() - t0
+        return nxt is not None
+
+    def _flush_grammar_bias(self):
+        """Write the changed grammar slots' rows (logit bias + mask) to the
+        sampler's bias in ONE batched write per processed pack, burst or
+        spec tick, in stream order and without waiting (the JAX engine's
+        ``_flush_grammar_bias``; no power-of-two padding: that existed for
+        XLA's executables). The next dispatch reads them."""
+        if not self._gbias_flush:
+            return
+        slots = sorted(i for i in self._gbias_flush
+                       if self.slots[i] is not None
+                       and self.slots[i].grammar is not None)
+        self._gbias_flush.clear()
+        if not slots:
+            return
+        self.sampler.write_bias_rows(
+            slots, [(self.slots[i].bias_base, self.slots[i].cur_penalty)
+                    for i in slots])
+        self._grammar_stats["flushes"] += 1
+        self._grammar_stats["rows_flushed"] += len(slots)
+
+    def _rollback_grammar(self, slot: int, s: _Slot) -> bool:
+        """Discard a token the grammar rejects (the JAX engine's
+        ``_rollback_grammar``): a grammar slot rides full bursts under the
+        mask of its last flushed state (one burst stale in the pipelined
+        loop), so a token mid-burst can fall outside the grammar.
+        Recompute semantics make this free: the slot's length goes back
+        to its last valid row, ``lengths = cache_len - 1`` with the
+        pending token ``_cache_tokens[-1]`` as ``cur_tokens`` (its row is
+        rewritten by the next step), the penalty ring is re-seeded from
+        the kept tokens, and the slot is marked for a flush and an
+        override, so the next dispatch carries its mask and its host
+        state. Every burst in flight sampled on the discarded token: the
+        slot is dropped from them whole. Returns False (the caller emits
+        nothing more of the slot from this item)."""
+        s.n_decoded -= 1
+        self._decode_stats["tokens"] -= 1
+        self._rollbacks += 1
+        s.committed = min(s.committed, max(s.cache_len - 1, 0))
+        self.lengths[slot] = max(s.cache_len - 1, 0)
+        toks = self._cache_tokens[slot]
+        self.cur_tokens[slot] = toks[-1] if toks else 0
+        self.sampler.set_ring(slot, toks)
+        self._gbias_flush.add(slot)
+        self._override.add(slot)
+        for b in self._fifo:
+            if isinstance(b, _Burst):
+                b.skip.add(slot)
+        return False
 
     # ---------- emission ----------
 
@@ -3506,23 +3728,33 @@ class Engine:
             for ev in evs:
                 entry.req.out.put(ev)
 
-    def _emit(self, slot: int, token_id: int, logprob: float):
+    def _emit(self, slot: int, token_id: int, logprob: float) -> bool:
         """Emit one token of a slot: EOS / max-tokens / stop sequences
         finish the request and release the slot; at the cache edge the
         slot shifts its context (or, without context_shift, finishes).
+        A grammar slot advances its automaton first; a token the grammar
+        rejects, or an EOS its current mask forbids (``ignore_eos`` does
+        not apply under a grammar), rolls the slot back instead. Returns
+        whether the token stood (the JAX ``_emit_token``): after a
+        rollback the caller emits nothing more of the slot from the item.
         With the emitter, ``_emit_ev`` does the id-level part and the
         worker the text."""
         if self._emitter is not None:
-            self._emit_ev(slot, token_id, logprob)
-            return
+            return self._emit_ev(slot, token_id, logprob)
         s = self.slots[slot]
         s.n_decoded += 1
         self._decode_stats["tokens"] += 1
         finish = None
         edge = s.cache_len + 1 >= self.ecfg.max_context - 1
-        if token_id in self.eos_ids and not s.req.ignore_eos:
+        if token_id in self.eos_ids and not (s.req.ignore_eos
+                                             and s.grammar is None):
+            if s.grammar is not None and s.cur_penalty[token_id] != 0.0:
+                return self._rollback_grammar(slot, s)
             finish = "stop"
             delta = s.held_text + s.detok.flush()
+        elif s.grammar is not None and not self._advance_grammar(slot, s,
+                                                                  token_id):
+            return self._rollback_grammar(slot, s)
         elif (s.n_decoded >= s.req.max_new_tokens
               or (edge and not self.ecfg.context_shift)):
             finish = "length"
@@ -3559,6 +3791,7 @@ class Engine:
             self._sink.setdefault(key, (s.req.out, []))[1].append(ev)
         else:
             s.req.out.put(ev)
+        return True
 
     def _finish_timings(self, s: _Slot) -> dict:
         """A finished request's timings (its final event's)."""
@@ -3625,22 +3858,30 @@ class Engine:
                              note_finish=note, note_abort=note_abort,
                              tracer=self.tracer)
 
-    def _emit_ev(self, slot: int, token_id: int, logprob: float):
+    def _emit_ev(self, slot: int, token_id: int, logprob: float) -> bool:
         """The emitter's half of ``_emit`` (the JAX engine's
-        ``_emit_token_ev``): the id-level control flow (EOS, max_tokens,
-        the cache edge and context shift, ``cache_len`` and
-        ``_cache_tokens``, the release of the finishes found here), and
-        the token joins the batch the worker gets at ``_close_sink``. The
-        worker detokenizes, scans for stops and puts the events; a stop it
-        finds comes back as a note (``_apply_emitter_notes``)."""
+        ``_emit_token_ev``): the id-level control flow (EOS, the grammar's
+        advance and rollback, max_tokens, the cache edge and context
+        shift, ``cache_len`` and ``_cache_tokens``, the release of the
+        finishes found here), and the token joins the batch the worker
+        gets at ``_close_sink``; the worker only sees tokens that stood.
+        It detokenizes, scans for stops and puts the events; a stop it
+        finds comes back as a note (``_apply_emitter_notes``). Returns
+        whether the token stood."""
         s = self.slots[slot]
         s.n_decoded += 1
         self._decode_stats["tokens"] += 1
         finish = None
         shifted = False
         edge = s.cache_len + 1 >= self.ecfg.max_context - 1
-        if token_id in self.eos_ids and not s.req.ignore_eos:
+        if token_id in self.eos_ids and not (s.req.ignore_eos
+                                             and s.grammar is None):
+            if s.grammar is not None and s.cur_penalty[token_id] != 0.0:
+                return self._rollback_grammar(slot, s)
             finish = "stop"
+        elif s.grammar is not None and not self._advance_grammar(slot, s,
+                                                                  token_id):
+            return self._rollback_grammar(slot, s)
         elif (s.n_decoded >= s.req.max_new_tokens
               or (edge and not self.ecfg.context_shift)):
             finish = "length"
@@ -3664,6 +3905,7 @@ class Engine:
             e["finish"], e["timings"] = finish, self._finish_timings(s)
             self._finish_accounting(slot, s, finish, s.n_decoded, e["timings"])
             self._release_slot(slot)
+        return True
 
     def _flush_em_batch(self):
         """Hand the processed item's tokens to the worker as ONE queue

@@ -302,7 +302,9 @@ class SlotSampler:
     for ``feature_flags``), the penalty ring ``ring`` [S, RING_N] (-1 =
     empty) and ``ring_pos`` [S], the logit bias ``bias`` [S, V] (zero
     until a request sets its row), mirostat's ``mu`` [S] and the counter
-    RNG's ``seed`` / ``counter`` [S]."""
+    RNG's ``seed`` / ``counter`` [S]. A grammar's rows (its request's
+    logit bias plus the state's mask penalty) are written whole by
+    ``write_bias_rows``."""
 
     def __init__(self, num_slots: int, vocab_size: int, device):
         self.device = torch.device(device)
@@ -319,9 +321,12 @@ class SlotSampler:
         self.counter = torch.zeros(S, dtype=torch.int64, device=dev)
         self._slots = torch.arange(S, device=dev)
 
-    def set_slot(self, slot: int, p: SamplingParamsHost, fallback_seed: int):
+    def set_slot(self, slot: int, p: SamplingParamsHost, fallback_seed: int,
+                 grammar_row: Optional[tuple] = None):
         """Install one request's parameters, its bias row (or clear the row
-        a previous request set: the JAX ``_bias_dirty``), mu = 2 * tau,
+        a previous request set: the JAX ``_bias_dirty``; a grammar
+        request's ``grammar_row`` = (logit bias row, first mask penalty)
+        goes in whole through ``write_bias_rows``), mu = 2 * tau,
         seed its generator and reset its counter. The ring is seeded
         apart (``set_ring``). Every write is a device op in stream order,
         none waits for the card (``fill_`` takes the value as a kernel
@@ -331,7 +336,9 @@ class SlotSampler:
             self.host[name][slot] = v
             self.p[name][slot].fill_(v)
         self.mu[slot].fill_(2.0 * (p.mirostat_tau if p.mirostat_tau > 0 else 5.0))
-        if p.logit_bias:
+        if grammar_row is not None:
+            self.write_bias_rows([slot], [grammar_row])
+        elif p.logit_bias:
             row = np.zeros((self.bias.shape[1],), np.float32)
             for tok, b in p.logit_bias.items():
                 if 0 <= int(tok) < row.shape[0]:
@@ -344,6 +351,29 @@ class SlotSampler:
         seed = p.seed if p.seed is not None and p.seed >= 0 else fallback_seed
         self.seed[slot].fill_(int(seed) & _M32)
         self.counter[slot].zero_()
+
+    def write_bias_rows(self, slots: Sequence[int], rows: Sequence[tuple]):
+        """Write whole bias rows, ``rows[j]`` = (base, penalty) host f32 [V]
+        arrays summed into slot ``slots[j]``'s row (the JAX engine's
+        ``_flush_grammar_bias`` scatter): one copy of the stacked rows and
+        one indexed copy, in stream order and without waiting for the card,
+        so bursts already dispatched read the rows they found. On CUDA the
+        sums go into pinned memory from PyTorch's caching host allocator,
+        which reuses a block only once the copies recorded on it have run
+        (engine/ab_bias_flush.py times this against a ring of its own)."""
+        for slot in slots:
+            self._bias_dirty[slot] = True
+        cuda = self.bias.is_cuda
+        src = torch.empty((len(slots), self.bias.shape[1]), dtype=torch.float32,
+                          pin_memory=cuda)
+        host = src.numpy()
+        for j, (base, pen) in enumerate(rows):
+            np.add(base, pen, out=host[j])
+        idx = torch.tensor(list(slots), dtype=torch.int64)
+        if cuda:
+            src = src.to(self.device, non_blocking=True)
+            idx = idx.pin_memory().to(self.device, non_blocking=True)
+        self.bias.index_copy_(0, idx, src)
 
     def set_ring(self, slot: int, token_ids):
         """Seed (or, at a context shift, restart) a slot's penalty ring

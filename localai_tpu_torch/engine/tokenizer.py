@@ -9,7 +9,9 @@ map used for a model dir without a tokenizer.json (random-weight
 benchmark dirs): token id = byte value.
 
 Both expose encode / decode(ids, skip_special_tokens) / eos_token_id,
-the surface the engine and the detokenizer use.
+the surface the engine and the detokenizer use, and get_vocab_size /
+all_special_ids, which the grammar's token strings read
+(functions/grammars/automaton.py::token_strings).
 """
 
 from __future__ import annotations
@@ -77,6 +79,13 @@ class ByteLevelTokenizer:
                 special.setdefault(t, self.vocab[t])
         self.special_ids = set(special.values())
 
+    def get_vocab_size(self) -> int:
+        return max(self.inv) + 1
+
+    @property
+    def all_special_ids(self) -> list:
+        return sorted(self.special_ids)
+
     def encode(self, text: str) -> list:
         if self.add_prefix_space and text and not text.startswith(" "):
             text = " " + text
@@ -109,8 +118,13 @@ class ByteLevelTokenizer:
 class ByteTokenizer:
     """Token id = byte value; ids >= 256 decode to nothing."""
 
+    all_special_ids: tuple = ()
+
     def __init__(self, eos_token_id: Optional[int] = None):
         self.eos_token_id = eos_token_id
+
+    def get_vocab_size(self) -> int:
+        return 256
 
     def encode(self, text: str) -> list:
         return list(text.encode("utf-8"))

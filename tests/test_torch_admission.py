@@ -16,7 +16,8 @@ cases of tests/test_chaos.py.
   * a running request past its deadline gets a "timeout" event and its
     slot and pages are released;
   * the stall watchdog, through sync_delay_ms: the stalled pack's request
-    alone gets a "stall" event, a request prefilling beside it keeps the
+    alone gets a "stall" event (its delay is far past the bound, so no
+    load lets it land first), a request prefilling beside it keeps the
     JAX tokens, and the engine serves on; the JAX Engine's own case beside
     it; the wait is bounded by dispatch_stall_ms;
   * page_alloc_fail gives an "injected" error, then the engine recovers
@@ -224,10 +225,13 @@ def test_fetch_wait_is_bounded():
 
 
 def test_stall_aborts_only_the_stalled_request(tiny):  # noqa: F811
-    """The first pack after the fault is armed lands 1.5 s late (200 ms
-    bound): its final request V alone gets a "stall" event; S, whose long
-    prompt was prefilling in that pack, keeps the JAX Engine's tokens;
-    afterwards a new request gets the same tokens as before the stall."""
+    """The first pack after the fault is armed lands 600 s late, so the
+    watchdog (200 ms bound) aborts it first, however long the loaded host's
+    eager packs take: its final request V alone gets a "stall" event
+    within the bound (the loop holds the pack to it while it packs S's
+    later chunks); S, whose long prompt was prefilling in that pack, keeps
+    the JAX Engine's tokens; afterwards a new request gets the same tokens
+    as before the stall."""
     survivor = list(range(30, 80))                       # 4 chunks
     je = _started(jax_engine(tiny, num_slots=2))
     try:
@@ -239,7 +243,7 @@ def test_stall_aborts_only_the_stalled_request(tiny):  # noqa: F811
         base = _ids(e, [7] * 9, 8)
         e.ecfg.dispatch_stall_ms = 200
         _idle(e)
-        FAULTS.arm("sync_delay_ms", "1500", count=1)
+        FAULTS.arm("sync_delay_ms", "600000", count=1)
         e._admit = lambda: False                         # V and S together
         out_v = e.submit(_req(e, [7] * 9, 8))
         out_s = e.submit(_req(e, survivor, 12))
@@ -251,7 +255,7 @@ def test_stall_aborts_only_the_stalled_request(tiny):  # noqa: F811
         s, sevs = _drain(out_s)
         assert [ev.error_kind for ev in vevs] == ["stall"] and v == []
         assert "stalled" in vevs[0].error
-        assert 0.15 <= abort_s < 1.4                     # the bound, not the delay
+        assert 0.15 <= abort_s < 1.4                     # the bound, not the load
         assert not any(ev.error for ev in sevs) and s == want_s
         assert e.metrics()["lifecycle"]["stalls"] == 1
         assert _ids(e, [7] * 9, 8) == base

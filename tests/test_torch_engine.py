@@ -230,7 +230,12 @@ assert {"localai_tpu_torch.services.errors", "localai_tpu_torch.services.faults"
         "localai_tpu_torch.services.metrics",
         "localai_tpu_torch.services.kv_audit",
         "localai_tpu_torch.services.sysobs",
-        "localai_tpu_torch.api.localai_routes"} <= set(names), names
+        "localai_tpu_torch.api.localai_routes",
+        "localai_tpu_torch.functions.parse",
+        "localai_tpu_torch.functions.grammars.gbnf",
+        "localai_tpu_torch.functions.grammars.automaton",
+        "localai_tpu_torch.functions.grammars.native",
+        "localai_tpu_torch.functions.grammars.json_schema"} <= set(names), names
 assert "localai_tpu_torch.engine.speculative" in sys.modules
 assert "localai_tpu_torch.engine.emitter" in sys.modules
 """

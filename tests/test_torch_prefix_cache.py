@@ -156,10 +156,14 @@ def _submit_together(e, prompts, n):
     return outs
 
 
-def run_script(e, seed: int = 21) -> list:
+def run_script(e, seed: int = 21, b_first: bool = False) -> list:
     """The module doc's script on one engine: (ids, reused) per request,
     in script order. Prompts that continue a conversation are built from
-    this engine's own outputs."""
+    this engine's own outputs. With ``b_first`` the shared-prefix request
+    is submitted once b has finished (its stream closed, so its slot is
+    free on every engine), not while b decodes; the case of a request
+    sharing the prefix of one that still decodes then comes last, on new
+    prompts admitted in one pass (two more results)."""
     rng = np.random.default_rng(seed)
 
     def draw(n):
@@ -179,12 +183,20 @@ def run_script(e, seed: int = 21) -> list:
     b = draw(50)                                         # 5
     ob = _submit(e, b, 20)
     first = ob.get(timeout=600)                          # b is prefilled
+    if b_first:
+        res.append(_drain(ob, first))
     o2 = _submit(e, b[:40] + draw(15), 6)
-    res += [_drain(ob, first), _drain(o2)]
+    if not b_first:
+        res.append(_drain(ob, first))
+    res.append(_drain(o2))
     div = list(t3)                                       # 6
     div[20] = div[20] % 250 + 3
     res.append(_drain(_submit(e, div, 5)))
     res.append(_drain(_submit(e, t3[:64], 5)))           # 7
+    if b_first:
+        c = draw(50)
+        outs = _submit_together(e, [c, c[:40] + draw(15)], 6)
+        res += [_drain(o) for o in outs]
     return res
 
 

@@ -9,7 +9,12 @@ unrelated traffic, a shared prefix, a divergence) on the port with
     JAX Engine's; tier-2 clones and tier-3 splices carry the scales.
   * contiguous: tier 1 only (the rows stay in the slot's block, as in the
     JAX engine); the same byte gate, and the reused rows equal the JAX
-    Engine's, which also reuses only the slot's own rows there.
+    Engine's, which also reuses only the slot's own rows there. The
+    shared-prefix request is submitted once b has finished, on both
+    engines, so it always finds b's rows in b's free slot (submitted while
+    b decodes, a loaded host could let b finish first on one engine only);
+    a request sharing the prefix of one admitted in the same pass, which
+    still decodes, reuses nothing.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ def scripted(request, tiny):  # noqa: F811
                        ("jax", lambda: jax_engine(tiny, True, **jk))):
         e = make()
         try:
-            out[name] = run_script(e)
+            out[name] = run_script(e, b_first=request.param == "contig")
             out[name + "_metrics"] = e.metrics()
         finally:
             e.shutdown()
@@ -63,8 +68,10 @@ def test_reused_prompt_tokens_match_jax(scripted):
         assert m["prefix_cache"]["hits"] == 2
         assert m["prefix_cache"]["cow_clones"] >= 3
     else:
-        # tier 1 only: turn 2 and the divergence reuse their slot's rows;
-        # turn 3 (its slot overwritten) and the shared prefix reuse none
+        # tier 1 only: turn 2, the shared prefix (in b's slot, b done) and
+        # the divergence reuse their slot's rows; turn 3 (its slot
+        # overwritten) and the shared prefix of a request still decoding
+        # reuse none
         assert got[2] == 44 and got[10] == 20
-        assert got[7] == 0 and got[9] == 0
+        assert got[7] == 0 and got[9] == 40 and got[13] == 0
         assert "prefix_cache" not in m

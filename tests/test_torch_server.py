@@ -8,11 +8,12 @@ Engine's on the same rendered prompt (the chat prompt rendered as the
 JAX package's default chat template renders it; the prompt tokenized by
 the port exactly as the JAX backend's HF tokenizer does); the JAX
 sampler's knobs (penalties, logit_bias, typical_p, mirostat) are served,
-greedy penalized / biased text equal to the JAX Engine's; a knob the
-port does not serve (grammar) is a 400, never silently ignored, and so
-are tools / functions that survive tool_choice (tool calls need grammar),
-while tool_choice "none" is served as a plain chat, as the JAX route
-serves it.
+greedy penalized / biased text equal to the JAX Engine's; a grammar
+that does not parse is a 500 carrying the GrammarError, as the JAX
+server answers it, and a bad request a 400 / 404; tools / functions that
+survive tool_choice are answered with tool calls (the grammar the route
+builds from them forces the call), streamed and not, while tool_choice
+"none" is served as a plain chat, as the JAX route serves it.
 """
 
 from __future__ import annotations
@@ -271,20 +272,28 @@ def test_build_request_maps_every_sampling_field_as_the_jax_runner():
 
 
 def test_unsupported_knob_and_bad_request_are_400(served):
+    """A bad request is a 400 / 404; a grammar that does not parse fails
+    its request at admission, a 500 with the GrammarError (the JAX
+    server's answer: its backend aborts the call INTERNAL)."""
     base, *_ = served
-    for body in ({"model": "tiny", "prompt": "x", "grammar": "root ::= \"a\""},
-                 {"model": "tiny", "messages": []},
-                 {"model": "nope", "prompt": "x"}):
+    for body, codes in (
+            ({"model": "tiny", "prompt": "x", "grammar": "root ::= undefined-rule"},
+             (500,)),
+            ({"model": "tiny", "messages": []}, (400, 404)),
+            ({"model": "nope", "prompt": "x"}, (400, 404))):
         with pytest.raises(urllib.error.HTTPError) as ei:
             _post(base + ("/v1/chat/completions" if "messages" in body
                           else "/v1/completions"), body)
-        assert ei.value.code in (400, 404)
-        assert "error" in json.loads(ei.value.read())
+        assert ei.value.code in codes
+        err = json.loads(ei.value.read())["error"]
+        if codes == (500,):
+            assert "GrammarError" in err["message"]
 
 
 TOOL = {"name": "get_weather", "description": "the weather in a city",
         "parameters": {"type": "object",
-                       "properties": {"city": {"type": "string"}}}}
+                       "properties": {"city": {"enum": ["sf", "nyc"]}},
+                       "required": ["city"]}}
 
 
 @pytest.mark.parametrize("extra", [
@@ -295,21 +304,33 @@ TOOL = {"name": "get_weather", "description": "the weather in a city",
 ], ids=["tools", "tool_choice_auto", "functions", "function_call"])
 @pytest.mark.parametrize("stream", [False, True])
 def test_tool_calls_are_refused_with_400(served, extra, stream):
-    """Tools / functions that survive tool_choice need tool calls, which
-    the port does not serve yet: a 400 before the engine sees the request,
-    never an answer in free text (the JAX route would constrain the
-    output to a tool call)."""
+    """The requests the port refused with a 400 before it served tool
+    calls (the test keeps the name it had then): tools / functions that
+    survive tool_choice are now answered as
+    the JAX route answers them, the output forced by the grammar built
+    from them: finish "tool_calls" and a call of get_weather whose
+    arguments parse (non-streamed: message.tool_calls, content null;
+    streamed: one tool_calls delta)."""
     base, lm, *_ = served
-    before = lm.engine.metrics()["packed_prefill"]["dispatches"]
-    with pytest.raises(urllib.error.HTTPError) as ei:
-        _post(base + "/v1/chat/completions",
-              {"model": "tiny", "messages": MESSAGES, "max_tokens": 4,
-               "stream": stream, **extra})
-    assert ei.value.code == 400
-    err = json.loads(ei.value.read())["error"]
-    assert err["type"] == "invalid_request_error"
-    assert "tools / functions" in err["message"]
-    assert lm.engine.metrics()["packed_prefill"]["dispatches"] == before
+    before = lm.engine.metrics()["grammar"]["tokens"]
+    _st, text = _post(base + "/v1/chat/completions",
+                      {"model": "tiny", "messages": MESSAGES, "max_tokens": 96,
+                       "temperature": 1.0, "seed": 11, "stream": stream,
+                       **extra})
+    if stream:
+        events = _sse(text)
+        calls = [c for e in events
+                 for c in e["choices"][0]["delta"].get("tool_calls") or ()]
+        finish = events[-1]["choices"][0]["finish_reason"]
+    else:
+        msg = json.loads(text)["choices"][0]
+        assert msg["message"]["content"] is None
+        calls, finish = msg["message"]["tool_calls"], msg["finish_reason"]
+    assert finish == "tool_calls" and len(calls) == 1
+    assert calls[0]["type"] == "function" and calls[0]["id"].startswith("call_")
+    assert calls[0]["function"]["name"] == "get_weather"
+    assert json.loads(calls[0]["function"]["arguments"])["city"] in ("sf", "nyc")
+    assert lm.engine.metrics()["grammar"]["tokens"] > before
 
 
 @pytest.mark.parametrize("choice", [{"tool_choice": "none"},
