@@ -423,6 +423,41 @@ Phases, each raising on failure (no phase swallows an error):
               line holds it all; each kernel row's
               "launches_grammar_path" holds 3l's launches by
               configuration, and its "launches" adds those of its own.
+  3m. front door (front_door_phase), after every configuration: the
+              paged configuration loaded again, through the JAX server's
+              front door (``run --models-path``, in process). It writes
+              under the git-ignored build/ a models dir: one YAML file
+              (parameters with a temperature, top_p and max_tokens; no
+              templates, so the llama3 family's are guessed; cutstrings
+              "l+" and trimspace " "; the random weights as the option
+              random_weights=SEED) and a model dir with Llama-3.1-8B's
+              config.json, a tokenizer.json of 128,256 entries with
+              merges (the 256 byte characters, 127,744 merges each
+              joining two earlier tokens drawn from SEED, Llama-3's split
+              regex, the 256 specials at 128000-128255, the BOS
+              post-processor; nothing downloaded) and a
+              tokenizer_config.json whose chat_template holds
+              <|start_header_id|>. Exact checks: the port's encode of 200
+              seeded texts equals a naive reference BPE written here
+              (fd_reference) and their decode gives them back; the guessed
+              templates render the llama3 prompt byte for byte; over HTTP
+              /v1/tokenize gives the reference's ids (BOS twice: the
+              template's and the encode's, as the JAX server sends them;
+              the header specials); a chat forced to " hello" by
+              logit_bias comes back raw when streamed and cut / trimmed
+              when not, and with "echo" its prompt is the llama3 prompt; a
+              stream whose logit_bias pushes <|eot_id|> ends there,
+              finish "stop"; a completion and an edit answer; K1 = 32 x
+              decode steps and K2 = 32 x (packs + spec rounds) over those
+              requests. Printed: host ms to encode phase 3c's two-turn
+              chat (llama3-rendered) cold and warm, encode tokens/s, the
+              template render ms, and the TTFT of that chat through the
+              YAML path beside its rendered text (the same ids) through
+              ``run --model`` over the same engine (yaml, model, model,
+              yaml; every reusable row forgotten before each), in a
+              {"front_door": ...} line before the kernels line; each
+              kernel row's "launches_front_door_path" holds 3m's launches
+              and its "launches" adds them.
   3j. obs     observability at the defaults (trace and kv_audit on). In
               every configuration, right after phase 3's requests (each
               sent with an X-Correlation-ID), the engine idle
@@ -1476,6 +1511,14 @@ def http_stream(url: str, body: dict, timeout=600, cid: str = ""):
     return chunks, t_first, t_last
 
 
+def default_chat(messages: list) -> str:
+    """The chat prompt that ``run --model`` renders (the default config)."""
+    from localai_tpu_torch.api.chatflow import build_chat_prompt
+    from localai_tpu_torch.config.model_config import ModelConfig
+
+    return build_chat_prompt(ModelConfig(), messages)[0]
+
+
 def phase_timed(config: str, fn, *args):
     """fn(*args), its host wall time logged."""
     t = time.monotonic()
@@ -1490,7 +1533,6 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
     import torch
 
     from localai_tpu_torch.api.app import App, make_server
-    from localai_tpu_torch.api.openai_routes import render_chat
     from localai_tpu_torch.backend.runner import load_model
     from localai_tpu_torch.engine.engine import GenRequest
     from localai_tpu_torch.engine.sampling import SamplingParamsHost
@@ -1546,7 +1588,7 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
         # chat 2 sends the penalties and bans, by logit_bias -100, the first
         # token its prompt gets without them (an engine-level probe)
         probe = lm.engine.generate(GenRequest(
-            prompt_ids=lm.tokenizer.encode(render_chat(chats[2])),
+            prompt_ids=lm.tokenizer.encode(default_chat(chats[2])),
             max_new_tokens=1, params=SamplingParamsHost(temperature=0.0)))
         banned = [ev.token_id for ev in probe][0]
         penalized = {"presence_penalty": 0.5, "frequency_penalty": 0.5,
@@ -1697,7 +1739,7 @@ def serve(card: str, config: str, knobs: dict, must: tuple, must_not: tuple):
         obs = phase_timed(config, observability_checks, lm, base, config,
                           list(cids.values()))
         # phase 4's decode shape: the three greedy chats and the long one
-        prompt_lens = [len(lm.tokenizer.encode(render_chat(c))) for c in chats[:3]]
+        prompt_lens = [len(lm.tokenizer.encode(default_chat(c))) for c in chats[:3]]
         # the phases that measure plain bursts (3b-3h) run with speculation
         # off, on this engine and on every engine built from its config;
         # 3i turns it back on
@@ -2263,7 +2305,6 @@ def prefix_sequence(lm, eng, tag: str, config: str, trace: bool = False,
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from localai_tpu_torch.api.openai_routes import render_chat
     from localai_tpu_torch.backend import runner
     from localai_tpu_torch.engine.prefill_graph import n_finals
     from localai_tpu_torch.ops.kernels import LAUNCHES, reset_launches
@@ -2272,7 +2313,7 @@ def prefix_sequence(lm, eng, tag: str, config: str, trace: bool = False,
     greedy = {"ignore_eos": True, "temperature": 0}
     head = "Turn one of a chat about paged attention on one card. "
     user1 = (head * (TURN1_TOKENS // len(head) + 1))[:TURN1_TOKENS - len("user: ")]
-    p1 = tok.encode(render_chat([{"role": "user", "content": user1}]))
+    p1 = tok.encode(default_chat([{"role": "user", "content": user1}]))
     assert len(p1) == TURN1_TOKENS, len(p1)
 
     def run(req):
@@ -2342,7 +2383,7 @@ def prefix_sequence(lm, eng, tag: str, config: str, trace: bool = False,
         outs = []
         for i in range(UNRELATED):
             text = f"Request {i}: " + f"an unrelated question number {i * 37 + 11}. " * 20
-            ids = tok.encode(render_chat([{"role": "user",
+            ids = tok.encode(default_chat([{"role": "user",
                                            "content": text[:UNRELATED_TOKENS - 6]}]))
             outs.append(eng.submit(request(ids, UNRELATED_NEW)))
         t_end = time.monotonic() + 60
@@ -5587,6 +5628,471 @@ def obs_phase(lm, card: str, config: str) -> dict:
     return out
 
 
+# ---------- phase 3m: the front door (run --models-path) ----------
+
+FD_DIR = os.path.join(ROOT, "build", "chip_smoke", "front_door")
+FD_MODEL = "llama-3.1-8b-fd"        # the model dir the YAML names
+FD_NAME = "llama3"                  # the served name (the YAML's)
+FD_BOS, FD_HEADER, FD_END_HEADER, FD_EOT = 128000, 128006, 128007, 128009
+# Llama-3's split regex (meta-llama/Meta-Llama-3-8B's tokenizer.json)
+FD_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+"
+            r"|\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+FD_NAMED = {128000: "<|begin_of_text|>", 128001: "<|end_of_text|>",
+            128004: "<|finetune_right_pad_id|>", 128006: "<|start_header_id|>",
+            128007: "<|end_header_id|>", 128008: "<|eom_id|>",
+            128009: "<|eot_id|>", 128010: "<|python_tag|>"}
+# the first merges spell " hello" (its token is what 3m's forced output
+# is made of); the rest join two earlier tokens drawn from SEED
+FD_FIRST_MERGES = [("h", "e"), ("he", "l"), ("hel", "l"), ("hell", "o"),
+                   ("Ġ", "hello")]
+FD_YAML = f"""\
+# written by chip_smoke.py phase 3m: no templates (the llama3 family is
+# guessed from the tokenizer config), random weights from the seed
+name: {FD_NAME}
+parameters:
+  model: {FD_MODEL}
+  temperature: 0.7
+  top_p: 0.9
+  max_tokens: 16
+cutstrings: ["l+"]
+trimspace: [" "]
+options:
+  - random_weights={SEED}
+"""
+FD_TEXTS = 200
+FD_WORDS = ["the", "The", "paged", "attention", "card", "hello", "world",
+            "don't", "it's", "we'll", "I'M", "12345", "3.14", "2024-10-18",
+            "naïve", "café", "日本語", "नमस्ते", "😀", "²½Ⅻ", "é",
+            "  ", "\n", "\n\n", "\t", "...", "?!", "(x)", "<|eot_id|>",
+            "<|start_header_id|>"]
+
+
+def fd_byte_table() -> dict:
+    """GPT-2's byte -> printable character table (this phase's own)."""
+    bs = (list(range(ord("!"), ord("~") + 1)) + list(range(0xA1, 0xAD))
+          + list(range(0xAE, 0x100)))
+    cs, n = bs[:], 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return {b: chr(c) for b, c in zip(bs, cs)}
+
+
+def fd_vocab() -> tuple:
+    """(vocab, merges) of 128,256 entries: the 256 byte characters, 127,744
+    merges each joining two earlier tokens (letters and the space
+    character, a space only at a token's start, up to 12 characters;
+    drawn from SEED, earlier tokens likelier), the 256 specials at
+    128000-128255."""
+    import numpy as np
+
+    b2u = fd_byte_table()
+    vocab = {b2u[b]: b for b in range(256)}
+    merges = []
+    pool = [b2u[b] for b in b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ "]
+    for a, b in FD_FIRST_MERGES:
+        vocab[a + b] = len(vocab)
+        merges.append((a, b))
+        pool.append(a + b)
+    rng = np.random.default_rng(SEED)
+    n_merges = 128000 - 256
+    while len(merges) < n_merges:
+        u = rng.random((4096, 2)) ** 2
+        for ua, ub in u:
+            a, b = pool[int(ua * len(pool))], pool[int(ub * len(pool))]
+            m = a + b
+            if b[0] == "Ġ" or len(m) > 12 or m in vocab:
+                continue
+            vocab[m] = len(vocab)
+            merges.append((a, b))
+            pool.append(m)
+            if len(merges) == n_merges:
+                break
+    k = 0
+    for i in range(128000, 128256):
+        name = FD_NAMED.get(i)
+        if name is None:
+            name = f"<|reserved_special_token_{k}|>"
+            k += 1
+        vocab[name] = i
+    return vocab, merges
+
+
+def fd_write(vocab: dict, merges: list) -> str:
+    """The models dir: the YAML file, and the model dir with Llama-3.1-8B's
+    config.json, the tokenizer.json and a tokenizer_config.json whose
+    chat_template marks the llama3 family."""
+    models = os.path.join(FD_DIR, "models")
+    mdir = os.path.join(models, FD_MODEL)
+    os.makedirs(mdir, exist_ok=True)
+    with open(os.path.join(mdir, "config.json"), "w") as f:
+        json.dump(dict(LLAMA31_8B, eos_token_id=FD_EOT), f)
+    specials = [{"id": i, "content": s, "single_word": False, "lstrip": False,
+                 "rstrip": False, "normalized": False, "special": True}
+                for s, i in vocab.items() if i >= 128000]
+    bos = {"SpecialToken": {"id": FD_NAMED[FD_BOS], "type_id": 0}}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": specials, "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": FD_SPLIT},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True,
+             "trim_offsets": False, "use_regex": True},
+            {"type": "TemplateProcessing",
+             "single": [bos, {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [bos, {"Sequence": {"id": "A", "type_id": 0}}, bos,
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {FD_NAMED[FD_BOS]: {
+                 "id": FD_NAMED[FD_BOS], "ids": [FD_BOS],
+                 "tokens": [FD_NAMED[FD_BOS]]}}}]},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False,
+                  "ignore_merges": True,
+                  "vocab": {s: i for s, i in vocab.items() if i < 128000},
+                  "merges": [f"{a} {b}" for a, b in merges]}}
+    with open(os.path.join(mdir, "tokenizer.json"), "w") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    with open(os.path.join(mdir, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast",
+                   "bos_token": FD_NAMED[FD_BOS], "eos_token": FD_NAMED[FD_EOT],
+                   "clean_up_tokenization_spaces": False,
+                   "chat_template": "{% for m in messages %}<|start_header_id|>"
+                                    "{{ m['role'] }}<|end_header_id|>{% endfor %}"},
+                  f)
+    with open(os.path.join(models, f"{FD_NAME}.yaml"), "w") as f:
+        f.write(FD_YAML)
+    return models
+
+
+def fd_reference(vocab: dict, merges: list):
+    """A reference encoder written here, independent of the port's: the
+    specials split out leftmost-longest, Llama-3's split regex over
+    unicodedata's letter / number classes and Unicode White_Space, the
+    byte table, then the naive loop over all pairs (lowest rank, leftmost;
+    a word in the vocabulary whole stays whole), BOS first."""
+    import re
+    import unicodedata
+
+    def cls(major):
+        out, start = [], None
+        for c in range(sys.maxunicode + 2):
+            hit = c <= sys.maxunicode and unicodedata.category(chr(c))[0] == major
+            if hit and start is None:
+                start = c
+            elif not hit and start is not None:
+                out.append(f"\\U{start:08x}-\\U{c - 1:08x}")
+                start = None
+        return "".join(out)
+
+    L, N = cls("L"), cls("N")
+    ws = r"\t\n\x0b\x0c\r \x85\xa0\u1680\u2000-\u200a\u2028\u2029\u202f\u205f\u3000"
+    split = re.compile(
+        rf"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n{L}{N}]?[{L}]+|[{N}]{{1,3}}"
+        rf"| ?[^{ws}{L}{N}]+[\r\n]*|[{ws}]*[\r\n]+|[{ws}]+(?![^{ws}])|[{ws}]+")
+    specials = sorted((s for s, i in vocab.items() if i >= 128000),
+                      key=len, reverse=True)
+    ranks = {m: r for r, m in enumerate(merges)}
+    b2u = fd_byte_table()
+
+    def words(seg):
+        out, pos = [], 0
+        for m in split.finditer(seg):
+            if m.start() > pos:
+                out.append(seg[pos:m.start()])
+            out.append(m.group())
+            pos = m.end()
+        if pos < len(seg):
+            out.append(seg[pos:])
+        return out
+
+    def encode(text):
+        ids, i, plain = [FD_BOS], 0, ""
+        segs = []
+        while i < len(text):
+            hit = next((s for s in specials if text.startswith(s, i)), None)
+            if hit is None:
+                plain += text[i]
+                i += 1
+                continue
+            segs.append(plain)
+            segs.append(hit)
+            plain, i = "", i + len(hit)
+        segs.append(plain)
+        for seg in segs:
+            if seg in vocab and vocab[seg] >= 128000:
+                ids.append(vocab[seg])
+                continue
+            for w in words(seg):
+                mapped = "".join(b2u[b] for b in w.encode("utf-8"))
+                if mapped in vocab:
+                    ids.append(vocab[mapped])
+                    continue
+                parts = list(mapped)
+                while len(parts) > 1:
+                    r, k = min((ranks.get((parts[k], parts[k + 1]), 1 << 30), k)
+                               for k in range(len(parts) - 1))
+                    if r == 1 << 30:
+                        break
+                    parts[k:k + 2] = [parts[k] + parts[k + 1]]
+                ids.extend(vocab[p] for p in parts)
+        return ids
+
+    return encode
+
+
+def fd_texts() -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    return ["".join(FD_WORDS[int(i)] + (" " if rng.random() < 0.6 else "")
+                    for i in rng.integers(0, len(FD_WORDS),
+                                          size=int(rng.integers(1, 24))))
+            for _ in range(FD_TEXTS)]
+
+
+def fd_chat() -> list:
+    """The two-turn chat of phase 3c as messages: turn 1's user text, an
+    answer, turn two's question."""
+    head = "Turn one of a chat about paged attention on one card. "
+    user1 = (head * (TURN1_TOKENS // len(head) + 1))[:TURN1_TOKENS - len("user: ")]
+    return [{"role": "user", "content": user1},
+            {"role": "assistant", "content": "Pages of sixty-four rows each, "
+                                             "shared across turns."},
+            {"role": "user", "content": ("And what about turn two? " * 5)
+             [:TURN2_EXTRA - 7]}]
+
+
+def fd_llama3(messages: list) -> str:
+    """The llama3 family's templates rendered by hand: each message's
+    header, content and <|eot_id|>, joined by "\\n", inside the chat
+    template."""
+    body = "\n".join(f"<|start_header_id|>{m['role']}<|end_header_id|>\n\n"
+                     f"{m['content']}<|eot_id|>" for m in messages)
+    return ("<|begin_of_text|>" + body
+            + "<|start_header_id|>assistant<|end_header_id|>\n\n")
+
+
+def fd_cold(eng):
+    """Forget every row the engine could reuse: the device tier
+    (forget_retained) and the host tier its eviction fills (the offloads
+    waited for, then the store emptied)."""
+    on_engine_thread(eng, lambda: forget_retained(eng))
+    if eng._hstore is not None:
+        eng._offloader.join()
+        eng._hstore.clear()
+
+
+def front_door_phase(card: str) -> dict:
+    """Phase 3m (module doc): the JAX server's front door on the port."""
+    import re
+    import statistics
+
+    import torch
+
+    from localai_tpu_torch import cli
+    from localai_tpu_torch.api.app import App, make_server
+    from localai_tpu_torch.api.chatflow import build_chat_prompt
+    from localai_tpu_torch.engine.tokenizer import load_tokenizer
+    from localai_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    tag = "[front_door]"
+    t0 = time.monotonic()
+    vocab, merges = fd_vocab()
+    models = fd_write(vocab, merges)
+    ref = fd_reference(vocab, merges)
+    mdir = os.path.join(models, FD_MODEL)
+    t_tok = time.monotonic()
+    tok = load_tokenizer(mdir)
+    load_tok_s = time.monotonic() - t_tok
+    log(f"{tag} wrote {len(vocab)} entries ({len(merges)} merges) in "
+        f"{t_tok - t0:.1f} s; the port's tokenizer loads them in "
+        f"{load_tok_s:.2f} s")
+    texts = fd_texts()
+    for text in texts:
+        got = tok.encode(text)
+        if got != ref(text):
+            raise AssertionError(f"{tag} encode of {text!r}: {got} vs the "
+                                 f"reference {ref(text)}")
+        back = tok.decode(tok.encode(text, add_special_tokens=False),
+                          skip_special_tokens=False)
+        if back != text:
+            raise AssertionError(f"{tag} decode gave {back!r} for {text!r}")
+    n_merged = sum(len(ref(t)) < len(t.encode("utf-8")) + 1 for t in texts)
+    log(f"{tag} encode == the naive reference on {len(texts)} texts "
+        f"({n_merged} of them merged below one token per byte); decode "
+        f"gives each back")
+
+    # host costs on the engine's request path: the 3c chat, cold and warm
+    chat = fd_chat()
+    cold_tok = load_tokenizer(mdir)
+    prompt = fd_llama3(chat)
+    t = time.perf_counter()
+    ids_cold = cold_tok.encode(prompt)
+    cold_ms = (time.perf_counter() - t) * 1e3
+    warm = []
+    for _ in range(10):
+        t = time.perf_counter()
+        ids = cold_tok.encode(prompt)
+        warm.append((time.perf_counter() - t) * 1e3)
+    warm_ms = statistics.median(warm)
+    assert ids == ids_cold == ref(prompt)
+
+    args = cli.build_parser().parse_args(
+        ["run", "--models-path", models, "--device", DEV,
+         "--load-to-memory", FD_NAME])
+    t_load = time.monotonic()
+    app = cli.build_app(args)
+    load_s = time.monotonic() - t_load
+    lm = app.models[FD_NAME]
+    eng = lm.engine
+    mc = app.caps.configs[FD_NAME]
+    renders = []
+    for _ in range(20):
+        t = time.perf_counter()
+        rendered = build_chat_prompt(mc, chat)[0]
+        renders.append((time.perf_counter() - t) * 1e3)
+    if rendered != prompt:
+        raise AssertionError(f"{tag} the guessed llama3 templates rendered "
+                             f"{rendered[:200]!r}...")
+    render_ms = statistics.median(renders)
+    server = make_server(app, "127.0.0.1", 0)
+    plain = App({FD_MODEL: lm})           # run --model over the same engine
+    server2 = make_server(plain, "127.0.0.1", 0)
+    for s in (server, server2):
+        threading.Thread(target=s.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    base2 = f"http://127.0.0.1:{server2.server_address[1]}"
+    hello = vocab["Ġhello"]
+    try:
+        models_seen = http_json(base + "/v1/models")["data"]
+        assert [(m["id"], m["ready"]) for m in models_seen] == [(FD_NAME, True)]
+        m0 = eng.metrics()
+        torch.cuda.synchronize()
+        reset_launches()
+        msgs = chat[:2] + [{"role": "user", "content": "Say hello."}]
+        want_prompt = fd_llama3(msgs)
+        toks = http_json(base + "/v1/tokenize",
+                         {"model": FD_NAME, "content": want_prompt})["tokens"]
+        if (toks != ref(want_prompt) or toks[:2] != [FD_BOS, FD_BOS]
+                or toks.count(FD_HEADER) != len(msgs) + 1
+                or toks.count(FD_END_HEADER) != len(msgs) + 1
+                or toks.count(FD_EOT) != len(msgs)):
+            raise AssertionError(f"{tag} /v1/tokenize: {toks[:8]}...")
+        forced = {"temperature": 0, "max_tokens": 8, "ignore_eos": True,
+                  "logit_bias": {str(hello): 100}}
+        chunks, _t1, _t2 = http_stream(base + "/v1/chat/completions",
+                                       {"model": FD_NAME, "messages": msgs,
+                                        "stream": True, **forced})
+        raw = "".join(c["choices"][0]["delta"].get("content") or ""
+                      for c in chunks)
+        if chunks[-1]["usage"]["prompt_tokens"] != len(toks) or not \
+                raw.startswith(" hello"):
+            raise AssertionError(f"{tag} forced stream: {raw!r}, "
+                                 f"{chunks[-1]['usage']}")
+
+        def finetune(text):                 # the config's rules, by hand
+            return re.sub("l+", "", text).removeprefix(" ").strip()
+
+        body = http_json(base + "/v1/chat/completions",
+                         {"model": FD_NAME, "messages": msgs, **forced})
+        got = body["choices"][0]["message"]["content"]
+        if got != finetune(raw) or got == raw:
+            raise AssertionError(f"{tag} cutstrings / trimspace: {got!r} from "
+                                 f"{raw!r}")
+        echo = http_json(base + "/v1/chat/completions",
+                         {"model": FD_NAME, "messages": msgs, "echo": True,
+                          **forced})["choices"][0]["message"]["content"]
+        if echo != finetune(want_prompt + raw):
+            raise AssertionError(f"{tag} echo: {echo[:300]!r}")
+        eot, _a, _b = http_stream(base + "/v1/chat/completions",
+                                  {"model": FD_NAME, "messages": msgs,
+                                   "stream": True, "temperature": 0,
+                                   "logit_bias": {str(FD_EOT): 100}})
+        if (eot[-1]["choices"][0]["finish_reason"] != "stop" or any(
+                c["choices"][0]["delta"].get("content") for c in eot)):
+            raise AssertionError(f"{tag} the <|eot_id|> stream: {eot}")
+        comp = http_json(base + "/v1/completions",
+                         {"model": FD_NAME, "prompt": "The capital of France is",
+                          "max_tokens": 8, "ignore_eos": True})
+        edit = http_json(base + "/v1/edits",
+                         {"model": FD_NAME, "instruction": "Fix the spelling",
+                          "input": "teh cat sat", "max_tokens": 8,
+                          "ignore_eos": True})
+        if (comp["usage"]["completion_tokens"] != 8 or edit["object"] != "edit"
+                or edit["usage"]["completion_tokens"] != 8):
+            raise AssertionError(f"{tag} completion / edit: {comp} {edit}")
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        m1 = eng.metrics()
+        pk = {k: m1["packed_prefill"][k] - m0["packed_prefill"][k]
+              for k in ("dispatches", "tokens")}
+        dec = {k: m1["decode"][k] - m0["decode"][k]
+               for k in ("steps", "spec_rounds")}
+        n_layers = LLAMA31_8B["num_hidden_layers"]
+        if (launches["paged_decode_attention"] != n_layers * dec["steps"]
+                or launches["ragged_prefill_attention"]
+                != n_layers * (pk["dispatches"] + dec["spec_rounds"])
+                or not launches["paged_decode_attention"]
+                or not launches["ragged_prefill_attention"]):
+            raise AssertionError(f"{tag} launches {launches} over {dec} and "
+                                 f"{pk}")
+
+        # TTFT of the 3c chat: the YAML path (template, encode, config)
+        # against its rendered text through run --model (the same ids),
+        # on the same engine, its reusable rows forgotten before each
+        body_yaml = {"model": FD_NAME, "messages": chat, "stream": True,
+                     **forced, "max_tokens": 4}
+        body_plain = {"model": FD_MODEL, "prompt": prompt, "stream": True,
+                      **forced, "max_tokens": 4}
+        ttft = {"yaml": [], "model": []}
+        for way in ("yaml", "model", "model", "yaml"):
+            fd_cold(eng)
+            t = time.monotonic()
+            got_chunks, t_first, _ = http_stream(
+                (base + "/v1/chat/completions") if way == "yaml"
+                else (base2 + "/v1/completions"),
+                body_yaml if way == "yaml" else body_plain)
+            ttft[way].append(round((t_first - t) * 1e3, 3))
+            if got_chunks[-1]["usage"]["prompt_tokens"] != len(ids):
+                raise AssertionError(f"{tag} {way}: {got_chunks[-1]['usage']} "
+                                     f"vs {len(ids)} ids")
+    finally:
+        for s in (server, server2):
+            s.shutdown()
+            s.server_close()
+        app.shutdown()
+        del lm, eng, app, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"load_s": round(load_s, 2), "tokenizer_load_s": round(load_tok_s, 3),
+           "chat_tokens": len(ids), "chat_bytes": len(prompt.encode("utf-8")),
+           "encode_cold_ms": round(cold_ms, 3), "encode_warm_ms": round(warm_ms, 3),
+           "encode_tok_s_cold": round(len(ids) / cold_ms * 1e3, 1),
+           "encode_tok_s_warm": round(len(ids) / warm_ms * 1e3, 1),
+           "render_ms": round(render_ms, 4), "ttft_ms": ttft,
+           "texts": len(texts), "launches": {k: v for k, v in launches.items() if v},
+           "decode": dec, "packed": pk, "card": card}
+    log(f"{tag} {card}: the 3c chat ({len(ids)} tokens, "
+        f"{out['chat_bytes']} bytes) encoded cold {cold_ms:.3f} ms, warm "
+        f"{warm_ms:.3f} ms ({out['encode_tok_s_cold']:.0f} / "
+        f"{out['encode_tok_s_warm']:.0f} tokens/s); templates rendered in "
+        f"{render_ms:.4f} ms; loaded through the YAML in {load_s:.1f} s")
+    log(f"{tag} {card}: TTFT of the 3c chat, YAML path {ttft['yaml']} ms vs "
+        f"the same ids through run --model {ttft['model']} ms (order yaml, "
+        f"model, model, yaml)")
+    log(f"{tag} launches {json.dumps(out['launches'])} over {dec} and {pk}")
+    return out
+
+
 # ---------- phase 4 ----------
 
 def decode_cost(lengths, elt, cache_elt=None, scales=False, table=True):
@@ -5876,6 +6382,11 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
                  for c in shapes if shapes[c]["grammar"]}
         r["launches_grammar_path"] = gruns
         r["launches"] += gruns.get(r["config"], 0)
+        # the front door (phase 3m): paged, loaded through a YAML file
+        fruns = {c: shapes[c]["front_door"]["launches"].get(r["name"], 0)
+                 for c in shapes if shapes[c].get("front_door")}
+        r["launches_front_door_path"] = fruns
+        r["launches"] += fruns.get(r["config"], 0)
         r["max_abs_err"] = errs[r["name"]]
 
     # the CUDA kernels of one wrapper call, after every timing above (the
@@ -6166,6 +6677,9 @@ def main():
     for config, knobs, must, must_not in CONFIGS:
         launches[config], shapes[config] = serve(card, config, knobs, must,
                                                  must_not)
+    # phase 3m: the paged configuration again, loaded through a YAML file
+    shapes["paged"]["front_door"] = phase_timed("paged", front_door_phase,
+                                                card)
     Engine.shutdown = shutdown
     bad = [a for a in audits if a["violations"] or a["leaked_pages"]]
     log(f"[obs] drained audits after shutdown: {len(audits)} paged engines, "
@@ -6207,6 +6721,8 @@ def main():
     print(json.dumps({"grammar": {c: shapes[c]["grammar"] for c in shapes
                                   if shapes[c]["grammar"]},
                       "card": card}, default=str), flush=True)
+    print(json.dumps({"front_door": shapes["paged"]["front_door"],
+                      "card": card}), flush=True)
     print(json.dumps({"host_tier": {c: shapes[c]["host"] for c in shapes
                                     if shapes[c]["host"]},
                       "memory": {c: shapes[c]["memory"] for c in shapes},

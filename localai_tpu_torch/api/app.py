@@ -84,30 +84,46 @@ def serving_error_body(e: ServingError) -> dict:
 
 
 class App:
-    """The served models (name -> backend.runner.LoadedModel)."""
+    """The served models: a ``capabilities.Capabilities`` (``run
+    --models-path``: the scanned configs, each model loaded at its first
+    request), or fixed models (``run --model``: name ->
+    backend.runner.LoadedModel, each under a default model config)."""
 
-    def __init__(self, models: dict):
-        self.models = dict(models)
+    def __init__(self, models: Optional[dict] = None, caps=None):
+        from localai_tpu_torch.capabilities import Capabilities
+
+        self.caps = caps or Capabilities("", {}, load_model=None,
+                                         loaded=models or {})
         self.started_at = time.time()
 
-    def resolve(self, body: dict):
+    @property
+    def models(self) -> dict:
+        """The loaded models (name -> LoadedModel)."""
+        return self.caps.loaded
+
+    def resolve(self, body: dict) -> tuple:
+        """(served name, ModelConfig, LoadedModel) of a request's model:
+        the body's, else the only one configured or loaded. A name with
+        neither a config, a loaded model nor a model dir is a 404."""
         name = body.get("model") or ""
-        if not name and len(self.models) == 1:
-            name = next(iter(self.models))
+        known = self.caps.configs or self.models
+        if not name and len(known) == 1:
+            name = next(iter(known))
         if not name:
             raise ApiError("model is required")
-        lm = self.models.get(name)
-        if lm is None:
+        mc = self.caps.resolve(name)
+        if self.caps.load_model is None and name not in self.models:
             raise ApiError(f"model {name} not found", 404)
-        return name, lm
+        try:
+            return name, mc, self.caps.load(mc)
+        except FileNotFoundError as e:
+            raise ApiError(f"model {name} not found: {e}", 404) from e
 
     def shutdown(self):
         """Stop every engine and drop the models: the per-server handler
         class holds this App in a reference cycle, which only the cycle
         collector frees, and the weights must not wait for it."""
-        for lm in self.models.values():
-            lm.engine.shutdown()
-        self.models.clear()
+        self.caps.shutdown()
 
 
 def _handler(app: App):
@@ -119,7 +135,9 @@ def _handler(app: App):
     posts = {"/v1/chat/completions": routes.chat_completions,
              "/chat/completions": routes.chat_completions,
              "/v1/completions": routes.completions,
-             "/completions": routes.completions}
+             "/completions": routes.completions,
+             "/v1/edits": routes.edits, "/edits": routes.edits,
+             "/v1/tokenize": routes.tokenize}
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"

@@ -230,7 +230,7 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
                quantization: str = "", kv_offload=True,
                kv_host_pool_mb: int = 256, kv_host_store: str = "",
                draft="auto", n_draft=4, spec_ngram=3, draft_model: str = "",
-               **engine_knobs) -> LoadedModel:
+               tokenizer: str = "", **engine_knobs) -> LoadedModel:
     """Load a model dir into a started Engine on ``device``.
 
     ``random_weights`` (a seed) serves random weights for a dir that holds
@@ -255,6 +255,9 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
     Speculation: ``draft`` / ``n_draft`` / ``spec_ngram`` (``spec_options``);
     ``draft_model``'s dir is checked before loading (``draft_config``) and
     its weights loaded after the target's (``load_draft``).
+    ``tokenizer``: a dir whose tokenizer files stand for the model dir's
+    (the JAX ``tokenizer`` field). A tokenizer.json the port cannot read
+    raises before any weight is loaded.
     A GPTQ / AWQ dir with no quantization loads as int8."""
     dev = resolve_device(device)
     if dtype == "int8":
@@ -287,6 +290,7 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
     ecfg.kv_host_store_path = host_store_path(model_dir, kv_host_store)
     draft_dir = (draft_config(model_dir, draft_model, DTYPES[dtype],
                               random_weights) if draft_model else None)
+    tok = load_tokenizer(tokenizer or model_dir)
     with open(os.path.join(model_dir, "config.json")) as f:
         hf = json.load(f)
     cfg = LlamaConfig.from_hf_config(hf, dtype=DTYPES[dtype])
@@ -304,7 +308,6 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
     if draft_dir is not None:
         draft_pair = load_draft(*draft_dir, quantization, random_weights, dev,
                                 cfg.vocab_size)
-    tok = load_tokenizer(model_dir)
     engine = Engine(cfg, params, tok, ecfg, device=dev, draft=draft_pair).start()
     quantized = isinstance(params.get("embed"), dict)
     return LoadedModel(name or os.path.basename(os.path.normpath(model_dir)),
@@ -313,8 +316,16 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
 
 
 def build_request(lm: LoadedModel, prompt: str, overrides: dict,
-                  request_id: str = "") -> GenRequest:
-    """OpenAI-style overrides -> GenRequest (the JAX runner's mapping)."""
+                  request_id: str = "", mc=None) -> GenRequest:
+    """OpenAI-style overrides -> GenRequest (the JAX runner's mapping).
+    With a model config ``mc``, its defaults stand under the overrides
+    (capabilities.predict_overrides: parameters, max_tokens, stopwords).
+    The prompt is encoded as HF's ``encode`` does it, special tokens
+    included (the JAX runner's ``tokenizer.encode(prompt)``)."""
+    if mc is not None:
+        from localai_tpu_torch.capabilities import predict_overrides
+
+        overrides = predict_overrides(mc, overrides)
     o = overrides or {}
 
     def num(key, default, cast=float):

@@ -1,5 +1,16 @@
 """Command line (counterpart of localai_tpu/cli.py):
 
+    python -m localai_tpu_torch run --models-path DIR \\
+        [--address 127.0.0.1:8080] [--context-size 2048] \\
+        [--load-to-memory NAME ...] [--device cuda]
+
+serves every model a ``*.yaml`` file in DIR configures (the JAX server's
+front door: config/model_config.py::scan_models_dir, the guessed family
+templates, each model loaded at its first request; an unknown name is a
+model dir of that name under DIR with a default config; the serving knobs
+of a model are its config's fields and ``options``, ``random_weights=SEED``
+included: a flag of the ``--model`` form given here is refused), and
+
     python -m localai_tpu_torch run --model DIR --name NAME \\
         --address 127.0.0.1:8080 [--num-slots 8] [--context-size 2048] \\
         [--dtype bfloat16] [--quantization int8|int4] \\
@@ -19,13 +30,15 @@
         [--event-log-max-mb 64] [--peak-tflops 0] [--kv-audit on] \\
         [--random-weights SEED] [--device cuda]
 
-serves one model over the OpenAI-compatible HTTP routes, and /metrics
-and /debug/{trace,state,events,kv}, until interrupted.
+serves one model, set up by the flags, under a default model config.
+Either serves the OpenAI-compatible HTTP routes, and /metrics and
+/debug/{trace,state,events,kv}, until interrupted.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import logging
 import sys
 
@@ -33,9 +46,16 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="localai_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    r = sub.add_parser("run", help="serve one model over HTTP")
-    r.add_argument("--model", required=True, help="model dir (config.json + "
-                   "safetensors, or config.json only with --random-weights)")
+    r = sub.add_parser("run", help="serve models over HTTP")
+    src = r.add_mutually_exclusive_group(required=True)
+    src.add_argument("--models-path", default="",
+                     help="a dir of model YAML configs (and model dirs)")
+    src.add_argument("--model", default="", help="one model dir (config.json "
+                     "+ safetensors, or config.json only with "
+                     "--random-weights)")
+    r.add_argument("--load-to-memory", action="append", default=[],
+                   metavar="NAME", help="with --models-path: load this model "
+                   "at start rather than at its first request")
     r.add_argument("--name", default="", help="served model name")
     r.add_argument("--address", default="127.0.0.1:8080", help="host:port")
     r.add_argument("--num-slots", type=int, default=8)
@@ -140,14 +160,48 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    from localai_tpu_torch.api.app import App, make_server
+# what ``run --models-path`` reads; every other flag is the --model form's
+_MODELS_PATH_FLAGS = ("cmd", "models_path", "load_to_memory", "address",
+                      "context_size", "device")
+
+
+def model_form_error(args) -> str:
+    """The error for the flags of the ``--model`` form that ``args`` sets
+    (each differs from its default) beside ``--models-path``, which would
+    not read them ("" when there are none)."""
+    if not args.models_path:
+        return ""
+    defaults = vars(build_parser().parse_args(["run", "--models-path", "-"]))
+    stray = ["--" + k.replace("_", "-") for k, v in sorted(vars(args).items())
+             if k not in _MODELS_PATH_FLAGS and v != defaults.get(k)]
+    return stray and (f"{', '.join(stray)}: flags of the --model form; with "
+                      f"--models-path set them in each model's YAML (its "
+                      f"fields or options)") or ""
+
+
+def build_app(args):
+    """The App that ``run`` serves (``--models-path``: the scanned configs,
+    models loaded on demand; ``--model``: the one model, loaded now). A
+    flag of the ``--model`` form beside ``--models-path`` raises
+    ValueError: a model's settings are its YAML's there."""
+    from localai_tpu_torch.api.app import App
     from localai_tpu_torch.backend.runner import load_model
 
-    host, _, port = args.address.rpartition(":")
+    if args.models_path:
+        from localai_tpu_torch.capabilities import Capabilities
+        from localai_tpu_torch.config.model_config import scan_models_dir
+
+        err = model_form_error(args)
+        if err:
+            raise ValueError(err)
+        skipped = {}
+        configs = scan_models_dir(args.models_path, skipped)
+        caps = Capabilities(args.models_path, configs,
+                            functools.partial(load_model, device=args.device),
+                            context_size=args.context_size, skipped=skipped)
+        for name in args.load_to_memory:
+            caps.load(caps.resolve(name))
+        return App(caps=caps)
     lm = load_model(args.model, args.name, num_slots=args.num_slots,
                     context_size=args.context_size, dtype=args.dtype,
                     random_weights=args.random_weights, device=args.device,
@@ -180,10 +234,26 @@ def main(argv=None) -> int:
                     peak_tflops=args.peak_tflops, kv_audit=args.kv_audit,
                     draft=args.draft, n_draft=args.n_draft,
                     spec_ngram=args.spec_ngram, draft_model=args.draft_model)
-    app = App({lm.name: lm})
+    return App({lm.name: lm})
+
+
+def main(argv=None) -> int:
+    p = build_parser()
+    args = p.parse_args(argv)
+    err = model_form_error(args)
+    if err:
+        p.error(err)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    from localai_tpu_torch.api.app import make_server
+
+    host, _, port = args.address.rpartition(":")
+    app = build_app(args)
     server = make_server(app, host or "127.0.0.1", int(port))
-    logging.getLogger(__name__).info("serving %s on http://%s:%d", lm.name,
-                                     *server.server_address[:2])
+    logging.getLogger(__name__).info(
+        "serving %s on http://%s:%d",
+        ", ".join(sorted(set(app.caps.configs) | set(app.models))),
+        *server.server_address[:2])
     try:
         server.serve_forever()
     except KeyboardInterrupt:

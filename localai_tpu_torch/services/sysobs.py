@@ -336,6 +336,61 @@ class FlightRecorder:
                     "min_interval_s": self.min_interval_s}
 
 
+# the SLO classes and their spec parser (a copy of the JAX module's; the
+# model config validates the slo_* options with it, the SLO engine comes
+# with a later slice)
+SLO_CLASSES = ("high", "normal", "low")
+
+
+def parse_slo_classes(spec: str) -> dict:
+    """Parse a colon-separated per-class threshold spec into
+    {class: threshold_ms}. Accepted shapes (option values ride a
+    comma-joined wire, so colon is the list separator, as in
+    priority_weights):
+
+    * ``""``            -> {} (no objective declared)
+    * ``"500"``         -> the one threshold applies to every class
+    * ``"250:1000:5000"`` -> high:normal:low
+    * ``"high=250:low=5000"`` -> named subset; unnamed classes have no
+      objective
+
+    Raises ValueError on anything else so config validation can reject
+    typos at scan time instead of silently serving without SLOs."""
+    spec = (spec or "").strip()
+    if not spec:
+        return {}
+    parts = [p.strip() for p in spec.split(":") if p.strip()]
+    if not parts:
+        return {}
+
+    def _ms(v: str) -> float:
+        ms = float(v)
+        if not ms > 0:
+            raise ValueError(f"SLO threshold must be > 0 ms, got {v!r}")
+        return ms
+
+    if any("=" in p for p in parts):
+        out = {}
+        for p in parts:
+            if "=" not in p:
+                raise ValueError(
+                    f"mixed named and positional SLO classes in {spec!r}")
+            k, v = (x.strip() for x in p.split("=", 1))
+            if k not in SLO_CLASSES:
+                raise ValueError(
+                    f"unknown SLO class {k!r} (want one of {SLO_CLASSES})")
+            out[k] = _ms(v)
+        return out
+    if len(parts) == 1:
+        ms = _ms(parts[0])
+        return {c: ms for c in SLO_CLASSES}
+    if len(parts) == len(SLO_CLASSES):
+        return {c: _ms(p) for c, p in zip(SLO_CLASSES, parts)}
+    raise ValueError(
+        f"SLO spec {spec!r} must have 1 or {len(SLO_CLASSES)} "
+        f"(high:normal:low) colon-separated values, got {len(parts)}")
+
+
 def device_memory_stats(device=None) -> dict:
     """The card's allocator counters from ``torch.cuda.memory_stats``:
     bytes_in_use (allocated now), peak_bytes_in_use (its high-water

@@ -30,6 +30,8 @@ cases of tests/test_chaos.py.
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 import threading
 import time

@@ -18,6 +18,8 @@ over the tiny f32 checkpoint (tests/tinymodel.py).
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 import logging
 import socket

@@ -27,6 +27,8 @@ the rows whose KV write ran.
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 import os
 

@@ -32,6 +32,8 @@ in another order.
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 
 import jax.numpy as jnp

@@ -43,6 +43,8 @@ sync guard. On the card's machine (no JAX):
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import threading
 
 import numpy as np

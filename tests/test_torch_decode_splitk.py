@@ -18,6 +18,8 @@ contract for float32 attention summed in another order).
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import math
 
 import jax.numpy as jnp

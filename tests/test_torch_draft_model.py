@@ -38,6 +38,8 @@ layer; and the target as its own draft):
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 import os
 import threading

@@ -23,6 +23,8 @@ JAX package's tests/test_emitter.py over the f32 model of its spec tests:
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import threading
 import time
 

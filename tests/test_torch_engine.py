@@ -17,6 +17,8 @@ plus the port's packaging rules.
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 import os
 import subprocess
@@ -235,7 +237,20 @@ assert {"localai_tpu_torch.services.errors", "localai_tpu_torch.services.faults"
         "localai_tpu_torch.functions.grammars.gbnf",
         "localai_tpu_torch.functions.grammars.automaton",
         "localai_tpu_torch.functions.grammars.native",
-        "localai_tpu_torch.functions.grammars.json_schema"} <= set(names), names
+        "localai_tpu_torch.functions.grammars.json_schema",
+        "localai_tpu_torch.engine.bpe", "localai_tpu_torch.engine.gguf_tokenizer",
+        "localai_tpu_torch.config.yaml_lite",
+        "localai_tpu_torch.config.model_config",
+        "localai_tpu_torch.config.guesser",
+        "localai_tpu_torch.templates.jinja_lite",
+        "localai_tpu_torch.templates.prompts",
+        "localai_tpu_torch.api.chatflow",
+        "localai_tpu_torch.capabilities"} <= set(names), names
+# the card's machine has none of these: the front door reads its
+# tokenizers, YAML configs and templates without them
+absent = sorted(k for k in sys.modules if k.split(".")[0] in (
+    "yaml", "jinja2", "tokenizers", "transformers"))
+assert not absent, absent
 assert "localai_tpu_torch.engine.speculative" in sys.modules
 assert "localai_tpu_torch.engine.emitter" in sys.modules
 """

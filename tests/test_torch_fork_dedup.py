@@ -23,6 +23,8 @@ one with kv_offload off and no draft).
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 import os
 import time

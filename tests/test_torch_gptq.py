@@ -13,6 +13,8 @@ dir loads through the port's ``load_llama_params`` to the same int8
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 import os
 

@@ -28,6 +28,8 @@ against the JAX package, on the CPU, over the tiny f32 checkpoint
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 import os
 import re

@@ -33,6 +33,8 @@ tolerances hold.
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import pytest
 import torch
 

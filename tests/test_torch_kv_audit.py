@@ -15,6 +15,8 @@ tampered byte accounting, children maps and bit rot as the JAX one does.
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import random
 
 import numpy as np

@@ -30,6 +30,8 @@ test); logits atol 2e-4 / rtol 2e-3 (tests/test_torch_llama.py).
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 import os
 

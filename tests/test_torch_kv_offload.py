@@ -14,6 +14,8 @@ uint16 bit patterns (numpy has no bfloat16).
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import os
 
 import jax

@@ -14,6 +14,8 @@ JAX package, on the CPU, on the tests/tinymodel.py checkpoint (hidden
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 import os
 

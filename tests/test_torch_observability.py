@@ -20,6 +20,8 @@ same labels and values. The routes: Prometheus content type, ?last=N, a
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import glob
 import json
 import os

@@ -25,6 +25,8 @@ interpret-mode tests use.
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import dataclasses
 
 import jax.numpy as jnp

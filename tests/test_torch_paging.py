@@ -19,6 +19,8 @@ compared exactly).
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import numpy as np
 import pytest
 import torch

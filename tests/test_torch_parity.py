@@ -17,6 +17,8 @@ catches real math divergences (RoPE layout, GQA grouping, gelu variant,
 mel filterbank) while riding out accumulation-order noise.
 """
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 import os
 

@@ -27,6 +27,8 @@ finishes in burst N has already ridden burst N+1 here too.
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 import os
 

@@ -33,6 +33,8 @@ only the CPU tests import):
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 import os
 

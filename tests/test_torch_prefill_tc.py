@@ -20,6 +20,8 @@ multiple of any tile.
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import math
 
 import numpy as np

@@ -19,6 +19,8 @@ unrelated traffic, a shared prefix, a divergence) on the port with
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import jax.numpy as jnp
 import pytest
 import torch

@@ -20,6 +20,8 @@ its arithmetic.
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import inspect
 
 import numpy as np

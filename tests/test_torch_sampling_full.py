@@ -26,6 +26,8 @@ under the same seed and carry mu across bursts.
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 import math
 import os

@@ -14,9 +14,25 @@ server answers it, and a bad request a 400 / 404; tools / functions that
 survive tool_choice are answered with tool calls (the grammar the route
 builds from them forces the call), streamed and not, while tool_choice
 "none" is served as a plain chat, as the JAX route serves it.
+
+The JAX server's front door (``run --models-path``, ``served_dir``): a
+models dir with three YAML files over one checkpoint of the tiny widths
+with a 320-entry Llama-3-form vocabulary with merges, served by the
+port and read by the JAX config module beside a JAX Engine over the same
+weights and HF's tokenizer: the guessed llama3 prompt and its ids (BOS
+twice, as the JAX server sends it), greedy chat / completion / edit text
+equal to the JAX server's, post-processed (cutstrings, trimspace,
+trimsuffix) when not streamed and raw when streamed, echo, tokenize,
+/v1/models over the configs, the config's stopwords and the tokenizer's
+eos stopping streams as the JAX Engine stops them, settings of
+unported modules refused by name, a config skipped at scan (a template
+outside the port's renderer's subset) answered with its error, and the
+``--model`` form's flags refused beside ``--models-path``.
 """
 
 from __future__ import annotations
+
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
 
 import dataclasses
 import json
@@ -134,14 +150,15 @@ def test_completions_greedy_text_matches_jax(served, stream):
 @pytest.mark.parametrize("stream", [False, True])
 def test_chat_greedy_text_matches_jax(served, stream):
     from localai_tpu.templates import prompts as T
-    from localai_tpu_torch.api.openai_routes import render_chat
+    from localai_tpu_torch.api.chatflow import build_chat_prompt
+    from localai_tpu_torch.config.model_config import ModelConfig
 
     base, lm, je, hf_tok = served
     rendered = "\n".join(
         T.render_chat_message(T.DEFAULT_CHAT_MESSAGE, T.ChatMessageData(
             role=m["role"], role_name=m["role"], content=m["content"]))
         for m in MESSAGES)
-    assert render_chat(MESSAGES) == rendered
+    assert build_chat_prompt(ModelConfig(), MESSAGES)[0] == rendered
     body = {"model": "tiny", "messages": MESSAGES, "max_tokens": 10,
             "temperature": 0, "ignore_eos": True, "stream": stream}
     status, raw = _post(base + "/v1/chat/completions", body)
@@ -175,7 +192,8 @@ def test_echo_prepends_the_prompt_as_the_jax_runner(served, route, stream):
     text without the prompt."""
     from localai_tpu.backend import contract_pb2 as pb
     from localai_tpu.backend.fake import FakeServicer
-    from localai_tpu_torch.api.openai_routes import render_chat
+    from localai_tpu_torch.api.chatflow import build_chat_prompt
+    from localai_tpu_torch.config.model_config import ModelConfig
 
     base, _lm, je, hf_tok = served
     fake = FakeServicer()
@@ -186,7 +204,7 @@ def test_echo_prepends_the_prompt_as_the_jax_runner(served, route, stream):
     body = {"model": "tiny", "max_tokens": 8, "temperature": 0,
             "ignore_eos": True, "stream": stream, "echo": True}
     if route == "chat":
-        prompt = render_chat(MESSAGES)
+        prompt = build_chat_prompt(ModelConfig(), MESSAGES)[0]
         status, raw = _post(base + "/v1/chat/completions",
                             {**body, "messages": MESSAGES})
     else:
@@ -339,7 +357,8 @@ def test_tool_choice_none_is_served_as_the_jax_route(served, choice):
     """tool_choice / function_call "none": the tools are declared but must
     not be called, so the JAX route drops them and answers as a plain
     chat; the port gives the JAX Engine's greedy text."""
-    from localai_tpu_torch.api.openai_routes import render_chat
+    from localai_tpu_torch.api.chatflow import build_chat_prompt
+    from localai_tpu_torch.config.model_config import ModelConfig
 
     base, lm, je, hf_tok = served
     key = "tools" if "tool_choice" in choice else "functions"
@@ -353,7 +372,7 @@ def test_tool_choice_none_is_served_as_the_jax_route(served, choice):
     out = json.loads(raw)
     assert out["choices"][0]["finish_reason"] == "length"
     assert out["choices"][0]["message"]["content"] == _jax_text(
-        je, hf_tok, render_chat(MESSAGES), 6)
+        je, hf_tok, build_chat_prompt(ModelConfig(), MESSAGES)[0], 6)
 
 
 def test_app_shutdown_frees_the_model_without_the_cycle_collector(tmp_path):
@@ -391,3 +410,291 @@ def test_app_shutdown_frees_the_model_without_the_cycle_collector(tmp_path):
         assert weights() is None
     finally:
         gc.enable()
+
+
+# ---- the JAX server's front door: run --models-path ----
+
+# the tiny checkpoint's widths with room for a Llama-3-form vocabulary
+# with merges: the 256 byte characters, its 5 specials, 59 merges
+TINY3_VOCAB = 320
+TINY3_YAML = """\
+name: tiny3
+parameters:
+  model: tiny3
+  temperature: 0
+  max_tokens: 12
+dtype: float32
+kv_cache_dtype: float32
+context_size: 256
+num_slots: 4
+cutstrings: ["[aeiou]"]
+trimspace: [" "]
+trimsuffix: ["."]
+options:
+  - draft=0
+  - kv_offload=0
+  - kv_prefix_cache=0
+  - prefill_chunk=16
+  - kv_page_size=16
+"""
+STOP_YAML = """\
+name: tiny3stop
+parameters: {model: tiny3, temperature: 0, max_tokens: 24}
+dtype: float32
+kv_cache_dtype: float32
+context_size: 256
+stopwords: ["ZZ"]
+options: [draft=0, kv_offload=0, kv_prefix_cache=0]
+"""
+# a template outside the port's renderer's subset ({% set %}; the JAX
+# server's jinja2 compiles it), over a model dir of the config's name
+SET_YAML = """\
+name: tiny3set
+dtype: float32
+kv_cache_dtype: float32
+context_size: 256
+template:
+  chat: "{% set sys = 'x' %}{{ sys }}{{ Input }}"
+options: [draft=0, kv_offload=0, kv_prefix_cache=0]
+"""
+
+
+@pytest.fixture(scope="module")
+def served_dir(tmp_path_factory):
+    """A models dir (two YAML files over one Llama-3-form checkpoint)
+    served by the port's ``run --models-path`` on the CPU, beside the JAX
+    package's configs of the same dir and a JAX Engine over the same
+    weights and HF's tokenizer."""
+    import os
+
+    import jax
+    from transformers import AutoTokenizer
+
+    from localai_tpu.config import model_config as jmc
+    from localai_tpu_torch import cli
+    from localai_tpu_torch.api.app import make_server
+    from tests.test_torch_tokenizer_bpe import write_byte_level
+    from tests.tinymodel import TINY_HF_CONFIG
+
+    root = str(tmp_path_factory.mktemp("models_path"))
+    d = os.path.join(root, "tiny3")
+    os.makedirs(d)
+    hf = dict(TINY_HF_CONFIG, vocab_size=TINY3_VOCAB, bos_token_id=0,
+              eos_token_id=4)
+    jcfg = jllama.LlamaConfig.from_hf_config(hf, dtype=jnp.float32)
+    jweights.save_llama_params(jllama.init_params(jcfg, jax.random.PRNGKey(3)),
+                               jcfg, d)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(hf, f)
+    write_byte_level(d, vocab=TINY3_VOCAB)
+    with open(os.path.join(root, "tiny3.yaml"), "w") as f:
+        f.write(TINY3_YAML)
+    with open(os.path.join(root, "tiny3stop.yaml"), "w") as f:
+        f.write(STOP_YAML)
+    with open(os.path.join(root, "tiny3set.yaml"), "w") as f:
+        f.write(SET_YAML)
+    os.symlink(d, os.path.join(root, "tiny3set"))
+    args = cli.build_parser().parse_args(
+        ["run", "--models-path", root, "--device", "cpu"])
+    app = cli.build_app(args)
+    server = make_server(app, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    hf_tok = AutoTokenizer.from_pretrained(d)
+    jparams = jweights.load_llama_params(d, jcfg, dtype=jnp.float32)
+    je = jeng.Engine(jcfg, jparams, hf_tok, jeng.EngineConfig(
+        num_slots=4, max_context=256, prefill_buckets=(16,), prefill_chunk=16,
+        cache_dtype=jnp.float32, kv_layout="paged", kv_page_size=16,
+        kv_prefix_cache=False, kv_offload=False, draft="0"))
+    je.start()
+    yield (f"http://127.0.0.1:{server.server_address[1]}", app,
+           jmc.scan_models_dir(root), je, hf_tok)
+    server.shutdown()
+    server.server_close()
+    app.shutdown()
+    je.shutdown()
+
+
+def _jax_served(je, hf_tok, mc, prompt: str, overrides: dict) -> tuple:
+    """What the JAX server answers: (raw text, finish) of its engine over
+    HF's ids of the prompt, the config's parameters under the overrides
+    and its stopwords (capabilities.build_predict_options)."""
+    ids = hf_tok.encode(prompt)
+    text, evs = je.generate_text(jeng.GenRequest(
+        prompt_ids=ids, params=mc.sampling_host(overrides),
+        max_new_tokens=int(overrides.get("max_tokens")
+                           or mc.parameters.max_tokens or 256),
+        stop_sequences=list(overrides.get("stop") or mc.stopwords),
+        ignore_eos=bool(overrides.get("ignore_eos", False))))
+    return text, evs[-1].finish_reason
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_models_path_chat_equals_the_jax_server(served_dir, stream):
+    """The guessed llama3 templates render the JAX prompt byte for byte;
+    the port's ids hold the header specials and equal HF's; the greedy
+    text equals the JAX Engine's, post-processed (cutstrings, trimspace,
+    trimsuffix) when not streamed, raw when streamed, as the JAX server
+    answers."""
+    from localai_tpu.api.chatflow import build_chat_prompt as jbuild
+    from localai_tpu.capabilities import finetune_response as jfinetune
+
+    base, app, jconfigs, je, hf_tok = served_dir
+    mc = jconfigs["tiny3"]
+    prompt = jbuild(mc, MESSAGES)[0]
+    assert prompt.startswith("<|begin_of_text|><|start_header_id|>system"
+                             "<|end_header_id|>\n\nBe brief.<|eot_id|>")
+    status, raw = _post(base + "/v1/chat/completions",
+                        {"model": "tiny3", "messages": MESSAGES,
+                         "ignore_eos": True, "stream": stream})
+    assert status == 200
+    text, _finish = _jax_served(je, hf_tok, mc, prompt, {"ignore_eos": True})
+    if stream:
+        chunks = _sse(raw)
+        got = "".join(c["choices"][0]["delta"].get("content") or ""
+                      for c in chunks)
+        assert got == text
+        usage = chunks[-1]["usage"]
+    else:
+        body = json.loads(raw)
+        assert body["choices"][0]["message"]["content"] == jfinetune(mc, text)
+        usage = body["usage"]
+    ids = hf_tok.encode(prompt)
+    assert usage["prompt_tokens"] == len(ids)
+    lm = app.models["tiny3"]
+    assert lm.tokenizer.encode(prompt) == ids
+    header = hf_tok.convert_tokens_to_ids("<|start_header_id|>")
+    # HF's encode adds a BOS to the template's own: the JAX server sends both
+    assert ids[:3] == [0, 0, header] and ids.count(header) == 3
+
+
+def test_models_path_echo_tokenize_and_models(served_dir):
+    from localai_tpu.api.chatflow import build_chat_prompt as jbuild
+    from localai_tpu.capabilities import finetune_response as jfinetune
+
+    base, app, jconfigs, je, hf_tok = served_dir
+    mc = jconfigs["tiny3"]
+    prompt = jbuild(mc, MESSAGES)[0]
+    _s, raw = _post(base + "/v1/chat/completions",
+                    {"model": "tiny3", "messages": MESSAGES, "echo": True,
+                     "max_tokens": 6, "ignore_eos": True})
+    text, _f = _jax_served(je, hf_tok, mc, prompt,
+                           {"max_tokens": 6, "ignore_eos": True})
+    assert (json.loads(raw)["choices"][0]["message"]["content"]
+            == jfinetune(mc, prompt + text))
+    _s, raw = _post(base + "/v1/tokenize", {"model": "tiny3", "content": prompt})
+    assert json.loads(raw) == {"tokens": hf_tok.encode(prompt)}
+    with urllib.request.urlopen(base + "/v1/models", timeout=60) as r:
+        models = {m["id"]: m["ready"] for m in json.loads(r.read())["data"]}
+    assert set(models) == {"tiny3", "tiny3stop"} and models["tiny3"]
+
+
+def test_models_path_completion_and_edit_equal_the_jax_server(served_dir):
+    from localai_tpu.capabilities import finetune_response as jfinetune
+
+    base, app, jconfigs, je, hf_tok = served_dir
+    mc = jconfigs["tiny3"]
+    _s, raw = _post(base + "/v1/completions",
+                    {"model": "tiny3", "prompt": PROMPT, "ignore_eos": True})
+    text, _f = _jax_served(je, hf_tok, mc, PROMPT, {"ignore_eos": True})
+    assert json.loads(raw)["choices"][0]["text"] == jfinetune(mc, text)
+    body = {"model": "tiny3", "instruction": "Fix the spelling",
+            "input": "teh cat", "max_tokens": 8, "ignore_eos": True}
+    _s, raw = _post(base + "/v1/edits", body)
+    got = json.loads(raw)
+    text, _f = _jax_served(je, hf_tok, mc, "Fix the spelling\n\nteh cat",
+                           {"max_tokens": 8, "ignore_eos": True})
+    assert got["object"] == "edit"
+    assert got["choices"][0]["text"] == jfinetune(mc, text)
+    assert got["usage"]["completion_tokens"] == 8
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_models_path_stopwords_and_eos_stop_as_the_jax_server(served_dir, stream):
+    """A logit_bias that pushes "Z" stops at the config's stopword "ZZ";
+    one that pushes <|eot_id|> (the tokenizer's eos) ends the stream
+    there with finish "stop"."""
+    base, app, jconfigs, je, hf_tok = served_dir
+    z = hf_tok.convert_tokens_to_ids("Z")
+    eot = hf_tok.convert_tokens_to_ids("<|eot_id|>")
+    for name, bias in (("tiny3stop", {str(z): 100.0}),
+                       ("tiny3", {str(eot): 100.0})):
+        mc = jconfigs[name]
+        body = {"model": name, "prompt": PROMPT, "logit_bias": bias,
+                "stream": stream}
+        _s, raw = _post(base + "/v1/completions", body)
+        if stream:
+            chunks = _sse(raw)
+            got = "".join(c["choices"][0]["text"] for c in chunks)
+            finish = chunks[-1]["choices"][0]["finish_reason"]
+        else:
+            choice = json.loads(raw)["choices"][0]
+            got, finish = choice["text"], choice["finish_reason"]
+        text, jfinish = _jax_served(je, hf_tok, mc, PROMPT,
+                                    {"logit_bias": {int(k): v
+                                                    for k, v in bias.items()}})
+        assert finish == jfinish == "stop"
+        if name == "tiny3stop":
+            assert got == text and "ZZ" not in got
+        else:
+            assert text == "" and got == ""
+
+
+def test_models_path_refuses_unported_settings_and_unknown_models(served_dir):
+    from localai_tpu_torch.capabilities import unported_settings
+    from localai_tpu_torch.config.model_config import ModelConfig
+
+    base, app, *_ = served_dir
+    mc = ModelConfig(name="v", mmproj="proj.gguf", lora_adapter="a",
+                     options=["slo_ttft_ms=500", "engines=2"])
+    problems = " ".join(unported_settings(mc))
+    for later in ("item 10", "item 8", "item 9", "item 11"):
+        assert later in problems
+    app.caps.configs["v"] = mc
+    try:
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _post(base + "/v1/completions", {"model": "v", "prompt": "x"})
+        assert ei.value.code == 500
+        assert "item 10" in json.loads(ei.value.read())["error"]["message"]
+    finally:
+        del app.caps.configs["v"]
+    assert "v" not in app.models
+    with pytest.raises(urllib.error.HTTPError) as ei:
+        _post(base + "/v1/completions", {"model": "nope", "prompt": "x"})
+    assert ei.value.code == 404
+
+
+def test_models_path_answers_a_skipped_config_with_its_error(served_dir):
+    """A config whose template is outside the port's renderer's subset is
+    skipped at scan (the JAX server, whose jinja2 compiles it, serves
+    it); a request for its name answers with the template error, never
+    with an on-the-fly default config over the model dir of that name."""
+    base, app, jconfigs, *_ = served_dir
+    assert "tiny3set" in jconfigs and "tiny3set" not in app.caps.configs
+    for path, body in (("/v1/chat/completions", {"messages": MESSAGES}),
+                       ("/v1/completions", {"prompt": PROMPT})):
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _post(base + path, {"model": "tiny3set", "max_tokens": 2, **body})
+        assert ei.value.code == 500
+        msg = json.loads(ei.value.read())["error"]["message"]
+        assert "tiny3set.yaml" in msg and "{% set %}" in msg
+    assert "tiny3set" not in app.models
+
+
+@pytest.mark.parametrize("flags", [
+    ["--random-weights", "1"], ["--num-slots", "4", "--dtype", "float32"],
+    ["--name", "x"], ["--kv-offload", "0"], ["--draft", "0"]])
+def test_models_path_refuses_flags_of_the_model_form(tmp_path, flags):
+    """``run --models-path`` reads a model's settings from its YAML: a flag
+    of the ``--model`` form beside it is refused, never dropped."""
+    from localai_tpu_torch import cli
+
+    p = cli.build_parser()
+    args = p.parse_args(["run", "--models-path", str(tmp_path), *flags])
+    with pytest.raises(ValueError, match=flags[0]):
+        cli.build_app(args)
+    with pytest.raises(SystemExit) as ei:
+        cli.main(["run", "--models-path", str(tmp_path), *flags])
+    assert ei.value.code == 2
+    ok = p.parse_args(["run", "--models-path", str(tmp_path), "--device",
+                       "cpu", "--context-size", "512", "--address", ":0"])
+    assert cli.model_form_error(ok) == ""

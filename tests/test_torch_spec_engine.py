@@ -33,6 +33,8 @@ checkpoint, and the ``_cfg()`` model of the JAX package's spec tests):
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 import os
 

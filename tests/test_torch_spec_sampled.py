@@ -26,6 +26,8 @@ spec round) against the JAX package, on the CPU:
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -23,6 +23,8 @@ all_logits, engine/decode_graph.py::spec_body):
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 import os
 

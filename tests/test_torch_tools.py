@@ -19,6 +19,8 @@ f32 checkpoint, against the JAX route and the JAX Engine.
 
 from __future__ import annotations
 
+import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
+
 import json
 import threading
 import urllib.request
@@ -30,8 +32,10 @@ from localai_tpu.engine import engine as jeng
 from localai_tpu.engine import sampling as jsamp
 from localai_tpu.functions import parse as jparse
 from localai_tpu.functions.grammars import json_schema as jjs
-from localai_tpu_torch.api.openai_routes import (_functions_from, _tool_grammar,
-                                                 render_chat)
+from localai_tpu_torch.api.chatflow import build_chat_prompt
+from localai_tpu_torch.api.openai_routes import _functions_from, _tool_grammar
+from localai_tpu_torch.config.model_config import ModelConfig
+from localai_tpu_torch.functions.parse import FunctionsConfig
 from tests.test_torch_grammar import jax_engine, tiny  # noqa: F401  (fixture)
 
 CITY = {"type": "object", "properties": {"city": {"enum": ["sf", "nyc"]}},
@@ -83,7 +87,7 @@ def jax_route_grammar(body: dict) -> str:
 @pytest.mark.parametrize("case", sorted(ROUTE_CASES))
 def test_route_grammar_equals_the_jax_route(case):
     body = {"messages": MESSAGES, **ROUTE_CASES[case]}
-    got = _tool_grammar(body, _functions_from(body))
+    got = _tool_grammar(body, _functions_from(body), FunctionsConfig())
     assert got == jax_route_grammar(body)
     assert bool(got) == (case not in ("own_grammar", "none"))
 
@@ -179,7 +183,8 @@ def test_greedy_tool_call_equals_the_jax_engine(served, tiny, stream):  # noqa: 
                     kv_page_size=ec.kv_page_size)
     try:
         text, _evs = je.generate_text(jeng.GenRequest(
-            prompt_ids=tiny["hf_tok"].encode(render_chat(MESSAGES)),
+            prompt_ids=tiny["hf_tok"].encode(
+                build_chat_prompt(ModelConfig(), MESSAGES)[0]),
             max_new_tokens=96, grammar=jax_route_grammar(body),
             params=jsamp.SamplingParamsHost(temperature=0.0)))
     finally:
