@@ -235,9 +235,17 @@ Phases, each raising on failure (no phase swallows an error):
               engine runs turn 1 and the wave with kv_host_store_path
               set (under the git-ignored build/) and saves at shutdown;
               a fresh engine loads the file and serves turn 2 alone:
-              it restores all 24 pages, with evict-all's tokens. A
-              {"host_tier": ...} JSON line before the kernels line holds
-              it all, with every configuration's memory after load.
+              it restores all 24 pages, with evict-all's tokens. (d) the
+              host-tier race arrangement (race_counts, host tier on; 3f
+              runs it with the tier off): on an engine of its own with a
+              20-page pool and the emitter on, turn 1 (280 tokens), a
+              wave of four each submitted once the one before has its
+              first token, turn 2, a second wave, turn 3; the rows turns
+              2 and 3 reused are printed (the order of a release and the
+              next admission is the card's timing, with the loop's
+              top-of-tick drain in place). A {"host_tier": ...} JSON line
+              before the kernels line holds it all, with every
+              configuration's memory after load.
   3e. shift   for paged and w8kv8, right after 3g on the same loaded
               model (shift_phase): context shift at Llama-3.1-8B width and
               depth. A second engine over the same weights (context 1024,
@@ -277,7 +285,8 @@ Phases, each raising on failure (no phase swallows an error):
               sibling's tokens equal the leader's or its first-token
               logits lie within 2e-2 relative L2 of the leader's (the
               count is printed); both groups' TTFT and the packs' device
-              ms (CUDA events). A {"pipeline": ...} JSON line before the
+              ms (CUDA events). (d) 3g (d)'s race arrangement with the
+              host tier off. A {"pipeline": ...} JSON line before the
               kernels line holds it all.
   3h. lifecycle for paged and w8kv8, right after 3f on the same loaded
               model (lifecycle_phase): admission control, deadlines, the
@@ -324,10 +333,10 @@ Phases, each raising on failure (no phase swallows an error):
               seeded sampled rows (rejection-sampled acceptance); and 16
               seeded sampled requests x 48 tokens with speculation against
               draft "0": a two-sample chi-square over the token counts, p
-              > 0.01 (one law; fixed seeds). (b) 8 greedy requests x 256
-              tokens admitted together, speculation off then on, on two
-              prompt sets: one phrase repeated (repetitive) and seeded
-              random ids: decode tok/s (host clock), ms per tick and per
+              > 0.01 (one law; fixed seeds). (b) 8 greedy requests x
+              SPEC_TOKENS (128) tokens admitted together, speculation
+              off then on, on two prompt sets: one phrase repeated
+              (repetitive) and seeded random ids: decode tok/s (host clock), ms per tick and per
               round or step, acceptance_rate and accept_per_dispatch, the
               share of identical tokens and the first divergence per
               request (bf16: not a byte gate); one spec tick of the
@@ -362,12 +371,14 @@ Phases, each raising on failure (no phase swallows an error):
               chi-square against draft "0" (p > 0.01). (b) The 1B draft
               (LLAMA32_1B: Llama-3.2-1B's published widths, hd 64, tied
               embeddings) through the runner's loader (draft_config /
-              load_draft) from a config-only dir, random weights from seed
-              + 1 in the target's quantization; an engine over the loaded
+              load_draft) from phase 3n's GGUF checkpoint (gguf_1b,
+              written at its first use: Q8_0, yarn rope, the config and
+              rope scaling from the file), dequantized on the host into
+              the target's dtype and quantization; an engine over the loaded
               target with it (draft "auto" -> "model"): its weights' and
               KV's bytes, load and start seconds, capture seconds and pool
               bytes of the decode graphs and of the packs and their draft
-              mirrors. Launch counters zeroed, then 3i's 8 x 256 greedy
+              mirrors. Launch counters zeroed, then 3i's 8 x 128 greedy
               runs on both prompt sets with the draft: tok/s, acceptance,
               tokens per slot-round, ms per round and per tick, printed
               beside 3i's n-gram and off runs of the same sets (same call);
@@ -458,6 +469,39 @@ Phases, each raising on failure (no phase swallows an error):
               {"front_door": ...} line before the kernels line; each
               kernel row's "launches_front_door_path" holds 3m's launches
               and its "launches" adds them.
+  3n. gguf    after 3m (gguf_phase): GGUF checkpoints, yarn rope and
+              LoRA. gguf_1b writes (once; 3k loaded it already) a GGUF v3
+              file under the git-ignored build/ with the port's
+              write_gguf: Llama-3.2-1B's published widths, random weights
+              drawn on the card from seed + 1, every matmul and the tied
+              embedding Q8_0, the norms F32, llama.rope.scaling.type yarn
+              (factor 4, original context 8192), and 3m's 128,256-entry
+              byte-level BPE vocabulary with its merges as
+              tokenizer.ggml.* metadata. (a) load_model on the dir holding
+              it, paged bf16, 8 slots x 4096: the config (yarn included)
+              equals the one it was written for, the tokenizer is the
+              file's; every leaf on the card equals the port's numpy
+              dequantization (engine/gguf.py) cast to bf16, bit for bit;
+              the first-token logits of a 512-token prompt (the pack
+              graph's, as 3c reads them) against an engine built from
+              those arrays handed over in memory and against an eager
+              forward with yarn within 2e-2 relative L2, and farther from
+              the eager forward without yarn (the captured graph holds
+              yarn's mscale and frequencies). (b) the same file with
+              quantization int8: layers 0 and 15 of wq and w_down equal
+              quantize_weight of the dequantized leaf; W8 launched. (d) a
+              rank-16 PEFT adapter on q_proj / v_proj written here
+              (adapter_config.json + a safetensors file; lora_alpha 32)
+              merged at load: every merged leaf within one bf16 ulp of W
+              + s B@A computed on the card, and the first-token logits
+              move beyond 2e-2 relative L2. (c) in each of the three:
+              load seconds and the host dequantization share, memory
+              after load, the TTFT of 512-token prompts alone (median of
+              3) and decode ms/step of 8 slots x 128 greedy tokens
+              (speculation off), K1 = 16 x steps and K2 = 16 x packs over
+              those requests. A {"gguf": ...} line before the kernels
+              line; each kernel row's "launches_gguf_path" holds 3n's
+              launches and its "launches" adds them.
   3j. obs     observability at the defaults (trace and kv_audit on). In
               every configuration, right after phase 3's requests (each
               sent with an X-Correlation-ID), the engine idle
@@ -3020,6 +3064,88 @@ def host_tier_phase(lm, card: str, config: str, runs: dict) -> dict:
     for name in ("pressure", "evict_all"):
         for k in ("turn1", "turn2_tokens", "p2"):
             del out[name][k]
+    out["race"] = race_counts(lm, config, kv_offload=True)
+    return out
+
+
+# the host-tier race arrangement (scripts/host_tier_race.py's first-token
+# way, its sizes times PG / 16): a 20-page pool, turn 1, a wave of four
+# each submitted once the one before has its first token, turn 2, a second
+# wave, turn 3
+RACE_POOL = 20
+RACE_SCALE = PG // 16
+
+
+def race_counts(lm, config: str, kv_offload: bool) -> dict:
+    """The race arrangement on an engine of its own over the loaded weights
+    (speculation off, the emitter on: the top-of-tick drain runs): the rows
+    turns 2 and 3 reused. Printed, not gated: which of a release and an
+    admission comes first is the card's timing."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from localai_tpu_torch.engine.engine import Engine, GenRequest
+    from localai_tpu_torch.engine.sampling import SamplingParamsHost
+
+    tag = f"[race {config}]"
+    eng = Engine(lm.cfg, lm.engine.params, lm.tokenizer, dataclasses.replace(
+        lm.engine.ecfg, kv_pool_pages=RACE_POOL, kv_offload=kv_offload,
+        draft="0", emitter=True), device=DEV).start()
+    rng = np.random.default_rng(SEED + 31)
+    k = RACE_SCALE
+
+    def draw(n):
+        return rng.integers(1000, 100000, n).tolist()
+
+    def submit(ids, n):
+        return eng.submit(GenRequest(prompt_ids=list(ids), max_new_tokens=n,
+                                     ignore_eos=True,
+                                     params=SamplingParamsHost(temperature=0.0)))
+
+    def drain(out, first=None):
+        ids, last = [], None
+        while (ev := first or out.get(timeout=600)) is not None:
+            first = None
+            if ev.error:
+                raise AssertionError(f"{tag} {ev.error}")
+            ids.extend(ev.token_ids or [ev.token_id])
+            last = ev
+        return ids, last.timings["reused_prompt_tokens"]
+
+    def wave(lens, n):
+        outs = []
+        for m in lens:
+            out = submit(draw(m * k), n)
+            outs.append((out, out.get(timeout=600)))     # its first token
+        return [drain(o, f) for o, f in outs]
+
+    t0 = time.monotonic()
+    try:
+        a = draw(70 * k)
+        res = [drain(submit(a, 6))]
+        res += wave((60, 62, 58, 61), 10)
+        t2 = a + res[0][0] + draw(5 * k)
+        res.append(drain(submit(t2, 6)))
+        res += wave((63, 57, 60, 59), 10)
+        res.append(drain(submit(t2 + res[5][0] + draw(7 * k), 6)))
+        m = eng.metrics()
+    finally:
+        eng.shutdown()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"turn2_reused": res[5][1], "turn3_reused": res[10][1],
+           "reused": [r[1] for r in res], "pool_pages": RACE_POOL,
+           "kv_offload": kv_offload,
+           "evicted_pages": m["prefix_cache"]["evicted_pages"],
+           "seconds": round(time.monotonic() - t0, 1)}
+    log(f"{tag} kv_offload {int(kv_offload)}: turn 2 / turn 3 reused "
+        f"{out['turn2_reused']} / {out['turn3_reused']} rows (turn 1 {len(a)} "
+        f"tokens, waves fed one request per first token, a {RACE_POOL}-page pool; "
+        f"every request's reused rows {out['reused']}; {out['evicted_pages']} "
+        f"pages evicted; {out['seconds']} s with the engine's start)")
     return out
 
 
@@ -3539,6 +3665,7 @@ def pipeline_phase(lm, card: str, config: str) -> dict:
                     for name, g in pipe["dedup"].items()}
     out["dedup"]["siblings_same_tokens"] = same_ids
     out["dedup"]["sibling_logits_rel_l2"] = errs
+    out["race"] = race_counts(lm, config, kv_offload=False)
     return out
 
 
@@ -4033,7 +4160,10 @@ def lifecycle_phase(lm, card: str, config: str) -> dict:
 
 # ---------- phase 3i: n-gram self-speculation ----------
 
-SPEC_TOKENS = 256            # max_tokens of each of the 8 requests
+# max_tokens of each of the 8 requests (3i, and 3k on 3i's sets): 128,
+# so the whole script stays inside its 1200-second limit with phase 3n and
+# the race arrangements
+SPEC_TOKENS = 128
 SPEC_PHRASE = "The cat sat on the mat. "
 SPEC_KEYS = ("dispatches", "mixed_dispatches", "rounds", "proposed", "accepted",
              "tokens")
@@ -4584,7 +4714,6 @@ def emitter_phase(lm, card: str, config: str) -> dict:
 
 # ---------- phase 3k: draft-model speculation ----------
 
-DRAFT_DIR = "draft-1b"       # the 1B draft's config-only dir, in the model dir
 DRAFT_GATE_TOKENS = 60       # (a) tokens of each byte-gate request
 DRAFT_ACCEPT_MIN = 0.9       # (a) the target as its own draft, unfused
 
@@ -4688,17 +4817,15 @@ def draft_tiny_phase(card: str) -> dict:
 
 def load_1b_draft(lm):
     """The 1B draft through the runner's loader (backend/runner.py::
-    draft_config / load_draft): a config-only dir beside the model's,
-    random weights from the target's seed + 1, the target's dtype and
+    draft_config / load_draft): phase 3n's GGUF checkpoint (gguf_1b,
+    written at its first use), its config, yarn rope included, from the
+    file, its Q8_0 tensors dequantized on the host, the target's dtype and
     quantization. Returns (LlamaConfig, params, seconds)."""
     from localai_tpu_torch.backend import runner
 
-    ddir = os.path.join(lm.model_dir, DRAFT_DIR)
-    os.makedirs(ddir, exist_ok=True)
-    with open(os.path.join(ddir, "config.json"), "w") as f:
-        json.dump(LLAMA32_1B, f)
+    gdir = gguf_1b()["dir"]
     t0 = time.monotonic()
-    found = runner.draft_config(lm.model_dir, DRAFT_DIR, lm.cfg.dtype, SEED)
+    found = runner.draft_config(lm.model_dir, gdir, lm.cfg.dtype, SEED)
     dcfg, dparams = runner.load_draft(*found, lm.quantization, SEED, DEV,
                                       lm.cfg.vocab_size)
     return dcfg, dparams, time.monotonic() - t0
@@ -4824,8 +4951,10 @@ def draft_phase(lm, card: str, config: str, spec_out: dict) -> dict:
             "draft_mirror_pool_bytes": pg["draft_pool_bytes"]}
         log(f"{tag} {card}: Llama-3.2-1B widths (hidden {dcfg.hidden_size}, "
             f"{dcfg.num_layers} layers, KV {dcfg.num_kv_heads} x hd {dcfg.head_dim_}, "
-            f"tied {dcfg.tie_word_embeddings}), random {lm.quantization or 'bf16'} weights (seed "
-            f"{SEED + 1}): {dgb:.3f} GB weights (10^9 bytes) in {load_s:.1f} s, "
+            f"tied {dcfg.tie_word_embeddings}, rope {dcfg.rope_scaling_type}), the GGUF "
+            f"checkpoint of 3n (Q8_0 from seed {SEED + 1}) as "
+            f"{lm.quantization or 'bf16'}: {dgb:.3f} GB weights (10^9 bytes) in "
+            f"{load_s:.1f} s (host dequantization included), "
             f"draft KV {dkv / 1e9:.3f} GB over {eng._pool.num_pages} pages; engine "
             f"start {start_s:.1f} s; decode graphs (plain, full, 2 spec rounds with "
             f"the draft) capture {m['decode_graph']['capture_seconds']:.2f} s, pool "
@@ -6093,6 +6222,499 @@ def front_door_phase(card: str) -> dict:
     return out
 
 
+# ---------- phase 3n: GGUF checkpoints, yarn rope, LoRA ----------
+
+GGUF_DIR = os.path.join(ROOT, "build", "chip_smoke", "gguf-1b")
+GGUF_FILE = "llama-3.2-1b-q8_0.gguf"
+GGUF_NAME = "llama-3.2-1b-gguf"
+GGUF_YARN = (4.0, 8192)         # rope scaling factor, original context
+GGUF_CONTEXT = 4096             # the 3n engines' max_context
+GGUF_TTFT_PROMPT = 512          # (c) prompt tokens of the TTFT requests
+GGUF_TTFT_RUNS = 3
+GGUF_DECODE_TOKENS = 128        # (c) max_tokens of each of the 8 decode requests
+LORA_RANK, LORA_ALPHA = 16, 32.0
+LORA_DIR = os.path.join(ROOT, "build", "chip_smoke", "lora-1b")
+_GGUF: dict = {}                # the written checkpoint (gguf_1b)
+
+
+def gguf_1b() -> dict:
+    """Phase 3n's GGUF checkpoint, written under the git-ignored build/ at
+    its first use (phase 3k loads it as its draft): Llama-3.2-1B's
+    published widths (LLAMA32_1B), random weights drawn on the card from
+    SEED + 1 (normal / sqrt(fan_in) per projection, ones for the norms),
+    the matmuls and the tied embedding Q8_0, the norms F32, no
+    output.weight (tied), yarn rope scaling (factor 4 over an original
+    context of 8192) and phase 3m's 128,256-entry byte-level BPE vocabulary
+    with its merges as tokenizer metadata. Returns {"dir", "path",
+    "draw_s", "write_s", "bytes"}."""
+    if _GGUF:
+        return _GGUF
+    import math
+
+    import numpy as np
+    import torch
+
+    from localai_tpu_torch.engine import gguf
+
+    c = LLAMA32_1B
+    D, F, L = c["hidden_size"], c["intermediate_size"], c["num_hidden_layers"]
+    H, KV, hd, V = (c["num_attention_heads"], c["num_key_value_heads"],
+                    c["head_dim"], c["vocab_size"])
+    os.makedirs(GGUF_DIR, exist_ok=True)
+    path = os.path.join(GGUF_DIR, GGUF_FILE)
+    t0 = time.monotonic()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 1)
+
+    def draw(out, inn):
+        """[out, in] (the GGUF file's row-major order), fan_in = in."""
+        return (torch.randn((out, inn), generator=gen, device=DEV)
+                / math.sqrt(inn)).cpu().numpy()
+
+    ones = np.ones(D, np.float32)
+    tensors = {"token_embd.weight": draw(V, D)}
+    for i in range(L):
+        p = f"blk.{i}."
+        tensors.update({
+            p + "attn_norm.weight": ones, p + "attn_q.weight": draw(H * hd, D),
+            p + "attn_k.weight": draw(KV * hd, D), p + "attn_v.weight": draw(KV * hd, D),
+            p + "attn_output.weight": draw(D, H * hd), p + "ffn_norm.weight": ones,
+            p + "ffn_gate.weight": draw(F, D), p + "ffn_up.weight": draw(F, D),
+            p + "ffn_down.weight": draw(D, F)})
+    tensors["output_norm.weight"] = ones
+    vocab, merges = fd_vocab()
+    tokens = [""] * V
+    for s, i in vocab.items():
+        tokens[i] = s
+    md = {"general.architecture": "llama", "general.name": GGUF_NAME,
+          "llama.block_count": L, "llama.context_length": c["max_position_embeddings"],
+          "llama.embedding_length": D, "llama.feed_forward_length": F,
+          "llama.attention.head_count": H, "llama.attention.head_count_kv": KV,
+          "llama.rope.dimension_count": hd, "llama.rope.freq_base": c["rope_theta"],
+          "llama.attention.layer_norm_rms_epsilon": c["rms_norm_eps"],
+          "llama.rope.scaling.type": "yarn",
+          "llama.rope.scaling.factor": GGUF_YARN[0],
+          "llama.rope.scaling.original_context_length": GGUF_YARN[1],
+          "tokenizer.ggml.model": "gpt2", "tokenizer.ggml.tokens": tokens,
+          "tokenizer.ggml.token_type": [3 if i >= 128000 else 1 for i in range(V)],
+          "tokenizer.ggml.merges": [f"{a} {b}" for a, b in merges],
+          "tokenizer.ggml.bos_token_id": FD_BOS, "tokenizer.ggml.eos_token_id": FD_EOT,
+          "tokenizer.ggml.add_bos_token": True}
+    types = {n: gguf.GGML_Q8_0 for n, a in tensors.items() if a.ndim == 2}
+    t1 = time.monotonic()
+    gguf.write_gguf(path, md, tensors, types)
+    del tensors
+    gc.collect()
+    _GGUF.update(dir=GGUF_DIR, path=path, draw_s=t1 - t0,
+                 write_s=time.monotonic() - t1, bytes=os.path.getsize(path))
+    log(f"[gguf] wrote {path}: Llama-3.2-1B widths, Q8_0 matmuls and tied "
+        f"embedding, F32 norms, yarn x{GGUF_YARN[0]:g} over {GGUF_YARN[1]}, a "
+        f"{V}-entry BPE vocabulary; {_GGUF['bytes'] / 1e9:.3f} GB; weights drawn "
+        f"in {_GGUF['draw_s']:.1f} s, tokenizer + encode + write "
+        f"{_GGUF['write_s']:.1f} s")
+    return _GGUF
+
+
+def gguf_config(dtype):
+    """The LlamaConfig the 3n checkpoint was written for, built here from
+    LLAMA32_1B with yarn in place of its llama3 scaling."""
+    from localai_tpu_torch.models.llama import LlamaConfig
+
+    hf = dict(LLAMA32_1B, rope_scaling={
+        "rope_type": "yarn", "factor": GGUF_YARN[0],
+        "original_max_position_embeddings": GGUF_YARN[1]})
+    return LlamaConfig.from_hf_config(hf, dtype=dtype)
+
+
+def write_safetensors(path: str, tensors: dict):
+    """A float32 .safetensors file (the 8-byte header length, the JSON
+    header, the raw tensors), written here: the card's machine has no
+    safetensors package."""
+    import struct
+
+    import numpy as np
+
+    header, blobs, off = {}, [], 0
+    for name, a in tensors.items():
+        b = np.ascontiguousarray(a, np.float32).tobytes()
+        header[name] = {"dtype": "F32", "shape": list(a.shape),
+                        "data_offsets": [off, off + len(b)]}
+        blobs.append(b)
+        off += len(b)
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)) + h + b"".join(blobs))
+
+
+def write_lora_1b() -> str:
+    """A rank-16 PEFT adapter on q_proj and v_proj of every layer of the 1B
+    (adapter_config.json + adapter_model.safetensors under the git-ignored
+    build/), A ~ N(0, 1/in), B ~ N(0, 0.05^2), drawn from SEED + 2."""
+    import numpy as np
+
+    c = LLAMA32_1B
+    D, L = c["hidden_size"], c["num_hidden_layers"]
+    dims = {"q_proj": c["num_attention_heads"] * c["head_dim"],
+            "v_proj": c["num_key_value_heads"] * c["head_dim"]}
+    rng = np.random.default_rng(SEED + 2)
+    os.makedirs(LORA_DIR, exist_ok=True)
+    with open(os.path.join(LORA_DIR, "adapter_config.json"), "w") as f:
+        json.dump({"r": LORA_RANK, "lora_alpha": LORA_ALPHA, "peft_type": "LORA",
+                   "target_modules": list(dims)}, f)
+    t = {}
+    for i in range(L):
+        for m, out in dims.items():
+            pre = f"base_model.model.model.layers.{i}.self_attn.{m}"
+            t[pre + ".lora_A.weight"] = (rng.standard_normal((LORA_RANK, D))
+                                         / np.sqrt(D)).astype(np.float32)
+            t[pre + ".lora_B.weight"] = (rng.standard_normal((out, LORA_RANK))
+                                         * 0.05).astype(np.float32)
+    write_safetensors(os.path.join(LORA_DIR, "adapter_model.safetensors"), t)
+    return LORA_DIR
+
+
+def first_token_logits(eng, ids: list):
+    """The first-token logits (float32 [V], on the card) of a greedy
+    request over ``ids`` (one pack: <= prefill_chunk tokens, nothing
+    reused), read off the pack graph's logits as phase 3c reads them."""
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.engine.prefill_graph import n_finals
+    from localai_tpu_torch.engine.sampling import SamplingParamsHost
+
+    box = {}
+    run_pack = eng._prefill_pack
+
+    def probe(bucket, continued, host, run_pack=run_pack):
+        out = run_pack(bucket, continued, host)
+        if n_finals(host, bucket, eng.ecfg.num_slots) and "logits" not in box:
+            box["logits"] = eng._pgraph.logits[0].float().clone()
+        return out
+
+    on_engine_thread(eng, lambda: forget_retained(eng))
+    eng._prefill_pack = probe
+    try:
+        out = eng.submit(GenRequest(prompt_ids=list(ids), max_new_tokens=1,
+                                    params=SamplingParamsHost(temperature=0.0)))
+        while (ev := out.get(timeout=300)) is not None:
+            if ev.error:
+                raise AssertionError(f"[gguf] first-token probe: {ev.error}")
+    finally:
+        del eng._prefill_pack
+    return box["logits"]
+
+
+def rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def gguf_serving(lm, tag: str, rng) -> dict:
+    """(c) on a loaded 3n engine, speculation off: TTFT of GGUF_TTFT_PROMPT-
+    token prompts alone (each new, nothing reused; median of
+    GGUF_TTFT_RUNS after a warm-up), then 8 requests x GGUF_DECODE_TOKENS
+    greedy tokens together: decode ms/step (the engine's decode seconds
+    over its steps: host wall, sync included). Launch counters zeroed
+    before, read after; K1 = layers x steps and K2 = layers x packs."""
+    import statistics
+
+    import torch
+
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.engine.sampling import SamplingParamsHost
+    from localai_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    eng = lm.engine
+    pin_speculation(eng, False)
+    V = lm.cfg.vocab_size
+
+    def run(ids, n):
+        t0, t_first = time.monotonic(), None
+        out = eng.submit(GenRequest(prompt_ids=ids, max_new_tokens=n,
+                                    ignore_eos=True,
+                                    params=SamplingParamsHost(temperature=0.0)))
+        got = 0
+        while (ev := out.get(timeout=600)) is not None:
+            if ev.error:
+                raise AssertionError(f"{tag} {ev.error}")
+            t_first = t_first or time.monotonic()
+            got += len(ev.token_ids or [ev.token_id])
+        if got != n:
+            raise AssertionError(f"{tag} {got} tokens of {n}")
+        return (t_first - t0) * 1e3
+
+    run(rng.integers(1000, 100000, 64).tolist(), 4)           # warm-up
+    torch.cuda.synchronize()
+    m0 = eng.metrics()
+    reset_launches()
+    ttft = [run(rng.integers(1000, 100000, GGUF_TTFT_PROMPT).tolist(), 1)
+            for _ in range(GGUF_TTFT_RUNS)]
+    mid = eng.metrics()
+    outs = [eng.submit(GenRequest(
+        prompt_ids=rng.integers(1000, V - 300, 64).tolist(),
+        max_new_tokens=GGUF_DECODE_TOKENS, ignore_eos=True,
+        params=SamplingParamsHost(temperature=0.0))) for _ in range(S_SLOTS)]
+    for o in outs:
+        n = 0
+        while (ev := o.get(timeout=600)) is not None:
+            if ev.error:
+                raise AssertionError(f"{tag} {ev.error}")
+            n += len(ev.token_ids or [ev.token_id])
+        if n != GGUF_DECODE_TOKENS:
+            raise AssertionError(f"{tag} decode request: {n} tokens")
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    m1 = eng.metrics()
+    dec = {k: m1["decode"][k] - mid["decode"][k] for k in ("steps", "seconds")}
+    steps = m1["decode"]["steps"] - m0["decode"]["steps"]
+    packs = m1["packed_prefill"]["dispatches"] - m0["packed_prefill"]["dispatches"]
+    L = lm.cfg.num_layers
+    k1 = launches.get("paged_decode_attention", 0)
+    k2 = launches.get("ragged_prefill_attention", 0)
+    if k1 != L * steps or k2 != L * packs or not k1 or not k2:
+        raise AssertionError(f"{tag} launches {launches}: K1 {k1} (expected {L} x "
+                             f"{steps} steps), K2 {k2} (expected {L} x {packs} packs)")
+    pin_speculation(eng, True)
+    return {"ttft_ms": [round(t, 3) for t in ttft],
+            "ttft_median_ms": round(statistics.median(ttft), 3),
+            "decode_ms_per_step": round(dec["seconds"] / max(1, dec["steps"]) * 1e3, 3),
+            "decode_steps": dec["steps"], "launches": launches,
+            "counts": {"steps": steps, "packs": packs}}
+
+
+def gguf_phase(card: str) -> dict:
+    """Phase 3n (module doc): the 1B GGUF checkpoint through load_model,
+    bf16 and quantization int8, its leaves, logits and yarn against
+    references on the card, TTFT and decode, and a LoRA adapter merged at
+    load. The 8B target with this checkpoint as draft_model is phase 3k."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from localai_tpu_torch.backend import runner
+    from localai_tpu_torch.engine import gguf, weights
+    from localai_tpu_torch.engine.engine import Engine
+    from localai_tpu_torch.engine.gguf_tokenizer import GGUFTokenizer
+    from localai_tpu_torch.engine.lora import LoraAdapter
+    from localai_tpu_torch.models import llama
+    from localai_tpu_torch.ops.quant import quantize_weight
+
+    tag = "[gguf]"
+    g = gguf_1b()
+    knobs = dict(num_slots=S_SLOTS, context_size=GGUF_CONTEXT, dtype="bfloat16",
+                 device=DEV, prefill_chunk=512, kv_page_size=PG, decode_burst=16)
+    host = {"s": 0.0}
+    leaves_of = gguf.iter_llama_tensors
+
+    def timed_leaves(gf, cfg, dtype=np.float16):
+        it = leaves_of(gf, cfg, dtype)
+        while True:
+            t = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            finally:
+                host["s"] += time.perf_counter() - t
+            yield item
+
+    def load(**kw):
+        host["s"] = 0.0
+        gc.collect()
+        torch.cuda.empty_cache()
+        gb0 = torch.cuda.memory_allocated() / 1e9
+        gguf.iter_llama_tensors = timed_leaves
+        t0 = time.monotonic()
+        try:
+            lm = runner.load_model(GGUF_DIR, GGUF_NAME, **knobs, **kw)
+        finally:
+            gguf.iter_llama_tensors = leaves_of
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+        return lm, {"load_s": round(load_s, 2), "host_dequant_s": round(host["s"], 2),
+                    "host_dequant_share": round(host["s"] / load_s, 3),
+                    "weights_gb": round(param_bytes(lm.engine.params) / 1e9, 3),
+                    "allocated_gb": round(torch.cuda.memory_allocated() / 1e9, 3),
+                    "before_gb": round(gb0, 3)}
+
+    out = {"file": {k: (round(v, 2) if isinstance(v, float) else v)
+                    for k, v in g.items() if k != "dir"}}
+    rng = np.random.default_rng(SEED + 23)
+    probe = rng.integers(1000, 100000, GGUF_TTFT_PROMPT).tolist()
+    launches = {}
+    # (a) bf16: config, tokenizer and leaves from the file
+    lm, mem = load()
+    try:
+        cfg = lm.cfg
+        want = gguf_config(torch.bfloat16)
+        diff = {f.name: (getattr(cfg, f.name), getattr(want, f.name))
+                for f in dataclasses.fields(cfg)
+                if not (getattr(cfg, f.name) == getattr(want, f.name)
+                        or isinstance(getattr(want, f.name), float)
+                        and abs(getattr(cfg, f.name) - getattr(want, f.name))
+                        <= 1e-6 * abs(getattr(want, f.name)))}
+        tok = lm.tokenizer
+        text = "The card reads the GGUF file's tokenizer: 128,256 pieces."
+        if (diff or not isinstance(tok, GGUFTokenizer) or tok.vocab_size != cfg.vocab_size
+                or tok.decode(tok.encode(text)) != text or tok.eos_token_id != FD_EOT):
+            raise AssertionError(f"{tag} config from the file differs {diff}, or the "
+                                 f"tokenizer: {type(tok).__name__} "
+                                 f"{getattr(tok, 'vocab_size', None)}")
+        # the card's leaves against the port's numpy dequantization, cast
+        t0 = time.monotonic()
+        host_leaves, bad = {}, []
+        for path, arr in leaves_of(gguf.open_gguf(g["path"]), cfg):
+            node = lm.engine.params
+            for k in path:
+                node = node[k]
+            ref = torch.from_numpy(arr).to(DEV).to(torch.bfloat16)
+            if not torch.equal(node.view(torch.int16), ref.view(torch.int16)):
+                bad.append(path)
+            host_leaves[path] = arr
+        check_s = time.monotonic() - t0
+        if bad:
+            raise AssertionError(f"{tag} leaves not bit-equal to the numpy "
+                                 f"dequantization cast to bf16: {bad}")
+        # an engine over the same arrays handed over in memory
+        params = weights._assemble(((p, torch.from_numpy(a)) for p, a in
+                                    host_leaves.items()), torch.device(DEV),
+                                   torch.bfloat16)
+        del host_leaves
+        mem_eng = Engine(want, params, tok, dataclasses.replace(lm.engine.ecfg),
+                         device=DEV).start()
+        try:
+            l_mem = first_token_logits(mem_eng, probe)
+        finally:
+            mem_eng.shutdown()
+            del mem_eng, params
+            gc.collect()
+            torch.cuda.empty_cache()
+        l_file = first_token_logits(lm.engine, probe)
+        err_mem = rel_l2(l_file, l_mem)
+        # the captured pack graph's yarn (mscale and inv_freq) against an
+        # eager forward, and against the same forward without yarn
+        def eager(c):
+            N = len(probe)
+            ck, cv = llama.init_cache(c, 1, GGUF_TTFT_PROMPT, 0, device=DEV)
+            t = lambda a, dt=torch.int32: torch.tensor(a, dtype=dt, device=DEV)  # noqa: E731
+            return llama.ragged_prefill(
+                lm.engine.params, c, t(probe, torch.int64), t(list(range(N))),
+                t([0]), t([0]), t([0]), t([N]), t([0] * N), ck, cv,
+                continued=False)[0].float()
+        err_yarn = rel_l2(l_file, eager(cfg))
+        err_none = rel_l2(l_file, eager(dataclasses.replace(cfg, rope_scaling_type="none")))
+        if (not err_mem <= PREFIX_LOGITS_RTOL or not err_yarn <= PREFIX_LOGITS_RTOL
+                or not err_none > 2 * err_yarn or not bool(torch.isfinite(l_file).all())):
+            raise AssertionError(f"{tag} first-token logits rel L2: file vs memory "
+                                 f"{err_mem:.3e}, graph vs eager yarn {err_yarn:.3e} "
+                                 f"(tol {PREFIX_LOGITS_RTOL}), vs eager without yarn "
+                                 f"{err_none:.3e} (must exceed twice the yarn one)")
+        out["bf16"] = {**mem, "leaf_check_s": round(check_s, 2),
+                       "logits_rel_l2_vs_memory": err_mem,
+                       "logits_rel_l2_vs_eager_yarn": err_yarn,
+                       "logits_rel_l2_vs_eager_no_yarn": err_none}
+        out["bf16"].update(gguf_serving(lm, f"{tag} bf16", rng))
+        launches["bf16"] = out["bf16"].pop("launches")
+        base_logits = l_file
+    finally:
+        lm.engine.shutdown()
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (b) quantization int8: W8 from the dequantized leaves
+    lm, mem = load(quantization="int8")
+    try:
+        gf = gguf.open_gguf(g["path"])
+        for name, fmt in (("wq", "blk.{i}.attn_q.weight"), ("w_down", "blk.{i}.ffn_down.weight")):
+            for i in (0, cfg.num_layers - 1):
+                arr = gf.tensor(fmt.format(i=i), np.float16)
+                if name == "wq":
+                    arr = gguf._unpermute(arr, cfg.num_heads)
+                ref = quantize_weight(torch.from_numpy(np.ascontiguousarray(arr.T))
+                                      .to(DEV).float())
+                got = lm.engine.params["layers"][name]
+                if not (torch.equal(got["q"][i], ref["q"])
+                        and torch.equal(got["s"][i], ref["s"])):
+                    raise AssertionError(f"{tag} int8 {name}[{i}] differs from "
+                                         f"quantize_weight of the dequantized leaf")
+        out["int8"] = {**mem}
+        out["int8"].update(gguf_serving(lm, f"{tag} int8", rng))
+        launches["int8"] = out["int8"].pop("launches")
+        if not launches["int8"].get(W8):
+            raise AssertionError(f"{tag} int8: W8 not launched {launches['int8']}")
+    finally:
+        lm.engine.shutdown()
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (d) LoRA merged at load (bf16)
+    adir = write_lora_1b()
+    lm, mem = load(lora_adapter=adir)
+    try:
+        ad = LoraAdapter(adir)
+        gf = gguf.open_gguf(g["path"])
+        worst = 0
+        for name, fmt, heads in (("wq", "blk.{i}.attn_q.weight", cfg.num_heads),
+                                 ("wv", "blk.{i}.attn_v.weight", 0)):
+            module = {"wq": "q_proj", "wv": "v_proj"}[name]
+            for i in range(cfg.num_layers):
+                arr = gf.tensor(fmt.format(i=i), np.float16)
+                if heads:
+                    arr = gguf._unpermute(arr, heads)
+                w = torch.from_numpy(np.ascontiguousarray(arr.T)).to(DEV).float()
+                ab = ad.mats[(f"self_attn.{module}", i)]
+                A = torch.from_numpy(ab["A"]).to(DEV)
+                B = torch.from_numpy(ab["B"]).to(DEV)
+                ref = (w + ad.scale * (B @ A).T).to(torch.bfloat16)
+                got = lm.engine.params["layers"][name][i]
+                ulps = (got.view(torch.int16).int() - ref.view(torch.int16).int()).abs()
+                worst = max(worst, int(ulps.max()))
+        l_lora = first_token_logits(lm.engine, probe)
+        moved = rel_l2(l_lora, base_logits)
+        if worst > 1 or not moved > PREFIX_LOGITS_RTOL:
+            raise AssertionError(f"{tag} LoRA: merged leaves {worst} bf16 ulps from "
+                                 f"W + s B@A (at most 1); first-token logits moved "
+                                 f"{moved:.3e} rel L2 from the base model's (must "
+                                 f"exceed {PREFIX_LOGITS_RTOL})")
+        out["lora"] = {**mem, "rank": LORA_RANK, "scale": ad.scale,
+                       "max_ulps_vs_w_plus_sba": worst, "logits_moved_rel_l2": moved}
+        out["lora"].update(gguf_serving(lm, f"{tag} lora", rng))
+        launches["lora"] = out["lora"].pop("launches")
+    finally:
+        lm.engine.shutdown()
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
+    total = {}
+    for per in launches.values():
+        for k, v in per.items():
+            total[k] = total.get(k, 0) + v
+    out["launches"] = total
+    out["launches_by_engine"] = launches
+    out["card"] = card
+    b, q, lo = out["bf16"], out["int8"], out["lora"]
+    log(f"{tag} {card}: bf16 load {b['load_s']:.1f} s (host dequantization "
+        f"{b['host_dequant_s']:.1f} s, {b['host_dequant_share'] * 100:.0f}%), "
+        f"weights {b['weights_gb']:.3f} GB, memory_allocated after load "
+        f"{b['allocated_gb']:.3f} GB; leaves bit-equal to the numpy dequantization "
+        f"cast to bf16; first-token logits rel L2 vs the in-memory engine "
+        f"{b['logits_rel_l2_vs_memory']:.2e}, vs an eager forward with yarn "
+        f"{b['logits_rel_l2_vs_eager_yarn']:.2e}, without {b['logits_rel_l2_vs_eager_no_yarn']:.2e}; "
+        f"TTFT of a {GGUF_TTFT_PROMPT}-token prompt {b['ttft_ms']} ms; decode "
+        f"{b['decode_ms_per_step']:.3f} ms/step at {S_SLOTS} slots")
+    log(f"{tag} {card}: int8 load {q['load_s']:.1f} s (host dequantization "
+        f"{q['host_dequant_s']:.1f} s), weights {q['weights_gb']:.3f} GB, allocated "
+        f"{q['allocated_gb']:.3f} GB; TTFT {q['ttft_ms']} ms; decode "
+        f"{q['decode_ms_per_step']:.3f} ms/step")
+    log(f"{tag} {card}: LoRA rank {LORA_RANK} on q_proj / v_proj (scale "
+        f"{lo['scale']:g}): load {lo['load_s']:.1f} s, merged leaves within "
+        f"{lo['max_ulps_vs_w_plus_sba']} bf16 ulp of W + s B@A, first-token logits "
+        f"moved {lo['logits_moved_rel_l2']:.3e} rel L2; TTFT {lo['ttft_ms']} ms; "
+        f"decode {lo['decode_ms_per_step']:.3f} ms/step")
+    log(f"{tag} launches over the three engines' requests {json.dumps(total)}")
+    return out
+
+
 # ---------- phase 4 ----------
 
 def decode_cost(lengths, elt, cache_elt=None, scales=False, table=True):
@@ -6387,6 +7009,11 @@ def kernel_report(launches, k5_launches, errs, shapes, card):
                  for c in shapes if shapes[c].get("front_door")}
         r["launches_front_door_path"] = fruns
         r["launches"] += fruns.get(r["config"], 0)
+        # the GGUF path (phase 3n): the 1B checkpoint's three engines (bf16
+        # paged, int8 weights, LoRA); every row counts them in
+        r["launches_gguf_path"] = shapes["paged"]["gguf"]["launches"].get(
+            r["name"], 0)
+        r["launches"] += r["launches_gguf_path"]
         r["max_abs_err"] = errs[r["name"]]
 
     # the CUDA kernels of one wrapper call, after every timing above (the
@@ -6680,6 +7307,9 @@ def main():
     # phase 3m: the paged configuration again, loaded through a YAML file
     shapes["paged"]["front_door"] = phase_timed("paged", front_door_phase,
                                                 card)
+    # phase 3n: the 1B GGUF checkpoint (bf16, int8, LoRA); 3k loaded it
+    # as the draft
+    shapes["paged"]["gguf"] = phase_timed("paged", gguf_phase, card)
     Engine.shutdown = shutdown
     bad = [a for a in audits if a["violations"] or a["leaked_pages"]]
     log(f"[obs] drained audits after shutdown: {len(audits)} paged engines, "
@@ -6723,6 +7353,8 @@ def main():
                       "card": card}, default=str), flush=True)
     print(json.dumps({"front_door": shapes["paged"]["front_door"],
                       "card": card}), flush=True)
+    print(json.dumps({"gguf": shapes["paged"]["gguf"], "card": card},
+                     default=str), flush=True)
     print(json.dumps({"host_tier": {c: shapes[c]["host"] for c in shapes
                                     if shapes[c]["host"]},
                       "memory": {c: shapes[c]["memory"] for c in shapes},

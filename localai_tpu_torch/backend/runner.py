@@ -3,8 +3,12 @@ localai_tpu/backend/runner.py's tpu-llm servicer, without the gRPC
 process split, which comes with a later slice).
 
 ``load_model`` turns a model dir (HF config.json + safetensors, or a
-config.json-only dir with explicit random weights) plus serving knobs
-into a started Engine; ``quantization``, ``kv_cache_dtype``,
+config.json-only dir with explicit random weights) or a GGUF checkpoint
+(a ``.gguf`` path, or a dir holding one: config, rope scaling and
+tokenizer read from the file, engine/gguf.py) plus serving knobs into a
+started Engine; ``lora_adapter`` / ``lora_scale`` merge a PEFT adapter
+into the weights at load (engine/lora.py; ``lora_base`` is carried and
+unused, as in the JAX runner); ``quantization``, ``kv_cache_dtype``,
 ``kv_layout`` and the host tier's ``kv_offload``, ``kv_host_pool_mb`` and
 ``kv_host_store`` take the JAX package's names and values. ``build_request``
 maps OpenAI-style request overrides onto a GenRequest with the JAX
@@ -24,8 +28,8 @@ engine's shed / timeout / stall events into the 429 / 504 / 503 errors of
 services/errors.py. Speculation takes the JAX options and parsing:
 ``draft`` (auto | model | ngram | 0 / off / none / false), ``n_draft`` (0
 turns it off) and ``spec_ngram``; ``draft_model`` (the JAX option) loads
-a second, smaller llama-family model as the drafter, which draft "auto"
-then resolves to (``load_draft``). ``emitter`` (on
+a second, smaller llama-family model as the drafter (safetensors or
+GGUF), which draft "auto" then resolves to (``load_draft``). ``emitter`` (on
 by default; 0 / false / off / no = inline emission) is the JAX option.
 The observability options take the JAX names, defaults and checks:
 ``trace`` (on; the off words turn it off), ``trace_ring_size``,
@@ -44,7 +48,8 @@ from typing import Iterator, Optional
 import torch
 
 from localai_tpu_torch import resolve_device
-from localai_tpu_torch.engine import weights
+from localai_tpu_torch.engine import gguf, weights
+from localai_tpu_torch.engine.gguf_tokenizer import from_gguf
 from localai_tpu_torch.engine.engine import (
     DRAFT_MODES, KV_LAYOUTS, Engine, EngineConfig, GenRequest, StreamEvent)
 from localai_tpu_torch.engine.sampling import SamplingParamsHost
@@ -179,23 +184,36 @@ def observability_options(**opts) -> dict:
     return out
 
 
+def model_base(model_dir: str) -> str:
+    """The dir a model's relative paths (``draft_model``,
+    ``kv_host_store``) start from: the model dir, or the dir of a
+    ``.gguf`` file named directly."""
+    return model_dir if os.path.isdir(model_dir) else os.path.dirname(model_dir)
+
+
+def gguf_config(path: str, dtype: torch.dtype) -> LlamaConfig:
+    """A GGUF file's LlamaConfig (engine/gguf.py::config_from_gguf) in
+    ``dtype``."""
+    return dataclasses.replace(gguf.config_from_gguf(gguf.open_gguf(path)),
+                               dtype=dtype)
+
+
 def draft_config(model_dir: str, draft_model: str, dtype: torch.dtype,
                  random_weights: Optional[int]) -> tuple:
-    """The ``draft_model`` dir (the JAX runner's: relative to the model's
-    dir, or absolute) and its LlamaConfig in the target's dtype, checked
-    before any weight is read: a missing dir, or one with no safetensors
-    and no ``random_weights``, raises FileNotFoundError; a GGUF dir
-    NotImplementedError (the port has no GGUF loader). Nothing falls back
-    to n-gram speculation."""
+    """The ``draft_model`` dir (relative to the model's dir, or absolute)
+    and its LlamaConfig in the target's dtype, checked before any weight
+    is read: a GGUF dir's config comes from the file (as the JAX runner
+    reads it); a missing dir, or one with no safetensors, no GGUF and no
+    ``random_weights``, raises FileNotFoundError. Nothing falls back to
+    n-gram speculation."""
     ddir = draft_model
     if not os.path.isabs(ddir):
-        ddir = os.path.join(model_dir, ddir)
+        ddir = os.path.join(model_base(model_dir), ddir)
     if not os.path.isdir(ddir):
         raise FileNotFoundError(f"draft_model {draft_model!r}: no dir {ddir}")
-    if any(f.endswith(".gguf") for f in os.listdir(ddir)):
-        raise NotImplementedError(
-            f"draft_model {draft_model!r} is a GGUF dir: the port has no GGUF "
-            f"loader yet; give a config.json + safetensors dir")
+    path = weights.find_gguf(ddir)
+    if path is not None:
+        return ddir, gguf_config(path, dtype)
     if not weights.has_weights(ddir) and random_weights is None:
         raise FileNotFoundError(
             f"draft_model {draft_model!r}: no .safetensors in {ddir}; pass "
@@ -207,14 +225,15 @@ def draft_config(model_dir: str, draft_model: str, dtype: torch.dtype,
 def load_draft(ddir: str, dcfg: LlamaConfig, quantization: str,
                random_weights: Optional[int], device, vocab_size: int) -> tuple:
     """The draft model's weights (``draft_config`` checked the dir): read
-    with numpy from its safetensors with the target's ``quantization``,
-    or, for a config-only dir with ``random_weights`` (the target's seed),
-    random from a seed of its own (the target's + 1). A vocabulary other
-    than the target's raises ValueError. Returns (LlamaConfig, params)."""
+    with numpy from its GGUF file or its safetensors with the target's
+    ``quantization``, or, for a config-only dir with ``random_weights``
+    (the target's seed), random from a seed of its own (the target's +
+    1). A vocabulary other than the target's raises ValueError. Returns
+    (LlamaConfig, params)."""
     if dcfg.vocab_size != vocab_size:
         raise ValueError(f"draft model {ddir}: vocabulary {dcfg.vocab_size}, "
                          f"the target's is {vocab_size}")
-    if weights.has_weights(ddir):
+    if weights.find_gguf(ddir) is not None or weights.has_weights(ddir):
         dparams = weights.load_llama_params(ddir, dcfg, device=device,
                                             quantize=quantization)
     elif random_weights is not None:
@@ -230,8 +249,11 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
                quantization: str = "", kv_offload=True,
                kv_host_pool_mb: int = 256, kv_host_store: str = "",
                draft="auto", n_draft=4, spec_ngram=3, draft_model: str = "",
-               tokenizer: str = "", **engine_knobs) -> LoadedModel:
-    """Load a model dir into a started Engine on ``device``.
+               tokenizer: str = "", lora_adapter: str = "",
+               lora_base: str = "", lora_scale: float = 0.0,
+               **engine_knobs) -> LoadedModel:
+    """Load a model dir (or a GGUF file) into a started Engine on
+    ``device``.
 
     ``random_weights`` (a seed) serves random weights for a dir that holds
     only config.json; without it such a dir is an error, so an incomplete
@@ -258,6 +280,18 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
     ``tokenizer``: a dir whose tokenizer files stand for the model dir's
     (the JAX ``tokenizer`` field). A tokenizer.json the port cannot read
     raises before any weight is loaded.
+    A GGUF checkpoint (``weights.find_gguf``: a ``.gguf`` path, or the one
+    ``*.gguf`` of a dir without safetensors) gives the config, its rope
+    scaling included, and, unless ``tokenizer`` is given, the tokenizer
+    (``from_gguf``); its tensors are dequantized on the host and take the
+    path of any other leaf (cast, or ``quantization``).
+    ``lora_adapter``: a PEFT adapter dir (absolute, or relative to the
+    working directory; ``capabilities.model_options`` resolves a config's
+    against the models path, as the JAX runner does), merged into the
+    weights with scale ``(lora_scale or 1.0) * lora_alpha / r`` before any
+    cast or quantization; a dir without the adapter's safetensors raises
+    FileNotFoundError before any weight is read. ``lora_base`` is
+    accepted and unused, as in the JAX runner.
     A GPTQ / AWQ dir with no quantization loads as int8."""
     dev = resolve_device(device)
     if dtype == "int8":
@@ -287,22 +321,29 @@ def load_model(model_dir: str, name: str = "", *, num_slots: int = 8,
                         kv_offload=bool_option(kv_offload),
                         kv_host_pool_mb=kv_host_pool_mb, **engine_knobs)
     ecfg.check()
-    ecfg.kv_host_store_path = host_store_path(model_dir, kv_host_store)
+    base = model_base(model_dir)
+    ecfg.kv_host_store_path = host_store_path(base, kv_host_store)
     draft_dir = (draft_config(model_dir, draft_model, DTYPES[dtype],
                               random_weights) if draft_model else None)
-    tok = load_tokenizer(tokenizer or model_dir)
-    with open(os.path.join(model_dir, "config.json")) as f:
-        hf = json.load(f)
-    cfg = LlamaConfig.from_hf_config(hf, dtype=DTYPES[dtype])
-    if weights.has_weights(model_dir):
+    lora = {"lora_adapter": lora_adapter, "lora_scale": lora_scale or 1.0}
+    gguf_path = weights.find_gguf(model_dir)
+    if gguf_path is not None:
+        cfg = gguf_config(gguf_path, DTYPES[dtype])
+        tok = load_tokenizer(tokenizer) if tokenizer else from_gguf(gguf_path)
+    else:
+        tok = load_tokenizer(tokenizer or model_dir)
+        with open(os.path.join(model_dir, "config.json")) as f:
+            hf = json.load(f)
+        cfg = LlamaConfig.from_hf_config(hf, dtype=DTYPES[dtype])
+    if gguf_path is not None or weights.has_weights(model_dir):
         params = weights.load_llama_params(model_dir, cfg, device=dev,
-                                           quantize=quantization)
+                                           quantize=quantization, **lora)
     elif random_weights is not None:
         params = weights.random_params(cfg, int(random_weights), device=dev,
-                                       quantize=quantization)
+                                       quantize=quantization, **lora)
     else:
         raise FileNotFoundError(
-            f"no .safetensors in {model_dir}; pass random_weights=SEED "
+            f"no .safetensors or .gguf in {model_dir}; pass random_weights=SEED "
             f"(CLI: --random-weights SEED) to serve random weights")
     draft_pair = None
     if draft_dir is not None:

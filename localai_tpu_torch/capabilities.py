@@ -5,9 +5,11 @@ the chat, completion, edit and tokenize routes need).
 ``finetune_response`` and ``trace_enabled`` are copies.
 ``model_options`` maps a model config onto ``runner.load_model``'s
 arguments (the JAX ``build_model_options``: the model dir under the
-models path, context_size, num_slots, dtype, kv_cache_dtype,
-quantization, prefill_buckets, decode_burst, draft_model, the tokenizer
-dir, and the ``options`` k=v knobs typed as the engine's fields);
+models path (a dir, or a ``.gguf`` file), context_size, num_slots,
+dtype, kv_cache_dtype, quantization, prefill_buckets, decode_burst,
+draft_model, the tokenizer dir, lora_adapter (relative to the models
+path, as the JAX runner resolves it), lora_base and lora_scale, and the
+``options`` k=v knobs typed as the engine's fields);
 ``predict_overrides`` is the JAX ``build_predict_options`` mapping (the
 config's ``parameters`` under the request's overrides, ``max_tokens``,
 the stopwords as stop sequences), which ``runner.build_request`` applies
@@ -42,7 +44,6 @@ log = logging.getLogger(__name__)
 # where each setting of an unported module lands (ROADMAP.md Queue 1)
 _LATER = {
     "mesh": "item 12 (tensor parallelism)",
-    "lora": "item 8 (the LoRA merge at load)",
     "mmproj": "item 10 (multimodal LLaVA)",
     "diffusion": "item 13 (diffusion)",
     "tts": "item 13 (TTS)",
@@ -71,7 +72,8 @@ LLM_BACKENDS = ("", "tpu-llm")
 
 # load_model's keyword arguments that the config's own fields or the
 # server set, never an option
-_NOT_OPTIONS = ("num_slots", "context_size", "dtype", "device", "tokenizer")
+_NOT_OPTIONS = ("num_slots", "context_size", "dtype", "device", "tokenizer",
+                "lora_adapter", "lora_base", "lora_scale")
 
 
 def finetune_response(mc: ModelConfig, prediction: str, prompt: str = "",
@@ -128,8 +130,6 @@ def unported_settings(mc: ModelConfig) -> list:
     if any(int(v or 0) > 1 for k, v in (mc.mesh or {}).items()
            if k in ("tp", "dp")) or set(mc.mesh or {}) - {"tp", "dp"}:
         later(f"mesh {mc.mesh!r}", "mesh")
-    if mc.lora_adapter or mc.lora_base or mc.lora_scale:
-        later("lora_adapter / lora_base / lora_scale", "lora")
     if mc.mmproj:
         later("mmproj", "mmproj")
     if mc.scheduler or mc.controlnet:
@@ -192,6 +192,11 @@ def model_options(mc: ModelConfig, models_path: str,
     if mc.tokenizer:
         kw["tokenizer"] = (mc.tokenizer if os.path.isabs(mc.tokenizer)
                            else os.path.join(models_path, mc.tokenizer))
+    if mc.lora_adapter:
+        kw["lora_adapter"] = (mc.lora_adapter if os.path.isabs(mc.lora_adapter)
+                              else os.path.join(models_path, mc.lora_adapter))
+    if mc.lora_base or mc.lora_scale:
+        kw.update(lora_base=mc.lora_base, lora_scale=mc.lora_scale)
     if mc.prefill_buckets:
         kw["prefill_buckets"] = tuple(int(b) for b in mc.prefill_buckets)
     if mc.decode_burst > 0:
@@ -274,8 +279,11 @@ class Capabilities:
                 if problems:
                     raise NotImplementedError(
                         f"model {mc.name}: " + "; ".join(problems))
+                from localai_tpu_torch.engine.weights import find_gguf
+
                 kw = model_options(mc, self.models_path, self.context_size)
-                if not os.path.isdir(kw["model_dir"]):
+                if not (os.path.isdir(kw["model_dir"])
+                        or find_gguf(kw["model_dir"])):
                     raise FileNotFoundError(
                         f"model {mc.name}: no model dir {kw['model_dir']}")
                 log.info("loading model %s from %s", mc.name, kw["model_dir"])

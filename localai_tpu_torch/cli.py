@@ -11,7 +11,7 @@ model dir of that name under DIR with a default config; the serving knobs
 of a model are its config's fields and ``options``, ``random_weights=SEED``
 included: a flag of the ``--model`` form given here is refused), and
 
-    python -m localai_tpu_torch run --model DIR --name NAME \\
+    python -m localai_tpu_torch run --model DIR|FILE.gguf --name NAME \\
         --address 127.0.0.1:8080 [--num-slots 8] [--context-size 2048] \\
         [--dtype bfloat16] [--quantization int8|int4] \\
         [--kv-cache-dtype int8] [--kv-layout contiguous] \\
@@ -30,7 +30,10 @@ included: a flag of the ``--model`` form given here is refused), and
         [--event-log-max-mb 64] [--peak-tflops 0] [--kv-audit on] \\
         [--random-weights SEED] [--device cuda]
 
-serves one model, set up by the flags, under a default model config.
+serves one model, set up by the flags, under a default model config (a
+GGUF checkpoint, named directly or as the one ``*.gguf`` of a dir, gives
+its config and tokenizer; a LoRA adapter comes only through a model
+YAML's ``lora_adapter``, as in the JAX CLI).
 Either serves the OpenAI-compatible HTTP routes, and /metrics and
 /debug/{trace,state,events,kv}, until interrupted.
 """
@@ -52,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
                      help="a dir of model YAML configs (and model dirs)")
     src.add_argument("--model", default="", help="one model dir (config.json "
                      "+ safetensors, or config.json only with "
-                     "--random-weights)")
+                     "--random-weights) or GGUF file (or a dir holding one)")
     r.add_argument("--load-to-memory", action="append", default=[],
                    metavar="NAME", help="with --models-path: load this model "
                    "at start rather than at its first request")
@@ -123,7 +126,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "| model (off without --draft-model) | 0 / off")
     r.add_argument("--draft-model", default="",
                    help="a smaller llama-family model dir (config.json + "
-                        "safetensors; relative to --model) that proposes "
+                        "safetensors, or a GGUF file; relative to --model) "
+                        "that proposes "
                         "the speculative tokens; with --random-weights a "
                         "config-only dir gets random weights (seed + 1)")
     r.add_argument("--n-draft", type=int, default=4,

@@ -261,6 +261,21 @@ What this slice keeps of the JAX engine, with the same knob names:
     (``_check_emitter_wedge``, in the idle branch with the stall
     watchdog). ``emitter=False`` is the inline path (``_emit``), byte
     for byte what the port did before.
+    THE TOP-OF-TICK DRAIN (the JAX loop's ``_drain_fifo(block=False)``
+    before ``_admit``): with the emitter on, a tick applies the notes,
+    then processes, in dispatch order and without waiting, every FIFO
+    item whose results have already landed, and only then admits, so a
+    request whose last burst landed while the loop was busy frees its
+    slot, and leaves its rows to the prefix cache, before the next
+    queued request is admitted. With the emitter off the order
+    stays admit first, as in JAX. On the card "landed" is the item's CUDA
+    event. On the CPU every dispatch has finished when it returns, and
+    the loop models a busy card: a burst counts as landed only when the
+    loop waits for it, so it is never processed early and the pipelined
+    loop's hazards show on the CPU too (a pack is landed at once, as
+    before). The one exception is a burst marked ``_Burst.landed_early``:
+    a test stands in for the card's event with it, as the JAX tests' sync
+    worker sets a ready flag, and the drains process it as landed.
 
   * OBSERVABILITY (the JAX engine's defaults; services/tracing.py,
     eventlog.py, metrics.py, kv_audit.py, sysobs.py). ``trace`` (on,
@@ -701,9 +716,12 @@ class _Burst:
     after the dispatch). A spec tick has ``spec_width`` W > 0 (its
     ``n_steps`` are rounds), ``spec_mask`` [S], the slots that took spec
     rounds, and ``spec_greedy`` [S], the slots' greedy flags at dispatch
-    (which acceptance each spec row ran)."""
+    (which acceptance each spec row ran). ``landed_early``: on the CPU,
+    that the burst counts as landed before the loop waits for it (module
+    doc, the top-of-tick drain)."""
     __slots__ = ("n_steps", "slots", "fetch", "group", "head", "skip", "t0",
-                 "faults_seen", "spec_mask", "spec_width", "spec_greedy")
+                 "faults_seen", "spec_mask", "spec_width", "spec_greedy",
+                 "landed_early")
 
     def __init__(self, n_steps: int, slots: list, fetch: Fetch, t0: float,
                  group=(), head: Optional[_Pack] = None):
@@ -718,6 +736,7 @@ class _Burst:
         self.spec_mask: Optional[np.ndarray] = None
         self.spec_width = 0
         self.spec_greedy: Optional[np.ndarray] = None
+        self.landed_early = False
 
 
 def _tensors(tree):
@@ -1766,6 +1785,11 @@ class Engine:
         self._autosize_reserve()
         # the stops the emitter found: their slots free before admission
         noted = self._apply_emitter_notes()
+        # with the emitter on, whatever landed meanwhile is processed
+        # before admission (the JAX top-of-tick drain): finished slots
+        # free this very tick
+        drained0 = (self._emitter is not None
+                    and self._drain_fifo(can_feed=False, block=False))
         admitted = self._admit()
         if self._prefetch is not None:
             # the host links of requests still queued upload now, ahead
@@ -1773,7 +1797,7 @@ class Engine:
             self._prefetch_tick()
         prefilled = self._dispatch_prefill()
         dispatched = self._dispatch_decode()
-        drained = self._drain_fifo(can_feed=prefilled or dispatched)
+        drained = self._drain_fifo(can_feed=prefilled or dispatched) or drained0
         tr = self.tracer
         if tr.enabled and (admitted or prefilled or dispatched or drained):
             tr.record("tick", "sched", t_tick, time.monotonic(),
@@ -3292,15 +3316,17 @@ class Engine:
 
     # ---------- the FIFO ----------
 
-    def _drain_fifo(self, can_feed: bool) -> bool:
+    def _drain_fifo(self, can_feed: bool, block: bool = True) -> bool:
         """Process dispatched work in dispatch order. An item whose results
         have landed is processed (on the CPU a pack at once; a burst never
-        early, so a burst is processed only as on a busy card); otherwise
-        the oldest is waited for only when the pipeline is full or nothing
-        more could be dispatched (``can_feed`` False), and at most one
-        burst is waited for per call, so the loop dispatches again between
-        waits (the JAX engine's ``_drain_fifo``). A head the loop asked
-        about and leaves unlanded is held to the stall bound all the same
+        early, so a burst is processed only as on a busy card, unless it
+        is marked ``landed_early``); otherwise the oldest is waited for
+        only when the pipeline is full or nothing more could be dispatched
+        (``can_feed`` False), and at most one burst is waited for per
+        call, so the loop dispatches again between waits (the JAX engine's
+        ``_drain_fifo``). ``block`` False waits for nothing: the
+        top-of-tick drain (module doc). A head the loop asked about and
+        leaves unlanded is held to the stall bound all the same
         (``_check_overdue``), so a busy loop finds a stall as soon as an
         idle or waiting one would."""
         progressed = waited = False
@@ -3308,9 +3334,10 @@ class Engine:
         while self._fifo:
             item = self._fifo[0]
             burst = isinstance(item, _Burst)
-            if not ((cuda or not burst) and self._landed(item)):
-                if waited or (can_feed and self._n_inflight()
-                              < self.ecfg.pipeline_depth):
+            if not ((cuda or not burst or item.landed_early)
+                    and self._landed(item)):
+                if not block or waited or (can_feed and self._n_inflight()
+                                           < self.ecfg.pipeline_depth):
                     if cuda or not burst:
                         self._check_overdue(item)
                     break

@@ -14,12 +14,14 @@ engine/bpe.py, the merge engine the tokenizer.json reader shares).
 
 The surface mirrors the small subset of the HF tokenizer API the serving
 stack uses (encode / decode / convert_ids_to_tokens / eos_token_id).
-``from_gguf(path)`` needs the port's GGUF loader, which comes with a
-later slice (ROADMAP Queue 1 item 8): until then it raises.
+``from_gguf(path)`` builds it from a GGUF file's metadata, read by the
+port's GGUF loader (engine/gguf.py), as the JAX runner does for a GGUF
+model with no ``tokenizer`` dir.
 """
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Optional
 
@@ -192,9 +194,9 @@ class GGUFTokenizer:
         return self.vocab_size
 
 
+@functools.lru_cache(maxsize=8)
 def from_gguf(path: str) -> GGUFTokenizer:
-    """A GGUF file's tokenizer: needs the GGUF loader (ROADMAP Queue 1 item
-    8), which the port has not yet."""
-    raise NotImplementedError(
-        f"{path}: the port has no GGUF loader yet; build GGUFTokenizer from "
-        f"the file's metadata dict")
+    """A GGUF file's tokenizer, from its ``tokenizer.ggml.*`` metadata."""
+    from localai_tpu_torch.engine.gguf import open_gguf
+
+    return GGUFTokenizer(open_gguf(path).metadata)

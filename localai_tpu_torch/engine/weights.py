@@ -4,10 +4,13 @@ localai_tpu/engine/weights.py).
 Three sources, one layout (models/llama.py: layers stacked on axis 0,
 projections [in, out]):
 
-  * ``load_llama_params``: HF safetensors read with numpy alone — the
-    8-byte header length, the JSON header, then ``np.frombuffer`` over a
-    memory map; bf16 goes through a uint16 view. HF names map to leaves as
-    in the JAX package's ``_host_leaf_source``.
+  * ``load_llama_params``: the checkpoint a model dir (or path) names, as
+    the JAX package's ``_host_leaf_source`` reads it: a GGUF file
+    (``find_gguf``: the path itself, or the one ``*.gguf`` of a dir with no
+    safetensors), dequantized on the host by engine/gguf.py; or HF
+    safetensors read with numpy alone — the 8-byte header length, the
+    JSON header, then ``np.frombuffer`` over a memory map; bf16 goes
+    through a uint16 view. HF names map to leaves as in the JAX package.
   * ``random_params``: random weights from a seed, generated on the target
     device (an 8B in bf16 never exists densely on the host). For a
     config.json-only dir, and only when the caller asks for it.
@@ -23,6 +26,12 @@ device: the scale reduces only the contraction axis (and its groups), so
 the slices give the stacked result's bytes and no stacked float32 copy
 exists. A GPTQ / AWQ checkpoint (engine/gptq.py) is dequantized on the
 host as it is read and, with no explicit ``quantize``, loads as int8.
+
+``lora_adapter`` (engine/lora.py) merges a PEFT adapter into the layer
+leaves it targets as they are placed, before any cast or quantization,
+with the semantics of the JAX ``_make_put``: each layer slice is taken
+to float32 on the device and ``scale * (B @ A).T`` (computed in numpy,
+as the JAX adapter computes it) is added, in every source above.
 """
 
 from __future__ import annotations
@@ -32,12 +41,14 @@ import json
 import math
 import os
 import struct
+from typing import Optional
 
 import numpy as np
 import torch
 
 from localai_tpu_torch import resolve_device
 from localai_tpu_torch.engine import gptq
+from localai_tpu_torch.engine.lora import maybe_adapter
 from localai_tpu_torch.models.llama import QUANT_NAMES
 from localai_tpu_torch.ops.quant import (pack_int4, quantize_weight,
                                          quantize_weight_int4)
@@ -96,6 +107,30 @@ def open_checkpoint(model_dir: str) -> dict:
 
 def has_weights(model_dir: str) -> bool:
     return bool(glob.glob(os.path.join(model_dir, "*.safetensors")))
+
+
+def find_gguf(model_dir: str) -> Optional[str]:
+    """Path to the GGUF file a model dir/path refers to, if any: either the
+    path itself or the single *.gguf inside a directory with no safetensors
+    (the shape an ``ollama://`` / gallery pull produces)."""
+    if model_dir.endswith(".gguf") and os.path.isfile(model_dir):
+        return model_dir
+    if os.path.isdir(model_dir):
+        ggufs = sorted(glob.glob(os.path.join(model_dir, "*.gguf")))
+        sts = glob.glob(os.path.join(model_dir, "*.safetensors"))
+        if len(ggufs) == 1 and not sts:
+            return ggufs[0]
+    return None
+
+
+def _gguf_leaves(path: str, cfg):
+    """(spec_path, CPU tensor) per leaf of a GGUF file: engine/gguf.py's
+    float16 host arrays, one stacked leaf at a time."""
+    from localai_tpu_torch.engine import gguf as gguflib
+
+    for spec_path, arr in gguflib.iter_llama_tensors(gguflib.open_gguf(path),
+                                                     cfg):
+        yield spec_path, torch.from_numpy(arr)
 
 
 def _host_leaves(tensors: dict, cfg, qmeta=None):
@@ -164,53 +199,93 @@ def _quantize_slices(slices, n: int, fn) -> dict:
     return out
 
 
-def _place(t, path: tuple, device, dtype, quantize: str):
+def _cast_slices(slices, shape: tuple, dtype, device) -> torch.Tensor:
+    """``shape[0]`` float32 layer slices cast one at a time into a stacked
+    leaf of ``dtype``."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for v, w in zip(out, slices):
+        v.copy_(w)
+    return out
+
+
+def _merged(slices, adapter, name: str):
+    """The float32 layer slices of leaf ``name`` with the adapter's delta
+    added where it has one (a new tensor: no slice is written in place)."""
+    for i, w in enumerate(slices):
+        d = adapter.layer_delta(name, i)
+        yield w if d is None else w + torch.from_numpy(d).to(w.device)
+
+
+def _place(t, path: tuple, device, dtype, quantize: str, adapter=None):
     """One host leaf -> its device leaf: {q, s} leaves as they are, matmul
-    weights quantized when asked (stacked ones slice by slice, in float32
-    on the device), the rest cast to ``dtype``."""
+    weights quantized when asked, the rest cast to ``dtype``. A stacked
+    leaf that is quantized or that the adapter targets goes slice by
+    slice, in float32 on the device (the adapter's delta added first)."""
     if isinstance(t, dict):
         return {k: v.to(device).contiguous() for k, v in t.items()}
     fn = _quantizer(path, quantize)
-    if fn is None:
+    merge = (adapter is not None and path[0] == "layers"
+             and adapter.targets_leaf(path[-1], t.shape[0]))
+    if fn is None and not merge:
         return t.to(device=device, dtype=dtype).contiguous()
     if path[0] == "layers":
-        return _quantize_slices((t[i].to(device=device, dtype=torch.float32)
-                                 for i in range(t.shape[0])), t.shape[0], fn)
+        slices = (t[i].to(device=device, dtype=torch.float32)
+                  for i in range(t.shape[0]))
+        if merge:
+            slices = _merged(slices, adapter, path[-1])
+        if fn is None:
+            return _cast_slices(slices, tuple(t.shape), dtype, device)
+        return _quantize_slices(slices, t.shape[0], fn)
     return fn(t.to(device=device, dtype=torch.float32))
 
 
-def _assemble(leaves, device, dtype, quantize: str = "") -> dict:
+def _assemble(leaves, device, dtype, quantize: str = "", adapter=None) -> dict:
     params: dict = {"layers": {}}
     for path, t in leaves:
         node = params
         for k in path[:-1]:
             node = node[k]
-        node[path[-1]] = _place(t, path, device, dtype, quantize)
+        node[path[-1]] = _place(t, path, device, dtype, quantize, adapter)
     return params
 
 
 def load_llama_params(model_dir: str, cfg, device="cuda", dtype=None,
-                      quantize: str = "") -> dict:
-    """HF llama/mistral safetensors -> parameter dict on ``device``; a
-    GPTQ / AWQ dir with no explicit ``quantize`` loads as int8, as in the
-    JAX package (its memory intent survives the load)."""
+                      quantize: str = "", lora_adapter: str = "",
+                      lora_scale: float = 1.0) -> dict:
+    """The checkpoint ``model_dir`` names (a GGUF file or a dir holding
+    one, or HF llama/mistral safetensors) -> parameter dict on ``device``;
+    a GPTQ / AWQ dir with no explicit ``quantize`` loads as int8, as in
+    the JAX package (its memory intent survives the load).
+    ``lora_adapter`` (a PEFT adapter dir) is merged as the leaves are
+    placed (engine/lora.py)."""
     check_quantize(quantize)
-    qmeta = gptq.detect(model_dir)
-    if qmeta is not None and not quantize:
-        quantize = "int8"
-    return _assemble(_host_leaves(open_checkpoint(model_dir), cfg, qmeta),
-                     resolve_device(device), dtype or cfg.dtype, quantize)
+    adapter = maybe_adapter(lora_adapter, lora_scale)
+    path = find_gguf(model_dir)
+    if path is not None:
+        leaves = _gguf_leaves(path, cfg)
+    else:
+        qmeta = gptq.detect(model_dir)
+        if qmeta is not None and not quantize:
+            quantize = "int8"
+        leaves = _host_leaves(open_checkpoint(model_dir), cfg, qmeta)
+    return _assemble(leaves, resolve_device(device), dtype or cfg.dtype,
+                     quantize, adapter)
 
 
 def random_params(cfg, seed: int, device="cuda", dtype=None,
-                  quantize: str = "") -> dict:
+                  quantize: str = "", lora_adapter: str = "",
+                  lora_scale: float = 1.0) -> dict:
     """Random weights from ``seed``, generated on ``device``: normal /
     sqrt(fan_in) per projection (the JAX package's init), ones for the
     norms. Each layer slice is drawn in float32 and cast into the stacked
     leaf, or quantized from that float32 draw (``quantize``), so peak
     extra memory is one layer's largest projection and a quantized 8B is
-    never dense on the card; the draws do not depend on ``quantize``."""
+    never dense on the card; the draws do not depend on ``quantize``.
+    ``lora_adapter`` is merged into each float32 slice it targets before
+    the cast or quantization, as the JAX package merges it into its
+    random leaves."""
     check_quantize(quantize)
+    adapter = maybe_adapter(lora_adapter, lora_scale)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     gen = torch.Generator(device=dev)
@@ -226,16 +301,16 @@ def random_params(cfg, seed: int, device="cuda", dtype=None,
     def mk(path, shape, fan_in):
         scale = 1.0 / math.sqrt(fan_in)
         fn = _quantizer(path, quantize)
+        if len(shape) == 3:
+            slices = (draw(shape[1:], scale) for _ in range(shape[0]))
+            if adapter is not None and adapter.targets_leaf(path[-1], shape[0]):
+                slices = _merged(slices, adapter, path[-1])
+            if fn is not None:
+                return _quantize_slices(slices, shape[0], fn)
+            return _cast_slices(slices, shape, dtype, dev)
         if fn is not None:
-            if len(shape) == 3:
-                return _quantize_slices((draw(shape[1:], scale)
-                                         for _ in range(shape[0])), shape[0], fn)
             return fn(draw(shape, scale))
-        out = torch.empty(shape, dtype=dtype, device=dev)
-        views = out if len(shape) == 3 else out[None]
-        for v in views:
-            v.copy_(draw(v.shape, scale))
-        return out
+        return draw(shape, scale).to(dtype)
 
     def ones(shape):
         return torch.ones(shape, dtype=dtype, device=dev)

@@ -57,7 +57,7 @@ class LlamaConfig:
     num_kv_heads: int = 32
     head_dim: Optional[int] = None   # defaults to hidden_size // num_heads
     rope_theta: float = 10000.0
-    rope_scaling_type: str = "none"  # none | linear | llama3
+    rope_scaling_type: str = "none"  # none | linear | yarn | llama3
     rope_scaling_factor: float = 1.0
     rope_low_freq_factor: float = 1.0
     rope_high_freq_factor: float = 4.0

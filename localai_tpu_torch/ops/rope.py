@@ -1,8 +1,9 @@
 """Rotary position embeddings (counterpart of localai_tpu/ops/rope.py).
 
 HF "rotate_half" convention, so HF checkpoints load unmodified. The
-scaling families ported so far are none, linear and llama3 (Llama-3.1);
-yarn and the self-extend delta rotation come with a later slice.
+scaling families are the JAX package's: none, linear, llama3 (Llama-3.1)
+and yarn, whose attention temperature (``mscale``) scales sin and cos; the
+self-extend delta rotation comes with the long-context slice.
 
 The inverse-frequency table is built once per (rope parameters, device)
 and kept on the device (``inv_freq``): building it from numpy is a
@@ -42,7 +43,31 @@ def _scaled_inv_freq(cfg) -> np.ndarray:
         mid = (1 - smooth) * scaled + smooth * inv_freq
         return np.where(wavelen < high_wl, inv_freq,
                         np.where(wavelen > low_wl, scaled, mid))
-    raise ValueError(f"unsupported rope scaling type in this port: {t}")
+    if t == "yarn":
+        # YaRN: interpolate low-freq dims, keep high-freq dims (beta ramp)
+        hd = cfg.head_dim_
+        factor = cfg.rope_scaling_factor
+        beta_fast, beta_slow = 32.0, 1.0
+        orig = cfg.rope_original_max_position
+
+        def correction_dim(num_rot):
+            return hd * np.log(orig / (num_rot * 2 * np.pi)) / (2 * np.log(cfg.rope_theta))
+
+        low = np.floor(correction_dim(beta_fast))
+        high = np.ceil(correction_dim(beta_slow))
+        low, high = max(low, 0), min(high, hd - 1)
+        ramp = np.clip((np.arange(hd // 2, dtype=np.float64) - low) / max(high - low, 1e-3), 0, 1)
+        mask = 1 - ramp
+        return inv_freq / factor * (1 - mask) + inv_freq * mask
+    raise ValueError(f"unknown rope scaling type: {t}")
+
+
+def yarn_mscale(cfg) -> float:
+    """yarn's attention temperature (1.0 for every other family): sin and
+    cos are scaled by it, so q . k carries its square."""
+    if cfg.rope_scaling_type == "yarn" and cfg.rope_scaling_factor > 1.0:
+        return float(0.1 * np.log(cfg.rope_scaling_factor) + 1.0)
+    return 1.0
 
 
 _INV_FREQ: dict = {}
@@ -64,11 +89,15 @@ def inv_freq(cfg, device) -> torch.Tensor:
 
 
 def rope_frequencies(cfg, positions: torch.Tensor):
-    """positions [B, T] int -> (sin, cos) each [B, T, head_dim] float32."""
+    """positions [B, T] int -> (sin, cos) each [B, T, head_dim] float32,
+    times yarn's ``mscale`` (a constant, so a captured graph holds it)."""
     freqs = (positions.to(torch.float32)[..., None]
              * inv_freq(cfg, positions.device))                 # [B, T, hd/2]
     emb = torch.cat([freqs, freqs], dim=-1)
-    return torch.sin(emb), torch.cos(emb)
+    mscale = yarn_mscale(cfg)
+    if mscale == 1.0:
+        return torch.sin(emb), torch.cos(emb)
+    return torch.sin(emb) * mscale, torch.cos(emb) * mscale
 
 
 def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:

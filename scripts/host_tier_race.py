@@ -9,9 +9,15 @@ and a 20-page pool, RUNS times in each of three ways of feeding a wave:
 
   first-token  each request submitted once the one before has its first
                token: its admission races the release of the one before,
-               and the JAX Engine's top-of-tick drain of landed bursts
-               (localai_tpu/engine/engine.py:3902-3905), which the port's
-               loop lacks, settles the race by timing;
+               which the top-of-tick drain of landed bursts settles by
+               timing (the JAX Engine's, localai_tpu/engine/engine.py:
+               3902-3905; the port's loop has it too, Engine._tick's
+               _drain_fifo(block=False), but on the CPU a port burst
+               counts as landed only when the
+               loop waits for it, a busy card, so here the port admits
+               first; tests/test_torch_top_drain.py holds the drained order
+               with the landing made deterministic, and chip_smoke.py
+               phases 3f / 3g print the card's counts);
   serial       each request submitted once the one before has finished
                (run_script with group=1);
   pairs        two at a time, admitted in one pass, each pair once the

@@ -239,6 +239,7 @@ assert {"localai_tpu_torch.services.errors", "localai_tpu_torch.services.faults"
         "localai_tpu_torch.functions.grammars.native",
         "localai_tpu_torch.functions.grammars.json_schema",
         "localai_tpu_torch.engine.bpe", "localai_tpu_torch.engine.gguf_tokenizer",
+        "localai_tpu_torch.engine.gguf", "localai_tpu_torch.engine.lora",
         "localai_tpu_torch.config.yaml_lite",
         "localai_tpu_torch.config.model_config",
         "localai_tpu_torch.config.guesser",

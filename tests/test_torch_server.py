@@ -647,8 +647,10 @@ def test_models_path_refuses_unported_settings_and_unknown_models(served_dir):
     mc = ModelConfig(name="v", mmproj="proj.gguf", lora_adapter="a",
                      options=["slo_ttft_ms=500", "engines=2"])
     problems = " ".join(unported_settings(mc))
-    for later in ("item 10", "item 8", "item 9", "item 11"):
+    for later in ("item 10", "item 9", "item 11"):
         assert later in problems
+    # the LoRA fields are served since item 8 (the merge at load)
+    assert "lora" not in problems and "item 8" not in problems
     app.caps.configs["v"] = mc
     try:
         with pytest.raises(urllib.error.HTTPError) as ei:

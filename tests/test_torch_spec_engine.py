@@ -27,8 +27,8 @@ checkpoint, and the ``_cfg()`` model of the JAX package's spec tests):
     its request; fork siblings speculating;
   * the runner and CLI options (``draft``, ``n_draft``, ``spec_ngram``)
     and the refusals before any weight is loaded (a draft model dir that
-    is missing, config-only without a seed, or GGUF; an unknown draft
-    word, a negative n_draft).
+    is missing, config-only without a seed, or a GGUF file that does not
+    parse; an unknown draft word, a negative n_draft).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ import tests.torch_cpu  # noqa: F401  (one torch CPU thread)
 
 import json
 import os
+import struct
 
 import jax
 import jax.numpy as jnp
@@ -594,8 +595,10 @@ def test_spec_knobs_runner_cli_and_refusals(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="random_weights"):
         runner.load_model(str(tmp_path), draft_model="d",
                           **{**kw, "random_weights": None})
+    # a GGUF draft dir's config comes from the file: one that does not
+    # parse raises (the JAX reader's struct.error) before any weight is read
     (tmp_path / "d" / "draft.gguf").write_bytes(b"GGUF")
-    with pytest.raises(NotImplementedError, match="GGUF"):
+    with pytest.raises(struct.error):
         runner.load_model(str(tmp_path), draft_model="d", **kw)
     for bad, word in (({"draft": "medusa"}, "draft"), ({"n_draft": -1}, "n_draft"),
                       ({"spec_ngram": 0}, "spec_ngram"),
